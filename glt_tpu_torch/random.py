@@ -1,0 +1,172 @@
+"""Counter-based threefry2x32 keys, bit-exact with ``jax.random``.
+
+The sampler's draw is the bit-identity anchor of the port: with the same
+key, ``glt_tpu`` and ``glt_tpu_torch`` pick the same neighbor positions,
+so every sampler and serving test compares with ``==``.  This module
+reproduces ``jax.random`` under its defaults (``threefry2x32``,
+``jax_threefry_partitionable=True``, 64-bit mode off):
+
+* a key is an ``int64`` tensor of shape ``[..., 2]`` holding two uint32
+  words (JAX's legacy ``uint32[2]`` key); leading dimensions are a batch
+  of independent keys, the way ``jax.vmap`` maps a key function;
+* uint32 arithmetic runs in ``int64`` tensors masked with
+  ``& 0xFFFFFFFF`` (torch has no full uint32 arithmetic);
+* ``split`` and the random bits hash a 64-bit iota counter with
+  ``threefry2x32`` (the partitionable layout), ``fold_in`` hashes
+  ``(0, data)``, and ``randint`` draws two 32-bit words per value and
+  reduces them with jax's span trick.
+
+Random state is explicit: keys are tensors that callers create and pass.
+No global torch generator is used.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import torch
+
+from .utils.device import DeviceLike, resolve_device
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+IntOrTensor = Union[int, torch.Tensor]
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
+                 x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The threefry2x32 hash (20 rounds) of counter words ``(x1, x2)``
+    under key words ``(k1, k2)``; all arguments broadcast together and
+    hold uint32 values in int64 tensors."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x1 + ks[0]) & _M32
+    b = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & _M32
+            b = _rotl(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & _M32
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return a, b
+
+
+def _shape(shape: Union[int, Sequence[int]]) -> Tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, int) else tuple(
+        int(s) for s in shape)
+
+
+def _iota(shape: Tuple[int, ...], device) -> torch.Tensor:
+    """Low word of the 64-bit row-major iota over ``shape`` (the high
+    word is 0 below 2**32 elements)."""
+    n = 1
+    for s in shape:
+        n *= s
+    if n >= 1 << 32:
+        raise ValueError(f"random arrays of {n} >= 2**32 elements are "
+                         f"not supported")
+    return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+
+
+def _hash_iota(key: torch.Tensor, shape: Tuple[int, ...]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """threefry2x32 of the iota over ``shape`` under every key of the
+    batch ``key [*K, 2]``: two words of shape ``[*K, *shape]``."""
+    nd = len(shape)
+    view = key.shape[:-1] + (1,) * nd
+    k1 = key[..., 0].reshape(view)
+    k2 = key[..., 1].reshape(view)
+    lo = _iota(shape, key.device)
+    return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+
+
+def PRNGKey(seed: int, device: DeviceLike = None) -> torch.Tensor:
+    """Key for an integer ``seed`` (``jax.random.PRNGKey``) on ``device``
+    (default ``"cuda"``): the words ``(seed >> 32, seed & 0xFFFFFFFF)``
+    of the seed as an int32, so ``(0, seed mod 2**32)`` for every seed
+    in the int32 range."""
+    seed = int(seed)
+    if not _I32_MIN <= seed <= _I32_MAX:
+        raise OverflowError(f"seed {seed} does not fit int32")
+    return torch.tensor([0, seed & _M32], dtype=torch.int64,
+                        device=resolve_device(device))
+
+
+def split(key: torch.Tensor, num: Union[int, Sequence[int]] = 2
+          ) -> torch.Tensor:
+    """``jax.random.split``: ``[*K, 2]`` keys -> ``[*K, *num, 2]``."""
+    a, b = _hash_iota(key, _shape(num))
+    return torch.stack([a, b], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: IntOrTensor) -> torch.Tensor:
+    """``jax.random.fold_in``: hash ``(0, data mod 2**32)`` under
+    ``key``.  A tensor ``data [*D]`` folds every entry into the same
+    key (``jax.vmap(fold_in, (None, 0))``) and gives ``[*D, 2]``."""
+    if not isinstance(data, torch.Tensor):
+        data = torch.tensor(int(data), dtype=torch.int64, device=key.device)
+    lo = data.to(torch.int64) & _M32
+    view = (1,) * lo.dim()
+    k1 = key[..., 0].reshape(key.shape[:-1] + view)
+    k2 = key[..., 1].reshape(key.shape[:-1] + view)
+    a, b = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return torch.stack([a, b], dim=-1)
+
+
+def _random_bits(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    a, b = _hash_iota(key, shape)
+    return a ^ b
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b mod 2**32`` for uint32 words, in 16-bit halves so no
+    partial product leaves int64."""
+    return ((a & 0xFFFF) * b + ((((a >> 16) * b) & 0xFFFF) << 16)) & _M32
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    return ((x - _I32_MIN) & _M32) + _I32_MIN
+
+
+def randint(key: torch.Tensor, shape: Union[int, Sequence[int]],
+            minval: IntOrTensor, maxval: IntOrTensor) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype=int32)``.
+
+    ``key`` may be a batch ``[*K, 2]`` (``jax.vmap`` over keys); the
+    result is then ``[*K, *shape]``.  ``minval``/``maxval`` broadcast
+    against that result shape.  Like jax, the value is
+    ``minval + (hi % span * (2**32 % span) + lo % span) % span`` over
+    two 32-bit draws ``hi``, ``lo`` with uint32 wrap-around, and
+    ``span = 1`` where ``maxval <= minval``.
+    """
+    shape = _shape(shape)
+    dev = key.device
+    lo_v = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    hi_v = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    out_of_range = hi_v > _I32_MAX
+    lo_v = lo_v.clamp(_I32_MIN, _I32_MAX)
+    hi_v = hi_v.clamp(_I32_MIN, _I32_MAX)
+
+    k = split(key, 2)
+    higher = _random_bits(k[..., 0, :], shape)
+    lower = _random_bits(k[..., 1, :], shape)
+
+    span = (hi_v - lo_v) & _M32
+    span = torch.where(hi_v <= lo_v, torch.ones_like(span), span)
+    span = torch.where(out_of_range & (hi_v > lo_v), (span + 1) & _M32, span)
+    # span wraps to 0 only for the full 2**32 range; XLA's unsigned
+    # remainder by 0 is the identity.
+    zero = span == 0
+    span_safe = torch.where(zero, torch.ones_like(span), span)
+
+    def rem(x):
+        return torch.where(zero, x, x % span_safe)
+
+    mult = rem(torch.full_like(span, 1 << 16))
+    mult = rem((mult * mult) & _M32)
+    offset = (_mul32(rem(higher), mult) + rem(lower)) & _M32
+    return _wrap_i32(lo_v + rem(offset)).to(torch.int32)

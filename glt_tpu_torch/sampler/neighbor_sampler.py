@@ -1,0 +1,256 @@
+"""Multi-hop neighbor sampler with static shapes (cf.
+``glt_tpu/sampler/neighbor_sampler.py``).
+
+Per hop: the threefry draw and the neighbor read
+(:func:`~glt_tpu_torch.ops.neighbor_sample.sample_neighbors`, kernel B1 on
+the card), then the inducer folds the hop's neighbors into the
+cumulative first-occurrence node list, whose newly discovered slice is
+the next hop's frontier.  Every shape is fixed by ``(batch_size,
+fanouts)``; the counts that vary travel as device tensors, so a whole
+sample runs without waiting for the host.
+
+Edge direction is transposed on output to PyG's dst<-src convention:
+``row`` = neighbor, ``col`` = seed side.
+
+This slice ports the uncapped sampler (node capacity = the zero-dedup
+worst case) in both dedup modes ('dense' scatter map, 'sort' unique)
+and both final-hop modes (``last_hop_dedup``).  The occupancy-capped
+sampler with its overflow flag, the batched and edge entry points, the
+induced subgraph and negative sampling are later work.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import random as trandom
+from ..data.graph import Graph
+from ..ops.neighbor_sample import sample_neighbors
+from ..ops.unique import (
+    dense_induce,
+    dense_induce_final,
+    dense_induce_init,
+    dense_map_fits,
+    unique_first_occurrence,
+)
+from ..typing import PADDING_ID
+from .base import NodeSamplerInput, SamplerOutput
+
+
+def _pad_ids(ids, size: int) -> np.ndarray:
+    """Right-pad a host id array with PADDING_ID to a static length."""
+    ids = np.asarray(ids).astype(np.int32).ravel()
+    if ids.shape[0] > size:
+        raise ValueError(f"batch of {ids.shape[0]} exceeds static size {size}")
+    out = np.full((size,), PADDING_ID, np.int32)
+    out[: ids.shape[0]] = ids
+    return out
+
+
+def hop_widths(batch_size: int, fanouts: Sequence[int],
+               frontier_cap: Optional[int] = None) -> List[int]:
+    """Static frontier width per hop: B, B*f0, B*f0*f1, ... (capped)."""
+    widths = [batch_size]
+    for f in fanouts[:-1]:
+        w = widths[-1] * f
+        if frontier_cap is not None:
+            w = min(w, frontier_cap)
+        widths.append(w)
+    return widths
+
+
+def max_sampled_nodes(batch_size: int, fanouts: Sequence[int],
+                      frontier_cap: Optional[int] = None) -> int:
+    """Padded node capacity: the zero-dedup worst case."""
+    widths = hop_widths(batch_size, fanouts, frontier_cap)
+    return widths[0] + sum(w * f for w, f in zip(widths, fanouts))
+
+
+def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.cat([x, torch.full((n,), PADDING_ID, dtype=torch.int32,
+                                    device=x.device)])
+
+
+class NeighborSampler:
+    """Fixed-fanout multi-hop sampler over a
+    :class:`~glt_tpu_torch.data.graph.Graph`.
+
+    Args:
+      graph: CSR graph; sampling runs on its device.
+      num_neighbors: per-hop fanouts, e.g. ``[15, 10, 5]``.
+      batch_size: static seed-batch width (callers pad).
+      frontier_cap: optional cap on per-hop frontier width.
+      with_edge: emit global edge ids.
+      seed: base key seed; each ``sample_from_nodes`` call folds in a
+        call counter, so batches are independent yet reproducible.
+      dedup: 'dense' (scatter-map inducer), 'sort' (unique by sorting, no
+        O(N) state) or 'auto' (dense unless the map would exceed ~1 GB).
+      last_hop_dedup: when False, final-hop neighbors skip the inducer
+        and land in a leaf block of the node list (duplicates allowed).
+    """
+
+    def __init__(self, graph: Graph, num_neighbors: Sequence[int],
+                 batch_size: int = 512, frontier_cap: Optional[int] = None,
+                 with_edge: bool = True, seed: int = 0, dedup: str = "auto",
+                 last_hop_dedup: bool = True):
+        self.graph = graph
+        self.device = graph.device
+        self.num_neighbors = list(num_neighbors)
+        self.batch_size = int(batch_size)
+        self.frontier_cap = frontier_cap
+        self.with_edge = with_edge
+        self.last_hop_dedup = bool(last_hop_dedup)
+        self._base_key = trandom.PRNGKey(seed, device=self.device)
+        self._call_count = 0
+        if dedup not in ("auto", "dense", "sort"):
+            raise ValueError(f"dedup must be auto|dense|sort, got {dedup!r}")
+        if dedup == "auto":
+            dedup = "dense" if dense_map_fits(graph.num_nodes) else "sort"
+        self.dedup = dedup
+        self._widths = hop_widths(self.batch_size, self.num_neighbors,
+                                  frontier_cap)
+        self.node_capacity = max_sampled_nodes(
+            self.batch_size, self.num_neighbors, frontier_cap)
+        self.edge_capacity = sum(
+            w * f for w, f in zip(self._widths, self.num_neighbors))
+
+    # -- key management ----------------------------------------------------
+    def _next_key(self) -> torch.Tensor:
+        key = trandom.fold_in(self._base_key, self._call_count)
+        self._call_count += 1
+        return key
+
+    # -- the multi-hop sample ------------------------------------------------
+    def _sample_impl(self, indptr, indices, edge_ids, seeds, key
+                     ) -> SamplerOutput:
+        """One multi-hop sample.  ``seeds``: ``[batch_size]`` int32, -1
+        padded, on the graph's device."""
+        fanouts = self.num_neighbors
+        widths = self._widths
+        cap = self.node_capacity
+        dense = self.dedup == "dense"
+        dev = seeds.device
+
+        if dense:
+            state = dense_induce_init(self.graph.num_nodes, cap, device=dev)
+            state, _ = dense_induce(state, seeds)
+            node_buf, count = state.node_buf, state.count
+            frontier = node_buf[: widths[0]]
+        else:
+            u0 = unique_first_occurrence(seeds)
+            node_buf, count = u0.uniques, u0.count
+            frontier = u0.uniques
+        frontier_start = torch.zeros((), dtype=torch.int32, device=dev)
+
+        rows, cols, eids, emasks = [], [], [], []
+        counts_per_hop = [count]
+        edges_per_hop = []
+        keys = trandom.split(key, len(fanouts))
+        leaf_off = cap - widths[-1] * fanouts[-1]
+        leaf_mask = None
+
+        for i, f in enumerate(fanouts):
+            w = widths[i]
+            last = i + 1 == len(fanouts)
+            out = sample_neighbors(indptr, indices, frontier, f, keys[i],
+                                   edge_ids=edge_ids,
+                                   with_edge=self.with_edge)
+            src_local = frontier_start + torch.arange(
+                w, dtype=torch.int32, device=dev)
+            src_local = torch.where(frontier >= 0, src_local, PADDING_ID)
+            emask = out.mask
+
+            cand = out.nbrs.reshape(-1)                       # [w*f]
+            if last and not self.last_hop_dedup:
+                # Leaf block: no inducer at the widest frontier; local
+                # ids are static offsets.
+                leaf_mask = emask.reshape(-1)
+                leaf_ids = torch.where(leaf_mask, cand, PADDING_ID)
+                nbr_local = (leaf_off + torch.arange(
+                    w * f, dtype=torch.int32, device=dev)).reshape(w, f)
+                if dense:
+                    node_buf[leaf_off: leaf_off + w * f] = leaf_ids
+                else:
+                    node_buf = torch.cat([node_buf, leaf_ids])
+                new_count = count + leaf_mask.sum(dtype=torch.int32)
+            elif dense:
+                induce = dense_induce_final if last else dense_induce
+                state, nbr_local = induce(state, cand)
+                node_buf, new_count = state.node_buf, state.count
+                nbr_local = nbr_local.reshape(w, f)
+            else:
+                buflen = node_buf.shape[0]
+                merged = unique_first_occurrence(torch.cat([node_buf, cand]))
+                node_buf, new_count = merged.uniques, merged.count
+                nbr_local = merged.inverse[buflen:].reshape(w, f)
+            nbr_local = torch.where(emask, nbr_local, PADDING_ID)
+
+            rows.append(nbr_local.reshape(-1))
+            cols.append(src_local[:, None].expand(w, f).reshape(-1))
+            if self.with_edge:
+                eids.append(out.eids.reshape(-1))
+            emasks.append(emask.reshape(-1))
+            edges_per_hop.append(emask.sum(dtype=torch.int32))
+
+            if not last:
+                # The next frontier: the `nw` slots from `count` on (the
+                # nodes new at this hop), read past the end as padding.
+                nw = widths[i + 1]
+                start = count.clamp(0, node_buf.shape[0]).long()
+                at = start + torch.arange(nw, device=dev)
+                frontier = _pad(node_buf, nw)[at]
+                frontier_start = count
+            count = new_count
+            counts_per_hop.append(count)
+
+        if node_buf.shape[0] < cap:
+            node_buf = _pad(node_buf, cap - node_buf.shape[0])
+        node_buf = node_buf[:cap]
+        count = count.clamp(max=cap)
+        slots = torch.arange(cap, dtype=torch.int32, device=dev)
+        if leaf_mask is None:
+            node_mask = slots < count
+        else:
+            # Interior prefix is compact; the leaf block keeps its own
+            # validity mask.
+            interior = (count - edges_per_hop[-1]).clamp(max=leaf_off)
+            node_mask = (slots < interior) | torch.cat([
+                torch.zeros(leaf_off, dtype=torch.bool, device=dev),
+                leaf_mask])
+
+        num_sampled_nodes = torch.stack(
+            [counts_per_hop[0]]
+            + [counts_per_hop[i + 1] - counts_per_hop[i]
+               for i in range(len(fanouts))])
+        return SamplerOutput(
+            node=node_buf,
+            row=torch.cat(rows),
+            col=torch.cat(cols),
+            edge=torch.cat(eids) if self.with_edge else None,
+            batch=seeds,
+            node_mask=node_mask,
+            edge_mask=torch.cat(emasks),
+            num_sampled_nodes=num_sampled_nodes,
+            num_sampled_edges=torch.stack(edges_per_hop),
+        )
+
+    # -- public API ----------------------------------------------------------
+    def sample_from_nodes(self, inputs: NodeSamplerInput,
+                          key: Optional[torch.Tensor] = None
+                          ) -> SamplerOutput:
+        """Sample around ``inputs.node`` (host ids, padded here, or a
+        ``[batch_size]`` int32 tensor already padded)."""
+        ids = inputs.node
+        if (isinstance(ids, torch.Tensor)
+                and tuple(ids.shape) == (self.batch_size,)):
+            seeds = ids.to(device=self.device, dtype=torch.int32)
+        else:
+            seeds = torch.from_numpy(
+                _pad_ids(np.asarray(ids), self.batch_size)).to(self.device)
+        if key is None:
+            key = self._next_key()
+        g = self.graph
+        return self._sample_impl(g.indptr, g.indices, g.gather_edge_ids,
+                                 seeds, key)

@@ -1,0 +1,110 @@
+"""glt_tpu_torch NeighborSampler against glt_tpu's, field by field.
+
+Same graph, seed and call count; dedup in {dense, sort} x
+last_hop_dedup in {True, False}; every SamplerOutput field compares
+with ==.
+"""
+import numpy as np
+import pytest
+import torch
+
+from glt_tpu.data import CSRTopo as JaxTopo
+from glt_tpu.data import Graph as JaxGraph
+from glt_tpu.sampler import NeighborSampler as JaxSampler
+from glt_tpu.sampler import NodeSamplerInput as JaxInput
+from glt_tpu.sampler.neighbor_sampler import hop_widths as jax_widths
+from glt_tpu.sampler.neighbor_sampler import max_sampled_nodes as jax_cap
+from glt_tpu_torch.data import CSRTopo, Graph
+from glt_tpu_torch.sampler import (
+    NeighborSampler,
+    NodeSamplerInput,
+    hop_widths,
+    max_sampled_nodes,
+)
+
+# One intra-op thread: the suite runs in parallel workers.
+torch.set_num_threads(1)
+
+FIELDS = ("node", "row", "col", "edge", "batch", "node_mask", "edge_mask",
+          "num_sampled_nodes", "num_sampled_edges")
+
+
+def _coo(n=120, seed=0):
+    """Power-law-ish COO in shuffled order (non-positional edge ids
+    after the CSR sort) with a hub and isolated nodes."""
+    rng = np.random.default_rng(seed)
+    deg = np.minimum(rng.zipf(1.8, n), 60)
+    deg[:3] = [0, 90, 1]
+    src = np.repeat(np.arange(n), deg)
+    dst = rng.integers(0, n, src.size)
+    perm = rng.permutation(src.size)
+    return np.stack([src[perm], dst[perm]]), n
+
+
+def _graphs(edges):
+    ei, n = _coo()
+    if edges == "positional":
+        order = np.argsort(ei[0], kind="stable")
+        ei = ei[:, order]
+    jt, tt = JaxTopo(ei, num_nodes=n), CSRTopo(ei, num_nodes=n)
+    return JaxGraph(jt), Graph(tt, device="cpu"), n
+
+
+def _compare(jout, tout):
+    for f in FIELDS:
+        a, b = getattr(jout, f), getattr(tout, f)
+        if a is None or b is None:
+            assert a is None and b is None, f
+            continue
+        assert tuple(b.shape) == tuple(np.shape(a)), f
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f)
+    assert tout.metadata is None and jout.metadata is None
+
+
+@pytest.mark.parametrize("dedup", ["dense", "sort"])
+@pytest.mark.parametrize("last_hop_dedup", [True, False])
+@pytest.mark.parametrize("edges", ["positional", "explicit", "none"])
+def test_sample_from_nodes_matches_jax(dedup, last_hop_dedup, edges):
+    jg, tg, n = _graphs(edges)
+    assert (tg.gather_edge_ids is None) == (edges == "positional" or
+                                             jg.gather_edge_ids is None)
+    kw = dict(batch_size=16, seed=3, dedup=dedup,
+              last_hop_dedup=last_hop_dedup, with_edge=edges != "none")
+    js = JaxSampler(jg, [5, 3, 2], sample_force="xla", **kw)
+    ts = NeighborSampler(tg, [5, 3, 2], **kw)
+    rng = np.random.default_rng(1)
+    batches = [np.array([1, 0, 1, 7, 9, 1, 33], np.int64),
+               rng.integers(0, n, 16), np.array([2], np.int64)]
+    for seeds in batches:           # the call counter advances the key
+        _compare(js.sample_from_nodes(JaxInput(seeds)),
+                 ts.sample_from_nodes(NodeSamplerInput(seeds)))
+    assert ts.node_capacity == js.node_capacity
+    assert ts.edge_capacity == js.edge_capacity
+
+
+@pytest.mark.parametrize("frontier_cap", [None, 20])
+def test_frontier_cap_and_capacity(frontier_cap):
+    for fan in ([15, 10, 5], [4]):
+        assert hop_widths(8, fan, frontier_cap) == jax_widths(
+            8, fan, frontier_cap)
+        assert max_sampled_nodes(8, fan, frontier_cap) == jax_cap(
+            8, fan, frontier_cap)
+    jg, tg, _ = _graphs("positional")
+    js = JaxSampler(jg, [4, 3], batch_size=8, frontier_cap=frontier_cap,
+                    sample_force="xla")
+    ts = NeighborSampler(tg, [4, 3], batch_size=8, frontier_cap=frontier_cap)
+    seeds = np.arange(1, 9)
+    _compare(js.sample_from_nodes(JaxInput(seeds)),
+             ts.sample_from_nodes(NodeSamplerInput(seeds)))
+
+
+def test_tensor_seeds_and_validation():
+    _, tg, _ = _graphs("positional")
+    ts = NeighborSampler(tg, [3], batch_size=4)
+    out = ts.sample_from_nodes(NodeSamplerInput(
+        torch.tensor([1, 2, -1, -1], dtype=torch.int32)))
+    assert out.node[:2].tolist() == [1, 2]
+    with pytest.raises(ValueError):
+        ts.sample_from_nodes(NodeSamplerInput(np.arange(5)))
+    with pytest.raises(ValueError):
+        NeighborSampler(tg, [3], dedup="hash")
