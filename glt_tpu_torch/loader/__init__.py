@@ -1,3 +1,4 @@
-from .transform import Batch
+from .node_loader import NeighborLoader, NodeLoader
+from .transform import Batch, to_batch
 
-__all__ = ["Batch"]
+__all__ = ["Batch", "NeighborLoader", "NodeLoader", "to_batch"]

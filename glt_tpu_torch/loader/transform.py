@@ -1,8 +1,13 @@
-"""Sampled-batch container (cf. ``glt_tpu/loader/transform.py``)."""
+"""Sampled-batch container and assembly (cf.
+``glt_tpu/loader/transform.py``)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
+
+import torch
+
+from ..sampler.base import SamplerOutput
 
 
 @dataclasses.dataclass
@@ -32,3 +37,22 @@ class Batch:
     @property
     def num_nodes(self) -> int:
         return int(self.node.shape[0])
+
+
+def to_batch(out: SamplerOutput, x: Optional[torch.Tensor] = None,
+             y: Optional[torch.Tensor] = None, batch_size: int = 0) -> Batch:
+    """Assemble a :class:`Batch` from sampler output and gathered
+    tensors.  ``out.row`` is already the message-source side (the
+    sampler transposed), so ``edge_index[0] = row``."""
+    return Batch(
+        x=x,
+        y=y,
+        edge_index=torch.stack([out.row, out.col]),
+        edge_id=out.edge,
+        node=out.node,
+        node_mask=out.node_mask,
+        edge_mask=out.edge_mask,
+        batch=out.batch,
+        batch_size=batch_size,
+        metadata=out.metadata,
+    )

@@ -1,6 +1,21 @@
 from .conv import SAGEConv, scatter_mean, scatter_sum
 from .convert import params_from_flax
 from .sage import GraphSAGE
+from .train import (
+    TrainState,
+    adam,
+    create_train_state,
+    make_eval_step,
+    make_gather_xy,
+    make_scanned_node_train_step,
+    make_train_step,
+    node_seed_blocks,
+    run_scanned_epoch,
+    seed_cross_entropy,
+)
 
-__all__ = ["GraphSAGE", "SAGEConv", "params_from_flax", "scatter_mean",
-           "scatter_sum"]
+__all__ = ["GraphSAGE", "SAGEConv", "TrainState", "adam",
+           "create_train_state", "make_eval_step", "make_gather_xy",
+           "make_scanned_node_train_step", "make_train_step",
+           "node_seed_blocks", "params_from_flax", "run_scanned_epoch",
+           "scatter_mean", "scatter_sum", "seed_cross_entropy"]

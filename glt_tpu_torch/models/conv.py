@@ -63,7 +63,10 @@ class SAGEConv(nn.Module):
                 edge_mask: torch.Tensor) -> torch.Tensor:
         num_nodes = x.shape[0]
         src, dst = edge_index[0], edge_index[1]
-        msgs = x[src.clamp(0, max(num_nodes - 1, 0)).long()]
+        # index_select, not x[idx]: the same rows, but its backward is an
+        # atomic index_add_, where x[idx]'s sorts the ids and sums each
+        # run of equal ids serially, and every padded edge reads row 0.
+        msgs = x.index_select(0, src.clamp(0, max(num_nodes - 1, 0)).long())
         agg = scatter_mean(msgs, dst, num_nodes, edge_mask)
         if self.dtype is None:
             return self.lin_self(x) + self.lin_nbr(agg)

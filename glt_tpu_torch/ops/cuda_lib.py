@@ -23,7 +23,7 @@ from typing import List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "glt_tpu_torch"
-SOURCES = ("sample.cu", "gather.cu")
+SOURCES = ("sample.cu", "gather.cu", "fused_frontier.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -39,6 +39,8 @@ _SIGNATURES = {
                              _P, _P],
     # table, idx, out, n_rows, batch, row_bytes, stream
     "glt_gather_rows": [_P, _P, _P, _I64, _I64, _I64, _P],
+    # table, uidx, inv, out, n_rows, batch, row_bytes, stream
+    "glt_fused_frontier": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
 
 _lock = threading.Lock()

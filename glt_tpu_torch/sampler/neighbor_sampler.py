@@ -12,11 +12,12 @@ sample runs without waiting for the host.
 Edge direction is transposed on output to PyG's dst<-src convention:
 ``row`` = neighbor, ``col`` = seed side.
 
-This slice ports the uncapped sampler (node capacity = the zero-dedup
-worst case) in both dedup modes ('dense' scatter map, 'sort' unique)
-and both final-hop modes (``last_hop_dedup``).  The occupancy-capped
-sampler with its overflow flag, the batched and edge entry points, the
-induced subgraph and negative sampling are later work.
+Both dedup modes ('dense' scatter map, 'sort' unique), both final-hop
+modes (``last_hop_dedup``) and the occupancy-capped node buffer
+(``node_capacity``, with its ``metadata["overflow"]`` flag and
+:func:`calibrate_node_capacity`) are ported.  The batched and edge
+entry points, the induced subgraph and negative sampling are later
+work.
 """
 from __future__ import annotations
 
@@ -68,6 +69,42 @@ def max_sampled_nodes(batch_size: int, fanouts: Sequence[int],
     return widths[0] + sum(w * f for w, f in zip(widths, fanouts))
 
 
+def measure_occupancy(sampler: "NeighborSampler", seed_batches) -> np.ndarray:
+    """Unique-node counts per seed batch, fetched to the host in ONE copy.
+
+    In leaf-block mode (``last_hop_dedup=False``) the final hop's width
+    is static, so only interior hops are counted.
+    """
+    counts = []
+    for seeds in seed_batches:
+        out = sampler.sample_from_nodes(NodeSamplerInput(seeds))
+        n = out.num_sampled_nodes
+        if not sampler.last_hop_dedup:
+            n = n[:-1]
+        counts.append(n.sum(dtype=torch.int32))
+    if not counts:
+        return np.zeros((0,), np.int32)
+    return torch.stack(counts).cpu().numpy()
+
+
+def calibrate_node_capacity(sampler: "NeighborSampler", seed_batches=None,
+                            pct: float = 99.0, margin: float = 1.05,
+                            multiple: int = 256,
+                            counts: Optional[np.ndarray] = None) -> int:
+    """Occupancy-sized static node capacity: the ``pct`` percentile of
+    the interior-unique counts of ``seed_batches`` (sampled through
+    ``sampler``, typically uncapped) times ``margin``, rounded up to
+    ``multiple`` rows, plus the static leaf block in leaf mode; never
+    below the frontier floor nor above the full capacity.  Feed it to
+    ``NeighborSampler(node_capacity=...)``."""
+    if counts is None:
+        counts = measure_occupancy(sampler, seed_batches)
+    interior = float(np.percentile(counts, pct)) * margin
+    cap = int(np.ceil(interior / multiple) * multiple) + sampler._leaf_width
+    return min(max(cap, sampler._floor_capacity),
+               sampler.full_node_capacity)
+
+
 def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, torch.full((n,), PADDING_ID, dtype=torch.int32,
                                     device=x.device)])
@@ -89,12 +126,17 @@ class NeighborSampler:
         O(N) state) or 'auto' (dense unless the map would exceed ~1 GB).
       last_hop_dedup: when False, final-hop neighbors skip the inducer
         and land in a leaf block of the node list (duplicates allowed).
+      node_capacity: optional occupancy-sized node buffer (see
+        :func:`calibrate_node_capacity`).  Nodes discovered past it
+        overflow: their edges are masked and the batch is flagged in
+        ``metadata["overflow"]``.  Default: the zero-dedup worst case.
     """
 
     def __init__(self, graph: Graph, num_neighbors: Sequence[int],
                  batch_size: int = 512, frontier_cap: Optional[int] = None,
                  with_edge: bool = True, seed: int = 0, dedup: str = "auto",
-                 last_hop_dedup: bool = True):
+                 last_hop_dedup: bool = True,
+                 node_capacity: Optional[int] = None):
         self.graph = graph
         self.device = graph.device
         self.num_neighbors = list(num_neighbors)
@@ -111,10 +153,40 @@ class NeighborSampler:
         self.dedup = dedup
         self._widths = hop_widths(self.batch_size, self.num_neighbors,
                                   frontier_cap)
-        self.node_capacity = max_sampled_nodes(
+        self.full_node_capacity = max_sampled_nodes(
             self.batch_size, self.num_neighbors, frontier_cap)
+        # The static leaf block (last_hop_dedup=False) and the least
+        # capacity that holds every hop's frontier plus that block.
+        self._leaf_width = (0 if self.last_hop_dedup
+                            else self._widths[-1] * self.num_neighbors[-1])
+        self._floor_capacity = sum(self._widths) + self._leaf_width
+        if node_capacity is None:
+            self.node_capacity = self.full_node_capacity
+        else:
+            nc = int(node_capacity)
+            if nc < self._floor_capacity:
+                raise ValueError(
+                    f"node_capacity {nc} below the frontier floor "
+                    f"{self._floor_capacity} (sum of hop widths + leaf "
+                    f"block)")
+            self.node_capacity = min(nc, self.full_node_capacity)
+        self.capped = self.node_capacity < self.full_node_capacity
         self.edge_capacity = sum(
             w * f for w, f in zip(self._widths, self.num_neighbors))
+        self._full_sibling: Optional["NeighborSampler"] = None
+
+    def full_capacity_sibling(self) -> "NeighborSampler":
+        """Uncapped twin (same graph, fanouts and modes, its own key
+        counter from seed 0, as in ``glt_tpu``) for exact re-sampling of
+        overflow-flagged batches."""
+        if not self.capped:
+            return self
+        if self._full_sibling is None:
+            self._full_sibling = NeighborSampler(
+                self.graph, self.num_neighbors, self.batch_size,
+                frontier_cap=self.frontier_cap, with_edge=self.with_edge,
+                dedup=self.dedup, last_hop_dedup=self.last_hop_dedup)
+        return self._full_sibling
 
     # -- key management ----------------------------------------------------
     def _next_key(self) -> torch.Tensor:
@@ -150,6 +222,10 @@ class NeighborSampler:
         keys = trandom.split(key, len(fanouts))
         leaf_off = cap - widths[-1] * fanouts[-1]
         leaf_mask = None
+        capped = self.capped
+        # Under an occupancy cap, nodes given locals past `interior_cap`
+        # are overflow: their edges are masked and the batch flagged.
+        interior_cap = cap if self.last_hop_dedup else leaf_off
 
         for i, f in enumerate(fanouts):
             w = widths[i]
@@ -161,6 +237,12 @@ class NeighborSampler:
                 w, dtype=torch.int32, device=dev)
             src_local = torch.where(frontier >= 0, src_local, PADDING_ID)
             emask = out.mask
+            if capped:
+                # Frontier slots past the cap hold garbage on overflow
+                # batches; mask every edge they source.
+                src_local = torch.where(src_local < interior_cap, src_local,
+                                        PADDING_ID)
+                emask = emask & (src_local >= 0)[:, None]
 
             cand = out.nbrs.reshape(-1)                       # [w*f]
             if last and not self.last_hop_dedup:
@@ -172,6 +254,11 @@ class NeighborSampler:
                     w * f, dtype=torch.int32, device=dev)).reshape(w, f)
                 if dense:
                     node_buf[leaf_off: leaf_off + w * f] = leaf_ids
+                elif capped:
+                    # The sort path's interior buffer is full width;
+                    # cut it at leaf_off so the leaf block lands where
+                    # nbr_local points.
+                    node_buf = torch.cat([node_buf[:leaf_off], leaf_ids])
                 else:
                     node_buf = torch.cat([node_buf, leaf_ids])
                 new_count = count + leaf_mask.sum(dtype=torch.int32)
@@ -186,6 +273,12 @@ class NeighborSampler:
                 node_buf, new_count = merged.uniques, merged.count
                 nbr_local = merged.inverse[buflen:].reshape(w, f)
             nbr_local = torch.where(emask, nbr_local, PADDING_ID)
+            if capped and not (last and not self.last_hop_dedup):
+                # Induced locals past the cap point at dropped nodes (the
+                # dense inducer's dump slot, the sort path's cut).
+                nbr_local = torch.where(nbr_local < interior_cap, nbr_local,
+                                        PADDING_ID)
+                emask = emask & (nbr_local >= 0)
 
             rows.append(nbr_local.reshape(-1))
             cols.append(src_local[:, None].expand(w, f).reshape(-1))
@@ -224,6 +317,16 @@ class NeighborSampler:
             [counts_per_hop[0]]
             + [counts_per_hop[i + 1] - counts_per_hop[i]
                for i in range(len(fanouts))])
+        metadata = None
+        if capped:
+            # The unclamped counts keep counting past the cap (the dense
+            # inducer's dump slot absorbs the writes), so overflow is
+            # exactly "more uniques than the buffer holds".
+            if self.last_hop_dedup:
+                overflow = counts_per_hop[-1] > cap
+            else:
+                overflow = counts_per_hop[len(fanouts) - 1] > leaf_off
+            metadata = {"overflow": overflow}
         return SamplerOutput(
             node=node_buf,
             row=torch.cat(rows),
@@ -234,6 +337,7 @@ class NeighborSampler:
             edge_mask=torch.cat(emasks),
             num_sampled_nodes=num_sampled_nodes,
             num_sampled_edges=torch.stack(edges_per_hop),
+            metadata=metadata,
         )
 
     # -- public API ----------------------------------------------------------

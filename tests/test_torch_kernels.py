@@ -16,7 +16,22 @@ import torch
 
 from glt_tpu_torch import random as trandom
 from glt_tpu_torch.data import CSRTopo, Dataset, Graph
-from glt_tpu_torch.ops import gather_cuda, sample_cuda
+from glt_tpu_torch.models import (
+    GraphSAGE,
+    adam,
+    create_train_state,
+    make_scanned_node_train_step,
+    node_seed_blocks,
+)
+from glt_tpu_torch.ops import (
+    dedup_gather_rows,
+    frontier_plan,
+    fused_frontier,
+    fused_frontier_cuda,
+    fused_frontier_plain,
+    gather_cuda,
+    sample_cuda,
+)
 from glt_tpu_torch.ops.neighbor_sample import (
     _row_offsets_and_degrees,
     draw_positions,
@@ -161,6 +176,101 @@ def test_serving_on_card_equals_cpu(cuda_device):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+def _frontier_ids(case, n, b, rng):
+    if case == "ragged":
+        ids = rng.integers(-1, n, b)
+    elif case == "all_padding":
+        ids = np.full(b, -1)
+    elif case == "all_duplicates":
+        ids = np.full(b, min(7, n - 1))
+    elif case == "single_unique":
+        ids = np.where(rng.random(b) < 0.3, -1, min(3, n - 1))
+    else:                                   # past the table: rows clamp
+        ids = rng.integers(0, n + 50, b)
+    return ids.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "all_padding", "all_duplicates",
+                                  "single_unique", "clamped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 3, 63, 64, 100, 128])
+@pytest.mark.parametrize("n", [1, 300])
+def test_fused_frontier_kernel_matches_plain(cuda_device, case, dtype, d, n):
+    rng = np.random.default_rng(d + n)
+    table = torch.from_numpy(rng.standard_normal((n + 1, d)).astype(
+        np.float32)).to(cuda_device).to(dtype)
+    for b in (1, 61, 1000):
+        ids = _t(_frontier_ids(case, n, b, rng), cuda_device)
+        _, inv, uidx = frontier_plan(ids)
+        # table[1:] has n rows and a base that is not 16-byte aligned
+        # for odd widths.
+        for tab in (table[:n], table[1:]):
+            before = fused_frontier_cuda.launches
+            got = fused_frontier_cuda(tab, uidx, inv)
+            torch.cuda.synchronize()
+            assert fused_frontier_cuda.launches == before + 1
+            want = fused_frontier_plain(tab, uidx, inv)
+            assert torch.equal(got, want), (case, b)
+
+
+@pytest.mark.cuda
+def test_fused_frontier_on_card_equals_cpu(cuda_device):
+    """The entry point on the card launches B3 once and equals the CPU
+    route and the dedup gather, with an id2index indirection."""
+    rng = np.random.default_rng(4)
+    feat = rng.standard_normal((500, 100)).astype(np.float32)
+    ids = rng.integers(-1, 500, 4000).astype(np.int32)
+    perm = rng.permutation(500).astype(np.int32)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        before = fused_frontier_cuda.launches
+        out = fused_frontier(torch.from_numpy(feat).to(dev), _t(ids, dev),
+                             id2index=_t(perm, dev))
+        assert fused_frontier_cuda.launches == before + (dev != "cpu")
+        assert torch.equal(out.features, dedup_gather_rows(
+            torch.from_numpy(feat).to(dev), _t(ids, dev),
+            id2index=_t(perm, dev)))
+        outs.append(out)
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_scanned_step_on_card_matches_cpu(cuda_device):
+    """One scanned block through B1 and B3 on the card against the same
+    block on the CPU: sampling and gathers agree exactly, so the losses
+    differ only by float summation order (``index_add_`` on the card is
+    nondeterministic): rtol 1e-4."""
+    indptr, indices, _, _ = _graph(5, 2000)
+    rng = np.random.default_rng(0)
+    feat = rng.standard_normal((2000, 100)).astype(np.float32)
+    labels = rng.integers(0, 47, 2000)
+    blk = next(node_seed_blocks(np.arange(2000), 64, 3,
+                                np.random.default_rng(1)))
+    blk[2, 10:] = -1                        # a ragged batch
+    weights = {k: torch.from_numpy(
+        (rng.standard_normal(tuple(v.shape)) * 0.1).astype(np.float32))
+        for k, v in GraphSAGE(100, 32, 47, num_layers=2).state_dict().items()}
+    losses = []
+    for dev in (cuda_device, "cpu"):
+        g = Graph(CSRTopo.from_csr_arrays(indptr, indices), device=dev)
+        s = NeighborSampler(g, [10, 5], batch_size=64, with_edge=False)
+        model = GraphSAGE(100, 32, 47, num_layers=2, dropout_rate=0.0)
+        model.load_state_dict(weights)
+        step = make_scanned_node_train_step(s, feat, labels, 64,
+                                            fused_frontier=True)
+        b1 = sample_cuda.sample_neighbors_cuda.launches
+        b3 = fused_frontier_cuda.launches
+        _, ls, _, _ = step(create_train_state(model.to(dev), adam(1e-3)),
+                           blk, trandom.PRNGKey(3, device=dev))
+        if dev != "cpu":
+            assert sample_cuda.sample_neighbors_cuda.launches == b1 + 6
+            assert fused_frontier_cuda.launches == b3 + 3
+        losses.append(ls.cpu())
+    torch.testing.assert_close(losses[0], losses[1], rtol=1e-4, atol=1e-5)
+
+
 # -- on the CPU: the seam ----------------------------------------------------
 def test_cpu_tensors_take_the_plain_versions():
     indptr, indices, edge_ids, seeds = _graph()
@@ -187,12 +297,14 @@ def test_cpu_tensors_take_the_plain_versions():
     assert out.tolist() == table[[3, 0, 3, 0]].tolist()
 
 
-@pytest.mark.parametrize("bad", ["device", "dtype", "shape"])
+@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "fused"])
 def test_kernel_wrappers_refuse_bad_input(bad):
     t32 = torch.zeros(4, dtype=torch.int32)
     with pytest.raises((ValueError, TypeError)):
         if bad == "device":
             gather_cuda.gather_rows_cuda(torch.zeros(4, 2), t32)
+        elif bad == "fused":
+            fused_frontier_cuda(torch.zeros(4, 2), t32, t32)
         elif bad == "dtype":
             sample_cuda.sample_neighbors_cuda(
                 t32, t32.long(), t32[:, None], t32[:, None] > 0, t32)

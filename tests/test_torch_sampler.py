@@ -1,8 +1,9 @@
 """glt_tpu_torch NeighborSampler against glt_tpu's, field by field.
 
 Same graph, seed and call count; dedup in {dense, sort} x
-last_hop_dedup in {True, False}; every SamplerOutput field compares
-with ==.
+last_hop_dedup in {True, False}, uncapped and under occupancy caps that
+do and do not overflow; every SamplerOutput field, the overflow flag
+included, compares with ==.
 """
 import numpy as np
 import pytest
@@ -12,14 +13,18 @@ from glt_tpu.data import CSRTopo as JaxTopo
 from glt_tpu.data import Graph as JaxGraph
 from glt_tpu.sampler import NeighborSampler as JaxSampler
 from glt_tpu.sampler import NodeSamplerInput as JaxInput
+from glt_tpu.sampler import calibrate_node_capacity as jax_calibrate
+from glt_tpu.sampler.neighbor_sampler import measure_occupancy as jax_occ
 from glt_tpu.sampler.neighbor_sampler import hop_widths as jax_widths
 from glt_tpu.sampler.neighbor_sampler import max_sampled_nodes as jax_cap
 from glt_tpu_torch.data import CSRTopo, Graph
 from glt_tpu_torch.sampler import (
     NeighborSampler,
     NodeSamplerInput,
+    calibrate_node_capacity,
     hop_widths,
     max_sampled_nodes,
+    measure_occupancy,
 )
 
 # One intra-op thread: the suite runs in parallel workers.
@@ -58,7 +63,13 @@ def _compare(jout, tout):
             continue
         assert tuple(b.shape) == tuple(np.shape(a)), f
         np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f)
-    assert tout.metadata is None and jout.metadata is None
+    if jout.metadata is None:
+        assert tout.metadata is None
+        return
+    assert sorted(tout.metadata) == sorted(jout.metadata)
+    for k, a in jout.metadata.items():
+        np.testing.assert_array_equal(np.asarray(a),
+                                      tout.metadata[k].numpy(), err_msg=k)
 
 
 @pytest.mark.parametrize("dedup", ["dense", "sort"])
@@ -108,3 +119,66 @@ def test_tensor_seeds_and_validation():
         ts.sample_from_nodes(NodeSamplerInput(np.arange(5)))
     with pytest.raises(ValueError):
         NeighborSampler(tg, [3], dedup="hash")
+
+
+# Frontier cap 20 on fanouts [5, 3, 2] at batch 16: hop widths
+# [16, 20, 20], full capacity 196, frontier floor 56 (96 with the
+# 40-slot leaf block); these batches hold 59-81 uniques.  Per
+# last_hop_dedup: (cap that overflows, cap that does not).
+_CAPS = {True: (64, 128), False: (96, 160)}
+
+
+def _capped_pair(tg, jg, dedup, last_hop_dedup, cap, seed=4):
+    kw = dict(batch_size=16, frontier_cap=20, seed=seed, dedup=dedup,
+              last_hop_dedup=last_hop_dedup, with_edge=True)
+    return (JaxSampler(jg, [5, 3, 2], sample_force="xla",
+                       node_capacity=cap, **kw),
+            NeighborSampler(tg, [5, 3, 2], node_capacity=cap, **kw))
+
+
+@pytest.mark.parametrize("dedup", ["dense", "sort"])
+@pytest.mark.parametrize("last_hop_dedup", [True, False])
+@pytest.mark.parametrize("overflows", [True, False])
+def test_capped_sampler_matches_jax(dedup, last_hop_dedup, overflows):
+    jg, tg, n = _graphs("explicit")
+    cap = _CAPS[last_hop_dedup][0 if overflows else 1]
+    js, ts = _capped_pair(tg, jg, dedup, last_hop_dedup, cap)
+    assert ts.capped and js.capped
+    assert ts.node_capacity == js.node_capacity == cap
+    rng = np.random.default_rng(7)
+    flags = []
+    for _ in range(4):
+        seeds = rng.integers(0, n, 16)
+        jout = js.sample_from_nodes(JaxInput(seeds))
+        tout = ts.sample_from_nodes(NodeSamplerInput(seeds))
+        _compare(jout, tout)
+        flags.append(bool(tout.metadata["overflow"]))
+    assert any(flags) == overflows, flags
+
+
+@pytest.mark.parametrize("last_hop_dedup", [True, False])
+def test_calibrate_and_sibling_match_jax(last_hop_dedup):
+    jg, tg, n = _graphs("positional")
+    kw = dict(batch_size=16, frontier_cap=20, with_edge=False,
+              last_hop_dedup=last_hop_dedup)
+    jp = JaxSampler(jg, [5, 3, 2], sample_force="xla", **kw)
+    tp = NeighborSampler(tg, [5, 3, 2], **kw)
+    rng = np.random.default_rng(2)
+    batches = [rng.integers(0, n, 16) for _ in range(5)]
+    jc = jax_occ(jp, batches)
+    tc = measure_occupancy(tp, batches)
+    np.testing.assert_array_equal(np.asarray(jc), tc)
+    for pct, margin, mult in ((99.0, 1.05, 256), (50.0, 1.0, 8)):
+        assert calibrate_node_capacity(
+            tp, counts=tc, pct=pct, margin=margin, multiple=mult
+        ) == jax_calibrate(jp, counts=jc, pct=pct, margin=margin,
+                           multiple=mult)
+    # The full-capacity sibling: an uncapped twin, built once.
+    cap = _CAPS[last_hop_dedup][0]
+    js, ts = _capped_pair(tg, jg, "dense", last_hop_dedup, cap)
+    sib = ts.full_capacity_sibling()
+    assert sib is ts.full_capacity_sibling() and not sib.capped
+    assert sib.node_capacity == js.full_capacity_sibling().node_capacity
+    assert tp.full_capacity_sibling() is tp
+    with pytest.raises(ValueError, match="frontier floor"):
+        NeighborSampler(tg, [5, 3, 2], node_capacity=10, **kw)
