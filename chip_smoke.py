@@ -8,12 +8,16 @@ Phases (the first failure exits non-zero and prints no result line):
 1. device: the card's name and, from nvidia-smi, its name and power limit;
 2. build: compile the CUDA kernels from ``glt_tpu_torch/csrc`` (nvcc);
 3. kernels: each kernel (B1 neighbor read, B2 row gather, B3 fused
+   frontier gather, B4 dequantizing row gather, B5 dequantizing fused
    frontier gather) against its plain PyTorch version on the card
-   (``torch.equal``) over the main path's shapes and the edge cases, then
-   kernel, plain and library-call device times (CUDA events around 25
-   calls queued back to back, median of 5 rounds) at the main path's
-   widest launch (B3: at the training phase's node list), beside the
-   least time the card could take (bytes over 3.35 TB/s);
+   (``torch.equal``; B2/B3 also over int8 tables, B4/B5 over int8 and
+   bf16 codes, d in {1, 3, 64, 100, 128, 256}, constant columns, -0.0,
+   subnormals, clamped ids, all-padding, all-duplicate and empty
+   batches), then kernel, plain and library-call device times (CUDA
+   events around 25 calls queued back to back, median of 5 rounds) at
+   the main path's widest launch (B3 and B5: at the training phase's
+   node list; B4: at a served bucket-128 node list, timed in phase 6),
+   beside the least time the card could take (bytes over 3.35 TB/s);
 4. serving: a products-scale graph (2,449,029 nodes, power-law degrees
    of mean 25, seed 0; 100-wide f32 features; 47 classes) served by
    ``SubgraphEngine(ServingOptions(num_neighbors=(15, 10, 5),
@@ -37,9 +41,27 @@ Phases (the first failure exits non-zero and prints no result line):
    finite; one block's ``x`` through B3 must equal the plain gather's;
    one step with dropout off must give the CPU's loss; one more block
    runs under ``torch.profiler``;
-6. digits: ``glt_tpu_torch.examples.train_sage_digits`` with its
-   defaults on the card must clear ``acc > 0.93``;
-7. the kernel line ``{"kernels": [...]}`` and the ok line.
+6. store: the products features written as an int8 and a bf16
+   ``DiskFeatureStore`` under ``build/tmp`` (deleted at the end); the
+   three buckets served over ``Feature.from_store(split_ratio=1.0)`` of
+   each codec (B4) and over the raw f32 features, every message's ``x``
+   equal to the host decode of its rows (``cpu_get``); every served int8
+   node list gathered again at ``split_ratio=0.5`` (DRAM budget 1/8 of
+   the int8 bytes, a 65,536-row cold cache) and required equal to split
+   1.0; ``fused_frontier(dequant=int8)`` (B5) on the training node list
+   equal to its plain version; then ``RefreshDriver`` over the whole
+   graph from the int8 store (split 1.0, GraphSAGE hidden 256 x 3 with
+   the random weights of seed 0, bf16 output stores, max degree 32,
+   blocks of 8,192 nodes), two of its layer-0 sweeps recomputed on the
+   CPU through the plain versions within 1e-5 relative; kernel launch
+   counts are read around this phase;
+7. digits: ``glt_tpu_torch.examples.train_sage_digits`` with its
+   defaults on the card must clear ``acc > 0.93``; its weights evaluated
+   on the raw features and through an int8 store at split 0.0 (stager +
+   merge) and split 1.0 (B4) must agree within 0.005, the two int8
+   evaluations' ``x`` bit for bit; launch counts are read around it;
+8. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-7) and the ok line.
 
 Details go to ``build/results/chip_smoke.json``.  Imports torch, numpy
 and glt_tpu_torch only.
@@ -51,6 +73,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -67,6 +90,13 @@ TRAIN_BS, FRONTIER_CAP, GROUP, LR = 1024, 8192, 8, 1e-3
 TRAIN_BLOCKS, CAL_BATCHES, EVAL_BATCHES = 5, 8, 2
 LOSS_RTOL = 1e-2                  # card vs CPU loss, bf16 matmuls (see run_train)
 DIGITS_ARGS = []                  # the digits twin's defaults
+DIGITS_INT8_TOL = 0.005           # tests/test_real_digits.py:157
+STORE_CODECS = ("int8", "bf16")
+DEQUANT_WIDTHS = (1, 3, 64, 100, 128, 256)
+COLD_CACHE_ROWS = 1 << 16         # split-0.5 gather's device cold cache
+REFRESH_BLOCK, REFRESH_MAX_DEGREE = 8192, 32
+REFRESH_RTOL = 1e-5               # card vs CPU layer-0 rows (f32 sums)
+WORK_DIR = os.path.join("build", "tmp")
 SLEEP_CYCLES = 40_000_000         # ~20 ms at the H100's 1.98 GHz
 OUT_DIR = os.path.join("build", "results")
 DEVICE = "cuda"
@@ -238,8 +268,9 @@ def check_sample_kernel(torch, ops, trandom, dev, products, rng):
 
 
 def check_gather_kernel(torch, ops, dev, table, idx_main, rng):
-    """B2 cases: d in {1, 3, 64, 100, 128, 256}, f32 and bf16, ragged
-    batches, an unaligned base; then the main path's feature gather."""
+    """B2 cases: d in {1, 3, 64, 100, 128, 256}, f32, bf16 and int8,
+    ragged batches, an unaligned base; then the main path's feature
+    gather."""
     worst, cases = 0.0, 0
 
     def compare(tab, idx):
@@ -256,9 +287,9 @@ def check_gather_kernel(torch, ops, dev, table, idx_main, rng):
         cases += 1
 
     for d in (1, 3, 64, 100, 128, 256):
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
             tab = torch.from_numpy(rng.standard_normal(
-                (4099, d)).astype(np.float32)).to(dev).to(dt)
+                (4099, d)).astype(np.float32) * 40).to(dev).to(dt)
             for b in (1, 7, 255, 4097):
                 idx = rng.integers(-3, 4105, b).astype(np.int32)
                 idx = torch.from_numpy(idx).to(dev)
@@ -286,8 +317,8 @@ def check_gather_kernel(torch, ops, dev, table, idx_main, rng):
 
 def check_fused_kernel(torch, ops, dev, table, rng):
     """B3 cases: duplicate-heavy, all-unique and all-padding frontiers,
-    B in {1, 61, 4097} (not multiples of 32), d in {64, 100, 128}, f32
-    and bf16, an unaligned base, an id2index indirection; then the
+    B in {1, 61, 4097} (not multiples of 32), d in {64, 100, 128}, f32,
+    bf16 and int8, an unaligned base, an id2index indirection; then the
     products shape, ``[139264, 100]`` f32 (the full capacity, 30 %
     padding).  Returns (max_abs_err, cases)."""
     worst, cases = 0.0, 0
@@ -308,9 +339,9 @@ def check_fused_kernel(torch, ops, dev, table, rng):
 
     n = 4099
     for d in (64, 100, 128):
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
             tab = torch.from_numpy(rng.standard_normal(
-                (n + 1, d)).astype(np.float32)).to(dev).to(dt)
+                (n + 1, d)).astype(np.float32) * 40).to(dev).to(dt)
             for b in (1, 61, 4097):
                 for ids in (rng.integers(-1, 40, b),       # duplicates
                             rng.permutation(n)[:b],        # all unique
@@ -351,6 +382,133 @@ def time_fused_kernel(torch, ops, table, ids):
             table, uidx, inv)),
         "library_ms": cuda_ms(torch, lambda: torch.where(
             valid, table.index_select(0, uidx[lib_idx]), 0)),
+        "bound_ms": bound_ms(nbytes),
+        "bytes": nbytes,
+    }
+
+
+def compressed_table(torch, quant, codec, n, d, rng):
+    """``(codes [n, d], sz [8, d])`` on the CPU covering the decode's edge
+    cases: an encoded matrix with a constant column (scale 0), signed
+    zeros and a subnormal column; for int8 also raw codes over the full
+    range -128..127 with a subnormal and a negative scale in ``sz``; for
+    bf16 also random finite bit patterns (subnormals included)."""
+    x = rng.standard_normal((n, d)).astype(np.float32) * 3
+    x[:, 0] = 1.25
+    x[::5, d // 2] = -0.0
+    x[:, d - 1] = rng.standard_normal(n).astype(np.float32) * 1e-39
+    enc, spec = quant.encode(x, codec)
+    sz = quant.scale_zero_rows(spec, d)
+    half = n // 2
+    if codec == "int8":
+        enc[half:] = rng.integers(-128, 128, (n - half, d))
+        if d > 2:
+            sz[0, 1] = 1e-41                # a subnormal scale
+            sz[0, 2] = -0.5                 # a negative scale: zero
+        return torch.from_numpy(enc), torch.from_numpy(sz)
+    bits = rng.integers(0, 2**16, (n - half, d)).astype(np.uint16)
+    bits[(bits & 0x7F80) == 0x7F80] &= 0xBFFF   # no inf or NaN
+    enc[half:] = bits
+    return quant.host_to_torch(enc), torch.from_numpy(sz)
+
+
+def dequant_ids(kind, n, b, rng):
+    if kind == "ragged":
+        ids = rng.integers(-1, n, b)
+    elif kind == "all_padding":
+        ids = np.full(b, -1)
+    elif kind == "all_duplicates":
+        ids = np.full(b, min(5, n - 1))
+    else:                                   # ids past N clamp
+        ids = rng.integers(-1, n + 50, b)
+    return ids.astype(np.int32)
+
+
+def check_dequant_kernels(torch, ops, quant, dev, rng):
+    """B4 and B5 cases, ``torch.equal`` on the f32 bits: codecs int8 and
+    bf16, d in {1, 3, 64, 100, 128, 256}, constant columns (scale 0),
+    -0.0 and subnormals, ragged, all-padding, all-duplicate and clamped
+    ids, empty and ragged batches, an unaligned base.  Returns
+    ``({"B4": err, "B5": err}, {"B4": cases, "B5": cases})``."""
+    worst, cases = {"B4": 0.0, "B5": 0.0}, {"B4": 0, "B5": 0}
+
+    def compare(name, got, want, what):
+        torch.cuda.synchronize()
+        if got.numel():
+            worst[name] = max(worst[name],
+                              float((got - want).abs().max()))
+        need(got.dtype == torch.float32 and torch.equal(
+            got.view(torch.int32), want.view(torch.int32)),
+            f"{name} differs from its plain version ({what})")
+        cases[name] += 1
+
+    n = 4099
+    for codec in STORE_CODECS:
+        for d in DEQUANT_WIDTHS:
+            tab, sz = compressed_table(torch, quant, codec, n + 1, d, rng)
+            tab, sz = tab.to(dev), sz.to(dev)
+            for b in (0, 61, 4097):
+                for kind in ("ragged", "all_padding", "all_duplicates",
+                             "clamped"):
+                    ids = torch.from_numpy(dequant_ids(kind, n, b, rng)).to(
+                        dev)
+                    _, inv, uidx = ops.frontier_plan(ids)
+                    for t in (tab[:n], tab[1:]):   # [1:]: unaligned base
+                        what = f"{codec}, d={d}, B={b}, {kind}"
+                        compare("B4", ops.gather_rows_dequant_cuda(t, ids, sz),
+                                ops.gather_rows_dequant_plain(t, ids, sz),
+                                what)
+                        compare("B5", ops.fused_frontier_dequant_cuda(
+                            t, uidx, inv, sz), ops.fused_frontier_dequant_plain(
+                            t, uidx, inv, sz), what)
+    return worst, cases
+
+
+def time_gather_dequant(torch, ops, quant, table, sz, node):
+    """B4's kernel, plain and library times on one served node list (the
+    feature gather's ids: padding reads row 0), and its bound: the
+    unique compressed rows read once, every f32 row written once, 4 B of
+    index per row and the three ``sz`` rows."""
+    idx = torch.where(node >= 0, node, 0).to(torch.int32).contiguous()
+    b, d = idx.shape[0], table.shape[1]
+    uniq = int(torch.unique(idx).numel())
+    nbytes = b * 4 + uniq * d * table.element_size() + 3 * d * 4 + b * d * 4
+    lib_idx = idx.long()
+    return {
+        "shape": [b, d], "dtype": str(table.dtype).replace("torch.", ""),
+        "unique_rows": uniq,
+        "ms": cuda_ms(torch, lambda: ops.gather_rows_dequant_cuda(
+            table, idx, sz)),
+        "plain_ms": cuda_ms(torch, lambda: ops.gather_rows_dequant_plain(
+            table, idx, sz)),
+        "library_ms": cuda_ms(torch, lambda: quant.dequantize_rows(
+            table.index_select(0, lib_idx), sz)),
+        "bound_ms": bound_ms(nbytes),
+        "bytes": nbytes,
+    }
+
+
+def time_fused_dequant(torch, ops, quant, table, sz, ids):
+    """B5's kernel, plain and library times on one node list, and its
+    bound: unique compressed rows read once, every f32 row written once,
+    8 B of indices per row and the three ``sz`` rows."""
+    _, inv, uidx = ops.frontier_plan(ids)
+    b, d = ids.shape[0], table.shape[1]
+    uniq = int((torch.unique(ids) >= 0).sum())
+    need(uniq > 0, "B5 would be timed on an all-padding node list")
+    nbytes = uniq * d * table.element_size() + b * d * 4 + 8 * b + 3 * d * 4
+    lib_idx = inv.clamp(min=0).long()
+    valid = (inv >= 0)[:, None]
+    return {
+        "shape": [b, d], "dtype": str(table.dtype).replace("torch.", ""),
+        "unique_rows": uniq,
+        "ms": cuda_ms(torch, lambda: ops.fused_frontier_dequant_cuda(
+            table, uidx, inv, sz)),
+        "plain_ms": cuda_ms(torch, lambda: ops.fused_frontier_dequant_plain(
+            table, uidx, inv, sz)),
+        "library_ms": cuda_ms(torch, lambda: torch.where(
+            valid, quant.dequantize_rows(
+                table.index_select(0, uidx[lib_idx]), sz), 0.0)),
         "bound_ms": bound_ms(nbytes),
         "bytes": nbytes,
     }
@@ -735,14 +893,255 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
     }, node_list, rows
 
 
+# -- phase 6: the compressed feature store -------------------------------
+def serve_lists(engine, feature, lists):
+    """Serve every micro-batch of ``lists`` and hold each message's ``x``
+    to the host decode of its rows (``cpu_get``).  Returns per-bucket
+    latencies (ms) and the served node lists."""
+    lat, nodes = {}, []
+    for bucket in BUCKETS:
+        lat[bucket] = []
+        for reqs in lists[bucket]:
+            t0 = time.perf_counter()
+            coal = engine.sample([engine.validate_seeds(r) for r in reqs])
+            msgs = engine.scatter(coal)
+            lat[bucket].append((time.perf_counter() - t0) * 1e3)
+            need(coal.bucket == bucket, f"bucket {coal.bucket} != {bucket}")
+            for m in msgs:
+                need(np.array_equal(m["x"], feature.cpu_get(m["node"])),
+                     "served x differs from the host decode of its rows")
+            nodes.append((bucket, coal.node))
+    return lat, nodes
+
+
+def run_store(torch, dev, indptr, indices, feat, labels, train_nodes):
+    """The compressed tier at products scale (module docstring, phase 6).
+    Returns the phase's report and the tables and node lists that time
+    B4 and B5."""
+    from glt_tpu_torch import ops
+    from glt_tpu_torch.data import CSRTopo, Dataset, Feature, Graph
+    from glt_tpu_torch.models import GraphSAGE
+    from glt_tpu_torch.refresh import RefreshDriver, sage_refresh_layers
+    from glt_tpu_torch.serving import ServingOptions, SubgraphEngine
+    from glt_tpu_torch.store import DiskFeatureStore, quant
+    from glt_tpu_torch.store import write_feature_store
+    from torch.profiler import profile
+
+    os.makedirs(WORK_DIR, exist_ok=True)
+    rep = {}
+    with tempfile.TemporaryDirectory(dir=WORK_DIR) as tmp:
+        t0 = time.perf_counter()
+        roots = {c: write_feature_store(os.path.join(tmp, c), feat, codec=c)
+                 for c in STORE_CODECS}
+        rep["write_s"] = time.perf_counter() - t0
+        rep["store_bytes"] = {c: os.path.getsize(os.path.join(
+            roots[c], "features.bin")) for c in STORE_CODECS}
+        graph = Graph(CSRTopo.from_csr_arrays(indptr, indices), device=dev)
+        feats = {"raw": Feature(feat, device=dev)}
+        for c in STORE_CODECS:
+            feats[c] = Feature.from_store(DiskFeatureStore(roots[c]),
+                                          64 << 20, split_ratio=1.0,
+                                          device=dev)
+        spec = feats["int8"].quant_spec
+        lists = request_lists(np.random.default_rng(3), PRODUCTS_N)
+
+        # -- the main path: counts set to 0 just before, read just after
+        for fn in kernel_wrappers(ops).values():
+            fn.launches = 0
+        served, nodes = {}, {}
+        for name in ("raw",) + STORE_CODECS:
+            ds = Dataset(graph=graph, device=dev)
+            ds.node_features = feats[name]
+            ds.init_node_labels(labels)
+            engine = SubgraphEngine(ds, ServingOptions(
+                num_neighbors=FANOUTS, seed_buckets=BUCKETS))
+            lat, nodes[name] = serve_lists(engine, feats[name], lists)
+            served[name] = {str(b): {
+                "latency_ms_median": statistics.median(v[1:]),
+                "latency_ms_all": v} for b, v in lat.items()}
+        rep["serving"] = served
+        serve_b4 = ops.gather_rows_dequant_cuda.launches
+        need(serve_b4 > 0, "serving from a compressed store never "
+                           "launched B4")
+
+        # split 0.5 with a DRAM budget of 1/8 of the compressed bytes and
+        # the cold cache: every served node list equals split 1.0's.
+        budget = rep["store_bytes"]["int8"] // 8
+        half = Feature.from_store(DiskFeatureStore(roots["int8"]), budget,
+                                  split_ratio=0.5, device=dev)
+        half.enable_cold_cache(COLD_CACHE_ROWS)
+        tier_ms = []
+        try:
+            for _, node in nodes["int8"]:
+                t0 = time.perf_counter()
+                got = half.gather(node)
+                torch.cuda.synchronize()
+                tier_ms.append((time.perf_counter() - t0) * 1e3)
+                want = feats["int8"].gather(torch.from_numpy(node).to(dev))
+                need(torch.equal(got.view(torch.int32),
+                                 want.view(torch.int32)),
+                     "split 0.5 gather differs from split 1.0")
+            rep["tiered"] = {"budget_bytes": budget,
+                             "cold_cache_rows": COLD_CACHE_ROWS,
+                             "gather_ms_median": statistics.median(tier_ms),
+                             "gather_ms_all": tier_ms,
+                             "stager": half.store_stats(),
+                             "cold_cache": half.cache_stats()}
+        finally:
+            half.close()
+
+        # B5 through its entry point on the training node list.
+        table = feats["int8"].hot_rows
+        sz = quant.scale_zero_tensor(spec, table.shape[1], dev)
+        ff = ops.fused_frontier(table, train_nodes, dequant=spec)
+        _, inv, uidx = ops.frontier_plan(train_nodes)
+        want = ops.fused_frontier_dequant_plain(table, uidx, inv, sz)
+        need(torch.equal(ff.features.view(torch.int32),
+                         want.view(torch.int32)),
+             "B5 on the training node list differs from its plain version")
+
+        # The whole-graph refresh from the int8 store through B4.
+        model = random_model(torch, GraphSAGE, dev, dropout_rate=0.0)
+        layers = sage_refresh_layers(model)
+        last, kept = {}, {}
+
+        def layer0(x, ei, em):
+            last["h"] = layers[0](x, ei, em)
+            return last["h"]
+
+        stamps = []                 # (layer, host clock) after each sweep
+        prof = profile(activities=profiler_activities(torch))
+
+        def on_sweep(d, layer, sweep):
+            stamps.append((layer, time.perf_counter()))
+            # Layer 1's sweeps 11..13 (256-wide input) under the profiler.
+            if (layer, sweep) == (1, 10):
+                prof.start()
+            elif (layer, sweep) == (1, 10 + PROFILED):
+                torch.cuda.synchronize()
+                prof.stop()
+                kept["prof_wall_ms"] = (stamps[-1][1] - stamps[-1 - PROFILED][1]
+                                        ) * 1e3 / PROFILED
+            if layer == 0 and sweep in check_sweeps:
+                block_len = min(d.block_size,
+                                d.num_nodes - sweep * d.block_size)
+                kept[sweep] = last["h"][:block_len].cpu()
+
+        drv = RefreshDriver(
+            indptr, indices, [layer0] + layers[1:],
+            DiskFeatureStore(roots["int8"]), os.path.join(tmp, "refresh"),
+            block_size=REFRESH_BLOCK, max_degree=REFRESH_MAX_DEGREE,
+            out_codec="bf16", split_ratio=1.0, on_sweep=on_sweep,
+            device=dev)
+        check_sweeps = (0, drv.num_sweeps - 1)
+        frontier_s = []
+        build = drv.frontier
+
+        def timed_frontier(sweep):
+            t = time.perf_counter()
+            out = build(sweep)
+            frontier_s.append(time.perf_counter() - t)
+            return out
+
+        drv.frontier = timed_frontier
+        t0 = time.perf_counter()
+        refresh = dict(drv.run())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        refresh["wall_s"] = t1 - t0
+        # Where the wall time goes: the host clock between sweeps of one
+        # layer, the gaps around each layer's sweeps (store load, writer
+        # set-up, finalize), and the frontier builds.
+        gaps = [b - a for (la, a), (lb, b) in zip(stamps, stamps[1:])
+                if la == lb]
+        bounds = [stamps[0][1] - t0] + [
+            b - a for (la, a), (lb, b) in zip(stamps, stamps[1:])
+            if la != lb] + [t1 - stamps[-1][1]]
+        refresh["sweep_gap_ms_median"] = statistics.median(gaps) * 1e3
+        refresh["layer_boundary_s"] = bounds
+        refresh["frontier_ms_median"] = statistics.median(frontier_s) * 1e3
+        refresh["profile"] = device_profile(torch, prof, PROFILED,
+                                            kept.pop("prof_wall_ms"))
+        refresh["block_size"] = REFRESH_BLOCK
+        refresh["sweep_ms_mean"] = (drv.totals["seconds"] * 1e3
+                                    / (drv.num_sweeps * len(layers)))
+        out = DiskFeatureStore(refresh["out_root"])
+        need(out.codec == "bf16" and out.shape == (PRODUCTS_N, CLASSES),
+             f"refresh published {out.codec} {out.shape}")
+        probe = out.read_rows(np.arange(0, PRODUCTS_N, 997))
+        need(bool(np.isfinite(quant.decode(probe, out.quant_spec())).all()),
+             "refreshed embeddings not finite")
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+        refresh["out_root"] = os.path.relpath(refresh["out_root"], tmp)
+        rep["refresh"] = refresh
+
+        # Two sweeps of layer 0 again on the CPU through the plain
+        # versions: the card's rows before the bf16 output, within 1e-5.
+        cpu_feat = Feature.from_store(DiskFeatureStore(roots["int8"]),
+                                      64 << 20, split_ratio=1.0,
+                                      device="cpu")
+        cpu_drv = RefreshDriver(
+            indptr, indices, [], DiskFeatureStore(roots["int8"]),
+            os.path.join(tmp, "cpu"), block_size=REFRESH_BLOCK,
+            max_degree=REFRESH_MAX_DEGREE, device="cpu")
+        cpu_layer0 = sage_refresh_layers(random_model(
+            torch, GraphSAGE, "cpu", dropout_rate=0.0))[0]
+        rel = 0.0
+        for sweep in check_sweeps:
+            frontier, block_len, _ = cpu_drv.frontier(sweep)
+            ft = torch.from_numpy(frontier)
+            h = cpu_drv.step(cpu_layer0, cpu_feat.gather(ft), ft)[:block_len]
+            err = float((h - kept[sweep]).abs().max())
+            rel = max(rel, err / max(float(h.abs().max()), 1e-30))
+        need(rel <= REFRESH_RTOL, f"refresh sweeps: card vs CPU rel {rel}")
+        rep["refresh_cpu_rel_err"] = rel
+        rep["refresh_checked_sweeps"] = list(check_sweeps)
+        cpu_feat.close()
+        for f in feats.values():
+            f.close()
+        timing_node = torch.from_numpy(
+            [n for b, n in nodes["int8"] if b == BUCKETS[-1]][-1]).to(dev)
+        tables = {c: (feats[c].hot_rows, quant.scale_zero_tensor(
+            feats[c].quant_spec, FEAT_DIM, dev)) for c in STORE_CODECS}
+    rep["launches"] = launches
+    rep["serve_b4_launches"] = serve_b4
+    return rep, tables, timing_node
+
+
+def kernel_wrappers(ops):
+    """The launch-counting wrapper of each kernel, by name."""
+    return {"sample_neighbors_cuda": ops.sample_neighbors_cuda,
+            "gather_rows_cuda": ops.gather_rows_cuda,
+            "fused_frontier_cuda": ops.fused_frontier_cuda,
+            "gather_rows_dequant_cuda": ops.gather_rows_dequant_cuda,
+            "fused_frontier_dequant_cuda": ops.fused_frontier_dequant_cuda}
+
+
 def run_digits(torch, dev) -> dict:
-    """The digits twin with its defaults on the card."""
-    from glt_tpu_torch.examples import train_sage_digits
+    """The digits twin with its defaults on the card, then its weights
+    evaluated on the raw features and through an int8 store at split
+    0.0 (stager + merge) and split 1.0 (B4)."""
+    from glt_tpu_torch import ops
+    from glt_tpu_torch.examples import train_sage_digits as digits
 
     t0 = time.perf_counter()
-    acc = train_sage_digits.main(DIGITS_ARGS + ["--device", str(dev)])
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    run = digits.train(digits.parse_args(DIGITS_ARGS + ["--device",
+                                                        str(dev)]))
+    acc, _ = digits.evaluate(run)
     need(acc > 0.93, f"digits accuracy {acc} <= 0.93")
-    return {"test_acc": acc, "seconds": time.perf_counter() - t0}
+    os.makedirs(WORK_DIR, exist_ok=True)
+    par = digits.int8_store_parity(run, WORK_DIR)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+    for k in ("acc_int8_split0", "acc_int8_split1"):
+        need(abs(par[k] - par["acc_raw"]) <= DIGITS_INT8_TOL,
+             f"digits {k} {par[k]} vs raw {par['acc_raw']}")
+    need(par["x_equal"], "digits: the two int8 evaluations' x differ")
+    return {"test_acc": acc, "int8_parity": par, "launches": launches,
+            "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -759,6 +1158,7 @@ def main() -> int:
         from glt_tpu_torch import ops
         from glt_tpu_torch import random as trandom
         from glt_tpu_torch.ops import cuda_lib
+        from glt_tpu_torch.store import quant
     except ImportError as exc:
         print(f"chip_smoke: glt_tpu_torch is not importable ({exc}); run "
               f"from the repository root", file=sys.stderr)
@@ -809,8 +1209,10 @@ def main() -> int:
             torch, ops, dev, table, torch.from_numpy(main_idx).to(dev), rng)
         b3_err, b3_cases = check_fused_kernel(torch, ops, dev, table, rng)
         del pip, pix, table
+        dq_err, dq_cases = check_dequant_kernels(torch, ops, quant, dev, rng)
         log(f"kernels: B1 {b1_cases} cases equal, B2 {b2_cases} cases "
-            f"equal, B3 {b3_cases} cases equal")
+            f"equal, B3 {b3_cases} cases equal, B4 {dq_cases['B4']} cases "
+            f"equal, B5 {dq_cases['B5']} cases equal")
         for name, row in (("B1", b1), ("B2", b2)):
             log(f"  {name} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
                 f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
@@ -850,7 +1252,7 @@ def main() -> int:
         for k, v in tr["launches"].items():
             need(v > 0, f"the training path never launched {k}")
         b3 = time_fused_kernel(torch, ops, rows, node_list)
-        del node_list, rows
+        del rows
         p = tr["profile"]
         log(f"training: {tr['steps']} steps in {TRAIN_BLOCKS} blocks of "
             f"{GROUP}, node capacity {tr['node_capacity']} of "
@@ -873,16 +1275,74 @@ def main() -> int:
             f"{b3['plain_ms']:.4f} ms, library {b3['library_ms']:.4f} ms, "
             f"bound {b3['bound_ms']:.4f} ms")
 
-        # 6. digits
-        report["digits"] = run_digits(torch, dev)
-        log(f"digits: test accuracy {report['digits']['test_acc']:.4f} "
-            f"(> 0.93) in {report['digits']['seconds']:.1f} s")
+        # 6. the compressed feature store
+        t0 = time.perf_counter()
+        st, tables, serve_node = run_store(torch, dev, indptr, indices, feat,
+                                           labels, node_list)
+        report["store"] = st
+        for k in ("sample_neighbors_cuda", "gather_rows_dequant_cuda",
+                  "fused_frontier_dequant_cuda"):
+            need(st["launches"][k] > 0, f"the store path never launched {k}")
+        b4 = time_gather_dequant(torch, ops, quant, *tables["int8"],
+                                 serve_node)
+        b4_bf16 = time_gather_dequant(torch, ops, quant, *tables["bf16"],
+                                      serve_node)
+        b5 = time_fused_dequant(torch, ops, quant, *tables["int8"],
+                                node_list)
+        del tables, serve_node, node_list
+        log(f"store: int8 {st['store_bytes']['int8']} B, bf16 "
+            f"{st['store_bytes']['bf16']} B written in {st['write_s']:.1f} "
+            f"s; served x == host decode; launches {st['launches']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for b in map(str, BUCKETS):
+            log(f"  bucket {b}: median " + ", ".join(
+                f"{name} {st['serving'][name][b]['latency_ms_median']:.2f}"
+                for name in ("raw",) + STORE_CODECS) + " ms")
+        ti = st["tiered"]
+        log(f"  split 0.5 (DRAM budget {ti['budget_bytes']} B, cold cache "
+            f"{ti['cold_cache_rows']} rows) == split 1.0: gather median "
+            f"{ti['gather_ms_median']:.2f} ms, stager hit rate "
+            f"{ti['stager']['hit_rate']:.3f}, cold-cache hit rate "
+            f"{ti['cold_cache']['hit_rate']:.3f}")
+        rf = st["refresh"]
+        log(f"  refresh: {rf['layers']} layers x {rf['num_sweeps']} sweeps "
+            f"of {rf['block_size']}, {rf['nodes_per_s']:.0f} nodes/s, sweep "
+            f"{rf['sweep_ms_mean']:.2f} ms, bytes hbm/dram/disk "
+            f"{rf['bytes_from_hbm']}/{rf['bytes_from_dram']}/"
+            f"{rf['bytes_from_disk']}, wall {rf['wall_s']:.1f} s; layer-0 "
+            f"sweeps {st['refresh_checked_sweeps']} vs CPU rel "
+            f"{st['refresh_cpu_rel_err']:.2e}")
+        log(f"    between sweeps {rf['sweep_gap_ms_median']:.2f} ms "
+            f"(frontier build {rf['frontier_ms_median']:.2f} ms), around "
+            f"the layers " + ", ".join(
+                f"{b:.1f}" for b in rf["layer_boundary_s"]) + " s")
+        p = rf["profile"]
+        log(f"    profiled layer-1 sweep: wall {p['wall_ms']:.2f} ms, "
+            f"{p['kernels']:.0f} kernels {p['kernels_ms']:.3f} ms "
+            f"({p['kernel_share']:.1%}), {p['copies']:.0f} copies "
+            f"{p['copies_ms']:.3f} ms, {p['memsets']:.0f} memsets")
+        for k in p["top_kernels"][:5]:
+            log(f"      {k['count']:.1f} x {k['name']}: {k['ms']:.3f} ms")
+        for name, row in (("B4 int8", b4), ("B4 bf16", b4_bf16),
+                          ("B5 int8", b5)):
+            log(f"  {name} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+                f"ms, bound {row['bound_ms']:.4f} ms")
+
+        # 7. digits
+        report["digits"] = dg = run_digits(torch, dev)
+        par = dg["int8_parity"]
+        log(f"digits: test accuracy {dg['test_acc']:.4f} (> 0.93); int8 "
+            f"store {par['acc_int8_split0']:.4f} (split 0.0), "
+            f"{par['acc_int8_split1']:.4f} (split 1.0) vs raw "
+            f"{par['acc_raw']:.4f}, x equal; {dg['seconds']:.1f} s")
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
-    launches = {k: sl["launches"].get(k, 0) + tr["launches"][k]
-                for k in tr["launches"]}
+    launches = {k: sum(p["launches"].get(k, 0)
+                       for p in (sl, tr, st, report["digits"]))
+                for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
          "source": "glt_tpu_torch/csrc/sample.cu",
@@ -905,9 +1365,24 @@ def main() -> int:
          "max_abs_err": b3_err, "ms": b3["ms"], "plain_ms": b3["plain_ms"],
          "bound_ms": b3["bound_ms"], "bound_by": "bytes",
          "library_ms": b3["library_ms"]},
+        {"name": "gather_rows_dequant_cuda", "route": "cuda",
+         "source": "glt_tpu_torch/csrc/gather_dequant.cu",
+         "replaces": "glt_tpu/ops/gather_pallas.py:259",
+         "launches": launches["gather_rows_dequant_cuda"],
+         "max_abs_err": dq_err["B4"], "ms": b4["ms"],
+         "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"],
+         "bound_by": "bytes", "library_ms": b4["library_ms"]},
+        {"name": "fused_frontier_dequant_cuda", "route": "cuda",
+         "source": "glt_tpu_torch/csrc/fused_frontier_dequant.cu",
+         "replaces": "glt_tpu/ops/fused_frontier.py:184",
+         "launches": launches["fused_frontier_dequant_cuda"],
+         "max_abs_err": dq_err["B5"], "ms": b5["ms"],
+         "plain_ms": b5["plain_ms"], "bound_ms": b5["bound_ms"],
+         "bound_by": "bytes", "library_ms": b5["library_ms"]},
     ]
     report["kernels"] = kernels
-    report["kernel_detail"] = {"B1": b1, "B2": b2, "B3": b3}
+    report["kernel_detail"] = {"B1": b1, "B2": b2, "B3": b3, "B4": b4,
+                               "B4_bf16": b4_bf16, "B5": b5}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     log(report["device"]["nvidia_smi"])

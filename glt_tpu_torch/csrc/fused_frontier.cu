@@ -10,7 +10,8 @@
 //   out[i, :] = inv[i] >= 0
 //       ? table[clamp(uidx[min(inv[i], batch - 1)], 0, n_rows - 1), :] : 0
 //
-// Rows are copied as bytes, so f32 and bf16 tables take the same path.
+// Rows are copied as bytes, so f32, bf16 and int8 tables take the same
+// path.
 // The clamps only make stray indices safe, as in the plain version:
 // unique_first_occurrence gives inv[i] < batch.
 //

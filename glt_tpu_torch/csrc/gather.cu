@@ -6,8 +6,8 @@
 //
 //   out[i, :] = table[clamp(idx[i], 0, n_rows - 1), :]
 //
-// for any row width and element type: rows are copied as bytes, so f32
-// and bf16 tables of every width d >= 1 take the same path (the TPU
+// for any row width and element type: rows are copied as bytes, so f32,
+// bf16 and int8 tables of every width d >= 1 take the same path (the TPU
 // kernel ran only d % 128 == 0 or d == 64).
 //
 // What bounds it on the card: bytes.  It reads each requested row once

@@ -11,6 +11,7 @@ import torch
 from ..utils.device import DeviceLike, resolve_device
 from .feature import Feature
 from .graph import Graph
+from .reorder import sort_by_in_degree
 from .topology import CSRTopo
 
 
@@ -43,16 +44,27 @@ class Dataset:
         return self
 
     def init_node_features(self, node_feature_data=None, id2idx=None,
-                           split_ratio: float = 1.0,
+                           sort_func=None, split_ratio: float = 1.0,
                            dtype: Optional[torch.dtype] = None,
                            dedup: bool = False) -> "Dataset":
+        """Build the (tiered) node feature store.
+
+        With ``split_ratio < 1``, no ``id2idx`` and a graph, the rows are
+        reordered hottest-first by ``sort_func`` (default
+        :func:`~glt_tpu_torch.data.reorder.sort_by_in_degree`), so the
+        device-resident prefix holds the most-sampled nodes.
+        """
         if isinstance(node_feature_data, dict):
             raise NotImplementedError(
                 "heterogeneous features are not ported yet")
         if node_feature_data is not None:
+            arr, i2i = np.asarray(node_feature_data), id2idx
+            if i2i is None and split_ratio < 1.0 and self.graph is not None:
+                fn = sort_func or sort_by_in_degree
+                arr, i2i = fn(arr, split_ratio, self.graph.topo)
             self.node_features = Feature(
-                node_feature_data, split_ratio=split_ratio, id2index=id2idx,
-                dtype=dtype, dedup=dedup, device=self.device)
+                arr, split_ratio=split_ratio, id2index=i2i, dtype=dtype,
+                dedup=dedup, device=self.device)
         return self
 
     def init_node_labels(self, node_label_data=None) -> "Dataset":

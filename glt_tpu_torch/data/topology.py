@@ -115,6 +115,9 @@ class CSRTopo:
     def degrees(self) -> np.ndarray:
         return np.diff(self._indptr)
 
+    def in_degrees(self) -> np.ndarray:
+        return np.bincount(self._indices, minlength=self.num_nodes)
+
     def __repr__(self) -> str:
         return (f"CSRTopo(num_nodes={self.num_nodes}, "
                 f"num_edges={self.num_edges})")

@@ -11,21 +11,27 @@ accuracy against the non-graph baselines of the dataset's META.json.
 
 Weights are drawn from numpy seed 0 (lecun-normal kernels, zero biases,
 as flax initialises ``Dense``), so no global torch generator is used.
+
+:func:`int8_store_parity` evaluates trained weights on the raw features
+and through an int8 feature store of them, as
+``tests/test_real_digits.py::test_digits_int8_store_accuracy_parity``
+does for ``glt_tpu``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import tempfile
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import random as trandom
-from ..data import Dataset
+from ..data import Dataset, Feature
 from ..loader import NeighborLoader
 from ..models import (
     GraphSAGE,
@@ -36,6 +42,7 @@ from ..models import (
     run_scanned_epoch,
 )
 from ..sampler import NeighborSampler, calibrate_node_capacity
+from ..store import DiskFeatureStore, write_feature_store
 
 DATA = Path(__file__).resolve().parents[2] / "data" / "digits-knn"
 
@@ -65,7 +72,17 @@ def init_params(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     return model
 
 
-def main(argv: Optional[Sequence[str]] = None) -> float:
+class TrainRun(NamedTuple):
+    """What :func:`train` leaves for evaluation."""
+    state: object                  # TrainState
+    dataset: Dataset
+    node_capacity: Optional[int]
+    test_idx: np.ndarray
+    meta: dict
+    args: argparse.Namespace
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=30)
     ap.add_argument("--batch-size", type=int, default=256)
@@ -80,9 +97,12 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
                     default=True)
     ap.add_argument("--data-root", default=str(DATA))
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    dev = args.device
+    return ap.parse_args(argv)
 
+
+def train(args: argparse.Namespace) -> TrainRun:
+    """Train on the raw features; returns the state and the dataset."""
+    dev = args.device
     load = lambda f: np.load(os.path.join(args.data_root, f + ".npy"))  # noqa
     labels = load("labels")
     train_idx, test_idx = load("train_idx"), load("test_idx")
@@ -127,19 +147,81 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         if epoch % 5 == 0 or epoch == args.epochs - 1:
             print(f"epoch {epoch}: loss={float(np.mean(losses)):.4f} "
                   f"train_acc={float(np.mean(accs)):.4f} time={dt:.2f}s")
+    return TrainRun(state, ds, node_cap, test_idx, meta, args)
 
-    # Held-out accuracy through the same sampling pipeline, no dropout.
-    ev = make_eval_step(args.batch_size)
-    loader = NeighborLoader(ds, args.fanout, test_idx,
-                            batch_size=args.batch_size, sampler=sampler)
-    accs, weights = [], []
-    for b in loader:
-        _, acc = ev(state.model, b)
-        accs.append(float(acc))
-        weights.append(b.batch_size)   # valid seeds (trailing batch < bs)
-    test_acc = float(np.average(accs, weights=weights))
+
+def evaluate(run: TrainRun, feature: Optional[Feature] = None,
+             keep_x: bool = False):
+    """Held-out accuracy through the sampling pipeline, no dropout,
+    weighted by each batch's valid seeds.  ``feature`` replaces the
+    dataset's features for this evaluation.  Every call samples with a
+    fresh sampler of one seed, so two calls draw the same subgraphs.
+    Returns ``(accuracy, xs)``, ``xs`` the batches' features when
+    ``keep_x``."""
+    args, ds = run.args, run.dataset
+    saved = ds.node_features
+    if feature is not None:
+        ds.node_features = feature
+    try:
+        sampler = NeighborSampler(ds.get_graph(), args.fanout,
+                                  batch_size=args.batch_size,
+                                  with_edge=False,
+                                  node_capacity=run.node_capacity, seed=1)
+        ev = make_eval_step(args.batch_size)
+        loader = NeighborLoader(ds, args.fanout, run.test_idx,
+                                batch_size=args.batch_size, sampler=sampler)
+        accs, weights, xs = [], [], []
+        for b in loader:
+            _, acc = ev(run.state.model, b)
+            accs.append(float(acc))
+            weights.append(b.batch_size)   # valid seeds (trailing < bs)
+            if keep_x:
+                xs.append(b.x)
+    finally:
+        ds.node_features = saved
+    return float(np.average(accs, weights=weights)), xs
+
+
+def int8_store_parity(run: TrainRun, workdir: Optional[str] = None
+                      ) -> dict:
+    """Evaluate ``run``'s weights on the raw features (host-resident,
+    ``split_ratio=0.0``) and through an int8 feature store of the same
+    matrix, served from a DRAM stager with a budget of 1/4 of the raw
+    bytes (``split_ratio=0.0``: the stager and the device merge) and
+    from the device (``split_ratio=1.0``: kernel B4 on the card).
+    Returns the three accuracies and whether the two int8 evaluations'
+    ``x`` are bitwise equal."""
+    args = run.args
+    feats = np.load(os.path.join(args.data_root, "feat.npy")).astype(
+        np.float32)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        root = write_feature_store(os.path.join(tmp, "digits_int8"), feats,
+                                   codec="int8")
+        out = {}
+        acc, _ = evaluate(run, Feature(feats, split_ratio=0.0,
+                                       device=args.device))
+        out["acc_raw"] = acc
+        xs = {}
+        for split in (0.0, 1.0):
+            f = Feature.from_store(DiskFeatureStore(root),
+                                   dram_budget_bytes=feats.nbytes // 4,
+                                   split_ratio=split, device=args.device)
+            try:
+                acc, xs[split] = evaluate(run, f, keep_x=True)
+            finally:
+                f.close()
+            out[f"acc_int8_split{split:g}"] = acc
+    out["x_equal"] = len(xs[0.0]) == len(xs[1.0]) and all(
+        torch.equal(a, b) for a, b in zip(xs[0.0], xs[1.0]))
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> float:
+    args = parse_args(argv)
+    run = train(args)
+    test_acc, _ = evaluate(run)
     print(f"TEST accuracy: {test_acc:.4f}  "
-          f"(baselines on same split: {meta.get('baseline_acc', {})})")
+          f"(baselines on same split: {run.meta.get('baseline_acc', {})})")
     return test_acc
 
 

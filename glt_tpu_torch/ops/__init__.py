@@ -6,7 +6,15 @@ from .fused_frontier import (
     fused_frontier_supported,
 )
 from .fused_frontier_cuda import fused_frontier_cuda, fused_frontier_plain
+from .fused_frontier_dequant_cuda import (
+    fused_frontier_dequant_cuda,
+    fused_frontier_dequant_plain,
+)
 from .gather_cuda import gather_rows, gather_rows_cuda, gather_rows_plain
+from .gather_dequant_cuda import (
+    gather_rows_dequant_cuda,
+    gather_rows_dequant_plain,
+)
 from .neighbor_sample import (
     NeighborOutput,
     draw_positions,
@@ -14,6 +22,7 @@ from .neighbor_sample import (
     sample_neighbors,
 )
 from .sample_cuda import sample_neighbors_cuda, sample_neighbors_plain
+from .subgraph import SubGraphOutput, node_subgraph
 from .unique import (
     DenseInduceState,
     UniqueResult,
@@ -21,16 +30,20 @@ from .unique import (
     dense_induce_final,
     dense_induce_init,
     dense_map_fits,
+    relabel_by_reference,
     unique_first_occurrence,
 )
 
 __all__ = [
-    "DenseInduceState", "FusedFrontier", "NeighborOutput", "UniqueResult",
-    "dedup_gather_rows", "dense_induce", "dense_induce_final",
-    "dense_induce_init", "dense_map_fits", "draw_positions",
-    "frontier_plan", "fused_frontier", "fused_frontier_cuda", "fused_frontier_plain",
-    "fused_frontier_supported", "gather_rows",
-    "gather_rows_cuda", "gather_rows_plain", "lookup_degrees",
-    "sample_neighbors", "sample_neighbors_cuda", "sample_neighbors_plain",
-    "unique_first_occurrence",
+    "DenseInduceState", "FusedFrontier", "NeighborOutput", "SubGraphOutput",
+    "UniqueResult", "dedup_gather_rows", "dense_induce",
+    "dense_induce_final", "dense_induce_init", "dense_map_fits",
+    "draw_positions", "frontier_plan", "fused_frontier",
+    "fused_frontier_cuda", "fused_frontier_dequant_cuda",
+    "fused_frontier_dequant_plain", "fused_frontier_plain",
+    "fused_frontier_supported", "gather_rows", "gather_rows_cuda",
+    "gather_rows_dequant_cuda", "gather_rows_dequant_plain",
+    "gather_rows_plain", "lookup_degrees", "node_subgraph",
+    "relabel_by_reference", "sample_neighbors", "sample_neighbors_cuda",
+    "sample_neighbors_plain", "unique_first_occurrence",
 ]

@@ -23,7 +23,10 @@ from typing import List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "glt_tpu_torch"
-SOURCES = ("sample.cu", "gather.cu", "fused_frontier.cu")
+SOURCES = ("sample.cu", "gather.cu", "fused_frontier.cu",
+           "gather_dequant.cu", "fused_frontier_dequant.cu")
+# Headers the sources include; they count in the build hash.
+HEADERS = ("dequant.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -41,6 +44,11 @@ _SIGNATURES = {
     "glt_gather_rows": [_P, _P, _P, _I64, _I64, _I64, _P],
     # table, uidx, inv, out, n_rows, batch, row_bytes, stream
     "glt_fused_frontier": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+    # table, idx, sz, out, n_rows, batch, d, codec, stream
+    "glt_gather_rows_dequant": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _P],
+    # table, uidx, inv, sz, out, n_rows, batch, d, codec, stream
+    "glt_fused_frontier_dequant": [_P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                   _I32, _P],
 }
 
 _lock = threading.Lock()
@@ -61,7 +69,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -1,11 +1,14 @@
 """Kernel B2: the row gather on the card (``csrc/gather.cu``).
 
 Counterpart of ``glt_tpu/ops/gather_pallas.py``:
-``out[i] = table[clamp(idx[i], 0, N - 1)]`` for f32 and bf16 tables of
-any width.  :func:`gather_rows_cuda` launches the kernel and takes CUDA
-tensors only; :func:`gather_rows_plain` is the plain PyTorch version
-(``glt_tpu``'s ``_xla_gather``).  :func:`gather_rows` picks by the
-device the table lies on, and nothing else.
+``out[i] = table[clamp(idx[i], 0, N - 1)]`` for f32, bf16 and int8
+tables of any width (the kernel copies bytes).  :func:`gather_rows_cuda`
+launches the kernel and takes CUDA tensors only; :func:`gather_rows_plain`
+is the plain PyTorch version (``glt_tpu``'s ``_xla_gather``).
+:func:`gather_rows` is the seam of ``gather_pallas.gather_rows``: with a
+compressed ``dequant`` spec it routes to kernel B4
+(:mod:`.gather_dequant_cuda`), else to B2, and picks the kernel or the
+plain version by the device the table lies on, and nothing else.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import torch
 
 from . import cuda_lib
 
-GATHER_DTYPES = (torch.float32, torch.bfloat16)
+GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor
@@ -59,9 +62,25 @@ def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_rows_cuda.launches = 0
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor,
+                dequant=None) -> torch.Tensor:
     """Row gather: kernel B2 for a CUDA table, the plain version for a
-    CPU table."""
+    CPU table.
+
+    ``dequant``: optional :class:`~glt_tpu_torch.store.quant.QuantSpec`
+    of a compressed ``table``; the rows then come out decoded to f32,
+    through kernel B4 on a CUDA table and through its plain version,
+    ``dequantize(gather_rows_plain(...))``, on a CPU table.  ``None`` or a
+    raw spec is the plain row gather.
+    """
+    if dequant is not None and dequant.is_compressed:
+        from ..store import quant
+        from . import gather_dequant_cuda as dq
+
+        sz = quant.scale_zero_tensor(dequant, table.shape[1], table.device)
+        if table.device.type == "cuda":
+            return dq.gather_rows_dequant_cuda(table, idx, sz)
+        return dq.gather_rows_dequant_plain(table, idx, sz)
     if table.device.type == "cuda":
         return gather_rows_cuda(table, idx)
     return gather_rows_plain(table, idx)

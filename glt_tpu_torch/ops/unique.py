@@ -187,3 +187,26 @@ def dense_induce_final(state: DenseInduceState, cand: torch.Tensor
     local = torch.where(valid, local, -1)
     node_buf, count = _append(state, cand, is_first, local_new)
     return DenseInduceState(state.seen, node_buf, count), local
+
+
+def relabel_by_reference(reference_ids: torch.Tensor,
+                         query_ids: torch.Tensor) -> torch.Tensor:
+    """Map each ``query_id`` to its position in ``reference_ids``.
+
+    ``reference_ids`` is a -1-padded first-occurrence-unique list (as
+    :func:`unique_first_occurrence` gives); a valid query id that is not
+    in it, and a padding query, map to -1.  A sort and a binary search,
+    as ``glt_tpu``'s version.
+    """
+    m = reference_ids.shape[0]
+    ref = reference_ids.to(torch.int32)
+    q_ids = query_ids.to(torch.int32)
+    if m == 0:
+        return torch.full_like(q_ids, -1)
+    ref_keys = torch.where(ref >= 0, ref, _INT32_MAX)
+    sorted_ref, order = torch.sort(ref_keys, stable=True)
+    q = torch.where(q_ids >= 0, q_ids, _INT32_MAX - 1)
+    pos = torch.searchsorted(sorted_ref, q).clamp(0, m - 1)
+    hit = sorted_ref[pos] == q
+    local = torch.where(hit, order[pos].to(torch.int32), -1)
+    return torch.where(q_ids >= 0, local, -1).to(torch.int32)

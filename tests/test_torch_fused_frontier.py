@@ -19,6 +19,7 @@ from glt_tpu_torch.ops import (
     fused_frontier_plain,
     fused_frontier_supported,
 )
+from glt_tpu_torch.store.quant import encode, raw_spec
 
 # One intra-op thread: the suite runs in parallel workers.
 torch.set_num_threads(1)
@@ -87,9 +88,18 @@ def test_seam_and_gate():
     assert torch.equal(fused_frontier_plain(table, uidx, inv), want)
     with pytest.raises(ValueError, match="CUDA"):
         fused_frontier_cuda(table, uidx, inv)
-    with pytest.raises(NotImplementedError):
-        fused_frontier(table, inv, dequant=object())
+    # dequant= is ported (kernel B5): a raw spec is the raw gather, a
+    # compressed one decodes to f32 (held to glt_tpu in
+    # test_torch_feature_tiers.py).
+    ids = torch.tensor([4, 2, 4, -1], dtype=torch.int32)
+    assert torch.equal(
+        fused_frontier(table, ids, dequant=raw_spec(np.float32)).features,
+        want)
+    enc, spec = encode(table.numpy(), "int8")
+    got = fused_frontier(torch.from_numpy(enc), ids, dequant=spec).features
+    assert got.dtype == torch.float32 and torch.equal(got[3], torch.zeros(3))
     assert fused_frontier_supported(table)
     assert fused_frontier_supported(table.to(torch.bfloat16))
+    assert fused_frontier_supported(table.to(torch.int8))
     assert not fused_frontier_supported(table.to(torch.float16))
     assert not fused_frontier_supported(table[0])

@@ -103,8 +103,13 @@ def test_feature_gather(dedup, dt, with_id2index):
 
 
 def test_feature_contract():
-    with pytest.raises(NotImplementedError):
-        Feature(_table(4), split_ratio=0.5, device="cpu")
+    # split_ratio < 1 is ported: half the rows in the device tier, half
+    # on the host (held to glt_tpu in test_torch_feature_tiers.py).
+    tiered = Feature(_table(4), split_ratio=0.5, device="cpu")
+    assert tiered.hot_count == N // 2
+    ids = np.array([0, N - 1, -1, N // 2], np.int32)
+    want = np.where((ids >= 0)[:, None], _table(4)[np.maximum(ids, 0)], 0)
+    np.testing.assert_array_equal(tiered.gather(ids).numpy(), want)
     with pytest.raises(OverflowError):
         Feature(_table(4), device="cpu").gather(
             np.array([2**40], np.int64))

@@ -1,0 +1,51 @@
+"""The port's import rule: ``glt_tpu_torch`` and ``chip_smoke.py`` import
+torch, numpy and the standard library only.
+
+In a subprocess a meta-path finder refuses ``jax``, ``jaxlib``,
+``glt_tpu`` and ``ml_dtypes`` (and their submodules) with ImportError;
+then every module of ``glt_tpu_torch`` and ``chip_smoke`` must import.
+"""
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "glt_tpu", "ml_dtypes")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"import of {name} refused")
+        return None
+
+
+for mod in list(sys.modules):
+    if mod.split(".")[0] in BLOCKED:
+        raise SystemExit(f"{mod} was imported before the check")
+sys.meta_path.insert(0, Refuse())
+import glt_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    glt_tpu_torch.__path__, "glt_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    # every subpackage was walked (store, refresh, ops, data, ...)
+    assert int(proc.stdout.split()[-1]) >= 40, proc.stdout

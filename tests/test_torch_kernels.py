@@ -23,13 +23,18 @@ from glt_tpu_torch.models import (
     make_scanned_node_train_step,
     node_seed_blocks,
 )
+from glt_tpu_torch.data import Feature
 from glt_tpu_torch.ops import (
     dedup_gather_rows,
     frontier_plan,
     fused_frontier,
     fused_frontier_cuda,
+    fused_frontier_dequant_cuda,
+    fused_frontier_dequant_plain,
     fused_frontier_plain,
     gather_cuda,
+    gather_rows_dequant_cuda,
+    gather_rows_dequant_plain,
     sample_cuda,
 )
 from glt_tpu_torch.ops.neighbor_sample import (
@@ -38,6 +43,7 @@ from glt_tpu_torch.ops.neighbor_sample import (
 )
 from glt_tpu_torch.sampler import NeighborSampler, NodeSamplerInput
 from glt_tpu_torch.serving import ServingOptions, SubgraphEngine
+from glt_tpu_torch.store import DiskFeatureStore, quant, write_feature_store
 from glt_tpu_torch.utils.device import resolve_device
 
 # One intra-op thread: the suite runs in parallel workers.
@@ -112,7 +118,8 @@ def test_sample_kernel_all_padding(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
 @pytest.mark.parametrize("d", [1, 3, 64, 100, 128, 256])
 @pytest.mark.parametrize("b", [1, 57, 1000])
 def test_gather_kernel_matches_plain(cuda_device, d, dtype, b):
@@ -193,7 +200,8 @@ def _frontier_ids(case, n, b, rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ragged", "all_padding", "all_duplicates",
                                   "single_unique", "clamped"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
 @pytest.mark.parametrize("d", [1, 3, 63, 64, 100, 128])
 @pytest.mark.parametrize("n", [1, 300])
 def test_fused_frontier_kernel_matches_plain(cuda_device, case, dtype, d, n):
@@ -271,6 +279,147 @@ def test_scanned_step_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(losses[0], losses[1], rtol=1e-4, atol=1e-5)
 
 
+def compressed_table(codec, n, d, rng):
+    """``(codes [n, d], sz [8, d])`` covering the decode's edge cases:
+    an encoded matrix with a constant column (scale 0), signed zeros and
+    a subnormal column; for int8 also raw codes over the full range
+    -128..127 with a subnormal and a negative scale in ``sz``; for bf16
+    also random finite bit patterns (subnormals included)."""
+    x = rng.standard_normal((n, d)).astype(np.float32) * 3
+    x[:, 0] = 1.25
+    x[::5, d // 2] = -0.0
+    x[:, d - 1] = rng.standard_normal(n).astype(np.float32) * 1e-39
+    enc, spec = quant.encode(x, codec)
+    sz = quant.scale_zero_rows(spec, d)
+    if codec == "int8":
+        half = n // 2
+        enc[half:] = rng.integers(-128, 128, (n - half, d))
+        if d > 2:
+            sz[0, 1] = 1e-41                # a subnormal scale
+            sz[0, 2] = -0.5                 # a negative scale: zero
+        return torch.from_numpy(enc), torch.from_numpy(sz)
+    bits = rng.integers(0, 2**16, (n - n // 2, d)).astype(np.uint16)
+    bits[(bits & 0x7F80) == 0x7F80] &= 0xBFFF   # no inf or NaN
+    enc[n // 2:] = bits
+    return quant.host_to_torch(enc), torch.from_numpy(sz)
+
+
+DEQUANT_IDS = ("ragged", "all_padding", "all_duplicates", "clamped",
+               "empty")
+
+
+def _dequant_ids(case, n, b, rng):
+    if case == "empty":
+        return np.zeros(0, np.int32)
+    return _frontier_ids(case, n, b, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DEQUANT_IDS)
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+@pytest.mark.parametrize("d", [1, 3, 64, 100, 128, 256])
+def test_gather_dequant_kernel_matches_plain(cuda_device, case, codec, d):
+    rng = np.random.default_rng(d)
+    table, sz = compressed_table(codec, 301, d, rng)
+    table, sz = table.to(cuda_device), sz.to(cuda_device)
+    for b in (1, 61, 1000):
+        idx = _t(_dequant_ids(case, 300, b, rng), cuda_device)
+        # table[1:] has a base that is not aligned for the 4-code loads.
+        for tab in (table[:300], table[1:]):
+            before = gather_rows_dequant_cuda.launches
+            got = gather_rows_dequant_cuda(tab, idx, sz)
+            torch.cuda.synchronize()
+            assert gather_rows_dequant_cuda.launches == before + 1
+            assert got.dtype == torch.float32
+            want = gather_rows_dequant_plain(tab, idx, sz)
+            assert torch.equal(got, want), (case, b)
+            # -0.0 and subnormals: equal bits, not just equal values
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DEQUANT_IDS)
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+@pytest.mark.parametrize("d", [1, 3, 64, 100, 128, 256])
+def test_fused_frontier_dequant_kernel_matches_plain(cuda_device, case,
+                                                     codec, d):
+    rng = np.random.default_rng(d + 1)
+    table, sz = compressed_table(codec, 301, d, rng)
+    table, sz = table.to(cuda_device), sz.to(cuda_device)
+    for b in (1, 61, 1000):
+        ids = _t(_dequant_ids(case, 300, b, rng), cuda_device)
+        _, inv, uidx = frontier_plan(ids)
+        for tab in (table[:300], table[1:]):
+            before = fused_frontier_dequant_cuda.launches
+            got = fused_frontier_dequant_cuda(tab, uidx, inv, sz)
+            torch.cuda.synchronize()
+            assert fused_frontier_dequant_cuda.launches == before + 1
+            want = fused_frontier_dequant_plain(tab, uidx, inv, sz)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (case, b)
+            if case == "all_padding":
+                assert (got.view(torch.int32) == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+def test_compressed_entry_points_on_card_equal_cpu(cuda_device, codec):
+    """``gather_rows(dequant=)`` and ``fused_frontier(dequant=)`` launch
+    B4 and B5 once on the card and equal the CPU routes."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((500, 100)).astype(np.float32)
+    enc, spec = quant.encode(x, codec)
+    ids = rng.integers(-1, 520, 3000).astype(np.int32)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        table = quant.host_to_torch(enc).to(dev)
+        b4 = gather_rows_dequant_cuda.launches
+        b5 = fused_frontier_dequant_cuda.launches
+        g = gather_cuda.gather_rows(table, _t(np.maximum(ids, 0), dev),
+                                    dequant=spec)
+        f = fused_frontier(table, _t(ids, dev), dequant=spec).features
+        on_card = dev != "cpu"
+        assert gather_rows_dequant_cuda.launches == b4 + on_card
+        assert fused_frontier_dequant_cuda.launches == b5 + on_card
+        outs.append((g.cpu(), f.cpu()))
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+@pytest.mark.parametrize("split", [1.0, 0.5])
+def test_serving_from_compressed_store_on_card_equals_cpu(
+        cuda_device, tmp_path, codec, split):
+    """Serving from a compressed store: the card's messages equal the
+    CPU's and the host decode (``cpu_get``); at split 1.0 the card
+    launched B4."""
+    indptr, indices, _, _ = _graph(2, 3000)
+    feat = np.random.default_rng(0).standard_normal((3000, 100)).astype(
+        np.float32)
+    root = write_feature_store(str(tmp_path / codec), feat, codec=codec)
+    msgs = []
+    for dev in (cuda_device, "cpu"):
+        ds = Dataset(graph=Graph(CSRTopo.from_csr_arrays(indptr, indices),
+                                 device=dev), device=dev)
+        ds.node_features = Feature.from_store(
+            DiskFeatureStore(root), 1 << 20, split_ratio=split, device=dev)
+        eng = SubgraphEngine(ds, ServingOptions(num_neighbors=(15, 10, 5)))
+        b4 = gather_rows_dequant_cuda.launches
+        reqs = [eng.validate_seeds(np.arange(i, i + 20)) for i in (5, 15)]
+        msgs.append(eng.scatter(eng.sample(reqs)))
+        if dev is cuda_device:
+            assert gather_rows_dequant_cuda.launches == b4 + 1
+        for m in msgs[-1]:
+            np.testing.assert_array_equal(
+                m["x"], ds.node_features.cpu_get(m["node"]))
+        ds.node_features.close()
+    for a, b in zip(*msgs):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
 # -- on the CPU: the seam ----------------------------------------------------
 def test_cpu_tensors_take_the_plain_versions():
     indptr, indices, edge_ids, seeds = _graph()
@@ -297,7 +446,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert out.tolist() == table[[3, 0, 3, 0]].tolist()
 
 
-@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "fused"])
+@pytest.mark.parametrize("bad", ["device", "dtype", "shape", "fused",
+                                 "dequant", "fused_dequant"])
 def test_kernel_wrappers_refuse_bad_input(bad):
     t32 = torch.zeros(4, dtype=torch.int32)
     with pytest.raises((ValueError, TypeError)):
@@ -305,6 +455,13 @@ def test_kernel_wrappers_refuse_bad_input(bad):
             gather_cuda.gather_rows_cuda(torch.zeros(4, 2), t32)
         elif bad == "fused":
             fused_frontier_cuda(torch.zeros(4, 2), t32, t32)
+        elif bad == "dequant":
+            gather_rows_dequant_cuda(torch.zeros(4, 2, dtype=torch.int8),
+                                     t32, torch.zeros(8, 2))
+        elif bad == "fused_dequant":
+            fused_frontier_dequant_cuda(
+                torch.zeros(4, 2, dtype=torch.int8), t32, t32,
+                torch.zeros(8, 2))
         elif bad == "dtype":
             sample_cuda.sample_neighbors_cuda(
                 t32, t32.long(), t32[:, None], t32[:, None] > 0, t32)
@@ -321,5 +478,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
         Dataset()
     with pytest.raises(RuntimeError):
         trandom.PRNGKey(0)
+    with pytest.raises(RuntimeError):
+        Feature(np.zeros((4, 2), np.float32), split_ratio=0.5)
     assert resolve_device("cpu").type == "cpu"
     assert trandom.PRNGKey(0, device="cpu").device.type == "cpu"
