@@ -5,19 +5,24 @@
 
 Phases (the first failure exits non-zero and prints no result line):
 
-1. device: the card's name and, from nvidia-smi, its name and power limit;
+1. device: the card's name, from nvidia-smi its name and power limit,
+   and its SM clock (for the int32 rate of the bounds);
 2. build: compile the CUDA kernels from ``glt_tpu_torch/csrc`` (nvcc);
-3. kernels: each kernel (B1 neighbor read, B2 row gather, B3 fused
-   frontier gather, B4 dequantizing row gather, B5 dequantizing fused
-   frontier gather) against its plain PyTorch version on the card
-   (``torch.equal``; B2/B3 also over int8 tables, B4/B5 over int8 and
-   bf16 codes, d in {1, 3, 64, 100, 128, 256}, constant columns, -0.0,
-   subnormals, clamped ids, all-padding, all-duplicate and empty
-   batches), then kernel, plain and library-call device times (CUDA
-   events around 25 calls queued back to back, median of 5 rounds) at
-   the main path's widest launch (B3 and B5: at the training phase's
-   node list; B4: at a served bucket-128 node list, timed in phase 6),
-   beside the least time the card could take (bytes over 3.35 TB/s);
+3. kernels: each kernel (B1 one hop's draw and neighbor read, the
+   threefry key-derivation kernel, B2 row gather, B3 fused frontier
+   gather, B4 dequantizing row gather, B5 dequantizing fused frontier
+   gather) against its plain PyTorch version on the card (``torch.equal``;
+   B1 in its four draw modes and three edge-id modes at fanouts 1-40 over
+   deg 0, < F, F, F + 1, hubs, padding, ids past the end, empty batches;
+   B2/B3 also over int8 tables, B4/B5 over int8 and bf16 codes, d in {1,
+   3, 64, 100, 128, 256}, constant columns, -0.0, subnormals, clamped
+   ids, all-padding, all-duplicate and empty batches), then kernel, plain
+   and library-call device times (CUDA events around 25 calls queued back
+   to back, median of 5 rounds) at the main path's launches (B1: the
+   three hops of bucket 128; B3 and B5: at the training phase's node
+   list; B4: at a served bucket-128 node list, timed in phase 6), beside
+   the least time the card could take (the larger of bytes over 3.35 TB/s
+   and int32 operations over 132 x 64 lanes at the SM clock);
 4. serving: a products-scale graph (2,449,029 nodes, power-law degrees
    of mean 25, seed 0; 100-wide f32 features; 47 classes) served by
    ``SubgraphEngine(ServingOptions(num_neighbors=(15, 10, 5),
@@ -25,8 +30,9 @@ Phases (the first failure exits non-zero and prints no result line):
    graph and the feature table, GraphSAGE (hidden 256, 3 layers, 47
    classes, random weights from seed 0) run on every served batch, and
    one micro-batch per bucket served again on the CPU and required
-   equal; kernel launch counts are read around this phase.  Then, per
-   bucket, the threefry draw's host time, and PROFILED warm
+   equal; kernel launch counts are read around this phase (B1 once per
+   hop, the hash kernel twice per micro-batch, the plain threefry
+   arithmetic never on the card).  Then, per bucket, PROFILED warm
    micro-batches under ``torch.profiler``: kernel launches and their
    device time, counted apart from device<->host copies and memsets;
 5. training: the flagship configuration of
@@ -37,7 +43,8 @@ Phases (the first failure exits non-zero and prints no result line):
    ``NeighborSampler``, the
    scanned epoch at G = 8 with the feature gather through B3 for 5
    blocks, then held-out batches through ``NeighborLoader`` (B1 + B2);
-   kernel launch counts are read around this phase.  Losses must be
+   kernel launch counts are read around this phase (the plain threefry
+   arithmetic never on the card).  Losses must be
    finite; one block's ``x`` through B3 must equal the plain gather's;
    one step with dropout off must give the CPU's loss; one more block
    runs under ``torch.profiler``;
@@ -79,11 +86,15 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published peak
+INT32_LANES = 132 * 64             # H100 SXM: SMs x INT32 lanes per SM
+HASH_OPS = 80                      # threefry2x32 (csrc/threefry.cuh) + xor
+DRAW_OPS = 2 * HASH_OPS + 8        # randint_span: two words, the reduction
 FANOUTS = (15, 10, 5)
 BUCKETS = (8, 32, 128)
 FEAT_DIM, CLASSES, HIDDEN, LAYERS = 100, 47, 256, 3
 PRODUCTS_N, AVG_DEG = 2_449_029, 25
 REPS = 25
+B1_READ_ONLY_MS = 0.00489         # the earlier read-only B1 at [19200, 5] (PERF.md)
 PROFILED = 3                      # micro-batches per bucket under the profiler
 # Training phase: examples/train_sage_products.py's flagship settings.
 TRAIN_BS, FRONTIER_CAP, GROUP, LR = 1024, 8192, 8, 1e-3
@@ -100,6 +111,21 @@ WORK_DIR = os.path.join("build", "tmp")
 SLEEP_CYCLES = 40_000_000         # ~20 ms at the H100's 1.98 GHz
 OUT_DIR = os.path.join("build", "results")
 DEVICE = "cuda"
+
+
+def count_plain_hashes(trandom):
+    """Wrap the plain threefry arithmetic (the core of the plain draw and
+    of the plain key derivation) so that its calls on CUDA tensors count
+    in ``.calls``: on the card, the main paths make none."""
+    inner = trandom.threefry2x32
+
+    def counted(k1, k2, x1, x2):
+        counted.calls += int(x2.is_cuda)
+        return inner(k1, k2, x1, x2)
+
+    counted.calls = 0
+    trandom.threefry2x32 = counted
+    return counted
 
 
 def log(msg: str) -> None:
@@ -173,43 +199,73 @@ def bound_ms(nbytes: int) -> float:
 
 
 # -- phase 3: kernels against their plain versions --------------------------
-def edge_case_graph(rng):
-    """Small CSR with degree 0, degree < fanout and a hub row."""
+def edge_case_graph(rng, fanout):
+    """Small CSR with degree 0, degree < fanout, degree F - 1, F and
+    F + 1, and a hub row; seeds with padding and ids past the end."""
     n = 2048
     deg = rng.integers(0, 30, n)
-    deg[:4] = [0, 3, 5000, 1]
+    special = [0, 3, 5000, 1, max(fanout - 1, 0), fanout, fanout + 1]
+    deg[:len(special)] = special
     deg[-1] = 0
     indptr = np.zeros(n + 1, np.int64)
     np.cumsum(deg, out=indptr[1:])
     indices = rng.integers(0, n, int(indptr[-1]))
     edge_ids = rng.permutation(int(indptr[-1]))
     seeds = np.concatenate([
-        [0, 1, 2, 3, n - 1, -1, 2, 2], rng.integers(0, n, 300),
-        np.full(8, -1)]).astype(np.int32)
+        np.arange(len(special)), [n - 1, -1, 2, 2, n, n + 7],
+        rng.integers(0, n, 300), np.full(8, -1)]).astype(np.int32)
     return indptr, indices, edge_ids, seeds
 
 
-def check_sample_kernel(torch, ops, trandom, dev, products, rng):
-    """B1 cases: the degree cases on a small graph, fanouts 15/10/5/40,
-    all eid modes; then the main path's three hop shapes on the products
-    graph.  Returns (max_abs_err, cases, timing row)."""
-    from glt_tpu_torch.ops.neighbor_sample import (
-        _row_offsets_and_degrees,
-        draw_positions,
-    )
+def b1_work(ip, frontier, fanout, mask):
+    """B1's least work at one hop of the main path (keyed by slot, no
+    replacement, positional edge ids), counted from this run's data:
+    bytes (seeds, two indptr words a row, 4 B of ``indices`` per valid
+    slot, 9 B of output a slot, the key) and int32 operations (the block
+    keys' hashes, two hashes and the span reduction per drawn slot of a
+    row above the fanout, Floyd's duplicate test)."""
+    w = frontier.shape[0]
+    f = fanout
+    valid = int(mask.sum())
+    live = int((frontier >= 0).sum())
+    s = frontier.long().clamp(min=0).clamp(max=ip.shape[0] - 2)
+    deg = (ip[s + 1] - ip[s]) * (frontier >= 0)
+    big = int((deg > f).sum())
+    group = min(32, 1 << (f - 1).bit_length())
+    blocks = -(-w // (256 // group))
+    nbytes = w * 4 + live * 8 + valid * 4 + w * f * 9 + 16
+    ops = (blocks * 3 * f * HASH_OPS + big * f * DRAW_OPS
+           + big * f * f * 2)
+    return nbytes, ops
+
+
+def int_ops_ms(ops: int, sm_mhz: float) -> float:
+    return ops / (INT32_LANES * sm_mhz * 1e6) * 1e3
+
+
+def bound_of(nbytes: int, ops: int, sm_mhz: float):
+    """(bound ms, what binds): the larger of bytes over HBM's rate and
+    int32 operations over the card's INT32 rate."""
+    b, o = bound_ms(nbytes), int_ops_ms(ops, sm_mhz)
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def check_sample_kernel(torch, ops, trandom, dev, products, rng, sm_mhz):
+    """B1 (draw and read in one launch) against its plain version: four
+    draw modes x three edge-id modes x fanouts (1, 5, 15, 32, 33, 40) on
+    the degree cases, an all-padding and an empty batch; then the main
+    path's three hop shapes of bucket 128 on the products graph, timed
+    against the plain draw + read on the card.  Returns (max_abs_err,
+    cases, timing row)."""
     t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa
     worst, cases = 0, 0
 
-    def compare(ip, ix, eid, seeds, fanout, key_seed, with_edge):
+    def compare(ip, ix, eid, seeds, fanout, key, **kw):
         nonlocal worst, cases
-        _, deg = _row_offsets_and_degrees(ip, seeds)
-        pos, mask = draw_positions(deg, fanout,
-                                   trandom.PRNGKey(key_seed, device=dev),
-                                   False, seeds)
-        got = ops.sample_neighbors_cuda(ip, seeds, pos, mask, ix, eid,
-                                        with_edge)
-        want = ops.sample_neighbors_plain(ip, seeds, pos, mask, ix, eid,
-                                          with_edge)
+        got = ops.sample_neighbors_cuda(ip, ix, seeds, fanout, key,
+                                        edge_ids=eid, **kw)
+        want = ops.sample_neighbors_plain(ip, ix, seeds, fanout, key,
+                                          edge_ids=eid, **kw)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             need((g is None) == (w is None), "B1 edge-id presence differs")
@@ -218,53 +274,88 @@ def check_sample_kernel(torch, ops, trandom, dev, products, rng):
             err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
             worst = max(worst, err)
             need(torch.equal(g, w), f"B1 differs from its plain version "
-                                    f"(fanout {fanout}, rows {g.shape[0]})")
+                                    f"(fanout {fanout}, rows {g.shape[0]}, "
+                                    f"{kw})")
         cases += 1
-        return pos, mask
+        return want
 
-    indptr, indices, edge_ids, seeds = edge_case_graph(rng)
-    ip, ix, ei, sd = t(indptr), t(indices), t(edge_ids), t(seeds)
-    all_pad = t(np.full(64, -1))
-    for fanout in (15, 10, 5, 40):
-        for eid, with_edge in ((None, False), (None, True), (ei, True)):
-            compare(ip, ix, eid, sd, fanout, fanout, with_edge)
-            compare(ip, ix, eid, all_pad, fanout, fanout, with_edge)
+    for fanout in (1, 5, 15, 32, 33, 40):
+        indptr, indices, edge_ids, seeds = edge_case_graph(rng, fanout)
+        ip, ix, ei = t(indptr), t(indices), t(edge_ids)
+        key = trandom.PRNGKey(fanout, device=dev)
+        for sd in (seeds, np.full(64, -1), seeds[:0]):
+            sd = t(sd)
+            for replace in (False, True):
+                for key_by in ("slot", "id"):
+                    for eid, with_edge in ((None, False), (None, True),
+                                           (ei, True)):
+                        compare(ip, ix, eid, sd, fanout, key,
+                                with_replacement=replace,
+                                with_edge=with_edge, key_by=key_by)
 
     pip, pix = products
+    row = {"per_hop": []}
     widths = [BUCKETS[-1]]
     for f in FANOUTS[:-1]:
         widths.append(widths[-1] * f)
-    shapes = []
     for w, f in zip(widths, FANOUTS):
         frontier = t(rng.integers(0, PRODUCTS_N, w))
-        pos, mask = compare(pip, pix, None, frontier, f, w, True)
-        shapes.append((w, f, frontier, pos, mask))
-
-    # Time the widest hop of the largest bucket (B = 19200, F = 5).
-    w, f, frontier, pos, mask = shapes[-1]
-    start = pip[frontier.long()]
-    flat = (start[:, None] + torch.where(mask, pos, 0)).reshape(-1).long()
-    valid = int(mask.sum())
-    rows_valid = int(mask.any(dim=1).sum())
-    nbytes = (w * 4 + rows_valid * 4 + w * f * 4 + w * f * 1
-              + valid * 4 + 2 * w * f * 4)
-    row = {
-        "shape": [w, f],
-        "ms": cuda_ms(torch, lambda: ops.sample_neighbors_cuda(
-            pip, frontier, pos, mask, pix, None, True)),
-        "plain_ms": cuda_ms(torch, lambda: ops.sample_neighbors_plain(
-            pip, frontier, pos, mask, pix, None, True)),
-        "library_ms": cuda_ms(torch, lambda: torch.take(pix, flat)),
-        "bound_ms": bound_ms(nbytes),
-        "bytes": nbytes,
-    }
-    per_hop = []
-    for w, f, frontier, pos, mask in shapes:
-        per_hop.append({"shape": [w, f], "ms": cuda_ms(
-            torch, lambda: ops.sample_neighbors_cuda(
-                pip, frontier, pos, mask, pix, None, True))})
-    row["per_hop"] = per_hop
+        key = trandom.PRNGKey(w, device=dev)
+        want = compare(pip, pix, None, frontier, f, key)
+        nbytes, nops = b1_work(pip, frontier, f, want.mask)
+        bound, by = bound_of(nbytes, nops, sm_mhz)
+        flat = want.eids.reshape(-1).clamp(min=0).long()   # CSR positions
+        hop = {
+            "shape": [w, f],
+            "ms": cuda_ms(torch, lambda: ops.sample_neighbors_cuda(
+                pip, pix, frontier, f, key)),
+            "plain_ms": cuda_ms(torch, lambda: ops.sample_neighbors_plain(
+                pip, pix, frontier, f, key), reps=5, rounds=3),
+            # No single PyTorch call draws and reads; torch.take of the
+            # read alone, beside it.
+            "take_read_ms": cuda_ms(torch, lambda: torch.take(pix, flat)),
+            "bound_ms": bound,
+            "bound_by": by,
+            "bytes": nbytes,
+            "int_ops": nops,
+        }
+        row["per_hop"].append(hop)
+    row.update(row["per_hop"][-1])
+    row["library_ms"] = None
     return worst, cases, row
+
+
+def check_hash_kernel(torch, ops, trandom, dev, rng, sm_mhz):
+    """The key-derivation kernel against its plain version on the card:
+    split (the iota), fold_in of a tensor (int32, int64) and of a Python
+    int, over key batches; then its time at the sampler's split(key, 3).
+    Returns (cases, timing row)."""
+    cases = 0
+    for k in (1, 3, 257):
+        words = torch.from_numpy(rng.integers(0, 2**32, (k, 2))).to(dev)
+        for kw in (dict(n=1), dict(n=3), dict(n=1000), dict(data=0),
+                   dict(data=2**31 + 7), dict(data=-1),
+                   dict(data=torch.from_numpy(rng.integers(
+                       -2**31, 2**31, 99)).to(dev)),
+                   dict(data=torch.from_numpy(rng.integers(
+                       0, PRODUCTS_N, 99).astype(np.int32)).to(dev))):
+            got = ops.threefry_hash_cuda(words, **kw)
+            want = ops.threefry_hash_plain(words, **kw)
+            torch.cuda.synchronize()
+            need(torch.equal(got, want),
+                 f"the hash kernel differs from its plain version ({k} "
+                 f"keys, {sorted(kw)})")
+            cases += 1
+    key = trandom.PRNGKey(0, device=dev)[None]
+    nbytes, nops = 16 + 3 * 16, 3 * HASH_OPS
+    bound, by = bound_of(nbytes, nops, sm_mhz)
+    return cases, {
+        "shape": [1, 3],
+        "ms": cuda_ms(torch, lambda: ops.threefry_hash_cuda(key, n=3)),
+        "plain_ms": cuda_ms(torch, lambda: ops.threefry_hash_plain(key, n=3)),
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+        "int_ops": nops, "library_ms": None,
+    }
 
 
 def check_gather_kernel(torch, ops, dev, table, idx_main, rng):
@@ -622,11 +713,10 @@ def profile_buckets(torch, engine, lists):
 def run_slice(torch, dev, indptr, indices, feat, labels, rng):
     from glt_tpu_torch.data import CSRTopo, Dataset, Graph
     from glt_tpu_torch.distributed import message_to_batch
-    from glt_tpu_torch.models import GraphSAGE
-    from glt_tpu_torch.ops import sample_neighbors_cuda, gather_rows_cuda
-    from glt_tpu_torch.ops.neighbor_sample import draw_positions
-    from glt_tpu_torch.serving import ServingOptions, SubgraphEngine
+    from glt_tpu_torch import ops
     from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.models import GraphSAGE
+    from glt_tpu_torch.serving import ServingOptions, SubgraphEngine
 
     topo = CSRTopo.from_csr_arrays(indptr, indices)
     ds = Dataset(graph=Graph(topo, device=dev), device=dev)
@@ -639,8 +729,9 @@ def run_slice(torch, dev, indptr, indices, feat, labels, rng):
     torch.cuda.synchronize()
 
     # -- the main path: counts set to 0 just before, read just after ----
-    sample_neighbors_cuda.launches = 0
-    gather_rows_cuda.launches = 0
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    trandom.threefry2x32.calls = 0
     first, lat, served, nmsg, logits_first = {}, {}, 0, 0, {}
     for bucket in BUCKETS:
         lat[bucket] = []
@@ -671,9 +762,16 @@ def run_slice(torch, dev, indptr, indices, feat, labels, rng):
                 first[bucket] = (seeds, msgs)
                 logits_first[bucket] = [o.cpu() for o in outs]
     torch.cuda.synchronize()
-    launches = {"sample_neighbors_cuda": sample_neighbors_cuda.launches,
-                "gather_rows_cuda": gather_rows_cuda.launches}
-
+    launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+    plain_calls = trandom.threefry2x32.calls
+    need(plain_calls == 0, f"the serving path ran the plain threefry "
+                           f"arithmetic on the card ({plain_calls} calls)")
+    need(launches["sample_neighbors_cuda"] == len(FANOUTS) * served,
+         f"B1 launched {launches['sample_neighbors_cuda']} times for "
+         f"{served} micro-batches of {len(FANOUTS)} hops")
+    need(launches["threefry_hash_cuda"] == 2 * served,
+         f"the hash kernel launched {launches['threefry_hash_cuda']} times "
+         f"for {served} micro-batches (fold_in and split each)")
 
     # -- the same first micro-batch per bucket on the CPU: equal ---------
     cds = Dataset(graph=Graph(topo, device="cpu"), device="cpu")
@@ -703,23 +801,6 @@ def run_slice(torch, dev, indptr, indices, feat, labels, rng):
 
     profiled = profile_buckets(torch, engine, lists)
 
-    # -- the draw's share of a micro-batch ---------------------------------
-    draw = {}
-    g = ds.get_graph()
-    for bucket in BUCKETS:
-        widths = [bucket]
-        for f in FANOUTS[:-1]:
-            widths.append(widths[-1] * f)
-        parts = []
-        for w, f in zip(widths, FANOUTS):
-            seeds = torch.from_numpy(rng.integers(
-                0, PRODUCTS_N, w).astype(np.int32)).to(dev)
-            deg = (g.indptr[seeds.long() + 1] - g.indptr[seeds.long()])
-            key = trandom.PRNGKey(w, device=dev)
-            parts.append(host_ms(torch, lambda: draw_positions(
-                deg, f, key, False, seeds)))
-        draw[bucket] = sum(parts)
-
     per_bucket = {}
     for bucket in BUCKETS:
         steady = lat[bucket][1:]            # the first call warms up
@@ -730,11 +811,10 @@ def run_slice(torch, dev, indptr, indices, feat, labels, rng):
             "scatter_ms_median": statistics.median(c for _, _, c in steady),
             "latency_ms_first": lat[bucket][0][0],
             "latency_ms_all": [t for t, _, _ in lat[bucket]],
-            "draw_ms": draw[bucket],
-            "draw_share": draw[bucket] / med,
             "profile": profiled[bucket],
         }
-    return {"launches": launches, "micro_batches": served,
+    return {"launches": launches, "plain_hash_calls": plain_calls,
+            "micro_batches": served,
             "messages_checked": nmsg, "per_bucket": per_bucket,
             "cpu_logit_rel_err": logit_err}
 
@@ -778,9 +858,9 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
     graph = ds.get_graph()
 
     # -- the main path: counts set to 0 just before, read just after ------
-    ops.sample_neighbors_cuda.launches = 0
-    ops.gather_rows_cuda.launches = 0
-    ops.fused_frontier_cuda.launches = 0
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    trandom.threefry2x32.calls = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -812,9 +892,15 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
     loader = NeighborLoader(ds, FANOUTS, eval_idx, sampler=sampler, **skw)
     eval_accs = [float(ev(state.model, b)[1]) for b in loader]
     torch.cuda.synchronize()
-    launches = {"sample_neighbors_cuda": ops.sample_neighbors_cuda.launches,
-                "gather_rows_cuda": ops.gather_rows_cuda.launches,
-                "fused_frontier_cuda": ops.fused_frontier_cuda.launches}
+    launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+    plain_calls = trandom.threefry2x32.calls
+    need(plain_calls == 0, f"the training path ran the plain threefry "
+                           f"arithmetic on the card ({plain_calls} calls)")
+    samples = (losses.shape[0] + CAL_BATCHES + len(eval_accs)
+               + loader.overflow_batches)
+    need(launches["sample_neighbors_cuda"] == len(FANOUTS) * samples,
+         f"B1 launched {launches['sample_neighbors_cuda']} times for "
+         f"{samples} samples of {len(FANOUTS)} hops")
     peak = torch.cuda.max_memory_allocated()
     block_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     step_ms = statistics.median(block_ms[1:]) / GROUP   # warm blocks
@@ -884,6 +970,7 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
         "steps_per_s": 1e3 / step_ms,
         "max_memory_allocated": peak,
         "launches": launches,
+        "plain_hash_calls": plain_calls,
         "launches_per_step": {k: v / losses.shape[0]
                               for k, v in launches.items()},
         "profile": profiled,
@@ -1112,6 +1199,7 @@ def run_store(torch, dev, indptr, indices, feat, labels, train_nodes):
 def kernel_wrappers(ops):
     """The launch-counting wrapper of each kernel, by name."""
     return {"sample_neighbors_cuda": ops.sample_neighbors_cuda,
+            "threefry_hash_cuda": ops.threefry_hash_cuda,
             "gather_rows_cuda": ops.gather_rows_cuda,
             "fused_frontier_cuda": ops.fused_frontier_cuda,
             "gather_rows_dequant_cuda": ops.gather_rows_dequant_cuda,
@@ -1176,9 +1264,21 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip().splitlines()
         need(bool(smi), "nvidia-smi printed nothing")
+        clk = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.strip().splitlines()
+        try:
+            sm_mhz, sm_now = (float(v) for v in clk[0].split(","))
+        except (IndexError, ValueError):
+            raise Failed(f"nvidia-smi gave no SM clock: {clk}") from None
         log(f"device: {kind} | count {torch.cuda.device_count()} | "
-            f"torch {torch.__version__} cuda {torch.version.cuda}")
-        report["device"] = {"kind": kind, "nvidia_smi": smi[0]}
+            f"torch {torch.__version__} cuda {torch.version.cuda} | SM "
+            f"clock max {sm_mhz:.0f} MHz (now {sm_now:.0f})")
+        report["device"] = {"kind": kind, "nvidia_smi": smi[0],
+                            "sm_clock_max_mhz": sm_mhz,
+                            "sm_clock_mhz": sm_now}
+        count_plain_hashes(trandom)
 
         # 2. build
         t0 = time.perf_counter()
@@ -1200,7 +1300,9 @@ def main() -> int:
         pip = torch.from_numpy(indptr.astype(np.int32)).to(dev)
         pix = torch.from_numpy(indices.astype(np.int32)).to(dev)
         b1_err, b1_cases, b1 = check_sample_kernel(
-            torch, ops, trandom, dev, (pip, pix), rng)
+            torch, ops, trandom, dev, (pip, pix), rng, sm_mhz)
+        h_cases, hk = check_hash_kernel(torch, ops, trandom, dev, rng,
+                                        sm_mhz)
         table = torch.from_numpy(feat).to(dev)
         cap = BUCKETS[-1] * (1 + 15 + 150 + 750)
         main_idx = rng.integers(0, PRODUCTS_N, cap).astype(np.int32)
@@ -1210,13 +1312,24 @@ def main() -> int:
         b3_err, b3_cases = check_fused_kernel(torch, ops, dev, table, rng)
         del pip, pix, table
         dq_err, dq_cases = check_dequant_kernels(torch, ops, quant, dev, rng)
-        log(f"kernels: B1 {b1_cases} cases equal, B2 {b2_cases} cases "
-            f"equal, B3 {b3_cases} cases equal, B4 {dq_cases['B4']} cases "
-            f"equal, B5 {dq_cases['B5']} cases equal")
-        for name, row in (("B1", b1), ("B2", b2)):
-            log(f"  {name} {row['shape']}: kernel {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
-                f"ms, bound {row['bound_ms']:.4f} ms")
+        log(f"kernels: B1 {b1_cases} cases equal, hash {h_cases} cases "
+            f"equal, B2 {b2_cases} cases equal, B3 {b3_cases} cases "
+            f"equal, B4 {dq_cases['B4']} cases equal, B5 {dq_cases['B5']} "
+            f"cases equal")
+        for hop in b1["per_hop"]:
+            log(f"  B1 {hop['shape']}: kernel {hop['ms']:.5f} ms, plain "
+                f"draw + read {hop['plain_ms']:.4f} ms, bound "
+                f"{hop['bound_ms']:.5f} ms by {hop['bound_by']} "
+                f"({hop['bytes']} B, {hop['int_ops']} int ops); "
+                f"torch.take of the read alone {hop['take_read_ms']:.5f} "
+                f"ms; the earlier read-only B1: {B1_READ_ONLY_MS} ms at "
+                f"[19200, 5]")
+        log(f"  hash {hk['shape']}: kernel {hk['ms']:.5f} ms, plain "
+            f"{hk['plain_ms']:.4f} ms, bound {hk['bound_ms']:.2e} ms by "
+            f"{hk['bound_by']}")
+        log(f"  B2 {b2['shape']}: kernel {b2['ms']:.4f} ms, plain "
+            f"{b2['plain_ms']:.4f} ms, library {b2['library_ms']:.4f} ms, "
+            f"bound {b2['bound_ms']:.4f} ms")
 
         # 4. serving
         t0 = time.perf_counter()
@@ -1233,8 +1346,7 @@ def main() -> int:
             log(f"  bucket {b}: median {row['latency_ms_median']:.2f} ms "
                 f"(device stage {row['sample_ms_median']:.2f} ms, host "
                 f"scatter {row['scatter_ms_median']:.2f} ms; first "
-                f"{row['latency_ms_first']:.2f} ms), draw "
-                f"{row['draw_ms']:.2f} ms = {row['draw_share']:.0%}")
+                f"{row['latency_ms_first']:.2f} ms)")
             p = row["profile"]
             log(f"    profiled: wall {p['wall_ms']:.2f} ms, "
                 f"{p['kernels']:.0f} kernels {p['kernels_ms']:.3f} ms "
@@ -1249,8 +1361,10 @@ def main() -> int:
         tr, node_list, rows = run_train(torch, dev, indptr, indices, feat,
                                         labels, rng)
         report["train"] = tr
-        for k, v in tr["launches"].items():
-            need(v > 0, f"the training path never launched {k}")
+        for k in ("sample_neighbors_cuda", "threefry_hash_cuda",
+                  "gather_rows_cuda", "fused_frontier_cuda"):
+            need(tr["launches"][k] > 0, f"the training path never "
+                                        f"launched {k}")
         b3 = time_fused_kernel(torch, ops, rows, node_list)
         del rows
         p = tr["profile"]
@@ -1270,7 +1384,8 @@ def main() -> int:
             f"{p['kernels']:.0f} kernels {p['kernels_ms']:.3f} ms "
             f"({p['kernel_share']:.1%}), {p['copies']:.0f} copies "
             f"{p['copies_ms']:.3f} ms, {p['memsets']:.0f} memsets "
-            f"{p['memsets_ms']:.3f} ms")
+            f"{p['memsets_ms']:.3f} ms; launches per step "
+            f"{tr['launches_per_step']}")
         log(f"  B3 {b3['shape']}: kernel {b3['ms']:.4f} ms, plain "
             f"{b3['plain_ms']:.4f} ms, library {b3['library_ms']:.4f} ms, "
             f"bound {b3['bound_ms']:.4f} ms")
@@ -1349,8 +1464,15 @@ def main() -> int:
          "replaces": "glt_tpu/ops/sample_pallas.py:162",
          "launches": launches["sample_neighbors_cuda"],
          "max_abs_err": b1_err, "ms": b1["ms"], "plain_ms": b1["plain_ms"],
-         "bound_ms": b1["bound_ms"], "bound_by": "bytes",
+         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
          "library_ms": b1["library_ms"]},
+        {"name": "threefry_hash_cuda", "route": "cuda",
+         "source": "glt_tpu_torch/csrc/threefry.cu",
+         "replaces": "jax.random threefry (XLA)",
+         "launches": launches["threefry_hash_cuda"],
+         "max_abs_err": 0, "ms": hk["ms"], "plain_ms": hk["plain_ms"],
+         "bound_ms": hk["bound_ms"], "bound_by": hk["bound_by"],
+         "library_ms": hk["library_ms"]},
         {"name": "gather_rows_cuda", "route": "cuda",
          "source": "glt_tpu_torch/csrc/gather.cu",
          "replaces": "glt_tpu/ops/gather_pallas.py:174",
@@ -1381,8 +1503,8 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": b5["library_ms"]},
     ]
     report["kernels"] = kernels
-    report["kernel_detail"] = {"B1": b1, "B2": b2, "B3": b3, "B4": b4,
-                               "B4_bf16": b4_bf16, "B5": b5}
+    report["kernel_detail"] = {"B1": b1, "hash": hk, "B2": b2, "B3": b3,
+                               "B4": b4, "B4_bf16": b4_bf16, "B5": b5}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     log(report["device"]["nvidia_smi"])

@@ -23,6 +23,7 @@ from .neighbor_sample import (
 )
 from .sample_cuda import sample_neighbors_cuda, sample_neighbors_plain
 from .subgraph import SubGraphOutput, node_subgraph
+from .threefry_cuda import threefry_hash_cuda, threefry_hash_plain
 from .unique import (
     DenseInduceState,
     UniqueResult,
@@ -45,5 +46,6 @@ __all__ = [
     "gather_rows_dequant_cuda", "gather_rows_dequant_plain",
     "gather_rows_plain", "lookup_degrees", "node_subgraph",
     "relabel_by_reference", "sample_neighbors", "sample_neighbors_cuda",
-    "sample_neighbors_plain", "unique_first_occurrence",
+    "sample_neighbors_plain", "threefry_hash_cuda", "threefry_hash_plain",
+    "unique_first_occurrence",
 ]

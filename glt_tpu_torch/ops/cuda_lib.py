@@ -23,10 +23,10 @@ from typing import List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "glt_tpu_torch"
-SOURCES = ("sample.cu", "gather.cu", "fused_frontier.cu",
+SOURCES = ("sample.cu", "threefry.cu", "gather.cu", "fused_frontier.cu",
            "gather_dequant.cu", "fused_frontier_dequant.cu")
 # Headers the sources include; they count in the build hash.
-HEADERS = ("dequant.cuh",)
+HEADERS = ("dequant.cuh", "threefry.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -36,10 +36,12 @@ _I32 = ctypes.c_int
 # C entry points: name -> argument types.  Pointers and the stream are
 # c_void_p (a bare Python int would be passed as a 32-bit int).
 _SIGNATURES = {
-    # indptr, seeds, pos, mask, indices, edge_ids, eid_mode, rows,
-    # fanout, nbrs, eids, stream
-    "glt_sample_neighbors": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P,
-                             _P, _P],
+    # indptr, n_ptr, indices, edge_ids, seeds, key, rows, fanout,
+    # replace, by_id, eid_mode, nbrs, eids, mask, stream
+    "glt_sample_neighbors": [_P, _I64, _P, _P, _P, _P, _I64, _I32, _I32,
+                             _I32, _I32, _P, _P, _P, _P],
+    # keys, data, value, counter_mode, n_keys, n_counters, out, stream
+    "glt_threefry_hash": [_P, _P, _I64, _I32, _I64, _I64, _P, _P],
     # table, idx, out, n_rows, batch, row_bytes, stream
     "glt_gather_rows": [_P, _P, _P, _I64, _I64, _I64, _P],
     # table, uidx, inv, out, n_rows, batch, row_bytes, stream

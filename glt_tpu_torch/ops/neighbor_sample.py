@@ -8,11 +8,10 @@ neighbor list in CSR order.  The draw runs on the port's threefry
 (:mod:`glt_tpu_torch.random`), bit-exact with ``jax.random``, so with the
 same key the port and ``glt_tpu`` pick the same neighbors.
 
-The hop splits along the compute/memory boundary as in ``glt_tpu``: the
-draw is plain PyTorch; the neighbor read — ``indices[start + pos]`` and
-the edge ids, the bytes the hop exists to move — is kernel B1
-(:mod:`.sample_cuda`) on a CUDA tensor and its plain version on a CPU
-tensor.
+On a CUDA tensor the whole hop — the draw and the neighbor read — is
+one launch of kernel B1 (:mod:`.sample_cuda`); on a CPU tensor it is
+B1's plain version: :func:`draw_positions` (this module, plain threefry
+arithmetic) followed by the read.
 
 Floyd's steps all draw from keys known up front (``split(key,
 fanout)``) against bounds known up front (``deg - fanout + i``), so the
@@ -27,7 +26,6 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import random as trandom
-from .sample_cuda import read_neighbors
 
 
 class NeighborOutput(NamedTuple):
@@ -83,12 +81,13 @@ def _draw_positions(deg: torch.Tensor, fanout: int, key: torch.Tensor,
     """Per-(key, buffer slot) draw: ``(pos [B, F], mask [B, F])``."""
     b = deg.shape[0]
     if with_replacement:
-        pos = trandom.randint(key, (b, fanout), 0, deg.clamp(min=1)[:, None])
+        pos = trandom.randint(key, (b, fanout), 0,
+                              deg.clamp(min=1)[:, None], plain=True)
         return pos, _mask(deg, fanout, True)
-    keys = trandom.split(key, fanout)                         # [F, 2]
+    keys = trandom.split(key, fanout, plain=True)             # [F, 2]
     steps = torch.arange(fanout, dtype=torch.int32, device=deg.device)
     bound = (deg[None, :] - fanout + steps[:, None] + 1).clamp(min=1)
-    t = trandom.randint(keys, (b,), 0, bound)                 # [F, B]
+    t = trandom.randint(keys, (b,), 0, bound, plain=True)     # [F, B]
     return _floyd(deg, fanout, t.t()), _mask(deg, fanout, False)
 
 
@@ -97,23 +96,26 @@ def _draw_positions_by_id(deg: torch.Tensor, fanout: int, key: torch.Tensor,
     """Layout-invariant draw: each row keys its own stream with
     ``fold_in(key, seed id)``, so an id draws the same positions wherever
     it sits in the request buffer."""
-    row_keys = trandom.fold_in(key, torch.where(seeds >= 0, seeds, 0))
+    row_keys = trandom.fold_in(key, torch.where(seeds >= 0, seeds, 0),
+                               plain=True)
     if with_replacement:
         pos = trandom.randint(row_keys, (fanout,), 0,
-                              deg.clamp(min=1)[:, None])
+                              deg.clamp(min=1)[:, None], plain=True)
         return pos, _mask(deg, fanout, True)
-    keys = trandom.split(row_keys, fanout)                    # [B, F, 2]
+    keys = trandom.split(row_keys, fanout, plain=True)        # [B, F, 2]
     steps = torch.arange(fanout, dtype=torch.int32, device=deg.device)
     bound = (deg[:, None] - fanout + steps[None, :] + 1).clamp(min=1)
-    t = trandom.randint(keys, (), 0, bound)                   # [B, F]
+    t = trandom.randint(keys, (), 0, bound, plain=True)       # [B, F]
     return _floyd(deg, fanout, t), _mask(deg, fanout, False)
 
 
 def draw_positions(deg: torch.Tensor, fanout: int, key: torch.Tensor,
                    with_replacement: bool, seeds: torch.Tensor,
                    key_by: str = "slot"):
-    """Draw dispatcher: ``key_by='slot'`` keys per (key, buffer slot);
-    ``key_by='id'`` keys per (key, seed id)."""
+    """The plain draw, ``(pos [B, F], mask [B, F])``: ``key_by='slot'``
+    keys per (key, buffer slot); ``key_by='id'`` keys per (key, seed
+    id).  Plain threefry arithmetic on any device; kernel B1 draws the
+    same bits on the card."""
     if key_by == "slot":
         return _draw_positions(deg, fanout, key, with_replacement)
     if key_by == "id":
@@ -127,7 +129,8 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
                      edge_ids: Optional[torch.Tensor] = None,
                      with_replacement: bool = False, with_edge: bool = True,
                      key_by: str = "slot") -> NeighborOutput:
-    """Sample up to ``fanout`` neighbors per seed from a CSR graph.
+    """Sample up to ``fanout`` neighbors per seed from a CSR graph:
+    kernel B1 for CUDA tensors, its plain version for CPU tensors.
 
     Args:
       indptr: ``[N+1]`` int32 CSR row pointers.
@@ -143,14 +146,14 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
     """
     if fanout <= 0:
         raise ValueError(f"fanout must be positive, got {fanout}")
-    seeds = seeds.to(torch.int32)
-    _, deg = _row_offsets_and_degrees(indptr, seeds)
-    pos, mask = draw_positions(deg, fanout, key, with_replacement, seeds,
-                               key_by=key_by)
-    nbrs, eids = read_neighbors(indptr, seeds.contiguous(), pos.contiguous(),
-                                mask.contiguous(), indices, edge_ids,
-                                with_edge)
-    return NeighborOutput(nbrs=nbrs, eids=eids, mask=mask)
+    # sample_cuda builds its plain version from this module's draw.
+    from .sample_cuda import sample_neighbors_cuda, sample_neighbors_plain
+
+    fn = (sample_neighbors_cuda if indices.device.type == "cuda"
+          else sample_neighbors_plain)
+    return fn(indptr, indices, seeds.to(torch.int32).contiguous(), fanout,
+              key, edge_ids=edge_ids, with_replacement=with_replacement,
+              with_edge=with_edge, key_by=key_by)
 
 
 def lookup_degrees(indptr: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,12 @@ reproduces ``jax.random`` under its defaults (``threefry2x32``,
 * ``split`` and the random bits hash a 64-bit iota counter with
   ``threefry2x32`` (the partitionable layout), ``fold_in`` hashes
   ``(0, data)``, and ``randint`` draws two 32-bit words per value and
-  reduces them with jax's span trick.
+  reduces them with jax's span trick;
+* on a CUDA key, ``split`` and ``fold_in`` (and the random bits' hash)
+  are one launch of the hash kernel (``csrc/threefry.cu``); the masked
+  arithmetic is its plain version, which the CPU runs and
+  ``plain=True`` asks for.  The sampler's draw on the card runs inside
+  kernel B1 (``csrc/sample.cu``), on the same device code.
 
 Random state is explicit: keys are tensors that callers create and pass.
 No global torch generator is used.
@@ -60,28 +65,68 @@ def _shape(shape: Union[int, Sequence[int]]) -> Tuple[int, ...]:
         int(s) for s in shape)
 
 
-def _iota(shape: Tuple[int, ...], device) -> torch.Tensor:
-    """Low word of the 64-bit row-major iota over ``shape`` (the high
-    word is 0 below 2**32 elements)."""
+def _iota_size(shape: Tuple[int, ...]) -> int:
     n = 1
     for s in shape:
         n *= s
     if n >= 1 << 32:
         raise ValueError(f"random arrays of {n} >= 2**32 elements are "
                          f"not supported")
-    return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    return n
 
 
-def _hash_iota(key: torch.Tensor, shape: Tuple[int, ...]
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """threefry2x32 of the iota over ``shape`` under every key of the
-    batch ``key [*K, 2]``: two words of shape ``[*K, *shape]``."""
-    nd = len(shape)
-    view = key.shape[:-1] + (1,) * nd
+def _iota(shape: Tuple[int, ...], device) -> torch.Tensor:
+    """Low word of the 64-bit row-major iota over ``shape`` (the high
+    word is 0 below 2**32 elements)."""
+    return torch.arange(_iota_size(shape), dtype=torch.int64,
+                        device=device).reshape(shape)
+
+
+Counters = Union[Tuple[int, ...], int, torch.Tensor]
+
+
+def _hash(key: torch.Tensor, counters: Counters, plain: bool = False
+          ) -> torch.Tensor:
+    """threefry2x32 of ``(0, c)`` under every key of the batch
+    ``key [*K, 2]``: ``[*K, *C, 2]`` words.  ``counters`` is a shape
+    ``C`` (the 64-bit row-major iota over it), a Python int (one counter,
+    ``C = ()``) or a tensor ``[*C]`` (its entries mod 2**32).
+
+    A CUDA key goes through the hash kernel (``csrc/threefry.cu``, one
+    launch); a CPU key, or ``plain=True``, through the arithmetic of
+    :func:`threefry2x32` (the kernel's plain version)."""
+    if isinstance(counters, tuple):
+        cshape = counters
+    elif isinstance(counters, torch.Tensor):
+        cshape = tuple(counters.shape)
+    else:
+        cshape = ()
+    if key.device.type == "cuda" and not plain:
+        from .ops.threefry_cuda import threefry_hash_cuda
+
+        keys = key.reshape(-1, 2).contiguous()
+        if isinstance(counters, tuple):
+            out = threefry_hash_cuda(keys, n=_iota_size(cshape))
+        elif isinstance(counters, torch.Tensor):
+            data = counters.reshape(-1)
+            if data.dtype not in (torch.int32, torch.int64):
+                data = data.to(torch.int64)
+            out = threefry_hash_cuda(keys, data=data.contiguous())
+        else:
+            out = threefry_hash_cuda(keys, data=int(counters))
+        return out.reshape(key.shape[:-1] + cshape + (2,))
+    if isinstance(counters, tuple):
+        lo = _iota(cshape, key.device)
+    elif isinstance(counters, torch.Tensor):
+        lo = counters.to(torch.int64) & _M32
+    else:
+        lo = torch.tensor(int(counters) & _M32, dtype=torch.int64,
+                          device=key.device)
+    view = key.shape[:-1] + (1,) * lo.dim()
     k1 = key[..., 0].reshape(view)
     k2 = key[..., 1].reshape(view)
-    lo = _iota(shape, key.device)
-    return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    a, b = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return torch.stack([a, b], dim=-1)
 
 
 def PRNGKey(seed: int, device: DeviceLike = None) -> torch.Tensor:
@@ -96,30 +141,29 @@ def PRNGKey(seed: int, device: DeviceLike = None) -> torch.Tensor:
                         device=resolve_device(device))
 
 
-def split(key: torch.Tensor, num: Union[int, Sequence[int]] = 2
-          ) -> torch.Tensor:
-    """``jax.random.split``: ``[*K, 2]`` keys -> ``[*K, *num, 2]``."""
-    a, b = _hash_iota(key, _shape(num))
-    return torch.stack([a, b], dim=-1)
+def split(key: torch.Tensor, num: Union[int, Sequence[int]] = 2, *,
+          plain: bool = False) -> torch.Tensor:
+    """``jax.random.split``: ``[*K, 2]`` keys -> ``[*K, *num, 2]``.  One
+    kernel launch for a CUDA key (``plain=True``: the plain version)."""
+    return _hash(key, _shape(num), plain)
 
 
-def fold_in(key: torch.Tensor, data: IntOrTensor) -> torch.Tensor:
+def fold_in(key: torch.Tensor, data: IntOrTensor, *,
+            plain: bool = False) -> torch.Tensor:
     """``jax.random.fold_in``: hash ``(0, data mod 2**32)`` under
     ``key``.  A tensor ``data [*D]`` folds every entry into the same
-    key (``jax.vmap(fold_in, (None, 0))``) and gives ``[*D, 2]``."""
+    key (``jax.vmap(fold_in, (None, 0))``) and gives ``[*D, 2]``.  One
+    kernel launch for a CUDA key, a Python int passed by value
+    (``plain=True``: the plain version)."""
     if not isinstance(data, torch.Tensor):
-        data = torch.tensor(int(data), dtype=torch.int64, device=key.device)
-    lo = data.to(torch.int64) & _M32
-    view = (1,) * lo.dim()
-    k1 = key[..., 0].reshape(key.shape[:-1] + view)
-    k2 = key[..., 1].reshape(key.shape[:-1] + view)
-    a, b = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return torch.stack([a, b], dim=-1)
+        data = int(data)
+    return _hash(key, data, plain)
 
 
-def _random_bits(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
-    a, b = _hash_iota(key, shape)
-    return a ^ b
+def _random_bits(key: torch.Tensor, shape: Tuple[int, ...],
+                 plain: bool = False) -> torch.Tensor:
+    h = _hash(key, shape, plain)
+    return h[..., 0] ^ h[..., 1]
 
 
 def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -133,7 +177,8 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def randint(key: torch.Tensor, shape: Union[int, Sequence[int]],
-            minval: IntOrTensor, maxval: IntOrTensor) -> torch.Tensor:
+            minval: IntOrTensor, maxval: IntOrTensor, *,
+            plain: bool = False) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, dtype=int32)``.
 
     ``key`` may be a batch ``[*K, 2]`` (``jax.vmap`` over keys); the
@@ -141,7 +186,8 @@ def randint(key: torch.Tensor, shape: Union[int, Sequence[int]],
     against that result shape.  Like jax, the value is
     ``minval + (hi % span * (2**32 % span) + lo % span) % span`` over
     two 32-bit draws ``hi``, ``lo`` with uint32 wrap-around, and
-    ``span = 1`` where ``maxval <= minval``.
+    ``span = 1`` where ``maxval <= minval``.  ``plain=True`` keeps the
+    hashes off the hash kernel too (the sampler's plain draw).
     """
     shape = _shape(shape)
     dev = key.device
@@ -151,9 +197,9 @@ def randint(key: torch.Tensor, shape: Union[int, Sequence[int]],
     lo_v = lo_v.clamp(_I32_MIN, _I32_MAX)
     hi_v = hi_v.clamp(_I32_MIN, _I32_MAX)
 
-    k = split(key, 2)
-    higher = _random_bits(k[..., 0, :], shape)
-    lower = _random_bits(k[..., 1, :], shape)
+    k = split(key, 2, plain=plain)
+    higher = _random_bits(k[..., 0, :], shape, plain)
+    lower = _random_bits(k[..., 1, :], shape, plain)
 
     span = (hi_v - lo_v) & _M32
     span = torch.where(hi_v <= lo_v, torch.ones_like(span), span)

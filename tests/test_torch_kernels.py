@@ -36,10 +36,7 @@ from glt_tpu_torch.ops import (
     gather_rows_dequant_cuda,
     gather_rows_dequant_plain,
     sample_cuda,
-)
-from glt_tpu_torch.ops.neighbor_sample import (
-    _row_offsets_and_degrees,
-    draw_positions,
+    threefry_cuda,
 )
 from glt_tpu_torch.sampler import NeighborSampler, NodeSamplerInput
 from glt_tpu_torch.serving import ServingOptions, SubgraphEngine
@@ -75,33 +72,54 @@ def _t(a, dev):
     return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
 
 
+def _degree_edge_graph(fanout, seed=1, n=512):
+    """``_graph`` with rows of degree F - 1, F and F + 1 (Floyd's branch
+    edges) and seeds past the last row."""
+    rng = np.random.default_rng(seed + fanout)
+    deg = rng.integers(0, 30, n)
+    special = [0, 3, 900, 1, max(fanout - 1, 0), fanout, fanout + 1]
+    deg[:len(special)] = special
+    deg[-1] = 0
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    indices = rng.integers(0, n, int(indptr[-1]))
+    edge_ids = rng.permutation(int(indptr[-1])) + 7
+    seeds = np.concatenate([np.arange(len(special)), [n - 1, -1, 2, 2, n,
+                                                      n + 9],
+                            rng.integers(-1, n, 100)])
+    return indptr, indices, edge_ids, seeds.astype(np.int32)
+
+
 # -- on the card -------------------------------------------------------------
 @pytest.mark.cuda
-@pytest.mark.parametrize("fanout", [5, 10, 15, 40])
+@pytest.mark.parametrize("fanout", [1, 5, 15, 32, 33, 40])
 @pytest.mark.parametrize("eid_mode", ["none", "positional", "explicit"])
+@pytest.mark.parametrize("key_by", ["slot", "id"])
 @pytest.mark.parametrize("with_replacement", [False, True])
-def test_sample_kernel_matches_plain(cuda_device, fanout, eid_mode,
+def test_sample_kernel_matches_plain(cuda_device, fanout, eid_mode, key_by,
                                      with_replacement):
-    indptr, indices, edge_ids, seeds = _graph()
-    ip, ix, sd = (_t(a, cuda_device) for a in (indptr, indices, seeds))
+    """B1 (draw and read in one launch) is ``torch.equal`` to its plain
+    version: deg 0, deg < F, deg == F, F + 1, a hub, padding, seeds past
+    the last row, an all-padding and an empty batch."""
+    indptr, indices, edge_ids, seeds = _degree_edge_graph(fanout)
+    ip, ix = _t(indptr, cuda_device), _t(indices, cuda_device)
     eid = _t(edge_ids, cuda_device) if eid_mode == "explicit" else None
     with_edge = eid_mode != "none"
-    _, deg = _row_offsets_and_degrees(ip, sd)
-    pos, mask = draw_positions(deg, fanout,
-                               trandom.PRNGKey(fanout, device=cuda_device),
-                               with_replacement, sd)
-    before = sample_cuda.sample_neighbors_cuda.launches
-    got = sample_cuda.sample_neighbors_cuda(ip, sd, pos, mask, ix, eid,
-                                            with_edge)
-    want = sample_cuda.sample_neighbors_plain(ip, sd, pos, mask, ix, eid,
-                                              with_edge)
-    torch.cuda.synchronize()
-    assert sample_cuda.sample_neighbors_cuda.launches == before + 1
-    assert torch.equal(got[0], want[0])
-    if with_edge:
-        assert torch.equal(got[1], want[1])
-    else:
-        assert got[1] is None and want[1] is None
+    key = trandom.PRNGKey(fanout, device=cuda_device)
+    for sd in (seeds, np.full(33, -1), seeds[:0]):
+        sd = _t(sd, cuda_device)
+        kw = dict(edge_ids=eid, with_replacement=with_replacement,
+                  with_edge=with_edge, key_by=key_by)
+        before = sample_cuda.sample_neighbors_cuda.launches
+        got = sample_cuda.sample_neighbors_cuda(ip, ix, sd, fanout, key, **kw)
+        want = sample_cuda.sample_neighbors_plain(ip, ix, sd, fanout, key,
+                                                  **kw)
+        torch.cuda.synchronize()
+        assert sample_cuda.sample_neighbors_cuda.launches == before + 1
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            assert g is None or torch.equal(g, w)
+        assert (got.eids is None) == (not with_edge)
 
 
 @pytest.mark.cuda
@@ -109,12 +127,45 @@ def test_sample_kernel_all_padding(cuda_device):
     indptr, indices, _, _ = _graph()
     ip, ix = _t(indptr, cuda_device), _t(indices, cuda_device)
     sd = _t(np.full(33, -1), cuda_device)
-    _, deg = _row_offsets_and_degrees(ip, sd)
-    pos, mask = draw_positions(deg, 7, trandom.PRNGKey(0, device=cuda_device),
-                               False, sd)
-    nbrs, eids = sample_cuda.sample_neighbors_cuda(ip, sd, pos, mask, ix)
+    out = sample_cuda.sample_neighbors_cuda(
+        ip, ix, sd, 7, trandom.PRNGKey(0, device=cuda_device))
     torch.cuda.synchronize()
-    assert (nbrs == -1).all() and (eids == -1).all()
+    assert (out.nbrs == -1).all() and (out.eids == -1).all()
+    assert not out.mask.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", [1, 3, 300])
+def test_threefry_hash_kernel_matches_plain(cuda_device, keys):
+    """The hash kernel equals its plain version for split (the iota),
+    fold_in (a tensor, int32 and int64, and a Python int by value) and,
+    through them, randint; ``random.split``/``fold_in`` on a CUDA key
+    launch it once."""
+    rng = np.random.default_rng(keys)
+    words = rng.integers(0, 2**32, (keys, 2))
+    kc = torch.from_numpy(words).to(cuda_device)
+    kp = torch.from_numpy(words)
+    for kw in (dict(n=1), dict(n=7), dict(n=1000), dict(data=0),
+               dict(data=2**31 + 5), dict(data=-1)):
+        got = threefry_cuda.threefry_hash_cuda(kc, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), threefry_cuda.threefry_hash_plain(
+            kp, **kw))
+    for dt in (torch.int32, torch.int64):
+        data = torch.from_numpy(rng.integers(-2**31, 2**31, 77)).to(dt)
+        got = threefry_cuda.threefry_hash_cuda(kc, data=data.to(cuda_device))
+        assert torch.equal(got.cpu(),
+                           threefry_cuda.threefry_hash_plain(kp, data=data))
+    before = threefry_cuda.threefry_hash_cuda.launches
+    assert torch.equal(trandom.split(kc, (2, 3)).cpu(),
+                       trandom.split(kp, (2, 3)))
+    assert torch.equal(trandom.fold_in(kc, 12).cpu(),
+                       trandom.fold_in(kp, 12))
+    assert threefry_cuda.threefry_hash_cuda.launches == before + 2
+    bound = torch.from_numpy(rng.integers(1, 2**31 - 1, (keys, 5)))
+    assert torch.equal(
+        trandom.randint(kc, (5,), 0, bound.to(cuda_device)).cpu(),
+        trandom.randint(kp, (5,), 0, bound))
 
 
 @pytest.mark.cuda
@@ -158,7 +209,8 @@ def test_sampler_on_card_equals_cpu(cuda_device, dedup, last_hop_dedup):
 @pytest.mark.cuda
 def test_serving_on_card_equals_cpu(cuda_device):
     """The slice on a small graph: card and CPU engines give equal
-    messages, and the card run launched both kernels."""
+    messages; the card run launched B1 once per hop, B2 once and the
+    hash kernel for the micro-batch's keys."""
     indptr, indices, _, _ = _graph(2, 3000)
     feat = np.random.default_rng(0).standard_normal((3000, 100)).astype(
         np.float32)
@@ -172,11 +224,14 @@ def test_serving_on_card_equals_cpu(cuda_device):
         eng = SubgraphEngine(ds, ServingOptions(num_neighbors=(15, 10, 5)))
         b1 = sample_cuda.sample_neighbors_cuda.launches
         b2 = gather_cuda.gather_rows_cuda.launches
+        h = threefry_cuda.threefry_hash_cuda.launches
         reqs = [eng.validate_seeds(np.arange(i, i + 20)) for i in (5, 15)]
         msgs.append(eng.scatter(eng.sample(reqs)))
         if dev is cuda_device:
+            # once per hop; the keys: fold_in of the call, split by hop
             assert sample_cuda.sample_neighbors_cuda.launches == b1 + 3
             assert gather_cuda.gather_rows_cuda.launches == b2 + 1
+            assert threefry_cuda.threefry_hash_cuda.launches == h + 2
     for a, b in zip(*msgs):
         assert sorted(a) == sorted(b)
         for k in a:
@@ -422,23 +477,34 @@ def test_serving_from_compressed_store_on_card_equals_cpu(
 
 # -- on the CPU: the seam ----------------------------------------------------
 def test_cpu_tensors_take_the_plain_versions():
+    from glt_tpu_torch.ops import sample_neighbors
+
     indptr, indices, edge_ids, seeds = _graph()
     ip, ix, ei, sd = (_t(a, "cpu") for a in (indptr, indices, edge_ids,
                                                seeds))
-    _, deg = _row_offsets_and_degrees(ip, sd)
-    pos, mask = draw_positions(deg, 9, trandom.PRNGKey(3, device="cpu"),
-                               False, sd)
+    key = trandom.PRNGKey(3, device="cpu")
     b1 = sample_cuda.sample_neighbors_cuda.launches
-    nbrs, eids = sample_cuda.read_neighbors(ip, sd, pos, mask, ix, ei)
+    h = threefry_cuda.threefry_hash_cuda.launches
+    out = sample_neighbors(ip, ix, sd, 9, key, edge_ids=ei)
+    trandom.fold_in(trandom.split(key, 3)[1], 5)
     assert sample_cuda.sample_neighbors_cuda.launches == b1
-    want = sample_cuda.sample_neighbors_plain(ip, sd, pos, mask, ix, ei)
-    assert torch.equal(nbrs, want[0]) and torch.equal(eids, want[1])
-    # the plain read, by hand
+    assert threefry_cuda.threefry_hash_cuda.launches == h
+    want = sample_cuda.sample_neighbors_plain(ip, ix, sd, 9, key, ei)
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    # the plain read, by hand, from the plain draw
+    from glt_tpu_torch.ops.neighbor_sample import (
+        _row_offsets_and_degrees,
+        draw_positions,
+    )
+    _, deg = _row_offsets_and_degrees(ip, sd)
+    pos, mask = draw_positions(deg, 9, key, False, sd)
+    assert torch.equal(mask, out.mask)
     start = indptr[np.maximum(seeds, 0)]
     m = mask.numpy()
     ref = np.where(m, indices[np.where(m, start[:, None] + pos.numpy(), 0)],
                    -1)
-    np.testing.assert_array_equal(nbrs.numpy(), ref)
+    np.testing.assert_array_equal(out.nbrs.numpy(), ref)
     table = torch.arange(12, dtype=torch.float32).reshape(4, 3)
     b2 = gather_cuda.gather_rows_cuda.launches
     out = gather_cuda.gather_rows(table, _t([3, -1, 9, 0], "cpu"))
@@ -447,9 +513,10 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 @pytest.mark.parametrize("bad", ["device", "dtype", "shape", "fused",
-                                 "dequant", "fused_dequant"])
+                                 "dequant", "fused_dequant", "hash"])
 def test_kernel_wrappers_refuse_bad_input(bad):
     t32 = torch.zeros(4, dtype=torch.int32)
+    key = trandom.PRNGKey(0, device="cpu")
     with pytest.raises((ValueError, TypeError)):
         if bad == "device":
             gather_cuda.gather_rows_cuda(torch.zeros(4, 2), t32)
@@ -463,10 +530,11 @@ def test_kernel_wrappers_refuse_bad_input(bad):
                 torch.zeros(4, 2, dtype=torch.int8), t32, t32,
                 torch.zeros(8, 2))
         elif bad == "dtype":
-            sample_cuda.sample_neighbors_cuda(
-                t32, t32.long(), t32[:, None], t32[:, None] > 0, t32)
+            sample_cuda.sample_neighbors_cuda(t32, t32, t32.long(), 3, key)
+        elif bad == "hash":
+            threefry_cuda.threefry_hash_cuda(key[None], n=4)
         else:
-            sample_cuda.sample_neighbors_cuda(t32, t32, t32, t32 > 0, t32)
+            sample_cuda.sample_neighbors_cuda(t32, t32, t32[:, None], 3, key)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -1,9 +1,9 @@
 """glt_tpu_torch.ops.neighbor_sample against glt_tpu's XLA arm.
 
 Same graph, seeds and key through both packages; ``nbrs``, ``eids`` and
-``mask`` compare with ``==``.  On the CPU the neighbor read is kernel
-B1's plain version (tests/test_torch_kernels.py holds the kernel against
-it on the card).
+``mask`` compare with ``==``.  On the CPU the hop (the draw and the
+neighbor read) is kernel B1's plain version (tests/test_torch_kernels.py
+holds the kernel against it on the card).
 """
 import itertools
 
@@ -86,6 +86,43 @@ def test_sample_neighbors_matches_jax(with_replacement, with_edge, key_by,
         assert tout.nbrs.dtype == torch.int32
 
 
+EDGE_FANOUTS = (4, 15, 40)
+
+
+def _edge_graph(n=96):
+    """CSR with rows of degree F - 1, F and F + 1 for every fanout of
+    ``EDGE_FANOUTS``, a hub above the widest, and a degree-0 last row."""
+    rng = np.random.default_rng(1)
+    deg = rng.integers(0, 9, n)
+    special = [0, 400] + [d for f in EDGE_FANOUTS for d in (f - 1, f, f + 1)]
+    deg[:len(special)] = special
+    deg[n - 1] = 0
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    indices = rng.integers(0, n, int(indptr[-1]))
+    edge_ids = rng.permutation(int(indptr[-1])) + 1000
+    # every special row, padding, the empty last row, ids past the end
+    seeds = np.array(list(range(len(special))) + [-1, n - 1, n, n + 3, 1],
+                     np.int32)
+    return indptr, indices, edge_ids, seeds
+
+
+@pytest.mark.parametrize("with_replacement,with_edge,key_by,explicit",
+                         COMBOS)
+@pytest.mark.parametrize("fanout", EDGE_FANOUTS)
+def test_sample_neighbors_matches_jax_at_degree_edges(
+        with_replacement, with_edge, key_by, explicit, fanout):
+    """deg == F and deg == F + 1 (the edges of Floyd's branch), fanout 40
+    (past one warp's lanes on the card), in all four draw modes."""
+    indptr, indices, edge_ids, seeds = _edge_graph()
+    jout, tout = _both(indptr, indices, edge_ids if explicit else None,
+                       seeds, fanout, 11, with_replacement=with_replacement,
+                       with_edge=with_edge, key_by=key_by)
+    _eq(jout.nbrs, tout.nbrs)
+    _eq(jout.eids, tout.eids)
+    _eq(jout.mask, tout.mask)
+
+
 def test_degree_cases_and_lookup():
     """deg 0, deg < fanout (full row in CSR order), hub (distinct picks)."""
     indptr, indices, _ = _graph()
@@ -116,12 +153,19 @@ def test_fanout_must_be_positive():
 
 
 def test_plain_read_is_the_cpu_path():
-    """On CPU tensors the wrapper never touches the kernel library."""
+    """On CPU tensors the hop takes B1's plain version and never touches
+    the kernel library; the kernel's wrapper refuses CPU tensors."""
     before = sample_cuda.sample_neighbors_cuda.launches
     indptr, indices, _ = _graph()
-    _both(indptr, indices, None, SEED_SETS["mixed"], 4, 0)
+    _, tout = _both(indptr, indices, None, SEED_SETS["mixed"], 4, 0)
     assert sample_cuda.sample_neighbors_cuda.launches == before
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    plain = sample_cuda.sample_neighbors_plain(
+        t(indptr), t(indices), t(SEED_SETS["mixed"]), 4,
+        trandom.PRNGKey(0, device="cpu"))
+    for a, b in zip(tout, plain):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
-        t = torch.zeros(3, dtype=torch.int32)
+        z = torch.zeros(3, dtype=torch.int32)
         sample_cuda.sample_neighbors_cuda(
-            t, t, t[:, None], t[:, None] > 0, t)
+            z, z, z, 4, trandom.PRNGKey(0, device="cpu"))

@@ -105,3 +105,47 @@ def test_randint_batched_keys(seed):
     _eq(ref, trandom.randint(tks, (4,), 0, torch.from_numpy(m)[:, None]))
     nested = jax.vmap(lambda k: jax.random.split(k, 3))(jks)
     _eq(nested, trandom.split(tks, 3))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("plain", [False, True])
+def test_routing_functions_match_jax_on_cpu_keys(seed, plain):
+    """``split`` and ``fold_in`` route a CUDA key to the hash kernel; a
+    CPU key (or ``plain=True``) takes the plain arithmetic, which stays
+    ``==`` to ``jax.random`` for a Python-int and a tensor ``data``, for
+    one key and for a key batch."""
+    jk, tk = jax.random.PRNGKey(seed), trandom.PRNGKey(seed, device="cpu")
+    _eq(jax.random.split(jk, 4), trandom.split(tk, 4, plain=plain))
+    for data in (0, 7, 2**31 - 1, 2**32 + 9, -1):
+        _eq(jax.random.fold_in(jk, data % 2**32),
+            trandom.fold_in(tk, data, plain=plain))
+    ids = np.array([0, 5, 1797, 2**31 - 1], np.int32)
+    for dtype in (torch.int32, torch.int64):
+        _eq(jax.vmap(jax.random.fold_in, (None, 0))(jk, jnp.asarray(ids)),
+            trandom.fold_in(tk, torch.from_numpy(ids).to(dtype),
+                            plain=plain))
+    jks, tks = jax.random.split(jk, 3), trandom.split(tk, 3)
+    _eq(jax.vmap(lambda k: jax.random.fold_in(k, 12))(jks),
+        trandom.fold_in(tks, 12, plain=plain))
+    _eq(jax.vmap(lambda k: jax.random.split(k, (2, 5)))(jks),
+        trandom.split(tks, (2, 5), plain=plain))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_hash_plain_matches_jax(seed):
+    """The hash kernel's plain version: ``[K, D, 2]`` words of the iota
+    (``split``), of a tensor and of a Python int (``fold_in``)."""
+    from glt_tpu_torch.ops import threefry_hash_plain
+
+    jks = jax.random.split(jax.random.PRNGKey(seed), 3)
+    tks = trandom.split(trandom.PRNGKey(seed, device="cpu"), 3)
+    _eq(jax.vmap(lambda k: jax.random.split(k, 6))(jks),
+        threefry_hash_plain(tks, n=6))
+    data = np.array([3, 0, 2**31 - 1], np.int32)
+    _eq(jax.vmap(lambda k: jax.vmap(jax.random.fold_in, (None, 0))(
+        k, jnp.asarray(data)))(jks),
+        threefry_hash_plain(tks, data=torch.from_numpy(data)))
+    _eq(jax.vmap(lambda k: jax.random.fold_in(k, 41))(jks)[:, None],
+        threefry_hash_plain(tks, data=41))
+    with pytest.raises(ValueError):
+        threefry_hash_plain(tks)
