@@ -67,8 +67,30 @@ Phases (the first failure exits non-zero and prints no result line):
    on the raw features and through an int8 store at split 0.0 (stager +
    merge) and split 1.0 (B4) must agree within 0.005, the two int8
    evaluations' ``x`` bit for bit; launch counts are read around it;
-8. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-7) and the ok line.
+8. link: the link-prediction and SEAL settings of
+   ``examples/graph_sage_unsup_ppi.py`` and ``examples/seal_link_pred.py``
+   on the products graph.  The column-sorted view built on the card and
+   held to ``np.sort`` of SORT_ROWS rows (the 16 hubs included) and to
+   the CPU's; ``edge_in_csr`` over 1,048,576 pairs (half real edges,
+   padding, ids 0 and N - 1) equal to its 32-step plain version on the
+   card; then, with the launch counts set to 0 just before and read just
+   after: ``LinkNeighborLoader`` (binary x1, fanout (10, 10), 256 seed
+   edges a batch, frontier cap 4096) for 4 batches (positives decode to
+   their seed edges, ``edge_label`` follows the rules, ``x`` equals the
+   rows, negatives that are real edges counted against the host CSR), a
+   triplet x2 and a weighted binary batch, 4 blocks of the scanned link
+   step at G = 8 (GraphSAGE 64/64, unsupervised dot-product loss) and 4
+   blocks of the scanned subgraph step at the SEAL settings (fanout (8,
+   8), max degree 16, 32 links a batch, GraphSAGE 32/32): B1 once per hop
+   of every sample, the plain threefry arithmetic never on the card.
+   Then link batch 0 and subgraph batch 0 sampled again on the CPU and
+   required equal, one link and one subgraph batch's loss on the CPU
+   within F32_LOSS_RTOL (both steps run f32), that subgraph batch's
+   induced edges exactly the real edges among its nodes within the
+   degree cap, one profiled block of each step, and B2 timed at the link
+   batch's node list;
+9. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-8) and the ok line.
 
 Details go to ``build/results/chip_smoke.json``.  Imports torch, numpy
 and glt_tpu_torch only.
@@ -100,6 +122,7 @@ PROFILED = 3                      # micro-batches per bucket under the profiler
 TRAIN_BS, FRONTIER_CAP, GROUP, LR = 1024, 8192, 8, 1e-3
 TRAIN_BLOCKS, CAL_BATCHES, EVAL_BATCHES = 5, 8, 2
 LOSS_RTOL = 1e-2                  # card vs CPU loss, bf16 matmuls (see run_train)
+F32_LOSS_RTOL = 1e-5              # card vs CPU link/subgraph loss (f32 matmuls)
 DIGITS_ARGS = []                  # the digits twin's defaults
 DIGITS_INT8_TOL = 0.005           # tests/test_real_digits.py:157
 STORE_CODECS = ("int8", "bf16")
@@ -107,6 +130,16 @@ DEQUANT_WIDTHS = (1, 3, 64, 100, 128, 256)
 COLD_CACHE_ROWS = 1 << 16         # split-0.5 gather's device cold cache
 REFRESH_BLOCK, REFRESH_MAX_DEGREE = 8192, 32
 REFRESH_RTOL = 1e-5               # card vs CPU layer-0 rows (f32 sums)
+# Link phase: examples/graph_sage_unsup_ppi.py's settings (GraphSAGE
+# 64/64, 2 layers; fanout (10, 10); 256 seed edges a batch, one binary
+# negative each; frontier cap 4096; Adam 1e-3; G = 8) and
+# examples/seal_link_pred.py's (fanout (8, 8), max degree 16, 32 links
+# a batch, GraphSAGE 32/32, G = 8), on the products-scale graph.
+LINK_FANOUT, LINK_BS, LINK_CAP, LINK_HIDDEN = (10, 10), 256, 4096, 64
+LINK_BATCHES, LINK_BLOCKS = 4, 4
+SEAL_FANOUT, SEAL_BS, SEAL_DEGREE, SEAL_HIDDEN = (8, 8), 32, 16, 32
+SEAL_BLOCKS = 4
+EDGE_PAIRS, SORT_ROWS = 1 << 20, 4096
 WORK_DIR = os.path.join("build", "tmp")
 SLEEP_CYCLES = 40_000_000         # ~20 ms at the H100's 1.98 GHz
 OUT_DIR = os.path.join("build", "results")
@@ -1232,6 +1265,416 @@ def run_digits(torch, dev) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# -- phase 8: link prediction and induced subgraphs -------------------------
+def edge_sources(indptr, pos):
+    """The CSR row (source node) of each edge position."""
+    return np.searchsorted(indptr, pos, side="right") - 1
+
+
+def is_edge(indptr, indices, s, d) -> bool:
+    return bool((indices[indptr[s]: indptr[s + 1]] == d).any())
+
+
+def check_sorted_view(torch, graph, indptr, indices, rng):
+    """The card's sorted view against ``np.sort`` of SORT_ROWS CSR rows:
+    random rows and the 16 highest-degree rows."""
+    deg = np.diff(indptr)
+    rows = np.concatenate([np.argsort(deg)[-16:],
+                           rng.integers(0, PRODUCTS_N, SORT_ROWS - 16)])
+    pos = np.concatenate([np.arange(indptr[r], indptr[r + 1]) for r in rows])
+    got = graph.sorted_indices[torch.from_numpy(pos).to(
+        graph.device)].cpu().numpy()
+    want = np.concatenate([np.sort(indices[indptr[r]: indptr[r + 1]])
+                           for r in rows])
+    need(np.array_equal(got, want), "the sorted view differs from np.sort "
+                                    "of the CSR rows")
+    return int(rows.shape[0]), int(pos.shape[0]), int(deg[rows].max())
+
+
+def edge_queries(indptr, indices, rng):
+    """EDGE_PAIRS (src, dst) pairs: half real edges, half uniform pairs,
+    with padding on either side and ids 0 and N - 1."""
+    half = EDGE_PAIRS // 2
+    pos = rng.integers(0, indices.shape[0], half)
+    qs = np.concatenate([edge_sources(indptr, pos),
+                         rng.integers(0, PRODUCTS_N, half)])
+    qd = np.concatenate([indices[pos], rng.integers(0, PRODUCTS_N, half)])
+    at = rng.integers(half, EDGE_PAIRS, 4096)
+    qs[at[:1024]] = -1
+    qd[at[1024:2048]] = -1
+    qs[at[2048:3072]] = rng.choice([0, PRODUCTS_N - 1], 1024)
+    qd[at[3072:]] = rng.choice([0, PRODUCTS_N - 1], 1024)
+    return qs.astype(np.int32), qd.astype(np.int32), half
+
+
+def link_model(torch, GraphSAGE, init_params, dev, hidden):
+    return init_params(GraphSAGE(FEAT_DIM, hidden, hidden, num_layers=2,
+                                 dropout_rate=0.0)).to(dev)
+
+
+def check_link_batch(b, src, dst, feat, amount):
+    """A binary batch: positives decode to the seed edges with label 1,
+    padded positives -1, negatives 0; ``x`` is each node's row (zeros on
+    padding).  Returns the negative pairs as global ids."""
+    q = src.shape[0]
+    node = b.node.cpu().numpy()
+    eli = b.metadata["edge_label_index"].cpu().numpy()
+    lab = b.metadata["edge_label"].cpu().numpy()
+    need(eli.shape == (2, LINK_BS * (1 + amount)), f"edge_label_index "
+                                                    f"{eli.shape}")
+    need(np.array_equal(node[eli[0, :q]], src)
+         and np.array_equal(node[eli[1, :q]], dst),
+         "a positive does not decode to its seed edge")
+    need((lab[:q] == 1).all() and (lab[q:LINK_BS] == -1).all()
+         and (lab[LINK_BS:] == 0).all(), "edge_label breaks the rules")
+    need((eli[:, LINK_BS:] >= 0).all(), "a negative is not in the batch")
+    valid = node >= 0
+    x = b.x.cpu().numpy()
+    need(np.array_equal(x[valid], feat[node[valid]])
+         and not x[~valid].any(), "the batch's x differs from its rows")
+    return node[eli[0, LINK_BS:]], node[eli[1, LINK_BS:]]
+
+
+def check_induced(out, indptr, indices):
+    """Every induced edge is a real edge among the batch's node set (its
+    id the CSR position), and every edge of that set within the first
+    SEAL_DEGREE entries of its row is present."""
+    node = out.node.cpu().numpy()
+    mask = out.edge_mask.cpu().numpy()
+    r, c = out.row.cpu().numpy()[mask], out.col.cpu().numpy()[mask]
+    e = out.edge.cpu().numpy()[mask]
+    u, v = node[r], node[c]
+    need((u >= 0).all() and (v >= 0).all(), "an induced edge leaves the "
+                                            "node set")
+    need(np.array_equal(indices[e], v) and (e >= indptr[u]).all()
+         and (e < np.minimum(indptr[u + 1], indptr[u] + SEAL_DEGREE)).all(),
+         "an induced edge is not a real edge within the degree cap")
+    local = {int(g): i for i, g in enumerate(node) if g >= 0}
+    want = set()
+    for g, i in local.items():
+        lo = indptr[g]
+        for p in range(lo, min(indptr[g + 1], lo + SEAL_DEGREE)):
+            j = local.get(int(indices[p]))
+            if j is not None:
+                want.add((i, j, p))
+    got = set(zip(r.tolist(), c.tolist(), e.tolist()))
+    need(got == want, f"induced edges: {len(got)} emitted, {len(want)} in "
+                      f"the node set")
+    return len(local), len(got)
+
+
+def run_link(torch, dev, indptr, indices, feat, rng):
+    """Link prediction and induced-subgraph training on the products
+    graph (see the module docstring)."""
+    from glt_tpu_torch import ops
+    from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.data import CSRTopo, Dataset, Feature, Graph
+    from glt_tpu_torch.examples.graph_sage_unsup_ppi import unsup_dot_loss
+    from glt_tpu_torch.examples.seal_link_pred import (
+        candidate_links,
+        pair_loss,
+    )
+    from glt_tpu_torch.examples.train_sage_digits import init_params
+    from glt_tpu_torch.loader import LinkNeighborLoader
+    from glt_tpu_torch.models import (
+        GraphSAGE,
+        adam,
+        create_train_state,
+        link_seed_blocks,
+        make_scanned_link_train_step,
+        make_scanned_subgraph_train_step,
+    )
+    from glt_tpu_torch.sampler import (
+        EdgeSamplerInput,
+        NegativeSampling,
+        NeighborSampler,
+        NodeSamplerInput,
+    )
+    from torch.profiler import profile
+
+    rep = {}
+    topo = CSRTopo.from_csr_arrays(indptr, indices)
+    ds = Dataset(graph=Graph(topo, device=dev), device=dev)
+    ds.init_node_features(feat)
+    graph = ds.get_graph()
+
+    # -- the sorted view, built on the card -------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.sorted_indices
+    torch.cuda.synchronize()
+    rep["sorted_view_s"] = time.perf_counter() - t0
+    rep["edge_keys_bytes"] = graph.edge_keys.numel() * 8
+    rows, entries, top = check_sorted_view(torch, graph, indptr, indices, rng)
+    rep["sorted_rows_checked"] = {"rows": rows, "entries": entries,
+                                  "max_degree": top}
+
+    # -- edge_in_csr against its 32-step plain version --------------------
+    qs, qd, half = edge_queries(indptr, indices, rng)
+    qs_d, qd_d = (torch.from_numpy(a).to(dev) for a in (qs, qd))
+    args = (graph.indptr, graph.sorted_indices, qs_d, qd_d)
+    got = ops.edge_in_csr(*args, graph.edge_keys)
+    plain = ops.edge_in_csr_plain(*args)
+    torch.cuda.synchronize()
+    need(torch.equal(got, plain), "edge_in_csr differs from its plain "
+                                  "version on the card")
+    hit = got.cpu().numpy()
+    need(bool(hit[:half][(qs[:half] >= 0) & (qd[:half] >= 0)].all()),
+         "edge_in_csr missed a real edge")
+    with profile(activities=profiler_activities(torch)) as prof:
+        ops.edge_in_csr(*args, graph.edge_keys)
+        torch.cuda.synchronize()
+    rep["edge_in_csr"] = {
+        "pairs": EDGE_PAIRS, "true": int(hit.sum()),
+        "ms": cuda_ms(torch, lambda: ops.edge_in_csr(*args, graph.edge_keys)),
+        "plain_ms": cuda_ms(torch, lambda: ops.edge_in_csr_plain(*args)),
+        "kernels_per_call": device_profile(torch, prof, 1, 1.0)["kernels"]}
+    del qs_d, qd_d, args, got, plain
+
+    # -- the main path: counts set to 0 just before, read just after ------
+    pos = rng.integers(0, indices.shape[0],
+                       LINK_BLOCKS * GROUP * LINK_BS)
+    seed_edges = np.stack([edge_sources(indptr, pos), indices[pos]])
+    loader_edges = seed_edges[:, : LINK_BATCHES * LINK_BS - 7]
+    w = (rng.random(PRODUCTS_N) * (rng.random(PRODUCTS_N) < 0.01)
+         ).astype(np.float32)
+    links, link_labels = candidate_links(seed_edges, PRODUCTS_N,
+                                         SEAL_BLOCKS * GROUP * SEAL_BS // 2,
+                                         rng)
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    trandom.threefry2x32.calls = 0
+    torch.cuda.synchronize()
+    loader = LinkNeighborLoader(
+        ds, LINK_FANOUT, loader_edges, batch_size=LINK_BS,
+        neg_sampling=NegativeSampling("binary", 1), frontier_cap=LINK_CAP,
+        seed=11)
+    batches = list(loader)
+    ls = loader.sampler
+    trip = ls.sample_from_edges(EdgeSamplerInput(
+        seed_edges[0, :LINK_BS], seed_edges[1, :LINK_BS],
+        neg_sampling=NegativeSampling("triplet", 2)))
+    weighted = ls.sample_from_edges(EdgeSamplerInput(
+        seed_edges[0, :LINK_BS], seed_edges[1, :LINK_BS],
+        neg_sampling=NegativeSampling("binary", 1, weight=w)))
+
+    lsamp = NeighborSampler(graph, LINK_FANOUT, batch_size=LINK_BS,
+                            frontier_cap=LINK_CAP, with_edge=False)
+    lmodel = link_model(torch, GraphSAGE, init_params, dev, LINK_HIDDEN)
+    lstate = create_train_state(lmodel, adam(LR))
+    lstep = make_scanned_link_train_step(
+        lsamp, ds.get_node_feature(), unsup_dot_loss,
+        NegativeSampling("binary", 1))
+    lblocks = list(link_seed_blocks(seed_edges, LINK_BS, GROUP,
+                                    np.random.default_rng(12)))
+    need(len(lblocks) == LINK_BLOCKS, f"{len(lblocks)} link blocks")
+    link_losses, link_ms = [], []
+    for i, (sb, db, _) in enumerate(lblocks):
+        t1 = time.perf_counter()
+        lstate, losses = lstep(lstate, sb, db,
+                               trandom.PRNGKey(30 + i, device=dev))
+        torch.cuda.synchronize()
+        link_ms.append((time.perf_counter() - t1) * 1e3)
+        link_losses.append(losses)
+
+    gsamp = NeighborSampler(graph, SEAL_FANOUT, batch_size=2 * SEAL_BS,
+                            with_edge=True)
+    gmodel = link_model(torch, GraphSAGE, init_params, dev, SEAL_HIDDEN)
+    gstate = create_train_state(gmodel, adam(LR))
+    gstep = make_scanned_subgraph_train_step(
+        gsamp, ds.get_node_feature(), pair_loss, max_degree=SEAL_DEGREE)
+    order = np.random.default_rng(13).permutation(link_labels.shape[0])
+    per_block = SEAL_BS * GROUP
+    gblocks = []
+    for lo in range(0, link_labels.shape[0], per_block):
+        sel = order[lo: lo + per_block]
+        sb = np.full((GROUP, 2 * SEAL_BS), -1, np.int64)
+        yb = np.full((GROUP, SEAL_BS), -1, np.int64)
+        sb.reshape(-1)[: sel.shape[0] * 2] = links.T[sel].reshape(-1)
+        yb.reshape(-1)[: sel.shape[0]] = link_labels[sel]
+        gblocks.append((sb, yb))
+    need(len(gblocks) == SEAL_BLOCKS, f"{len(gblocks)} subgraph blocks")
+    seal_losses, seal_ms = [], []
+    for i, (sb, yb) in enumerate(gblocks):
+        t1 = time.perf_counter()
+        gstate, losses = gstep(gstate, sb, yb,
+                               trandom.PRNGKey(40 + i, device=dev))
+        torch.cuda.synchronize()
+        seal_ms.append((time.perf_counter() - t1) * 1e3)
+        seal_losses.append(losses)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+    plain_calls = trandom.threefry2x32.calls
+    need(plain_calls == 0, f"the link phase ran the plain threefry "
+                           f"arithmetic on the card ({plain_calls} calls)")
+    samples = (len(batches) + 2 + LINK_BLOCKS * GROUP
+               + SEAL_BLOCKS * GROUP)
+    need(launches["sample_neighbors_cuda"] == 2 * samples,
+         f"B1 launched {launches['sample_neighbors_cuda']} times for "
+         f"{samples} samples of 2 hops")
+    for k in ("threefry_hash_cuda", "gather_rows_cuda"):
+        need(launches[k] > 0, f"the link phase never launched {k}")
+    rep["launches"] = launches
+    rep["plain_hash_calls"] = plain_calls
+    rep["samples"] = samples
+
+    # -- the loader's batches ----------------------------------------------
+    need(len(batches) == LINK_BATCHES, f"{len(batches)} loader batches")
+    neg_edges = 0
+    for i, b in enumerate(batches):
+        lo = i * LINK_BS
+        src = loader_edges[0, lo: lo + LINK_BS]
+        ns, nd = check_link_batch(b, src, loader_edges[1, lo: lo + LINK_BS],
+                                  feat, 1)
+        neg_edges += sum(is_edge(indptr, indices, a, c)
+                         for a, c in zip(ns.tolist(), nd.tolist()))
+    rep["loader_negatives"] = LINK_BATCHES * LINK_BS
+    rep["loader_negatives_that_are_edges"] = int(neg_edges)
+    rep["link_node_capacity"] = int(batches[0].node.shape[0])
+    # the triplet and the weighted batch
+    node = trip.node.cpu().numpy()
+    meta = {k: v.cpu().numpy() for k, v in trip.metadata.items()}
+    need(np.array_equal(node[meta["src_index"]], seed_edges[0, :LINK_BS])
+         and np.array_equal(node[meta["dst_pos_index"]],
+                            seed_edges[1, :LINK_BS])
+         and meta["dst_neg_index"].shape == (LINK_BS, 2)
+         and (meta["dst_neg_index"] >= 0).all(), "triplet indices")
+    node = weighted.node.cpu().numpy()
+    eli = weighted.metadata["edge_label_index"].cpu().numpy()
+    need(np.array_equal(node[eli[0, :LINK_BS]], seed_edges[0, :LINK_BS])
+         and np.array_equal(node[eli[1, :LINK_BS]], seed_edges[1, :LINK_BS]),
+         "weighted batch: a positive does not decode to its seed edge")
+    neg_nodes = node[eli[:, LINK_BS:]]
+    need((w[neg_nodes] > 0).all(), "a weighted negative is outside the "
+                                   "weight's support")
+
+    # -- one batch again on the CPU ------------------------------------------
+    t0 = time.perf_counter()
+    cpu_graph = Graph(topo, device="cpu", with_sorted_columns=True)
+    rep["cpu_sorted_view_s"] = time.perf_counter() - t0
+    need(torch.equal(cpu_graph.sorted_indices, graph.sorted_indices.cpu()),
+         "the card's sorted view differs from the CPU's")
+    cpu_ds = Dataset(graph=cpu_graph, device="cpu")
+    cpu_ds.node_features = Feature(feat, device="cpu")
+    cpu_loader = LinkNeighborLoader(
+        cpu_ds, LINK_FANOUT, loader_edges, batch_size=LINK_BS,
+        neg_sampling=NegativeSampling("binary", 1), frontier_cap=LINK_CAP,
+        seed=11)
+    cb, gb = next(iter(cpu_loader)), batches[0]
+    for f in ("x", "edge_index", "node", "node_mask", "edge_mask", "batch"):
+        need(torch.equal(getattr(gb, f).cpu(), getattr(cb, f)),
+             f"link batch 0: card and CPU differ in {f}")
+    for k, v in cb.metadata.items():
+        need(torch.equal(gb.metadata[k].cpu(), v),
+             f"link batch 0: card and CPU differ in {k}")
+
+    # -- the scanned link step: losses, one batch against the CPU ------------
+    link_losses = torch.cat(link_losses).cpu().numpy()
+    need(bool(np.isfinite(link_losses).all()), "link losses not finite")
+    sb, db, _ = lblocks[0]
+    link_pair = []
+    for d, g, fe in ((dev, graph, ds.get_node_feature()),
+                     ("cpu", cpu_graph, cpu_ds.get_node_feature())):
+        m = link_model(torch, GraphSAGE, init_params, d, LINK_HIDDEN)
+        s = NeighborSampler(g, LINK_FANOUT, batch_size=LINK_BS,
+                            frontier_cap=LINK_CAP, with_edge=False)
+        st = make_scanned_link_train_step(s, fe, unsup_dot_loss,
+                                          NegativeSampling("binary", 1))
+        _, one = st(create_train_state(m, adam(LR)), sb[:1], db[:1],
+                    trandom.PRNGKey(30, device=d))
+        link_pair.append(float(one[0]))
+    need(abs(link_pair[0] - float(link_losses[0]))
+         <= F32_LOSS_RTOL * abs(link_pair[0]),
+         "the scanned block's first loss differs from the same batch alone")
+    link_err = abs(link_pair[0] - link_pair[1]) / max(abs(link_pair[1]),
+                                                      1e-30)
+    need(link_err <= F32_LOSS_RTOL,
+         f"link loss: card {link_pair[0]} vs CPU {link_pair[1]}")
+
+    # -- the scanned subgraph step: batch 0 against the CPU ------------------
+    seal_losses = torch.cat(seal_losses).cpu().numpy()
+    need(bool(np.isfinite(seal_losses).all()), "subgraph losses not finite")
+    sb, yb = gblocks[0]
+    cpu_gsamp = NeighborSampler(cpu_graph, SEAL_FANOUT,
+                                batch_size=2 * SEAL_BS, with_edge=True)
+    outs = [s.subgraph(NodeSamplerInput(sb[0]), max_degree=SEAL_DEGREE,
+                       key=trandom.split(trandom.PRNGKey(40, device=d),
+                                         GROUP)[0])
+            for s, d in ((gsamp, dev), (cpu_gsamp, "cpu"))]
+    for f in ("node", "row", "col", "edge", "batch", "node_mask",
+              "edge_mask", "num_sampled_nodes"):
+        need(torch.equal(getattr(outs[0], f).cpu(), getattr(outs[1], f)),
+             f"subgraph batch 0: card and CPU differ in {f}")
+    need(sorted(outs[0].metadata) == sorted(outs[1].metadata),
+         "subgraph batch 0: card and CPU metadata keys differ")
+    for k, v in outs[1].metadata.items():
+        need(torch.equal(outs[0].metadata[k].cpu(), v),
+             f"subgraph batch 0: card and CPU differ in {k}")
+    n_nodes, n_edges = check_induced(outs[0], indptr, indices)
+    seal_pair = []
+    for s, d, fe in ((gsamp, dev, ds.get_node_feature()),
+                     (cpu_gsamp, "cpu", cpu_ds.get_node_feature())):
+        m = link_model(torch, GraphSAGE, init_params, d, SEAL_HIDDEN)
+        st = make_scanned_subgraph_train_step(s, fe, pair_loss,
+                                              max_degree=SEAL_DEGREE)
+        _, one = st(create_train_state(m, adam(LR)), sb[:1], yb[:1],
+                    trandom.PRNGKey(40, device=d))
+        seal_pair.append(float(one[0]))
+    need(abs(seal_pair[0] - float(seal_losses[0]))
+         <= F32_LOSS_RTOL * abs(seal_pair[0]),
+         "the scanned subgraph block's first loss differs from the same "
+         "batch alone")
+    seal_err = abs(seal_pair[0] - seal_pair[1]) / max(abs(seal_pair[1]),
+                                                      1e-30)
+    need(seal_err <= F32_LOSS_RTOL,
+         f"subgraph loss: card {seal_pair[0]} vs CPU {seal_pair[1]}")
+
+    # -- one profiled block of each ------------------------------------------
+    profiled = {}
+    for name, fn in (
+            ("link", lambda: lstep(lstate, *lblocks[1][:2],
+                                   trandom.PRNGKey(50, device=dev))),
+            ("subgraph", lambda: gstep(gstate, *gblocks[1],
+                                       trandom.PRNGKey(51, device=dev)))):
+        torch.cuda.synchronize()
+        with profile(activities=profiler_activities(torch)) as prof:
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3 / GROUP
+        profiled[name] = device_profile(torch, prof, GROUP, wall)
+
+    # -- B2 at the link path's node list ---------------------------------
+    rows = ds.get_node_feature().hot_rows
+    ids = batches[0].node
+    idx = torch.where(ids >= 0, ids, 0).to(torch.int32).contiguous()
+    uniq = int(torch.unique(idx).numel())
+    nbytes = idx.shape[0] * 4 + uniq * FEAT_DIM * 4 + idx.shape[0] * FEAT_DIM * 4
+    lib = idx.long()
+    rep["b2_link"] = {
+        "shape": [int(idx.shape[0]), FEAT_DIM],
+        "ms": cuda_ms(torch, lambda: ops.gather_rows_cuda(rows, idx)),
+        "plain_ms": cuda_ms(torch, lambda: ops.gather_rows_plain(rows, idx)),
+        "library_ms": cuda_ms(torch, lambda: torch.index_select(rows, 0,
+                                                                lib)),
+        "bound_ms": bound_ms(nbytes), "bytes": nbytes}
+    rep.update({
+        "link_losses": link_losses.tolist(),
+        "link_block_ms": link_ms,
+        "link_step_ms_median": statistics.median(link_ms[1:]) / GROUP,
+        "link_cpu_loss": link_pair[1], "link_card_loss": link_pair[0],
+        "link_cpu_loss_rel_err": link_err,
+        "seal_losses": seal_losses.tolist(),
+        "seal_block_ms": seal_ms,
+        "seal_step_ms_median": statistics.median(seal_ms[1:]) / GROUP,
+        "seal_checked": {"nodes": n_nodes, "induced_edges": n_edges},
+        "seal_cpu_loss": seal_pair[1], "seal_card_loss": seal_pair[0],
+        "seal_cpu_loss_rel_err": seal_err,
+        "profile": profiled,
+    })
+    return rep
+
+
 def main() -> int:
     try:
         import torch
@@ -1451,12 +1894,57 @@ def main() -> int:
             f"store {par['acc_int8_split0']:.4f} (split 0.0), "
             f"{par['acc_int8_split1']:.4f} (split 1.0) vs raw "
             f"{par['acc_raw']:.4f}, x equal; {dg['seconds']:.1f} s")
+
+        # 8. link prediction and induced subgraphs
+        t0 = time.perf_counter()
+        report["link"] = lk = run_link(torch, dev, indptr, indices, feat,
+                                       rng)
+        ec, b2l = lk["edge_in_csr"], lk["b2_link"]
+        log(f"link: sorted view built on the card in "
+            f"{lk['sorted_view_s']:.2f} s (edge keys "
+            f"{lk['edge_keys_bytes']} B), equal to np.sort over "
+            f"{lk['sorted_rows_checked']['rows']} rows (max degree "
+            f"{lk['sorted_rows_checked']['max_degree']}); CPU view "
+            f"{lk['cpu_sorted_view_s']:.1f} s, equal")
+        log(f"  edge_in_csr over {ec['pairs']} pairs == its 32-step plain "
+            f"version: {ec['ms']:.4f} ms ({ec['kernels_per_call']:.0f} "
+            f"kernels a call), plain {ec['plain_ms']:.4f} ms")
+        log(f"  LinkNeighborLoader binary x1: {LINK_BATCHES} batches of "
+            f"{LINK_BS}, node capacity {lk['link_node_capacity']}, "
+            f"{lk['loader_negatives_that_are_edges']} of "
+            f"{lk['loader_negatives']} negatives are edges; batch 0 == CPU; "
+            f"triplet x2 and weighted binary checked")
+        log(f"  scanned link step: {LINK_BLOCKS} blocks of {GROUP}, losses "
+            f"{lk['link_losses'][0]:.4f} -> {lk['link_losses'][-1]:.4f}, "
+            f"step median {lk['link_step_ms_median']:.2f} ms; card vs CPU "
+            f"loss {lk['link_card_loss']:.6f} vs {lk['link_cpu_loss']:.6f} "
+            f"(rel {lk['link_cpu_loss_rel_err']:.2e})")
+        log(f"  scanned subgraph step: {SEAL_BLOCKS} blocks of {GROUP}, "
+            f"losses {lk['seal_losses'][0]:.4f} -> "
+            f"{lk['seal_losses'][-1]:.4f}, step median "
+            f"{lk['seal_step_ms_median']:.2f} ms; batch 0 == CPU, its "
+            f"induced edges ({lk['seal_checked']['nodes']} nodes, "
+            f"{lk['seal_checked']['induced_edges']} edges) exact; card vs "
+            f"CPU loss {lk['seal_card_loss']:.6f} vs "
+            f"{lk['seal_cpu_loss']:.6f} (rel "
+            f"{lk['seal_cpu_loss_rel_err']:.2e})")
+        for name, p in lk["profile"].items():
+            log(f"  profiled {name} step: wall {p['wall_ms']:.2f} ms, "
+                f"{p['kernels']:.0f} kernels {p['kernels_ms']:.3f} ms "
+                f"({p['kernel_share']:.1%}), {p['copies']:.0f} copies, "
+                f"{p['memsets']:.0f} memsets")
+        log(f"  launches {lk['launches']} over {lk['samples']} samples (B1 "
+            f"twice a sample); plain threefry on the card: "
+            f"{lk['plain_hash_calls']}; B2 {b2l['shape']}: kernel "
+            f"{b2l['ms']:.4f} ms, plain {b2l['plain_ms']:.4f} ms, library "
+            f"{b2l['library_ms']:.4f} ms, bound {b2l['bound_ms']:.4f} ms "
+            f"({time.perf_counter() - t0:.1f} s)")
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
-                       for p in (sl, tr, st, report["digits"]))
+                       for p in (sl, tr, st, report["digits"], lk))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
@@ -1504,7 +1992,8 @@ def main() -> int:
     ]
     report["kernels"] = kernels
     report["kernel_detail"] = {"B1": b1, "hash": hk, "B2": b2, "B3": b3,
-                               "B4": b4, "B4_bf16": b4_bf16, "B5": b5}
+                               "B4": b4, "B4_bf16": b4_bf16, "B5": b5,
+                               "B2_link": lk["b2_link"]}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     log(report["device"]["nvidia_smi"])

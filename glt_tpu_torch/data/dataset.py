@@ -33,14 +33,16 @@ class Dataset:
         self.node_labels = node_labels
 
     def init_graph(self, edge_index=None, edge_ids=None, layout: str = "COO",
-                   num_nodes: Optional[int] = None) -> "Dataset":
+                   num_nodes: Optional[int] = None,
+                   with_sorted_columns: bool = False) -> "Dataset":
         if isinstance(edge_index, dict):
             raise NotImplementedError(
                 "heterogeneous graphs are not ported yet")
         if edge_index is not None:
             topo = CSRTopo(edge_index, edge_ids=edge_ids, layout=layout,
                            num_nodes=num_nodes)
-            self.graph = Graph(topo, device=self.device)
+            self.graph = Graph(topo, device=self.device,
+                               with_sorted_columns=with_sorted_columns)
         return self
 
     def init_node_features(self, node_feature_data=None, id2idx=None,

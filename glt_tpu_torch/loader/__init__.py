@@ -1,4 +1,7 @@
+from .link_loader import LinkLoader, LinkNeighborLoader
 from .node_loader import NeighborLoader, NodeLoader
+from .subgraph_loader import SubGraphLoader
 from .transform import Batch, to_batch
 
-__all__ = ["Batch", "NeighborLoader", "NodeLoader", "to_batch"]
+__all__ = ["Batch", "LinkLoader", "LinkNeighborLoader", "NeighborLoader",
+           "NodeLoader", "SubGraphLoader", "to_batch"]

@@ -5,9 +5,12 @@ from .train import (
     TrainState,
     adam,
     create_train_state,
+    link_seed_blocks,
     make_eval_step,
     make_gather_xy,
+    make_scanned_link_train_step,
     make_scanned_node_train_step,
+    make_scanned_subgraph_train_step,
     make_train_step,
     node_seed_blocks,
     run_scanned_epoch,
@@ -15,7 +18,9 @@ from .train import (
 )
 
 __all__ = ["GraphSAGE", "SAGEConv", "TrainState", "adam",
-           "create_train_state", "make_eval_step", "make_gather_xy",
-           "make_scanned_node_train_step", "make_train_step",
+           "create_train_state", "link_seed_blocks", "make_eval_step",
+           "make_gather_xy", "make_scanned_link_train_step",
+           "make_scanned_node_train_step",
+           "make_scanned_subgraph_train_step", "make_train_step",
            "node_seed_blocks", "params_from_flax", "run_scanned_epoch",
            "scatter_mean", "scatter_sum", "seed_cross_entropy"]

@@ -8,9 +8,13 @@ The canonical epoch loop is the *scanned* path
 (:func:`make_scanned_node_train_step` + :func:`run_scanned_epoch`): per
 block of ``G`` seed batches, sample -> gather -> fwd/bwd -> Adam for each
 batch, with the losses, accuracies and overflow flags kept on the device
-until the epoch's one host fetch.  ``glt_tpu`` compiles the block as one
-``lax.scan`` program; here the "scan" is a Python loop over the block's
-rows, launched eagerly (a CUDA graph per block is later work).
+until the epoch's one host fetch.  Link prediction
+(:func:`make_scanned_link_train_step` over :func:`link_seed_blocks`) and
+induced-subgraph models (:func:`make_scanned_subgraph_train_step`) take
+the same shape: ``G`` seed-edge or seed-node batches per call, the loss
+a caller's function of the embeddings.  ``glt_tpu`` compiles the block
+as one ``lax.scan`` program; here the "scan" is a Python loop over the
+block's rows, launched eagerly (a CUDA graph per block is later work).
 
 State: :class:`TrainState` holds the ``nn.Module``, its optimizer and a
 host ``int`` step counter.  The model and optimizer update in place (a
@@ -35,6 +39,8 @@ from ..loader.transform import Batch
 from ..ops.dedup_gather import dedup_gather_rows
 from ..ops.fused_frontier import fused_frontier
 from ..ops.gather_cuda import gather_rows
+from ..ops.unique import relabel_by_reference
+from ..sampler.base import NodeSamplerInput
 from ..typing import PADDING_ID
 from ..utils.device import same_device
 
@@ -121,11 +127,11 @@ def make_gather_xy(id2index: Optional[torch.Tensor] = None,
     """``(rows, labels, out) -> (x, y)`` batch gather.
 
     ``id2index`` maps feature ROWS only; labels stay indexed by global
-    id.  ``dedup=True`` fetches each unique row once and expands it to
-    every position; ``fused=True`` does the dedup and the gather in one
-    launch of kernel B3 (:func:`~glt_tpu_torch.ops.fused_frontier.
-    fused_frontier`) and subsumes ``dedup``.  All three give the same
-    ``x`` bit for bit.
+    id (``labels=None`` gives ``y = None``).  ``dedup=True`` fetches each
+    unique row once and expands it to every position; ``fused=True``
+    does the dedup and the gather in one launch of kernel B3
+    (:func:`~glt_tpu_torch.ops.fused_frontier.fused_frontier`) and
+    subsumes ``dedup``.  All three give the same ``x`` bit for bit.
     """
     def gather_xy(rows: torch.Tensor, labels: torch.Tensor, out):
         ids = out.node
@@ -141,6 +147,8 @@ def make_gather_xy(id2index: Optional[torch.Tensor] = None,
                 ridx = id2index[gid.clamp(max=id2index.shape[0] - 1).long()]
             x = gather_rows(rows, ridx.to(torch.int32).contiguous())
             x = torch.where(valid[:, None], x, 0)
+        if labels is None:
+            return x, None
         lab = labels[gid.clamp(max=labels.shape[0] - 1).long()]
         y = torch.where(valid, lab, PADDING_ID)
         return x, y
@@ -220,10 +228,7 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
         if isinstance(seeds_blk, torch.Tensor):
             raise TypeError("seeds_blk must be a host array: the "
                             "padded-batch no-op is decided on the host")
-        if not same_device(_model_device(state.model), dev):
-            raise ValueError(f"the model lives on "
-                             f"{_model_device(state.model)}, the sampler's "
-                             f"graph on {dev}")
+        _check_model(state, dev)
         blk = np.asarray(seeds_blk)
         real = (blk >= 0).any(axis=1)
         seeds_dev = torch.from_numpy(
@@ -255,6 +260,134 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
                 torch.stack(ovfs))
 
     return step
+
+
+def _check_model(state: TrainState, dev: torch.device) -> None:
+    if not same_device(_model_device(state.model), dev):
+        raise ValueError(f"the model lives on {_model_device(state.model)}, "
+                         f"the sampler's graph on {dev}")
+
+
+def _host_block(blk, dev: torch.device) -> torch.Tensor:
+    """A host block on ``dev`` in the dtype ``jnp.asarray`` gives it
+    (64-bit off): integers as int32, float64 as float32."""
+    a = np.asarray(blk)
+    if a.dtype.kind in "iu":
+        a = a.astype(np.int32)
+    elif a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def make_scanned_link_train_step(sampler, rows, loss_fn, neg_sampling=None
+                                 ) -> Callable:
+    """Train ``G`` consecutive seed-edge batches per call.
+
+    Per batch: negatives (strict trials, then padding), the multi-hop
+    sample of the seed union
+    (:meth:`~glt_tpu_torch.sampler.NeighborSampler.sample_from_edge_tensors`),
+    the feature gather (kernel B2 on the card), the forward,
+    ``loss_fn(z, meta)`` on the node embeddings ``z`` and the batch
+    metadata (``edge_label_index`` and ``edge_label`` in binary mode,
+    the triplet indices in triplet mode), backward and the optimizer
+    step.
+
+    Returns ``step(state, src_blk, dst_blk, key) -> (state, losses
+    [G])``: ``src_blk``/``dst_blk`` are host ``[G, q]`` id blocks, -1
+    padded (:func:`link_seed_blocks`), and batch ``g`` uses ``split(key,
+    G)[g]``.  As in ``glt_tpu``, a fully padded batch is not skipped: in
+    binary mode it still draws ``q * amount`` negatives and trains on
+    them, and the optimizer steps.  ``G`` is the blocks' leading axis
+    (``glt_tpu``'s ``group``).
+    """
+    dev = sampler.device
+    hot_rows, id2index = _device_rows(rows, dev)
+    gather_xy = make_gather_xy(id2index)
+
+    def step(state: TrainState, src_blk, dst_blk, key: torch.Tensor):
+        _check_model(state, dev)
+        src, dst = _host_block(src_blk, dev), _host_block(dst_blk, dev)
+        keys = trandom.split(key, src.shape[0])
+        losses = []
+        for i in range(src.shape[0]):
+            out = sampler.sample_from_edge_tensors(src[i], dst[i],
+                                                   neg_sampling, keys[i])
+            x, _ = gather_xy(hot_rows, None, out)
+            z = state.model(x, torch.stack([out.row, out.col]),
+                            out.edge_mask)
+            loss = loss_fn(z, out.metadata)
+            state = _update(state, loss)
+            losses.append(loss.detach())
+        return state, torch.stack(losses)
+
+    return step
+
+
+def make_scanned_subgraph_train_step(sampler, rows, loss_fn,
+                                     max_degree: int) -> Callable:
+    """Train a block of induced-subgraph batches per call.
+
+    Per batch: hop expansion and the induced extract
+    (:meth:`~glt_tpu_torch.sampler.NeighborSampler.subgraph`), the
+    feature gather (kernel B2 on the card), the forward,
+    ``loss_fn(z, out, y)`` on the node embeddings, the batch's
+    :class:`~glt_tpu_torch.sampler.SamplerOutput` (graph-direction COO)
+    and its label row ``y``, backward and the optimizer step.  Seeds are
+    deduplicated in the node list, so ``out.metadata["seed_index"]``
+    (``[B]`` local index of each seed slot, -1 for padding) locates
+    them.
+
+    Returns ``step(state, seeds_blk, y_blk, key) -> (state, losses
+    [G])`` over host blocks ``seeds_blk [G, B]`` (-1 padded) and
+    ``y_blk [G, ...]``; batch ``g`` uses ``split(key, G)[g]``, and a
+    fully padded batch still steps the optimizer, as in ``glt_tpu``.
+    """
+    if not sampler.last_hop_dedup:
+        raise ValueError(
+            "scanned subgraph step requires last_hop_dedup=True")
+    dev = sampler.device
+    hot_rows, id2index = _device_rows(rows, dev)
+    gather_xy = make_gather_xy(id2index)
+    b = sampler.batch_size
+
+    def step(state: TrainState, seeds_blk, y_blk, key: torch.Tensor):
+        _check_model(state, dev)
+        seeds, ys = _host_block(seeds_blk, dev), _host_block(y_blk, dev)
+        keys = trandom.split(key, seeds.shape[0])
+        losses = []
+        for i in range(seeds.shape[0]):
+            out = sampler.subgraph(NodeSamplerInput(seeds[i]),
+                                   max_degree=max_degree, key=keys[i])
+            out.metadata = {"seed_index": relabel_by_reference(
+                out.node[:b], seeds[i])}
+            x, _ = gather_xy(hot_rows, None, out)
+            z = state.model(x, torch.stack([out.row, out.col]),
+                            out.edge_mask)
+            loss = loss_fn(z, out, ys[i])
+            state = _update(state, loss)
+            losses.append(loss.detach())
+        return state, torch.stack(losses)
+
+    return step
+
+
+def link_seed_blocks(edge_index, batch_size: int, group: int, rng):
+    """Shuffled seed-edge ``[G, q]`` src/dst blocks, -1 padded: yields
+    ``(src_blk, dst_blk, n_batches)`` (the epoch loop of
+    :func:`make_scanned_link_train_step`); the last block may carry
+    fully padded batches."""
+    e = np.asarray(edge_index)
+    perm = rng.permutation(e.shape[1])
+    src, dst = e[0][perm], e[1][perm]
+    per_block = batch_size * group
+    for lo in range(0, src.shape[0], per_block):
+        sb = np.full((group, batch_size), -1, np.int64)
+        db = np.full((group, batch_size), -1, np.int64)
+        chunk_s = src[lo: lo + per_block]
+        m = chunk_s.shape[0]
+        sb.reshape(-1)[:m] = chunk_s
+        db.reshape(-1)[:m] = dst[lo: lo + per_block]
+        yield sb, db, -(-m // batch_size)
 
 
 def node_seed_blocks(train_idx, batch_size: int, group: int, rng):

@@ -15,6 +15,14 @@ from .gather_dequant_cuda import (
     gather_rows_dequant_cuda,
     gather_rows_dequant_plain,
 )
+from .negative_sample import (
+    NegativeSampleOutput,
+    edge_in_csr,
+    edge_in_csr_plain,
+    sample_negative_edges,
+    weight_to_cdf,
+    weighted_draw,
+)
 from .neighbor_sample import (
     NeighborOutput,
     draw_positions,
@@ -22,6 +30,7 @@ from .neighbor_sample import (
     sample_neighbors,
 )
 from .sample_cuda import sample_neighbors_cuda, sample_neighbors_plain
+from .stitch import stitch_sample_results
 from .subgraph import SubGraphOutput, node_subgraph
 from .threefry_cuda import threefry_hash_cuda, threefry_hash_plain
 from .unique import (
@@ -36,16 +45,19 @@ from .unique import (
 )
 
 __all__ = [
-    "DenseInduceState", "FusedFrontier", "NeighborOutput", "SubGraphOutput",
-    "UniqueResult", "dedup_gather_rows", "dense_induce",
-    "dense_induce_final", "dense_induce_init", "dense_map_fits",
-    "draw_positions", "frontier_plan", "fused_frontier",
+    "DenseInduceState", "FusedFrontier", "NegativeSampleOutput",
+    "NeighborOutput", "SubGraphOutput", "UniqueResult",
+    "dedup_gather_rows", "dense_induce", "dense_induce_final",
+    "dense_induce_init", "dense_map_fits", "draw_positions",
+    "edge_in_csr", "edge_in_csr_plain", "frontier_plan",
+    "fused_frontier",
     "fused_frontier_cuda", "fused_frontier_dequant_cuda",
     "fused_frontier_dequant_plain", "fused_frontier_plain",
     "fused_frontier_supported", "gather_rows", "gather_rows_cuda",
     "gather_rows_dequant_cuda", "gather_rows_dequant_plain",
     "gather_rows_plain", "lookup_degrees", "node_subgraph",
     "relabel_by_reference", "sample_neighbors", "sample_neighbors_cuda",
-    "sample_neighbors_plain", "threefry_hash_cuda", "threefry_hash_plain",
-    "unique_first_occurrence",
+    "sample_negative_edges", "sample_neighbors_plain",
+    "stitch_sample_results", "threefry_hash_cuda", "threefry_hash_plain",
+    "unique_first_occurrence", "weight_to_cdf", "weighted_draw",
 ]

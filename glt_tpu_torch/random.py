@@ -15,6 +15,8 @@ reproduces ``jax.random`` under its defaults (``threefry2x32``,
   ``threefry2x32`` (the partitionable layout), ``fold_in`` hashes
   ``(0, data)``, and ``randint`` draws two 32-bit words per value and
   reduces them with jax's span trick;
+* ``uniform`` takes one 32-bit word per value and keeps its top 23
+  bits as the mantissa of a float in [1, 2), as jax does;
 * on a CUDA key, ``split`` and ``fold_in`` (and the random bits' hash)
   are one launch of the hash kernel (``csrc/threefry.cu``); the masked
   arithmetic is its plain version, which the CPU runs and
@@ -216,3 +218,21 @@ def randint(key: torch.Tensor, shape: Union[int, Sequence[int]],
     mult = rem((mult * mult) & _M32)
     offset = (_mul32(rem(higher), mult) + rem(lower)) & _M32
     return _wrap_i32(lo_v + rem(offset)).to(torch.int32)
+
+
+def uniform(key: torch.Tensor, shape: Union[int, Sequence[int]] = (),
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the
+    float32 ``(bits >> 9 | 0x3F800000) - 1.0`` in [0, 1) from one
+    32-bit word per value, times ``maxval - minval`` plus ``minval`` in
+    one rounding (XLA fuses the two into a multiply-add; the float32
+    product is exact in float64), held at or above ``minval``.  ``key``
+    may be a batch ``[*K, 2]``.  The bits are one hash-kernel launch for
+    a CUDA key."""
+    bits = _random_bits(key, _shape(shape))
+    mant = (bits >> 9) | 0x3F800000
+    floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
+    scaled = (floats.double() * span.double() + lo.double()).float()
+    return torch.maximum(lo, scaled)

@@ -9,9 +9,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
-from ..typing import NodeType
+from ..typing import EdgeType, NodeType
+from ..utils.device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass
@@ -26,6 +28,81 @@ class NodeSamplerInput:
 
     def __getitem__(self, index) -> "NodeSamplerInput":
         return NodeSamplerInput(self.node[index], self.input_type)
+
+
+class NegativeSampling:
+    """Negative sampling spec.
+
+    mode 'binary': ``amount`` negative edges per positive edge, labeled
+    0 (positives 1).  mode 'triplet': ``amount`` negative destination
+    nodes per positive edge's source.  ``weight`` is an optional
+    non-negative node weight (need not sum to one) that biases the
+    negative node draws; uniform when absent.
+    """
+    MODES = ("binary", "triplet")
+
+    def __init__(self, mode: str = "binary", amount: float = 1,
+                 weight=None):
+        mode = mode.lower()
+        if mode not in self.MODES:
+            raise ValueError(f"mode must be one of {self.MODES}, got {mode!r}")
+        self.mode = mode
+        self.amount = amount
+        self.weight = None if weight is None else np.asarray(weight,
+                                                             np.float32)
+        if self.weight is not None:
+            if not np.isfinite(self.weight).all():
+                raise ValueError("negative-sampling weight must be finite")
+            if (self.weight < 0).any():
+                raise ValueError("negative-sampling weight must be >= 0")
+            if float(self.weight.sum()) <= 0.0:
+                # An all-zero weight makes the CDF 0/0 = NaN and every
+                # draw collapse onto one node.
+                raise ValueError("negative-sampling weight must have a "
+                                 "positive sum")
+        self._cdf: Dict[str, torch.Tensor] = {}
+
+    def is_binary(self) -> bool:
+        return self.mode == "binary"
+
+    def is_triplet(self) -> bool:
+        return self.mode == "triplet"
+
+    def sample_count(self, num_pos: int) -> int:
+        return int(round(num_pos * self.amount))
+
+    def cdf(self, device: DeviceLike = None) -> Optional[torch.Tensor]:
+        """The normalised cumulative weight on ``device`` (default
+        ``"cuda"``; cached there), or None without a weight.  It is
+        summed on the host, so every device gets the same bits."""
+        if self.weight is None:
+            return None
+        dev = resolve_device(device)
+        if str(dev) not in self._cdf:
+            from ..ops.negative_sample import weight_to_cdf
+
+            self._cdf[str(dev)] = weight_to_cdf(self.weight).to(dev)
+        return self._cdf[str(dev)]
+
+
+@dataclasses.dataclass
+class EdgeSamplerInput:
+    """Seed edges for link-based sampling: host arrays of global ids.
+    ``input_type`` names the seed edge type of a heterogeneous graph."""
+    row: Any
+    col: Any
+    label: Optional[Any] = None
+    input_type: Optional[EdgeType] = None
+    neg_sampling: Optional[NegativeSampling] = None
+
+    def __len__(self) -> int:
+        return int(self.row.shape[0])
+
+    def __getitem__(self, index) -> "EdgeSamplerInput":
+        return EdgeSamplerInput(
+            self.row[index], self.col[index],
+            None if self.label is None else self.label[index],
+            self.input_type, self.neg_sampling)
 
 
 @dataclasses.dataclass

@@ -15,9 +15,11 @@ Edge direction is transposed on output to PyG's dst<-src convention:
 Both dedup modes ('dense' scatter map, 'sort' unique), both final-hop
 modes (``last_hop_dedup``) and the occupancy-capped node buffer
 (``node_capacity``, with its ``metadata["overflow"]`` flag and
-:func:`calibrate_node_capacity`) are ported.  The batched and edge
-entry points, the induced subgraph and negative sampling are later
-work.
+:func:`calibrate_node_capacity`) are ported, and so are the link path
+(:meth:`NeighborSampler.sample_from_edges`, with binary or triplet
+negatives, uniform or weighted), the induced subgraph
+(:meth:`NeighborSampler.subgraph`) and the one-hop primitive.  The
+batched node entry point is later work.
 """
 from __future__ import annotations
 
@@ -28,16 +30,24 @@ import torch
 
 from .. import random as trandom
 from ..data.graph import Graph
+from ..ops.negative_sample import sample_negative_edges, weighted_draw
 from ..ops.neighbor_sample import sample_neighbors
+from ..ops.subgraph import node_subgraph
 from ..ops.unique import (
     dense_induce,
     dense_induce_final,
     dense_induce_init,
     dense_map_fits,
+    relabel_by_reference,
     unique_first_occurrence,
 )
 from ..typing import PADDING_ID
-from .base import NodeSamplerInput, SamplerOutput
+from .base import (
+    EdgeSamplerInput,
+    NegativeSampling,
+    NodeSamplerInput,
+    SamplerOutput,
+)
 
 
 def _pad_ids(ids, size: int) -> np.ndarray:
@@ -174,6 +184,7 @@ class NeighborSampler:
         self.edge_capacity = sum(
             w * f for w, f in zip(self._widths, self.num_neighbors))
         self._full_sibling: Optional["NeighborSampler"] = None
+        self._union_siblings = {}
 
     def full_capacity_sibling(self) -> "NeighborSampler":
         """Uncapped twin (same graph, fanouts and modes, its own key
@@ -187,6 +198,18 @@ class NeighborSampler:
                 frontier_cap=self.frontier_cap, with_edge=self.with_edge,
                 dedup=self.dedup, last_hop_dedup=self.last_hop_dedup)
         return self._full_sibling
+
+    def _union_sibling(self, width: int) -> "NeighborSampler":
+        """Uncapped twin at batch width ``width``: the link path samples
+        its seed union (positives and negatives) at that width and its
+        full capacity; an occupancy cap of the node path does not carry
+        over to another width."""
+        if width not in self._union_siblings:
+            self._union_siblings[width] = NeighborSampler(
+                self.graph, self.num_neighbors, width,
+                frontier_cap=self.frontier_cap, with_edge=self.with_edge,
+                dedup=self.dedup, last_hop_dedup=self.last_hop_dedup)
+        return self._union_siblings[width]
 
     # -- key management ----------------------------------------------------
     def _next_key(self) -> torch.Tensor:
@@ -341,20 +364,172 @@ class NeighborSampler:
         )
 
     # -- public API ----------------------------------------------------------
+    def _seed_tensor(self, ids) -> torch.Tensor:
+        if (isinstance(ids, torch.Tensor)
+                and tuple(ids.shape) == (self.batch_size,)):
+            return ids.to(device=self.device, dtype=torch.int32)
+        return torch.from_numpy(
+            _pad_ids(np.asarray(ids), self.batch_size)).to(self.device)
+
     def sample_from_nodes(self, inputs: NodeSamplerInput,
                           key: Optional[torch.Tensor] = None
                           ) -> SamplerOutput:
         """Sample around ``inputs.node`` (host ids, padded here, or a
         ``[batch_size]`` int32 tensor already padded)."""
-        ids = inputs.node
-        if (isinstance(ids, torch.Tensor)
-                and tuple(ids.shape) == (self.batch_size,)):
-            seeds = ids.to(device=self.device, dtype=torch.int32)
-        else:
-            seeds = torch.from_numpy(
-                _pad_ids(np.asarray(ids), self.batch_size)).to(self.device)
+        seeds = self._seed_tensor(inputs.node)
         if key is None:
             key = self._next_key()
         g = self.graph
         return self._sample_impl(g.indptr, g.indices, g.gather_edge_ids,
                                  seeds, key)
+
+    def sample_one_hop(self, srcs, fanout: int,
+                       key: Optional[torch.Tensor] = None):
+        """One hop around ``srcs`` (a tensor or host array of ids, -1
+        padded): the primitive of the distributed sampler."""
+        if key is None:
+            key = self._next_key()
+        g = self.graph
+        if not isinstance(srcs, torch.Tensor):
+            srcs = torch.from_numpy(np.asarray(srcs, np.int32))
+        srcs = srcs.to(self.device)
+        return sample_neighbors(g.indptr, g.indices, srcs, fanout, key,
+                                edge_ids=g.gather_edge_ids,
+                                with_edge=self.with_edge)
+
+    # -- link path -----------------------------------------------------------
+    def sample_from_edges(self, inputs: EdgeSamplerInput,
+                          key: Optional[torch.Tensor] = None
+                          ) -> SamplerOutput:
+        """Sample around seed edges ``(inputs.row, inputs.col)`` (host
+        ids, at most ``batch_size`` of them) and, per
+        ``inputs.neg_sampling``, their negatives: the batch of
+        :meth:`sample_from_edge_tensors`, with ``metadata["num_pos"]``
+        the number of seed edges.
+        """
+        if inputs.input_type is not None:
+            raise NotImplementedError(
+                "heterogeneous link sampling is not ported yet (ROADMAP "
+                "queue A: heterogeneous graphs)")
+        q = self.batch_size
+        dev = self.device
+        src = torch.from_numpy(_pad_ids(inputs.row, q)).to(dev)
+        dst = torch.from_numpy(_pad_ids(inputs.col, q)).to(dev)
+        label = (None if inputs.label is None
+                 else torch.from_numpy(_pad_ids(inputs.label, q)).to(dev))
+        if key is None:
+            key = self._next_key()
+        out = self.sample_from_edge_tensors(src, dst, inputs.neg_sampling,
+                                            key, label)
+        out.metadata["num_pos"] = torch.tensor(len(inputs), dtype=torch.int32,
+                                               device=dev)
+        return out
+
+    def sample_from_edge_tensors(self, src: torch.Tensor, dst: torch.Tensor,
+                                 neg_sampling: Optional[NegativeSampling],
+                                 key: torch.Tensor,
+                                 label: Optional[torch.Tensor] = None
+                                 ) -> SamplerOutput:
+        """Negatives, then the multi-hop sample of the seed union.
+
+        ``src``/``dst``/``label`` are ``[batch_size]`` int32 on the
+        graph's device, -1 padded.  The seeds are the union of the
+        positive endpoints and the negatives, sampled at that union's
+        own width.  Metadata: binary mode ``edge_label_index`` ``[2,
+        q(1 + amount)]`` (local ids of positives then negatives) and
+        ``edge_label`` (``label + 1``, or 1 without labels, on
+        positives; 0 on negatives; -1 on padded positives); triplet mode
+        ``src_index``, ``dst_pos_index`` ``[q]`` and ``dst_neg_index``
+        ``[q, amount]``; no negatives: ``edge_label_index`` and, with
+        labels, ``edge_label`` as given.  The key splits into the
+        negatives' and the sample's, in that order.
+        """
+        neg = neg_sampling
+        mode = None if neg is None else neg.mode
+        amount = 0 if neg is None else int(round(neg.amount))
+        q = self.batch_size
+        dev = self.device
+        g = self.graph
+        cdf = None if neg is None else neg.cdf(dev)
+        keys = trandom.split(key)
+        kneg, ksample = keys[0], keys[1]
+        num_nodes = g.num_nodes
+        if mode == "binary":
+            negs = sample_negative_edges(
+                g.indptr, g.sorted_indices, q * amount, kneg, num_nodes,
+                src_cdf=cdf, dst_cdf=cdf, edge_keys=g.edge_keys)
+            seed_ids = torch.cat([src, dst, negs.src, negs.dst])
+        elif mode == "triplet":
+            if cdf is not None:
+                neg_dst = weighted_draw(kneg, cdf, (q * amount,))
+            else:
+                neg_dst = trandom.randint(kneg, (q * amount,), 0, num_nodes)
+            neg_dst = torch.where((src >= 0).repeat_interleave(amount),
+                                  neg_dst, PADDING_ID)
+            seed_ids = torch.cat([src, dst, neg_dst])
+        else:
+            seed_ids = torch.cat([src, dst])
+
+        width = seed_ids.shape[0]
+        out = self._union_sibling(width)._sample_impl(
+            g.indptr, g.indices, g.gather_edge_ids, seed_ids, ksample)
+        meta = dict(out.metadata or {})
+        # Every seed first occurs in the hop-0 prefix of the node list;
+        # relabel against that slice only (a leaf copy of a seed, with
+        # last_hop_dedup=False, has no deep embedding).
+        ref = out.node[:width]
+        if mode == "binary":
+            meta["edge_label_index"] = torch.stack([
+                relabel_by_reference(ref, torch.cat([src, negs.src])),
+                relabel_by_reference(ref, torch.cat([dst, negs.dst]))])
+            pos_label = (torch.ones(q, dtype=torch.int32, device=dev)
+                         if label is None else label + 1)
+            meta["edge_label"] = torch.cat([
+                torch.where(src >= 0, pos_label, PADDING_ID),
+                torch.zeros(q * amount, dtype=torch.int32, device=dev)])
+        elif mode == "triplet":
+            meta["src_index"] = relabel_by_reference(ref, src)
+            meta["dst_pos_index"] = relabel_by_reference(ref, dst)
+            meta["dst_neg_index"] = relabel_by_reference(
+                ref, neg_dst).reshape(q, amount)
+        else:
+            meta["edge_label_index"] = torch.stack([
+                relabel_by_reference(ref, src),
+                relabel_by_reference(ref, dst)])
+            if label is not None:
+                # The caller's labels pass through, with no +1.
+                meta["edge_label"] = torch.where(src >= 0, label, PADDING_ID)
+        out.metadata = meta
+        return out
+
+    # -- induced subgraph ----------------------------------------------------
+    def subgraph(self, inputs: NodeSamplerInput, max_degree: int = 64,
+                 key: Optional[torch.Tensor] = None) -> SamplerOutput:
+        """Hop expansion from ``inputs.node``, then the subgraph induced
+        by the sampled node set.
+
+        Unlike :meth:`sample_from_nodes`, the edges keep graph direction
+        (``row`` = CSR source, ``col`` = destination) with their real
+        edge ids, scanning at most ``max_degree`` entries of each node's
+        row.  ``metadata["mapping"]`` is ``arange(batch_size)``.
+        """
+        if not self.last_hop_dedup:
+            raise ValueError(
+                "subgraph() requires last_hop_dedup=True: the induced "
+                "extract relabels against a unique node set")
+        seeds = self._seed_tensor(inputs.node)
+        if key is None:
+            key = self._next_key()
+        g = self.graph
+        base = self._sample_impl(g.indptr, g.indices, g.gather_edge_ids,
+                                 seeds, key)
+        sub = node_subgraph(g.indptr, g.indices, base.node, int(max_degree),
+                            edge_ids=g.edge_ids)
+        return SamplerOutput(
+            node=base.node, row=sub.rows, col=sub.cols, edge=sub.eids,
+            batch=base.batch, node_mask=base.node_mask, edge_mask=sub.mask,
+            num_sampled_nodes=base.num_sampled_nodes,
+            metadata={"mapping": torch.arange(self.batch_size,
+                                              dtype=torch.int32,
+                                              device=self.device),
+                      **(base.metadata or {})})

@@ -36,8 +36,17 @@ for name in names:
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
+print(" ".join(names))
 print(len(names))
 """
+
+# The link and subgraph slice's modules, which the walk must reach.
+LINK_MODULES = (
+    "glt_tpu_torch.ops.negative_sample", "glt_tpu_torch.ops.stitch",
+    "glt_tpu_torch.loader.link_loader", "glt_tpu_torch.loader.subgraph_loader",
+    "glt_tpu_torch.examples.datasets",
+    "glt_tpu_torch.examples.graph_sage_unsup_ppi",
+    "glt_tpu_torch.examples.seal_link_pred")
 
 
 def test_port_imports_no_jax():
@@ -49,3 +58,5 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     # every subpackage was walked (store, refresh, ops, data, ...)
     assert int(proc.stdout.split()[-1]) >= 40, proc.stdout
+    walked = set(proc.stdout.splitlines()[-2].split())
+    assert set(LINK_MODULES) <= walked, sorted(set(LINK_MODULES) - walked)

@@ -26,6 +26,8 @@ from glt_tpu_torch.models import (
 from glt_tpu_torch.data import Feature
 from glt_tpu_torch.ops import (
     dedup_gather_rows,
+    edge_in_csr,
+    edge_in_csr_plain,
     frontier_plan,
     fused_frontier,
     fused_frontier_cuda,
@@ -38,7 +40,12 @@ from glt_tpu_torch.ops import (
     sample_cuda,
     threefry_cuda,
 )
-from glt_tpu_torch.sampler import NeighborSampler, NodeSamplerInput
+from glt_tpu_torch.sampler import (
+    EdgeSamplerInput,
+    NegativeSampling,
+    NeighborSampler,
+    NodeSamplerInput,
+)
 from glt_tpu_torch.serving import ServingOptions, SubgraphEngine
 from glt_tpu_torch.store import DiskFeatureStore, quant, write_feature_store
 from glt_tpu_torch.utils.device import resolve_device
@@ -476,6 +483,109 @@ def test_serving_from_compressed_store_on_card_equals_cpu(
 
 
 # -- on the CPU: the seam ----------------------------------------------------
+@pytest.mark.cuda
+def test_edge_in_csr_on_card_matches_plain(cuda_device):
+    """The card's sorted view equals the CPU's, and its searchsorted
+    membership test equals the 32-step search on the card and the CPU:
+    real edges, random pairs, padding, ids 0 and N - 1, rows of degree
+    0, ids past the last row."""
+    indptr, indices, _, _ = _graph()
+    n = indptr.shape[0] - 1
+    topo = CSRTopo.from_csr_arrays(indptr, indices)
+    gc, gh = Graph(topo, device=cuda_device), Graph(topo, device="cpu")
+    assert torch.equal(gc.sorted_indices.cpu(), gh.sorted_indices)
+    assert torch.equal(gc.edge_keys.cpu(), gh.edge_keys)
+    rng = np.random.default_rng(3)
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    pick = rng.integers(0, indices.shape[0], 4000)
+    # rows 0 and n - 1 have degree 0
+    qs = np.concatenate([rows[pick], rng.integers(0, n, 4000),
+                         [-1, 0, n - 1, 0, n - 1, 2, n, n + 3, -1]])
+    qd = np.concatenate([indices[pick], rng.integers(0, n, 4000),
+                         [3, 0, n - 1, n - 1, 0, -1, 1, 0, -1]])
+    got = edge_in_csr(gc.indptr, gc.sorted_indices, _t(qs, cuda_device),
+                      _t(qd, cuda_device), gc.edge_keys)
+    plain = edge_in_csr_plain(gc.indptr, gc.sorted_indices,
+                              _t(qs, cuda_device), _t(qd, cuda_device))
+    host = edge_in_csr_plain(gh.indptr, gh.sorted_indices, _t(qs, "cpu"),
+                             _t(qd, "cpu"))
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain) and torch.equal(got.cpu(), host)
+    assert bool(got[:4000].all()) and not bool(got[-9:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,weighted", [("binary", False),
+                                           ("binary", True),
+                                           ("triplet", False),
+                                           ("triplet", True), (None, False)])
+def test_sample_from_edges_on_card_equals_cpu(cuda_device, mode, weighted):
+    """The link path on the card (B1 a hop, the hash kernel for the
+    keys and draws) equals the CPU run field by field, metadata
+    included, over a full and a partial batch."""
+    indptr, indices, edge_ids, _ = _graph()
+    n = indptr.shape[0] - 1
+    topo = CSRTopo.from_csr_arrays(indptr, indices, edge_ids)
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    w = np.random.default_rng(2).random(n).astype(np.float32)
+    neg = None if mode is None else NegativeSampling(
+        mode, 2, weight=w if weighted else None)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        s = NeighborSampler(Graph(topo, device=dev), [5, 3], batch_size=16,
+                            seed=3)
+        rng = np.random.default_rng(1)
+        res = []
+        for num in (16, 9):
+            pick = rng.integers(0, indices.shape[0], num)
+            lab = rng.integers(0, 2, num).astype(np.int32)
+            out = s.sample_from_edges(EdgeSamplerInput(
+                rows[pick], indices[pick], lab, neg_sampling=neg))
+            res.append(out)
+        outs.append(res)
+    for card, cpu in zip(*outs):
+        for f in ("node", "row", "col", "edge", "batch", "node_mask",
+                  "edge_mask", "num_sampled_nodes", "num_sampled_edges"):
+            assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+        assert sorted(card.metadata) == sorted(cpu.metadata)
+        for k, v in cpu.metadata.items():
+            assert torch.equal(card.metadata[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positional_ids", [False, True])
+def test_subgraph_on_card_equals_cpu(cuda_device, positional_ids):
+    """The induced-subgraph path on the card (B1 a hop, the hash kernel
+    for the keys, the induced extract) equals the CPU run field by
+    field, metadata included, over a full batch with a repeated seed and
+    a hub, and a partial batch, at a degree cap below and above the
+    graph's degrees."""
+    indptr, indices, edge_ids, _ = _graph()
+    n = indptr.shape[0] - 1
+    topo = CSRTopo.from_csr_arrays(indptr, indices,
+                                   None if positional_ids else edge_ids)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        s = NeighborSampler(Graph(topo, device=dev), [5, 3], batch_size=16,
+                            with_edge=True, seed=3)
+        rng = np.random.default_rng(1)
+        res = []
+        for num, max_degree in ((16, 4), (9, 64)):
+            seeds = rng.integers(0, n, num)
+            seeds[:2] = [2, 2]
+            res.append(s.subgraph(NodeSamplerInput(seeds),
+                                  max_degree=max_degree))
+        outs.append(res)
+    for card, cpu in zip(*outs):
+        assert bool(cpu.edge_mask.any())
+        for f in ("node", "row", "col", "edge", "batch", "node_mask",
+                  "edge_mask", "num_sampled_nodes"):
+            assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+        assert sorted(card.metadata) == sorted(cpu.metadata)
+        for k, v in cpu.metadata.items():
+            assert torch.equal(card.metadata[k].cpu(), v), k
+
+
 def test_cpu_tensors_take_the_plain_versions():
     from glt_tpu_torch.ops import sample_neighbors
 
@@ -550,3 +660,27 @@ def test_entry_points_default_to_cuda(monkeypatch):
         Feature(np.zeros((4, 2), np.float32), split_ratio=0.5)
     assert resolve_device("cpu").type == "cpu"
     assert trandom.PRNGKey(0, device="cpu").device.type == "cpu"
+
+
+def test_link_entry_points_default_to_cuda(monkeypatch):
+    """The link and subgraph entry points default to the card too."""
+    from glt_tpu_torch.examples import (
+        datasets,
+        graph_sage_unsup_ppi,
+        seal_link_pred,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        datasets.synthetic_ppi(scale=0.0)
+    with pytest.raises(RuntimeError):
+        graph_sage_unsup_ppi.main(["--epochs", "1"])
+    with pytest.raises(RuntimeError):
+        seal_link_pred.main(["--epochs", "1"])
+    topo = CSRTopo(np.array([[0, 1], [1, 2]]))
+    with pytest.raises(RuntimeError):
+        Graph(topo, with_sorted_columns=True)
+    with pytest.raises(RuntimeError):
+        NegativeSampling("binary", 1, weight=[1.0, 2.0]).cdf()
+    g = Graph(topo, device="cpu", with_sorted_columns=True)
+    assert g.sorted_indices.tolist() == [1, 2]
