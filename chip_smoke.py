@@ -26,28 +26,43 @@ Phases (the first failure exits non-zero and prints no result line):
 4. serving: a products-scale graph (2,449,029 nodes, power-law degrees
    of mean 25, seed 0; 100-wide f32 features; 47 classes) served by
    ``SubgraphEngine(ServingOptions(num_neighbors=(15, 10, 5),
-   seed_buckets=(8, 32, 128)))``; every message checked against the
-   graph and the feature table, GraphSAGE (hidden 256, 3 layers, 47
-   classes, random weights from seed 0) run on every served batch, and
-   one micro-batch per bucket served again on the CPU and required
-   equal; kernel launch counts are read around this phase (B1 once per
-   hop, the hash kernel twice per micro-batch, the plain threefry
-   arithmetic never on the card).  Then, per bucket, PROFILED warm
-   micro-batches under ``torch.profiler``: kernel launches and their
-   device time, counted apart from device<->host copies and memsets;
+   seed_buckets=(8, 32, 128)))``: ``warmup()`` captures one CUDA graph
+   per bucket, then every micro-batch replays it.  Every message checked
+   against the graph and the feature table, GraphSAGE (hidden 256, 3
+   layers, 47 classes, random weights from seed 0) run on every served
+   batch, and one micro-batch per bucket served again on the CPU (after
+   the CPU engine's own ``warmup()``) and required equal; kernel launch
+   counts are read around this phase (B1 once per hop in each bucket's
+   warm-up and once into its graph, none in a replay; the hash kernel
+   for each micro-batch's fold_in and each bucket's two hop splits; the
+   plain threefry arithmetic never on the card).  Then per bucket one
+   replayed micro-batch ``torch.equal`` to the eager route at the same
+   key (node, row, col, edge_mask, x); PROFILED warm micro-batches per
+   bucket under ``torch.profiler`` through the graph and through the
+   eager route (the same stage launched op by op): host calls into the
+   CUDA runtime, kernels and their device time, B1 counted by name (3 a
+   replayed micro-batch), copies and memsets; and the medians of both
+   routes over the same request lists;
 5. training: the flagship configuration of
    ``examples/train_sage_products.py`` on the same graph (GraphSAGE,
    hidden 256, 3 layers, bf16 matmuls, dropout 0.5, Adam 1e-3; batch
    1024, fanout (15, 10, 5), frontier cap 8192, no edge ids): the node
    capacity calibrated on 8 batches (p99, no margin), a capped
-   ``NeighborSampler``, the
-   scanned epoch at G = 8 with the feature gather through B3 for 5
-   blocks, then held-out batches through ``NeighborLoader`` (B1 + B2);
-   kernel launch counts are read around this phase (the plain threefry
-   arithmetic never on the card).  Losses must be
-   finite; one block's ``x`` through B3 must equal the plain gather's;
-   one step with dropout off must give the CPU's loss; one more block
-   runs under ``torch.profiler``;
+   ``NeighborSampler``, the scanned epoch at G = 8 with the feature
+   gather through B3 for 5 blocks (the first eager, the second
+   captured into a CUDA graph, the rest replayed), then held-out
+   batches through ``NeighborLoader`` (B1 + B2); kernel launch counts
+   are read around this phase (the plain threefry arithmetic never on
+   the card).  Losses must be finite.  One more block is replayed under
+   ``torch.profiler`` (B1 3 times a step by name) and the same block
+   run eagerly from copies of the same state (a fresh step): first
+   losses within 1e-3 relative, all within ``LOSS_RTOL``; two more
+   eager blocks are timed.  One block's ``x`` through B3 must equal the
+   plain gather's; one step with dropout off must give the CPU's loss;
+   three blocks with ``feature_cache=`` (eager, captured, replayed)
+   whose replayed ``x`` equals the uncached gather bit for bit, with
+   the cache's hit and miss counts; ``sample_from_nodes_batched`` at
+   G = 8 replayed and ``torch.equal`` to 8 eager samples;
 6. store: the products features written as an int8 and a bf16
    ``DiskFeatureStore`` under ``build/tmp`` (deleted at the end); the
    three buckets served over ``Feature.from_store(split_ratio=1.0)`` of
@@ -93,12 +108,18 @@ Phases (the first failure exits non-zero and prints no result line):
    4-8) and the ok line.
 
 Details go to ``build/results/chip_smoke.json``.  Imports torch, numpy
-and glt_tpu_torch only.
+and glt_tpu_torch only.  Every profiled window starts with
+PROFILER_SETTLE_S of idle time: the profiler can lose the device records
+of work launched just after it starts.  ``python3 chip_smoke.py
+--profiler-settle-check N`` counts those losses over N windows per
+bucket, with and without the settle time, and runs no phase.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -118,9 +139,11 @@ PRODUCTS_N, AVG_DEG = 2_449_029, 25
 REPS = 25
 B1_READ_ONLY_MS = 0.00489         # the earlier read-only B1 at [19200, 5] (PERF.md)
 PROFILED = 3                      # micro-batches per bucket under the profiler
+PROFILER_SETTLE_S = 0.1           # idle time after the profiler starts (see profiled)
 # Training phase: examples/train_sage_products.py's flagship settings.
 TRAIN_BS, FRONTIER_CAP, GROUP, LR = 1024, 8192, 8, 1e-3
 TRAIN_BLOCKS, CAL_BATCHES, EVAL_BATCHES = 5, 8, 2
+CACHE_ROWS = 1 << 18              # the cached block's feature cache
 LOSS_RTOL = 1e-2                  # card vs CPU loss, bf16 matmuls (see run_train)
 F32_LOSS_RTOL = 1e-5              # card vs CPU link/subgraph loss (f32 matmuls)
 DIGITS_ARGS = []                  # the digits twin's defaults
@@ -685,10 +708,11 @@ def random_model(torch, GraphSAGE, dev, dtype=None, dropout_rate=0.5):
 
 def device_profile(torch, prof, n: int, wall: float) -> dict:
     """Per-unit device counts from a ``torch.profiler`` run over ``n``
-    units (micro-batches or steps) of ``wall`` ms each: kernel launches
-    and their device ms, device<->host copies and memsets apart from
-    kernels, and the share of the wall time spent in kernels and
-    copies."""
+    units (micro-batches or steps) of ``wall`` ms each: kernels run and
+    their device ms, device<->host copies and memsets apart from
+    kernels, the share of the wall time spent in kernels and copies, and
+    the host's calls into the CUDA runtime (all of them, and those that
+    launch work: kernels, graphs, copies, memsets)."""
     cls = {"kernels": [0, 0.0], "copies": [0, 0.0], "memsets": [0, 0.0]}
     by_name = {}
     for ev in prof.events():
@@ -715,6 +739,11 @@ def device_profile(torch, prof, n: int, wall: float) -> dict:
     row["copy_kinds"] = [
         {"name": name, "count": c / n, "ms": t / n}
         for (kind, name), (c, t) in named if kind == "copies"]
+    calls = runtime_calls(torch, prof)
+    row["runtime_calls"] = sum(calls.values()) / n
+    row["launch_calls"] = launch_calls(calls) / n
+    row["runtime_call_kinds"] = {k: v / n for k, v in sorted(
+        calls.items(), key=lambda kv: -kv[1])[:8]}
     return row
 
 
@@ -723,23 +752,140 @@ def profiler_activities(torch):
     return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
 
-def profile_buckets(torch, engine, lists):
-    """Serve PROFILED warm micro-batches per bucket under torch.profiler
-    (see :func:`device_profile`)."""
+def settle_profiler(torch, settle_s: float = PROFILER_SETTLE_S) -> None:
+    """Let a just-started profiler reach the card before measured work.
+    Device records of work launched in the first milliseconds after the
+    start are sometimes lost, every kernel of a graph replay at once
+    (``--profiler-settle-check`` counts how often; PERF.md)."""
+    torch.cuda.synchronize()
+    time.sleep(settle_s)
+
+
+@contextlib.contextmanager
+def profile_window(torch, settle_s: float = PROFILER_SETTLE_S):
+    """A ``torch.profiler`` window over CPU and CUDA activity, settled
+    (see :func:`settle_profiler`) before the body runs; the body times
+    itself."""
     from torch.profiler import profile
 
+    torch.cuda.synchronize()
+    with profile(activities=profiler_activities(torch)) as prof:
+        settle_profiler(torch, settle_s)
+        yield prof
+
+
+def runtime_calls(torch, prof) -> dict:
+    """Host calls into the CUDA APIs (``cuda*`` and ``cu*``) in a
+    profiled window, by name (``cudaLaunchKernel``, ``cudaGraphLaunch``,
+    ``cudaMemcpyAsync``, ...)."""
+    calls = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.name
+        if name.startswith("cuda") or (name.startswith("cu")
+                                       and name[2:3].isupper()):
+            calls[name] = calls.get(name, 0) + 1
+    return calls
+
+
+def launch_calls(calls: dict) -> int:
+    """The runtime calls that put work on the card: kernel and graph
+    launches, copies and memsets."""
+    return sum(n for name, n in calls.items()
+               if any(w in name for w in ("Launch", "Memcpy", "Memset")))
+
+
+def b1_kernels(torch, prof) -> int:
+    """Device executions of kernel B1 (``sample_kernel``) in a profiled
+    window, counted by name: inside a graph replay the launch counters
+    do not move, the device still runs each kernel."""
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and re.search(r"(^|[^A-Za-z_])sample_kernel", ev.name))
+
+
+def eager_sample(torch, engine, seed_lists, bucket=None):
+    """``SubgraphEngine.sample`` without its graph: the same device stage
+    launched op by op, the same host copy.  The yardstick of the graph
+    route, timed in the same run."""
+    from glt_tpu_torch.serving.engine import CoalescedSample, _fetch
+
+    total = int(sum(s.size for s in seed_lists))
+    bucket = engine.bucket_for(total) if bucket is None else bucket
+    seeds = np.full((bucket,), -1, np.int32)
+    off = 0
+    for s in seed_lists:
+        seeds[off: off + s.size] = s
+        off += s.size
+    sampler = engine._sampler(bucket)
+    dev = engine.graph.device
+    node, row, col, edge, edge_mask, x = engine._device_stage(
+        sampler, torch.from_numpy(seeds).to(dev), sampler._next_key())
+    node, row, col, edge, edge_mask, x = _fetch(node, row, col, edge,
+                                                edge_mask, x)
+    labels = engine._labels
+    y = np.where(node >= 0, labels[np.clip(node, 0, labels.shape[0] - 1)],
+                 -1).astype(np.int32)
+    return CoalescedSample(list(seed_lists), bucket, node, row, col, edge,
+                           edge_mask, x, y, len(engine.num_neighbors))
+
+
+def profile_buckets(torch, engine, lists, route):
+    """Serve PROFILED warm micro-batches per bucket under torch.profiler
+    through ``route`` ("graph": ``engine.sample``; "eager":
+    :func:`eager_sample`); see :func:`device_profile`."""
+    sample = (engine.sample if route == "graph"
+              else lambda seeds: eager_sample(torch, engine, seeds))
     out = {}
     for bucket in BUCKETS:
         reqs_all = lists[bucket][-PROFILED:]
-        torch.cuda.synchronize()
-        with profile(activities=profiler_activities(torch)) as prof:
+        with profile_window(torch) as prof:
             t0 = time.perf_counter()
             for reqs in reqs_all:
-                engine.scatter(engine.sample(
+                engine.scatter(sample(
                     [engine.validate_seeds(r) for r in reqs]))
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / len(reqs_all)
-        out[bucket] = device_profile(torch, prof, len(reqs_all), wall)
+        row = device_profile(torch, prof, len(reqs_all), wall)
+        row["b1_kernels"] = b1_kernels(torch, prof) / len(reqs_all)
+        out[bucket] = row
+    return out
+
+
+def serve_timed(torch, engine, lists, sample, on_batch=None):
+    """Serve every micro-batch of ``lists`` through ``sample``; per
+    bucket the (total, device stage, host scatter) ms of each."""
+    lat = {}
+    for bucket in BUCKETS:
+        lat[bucket] = []
+        for i, reqs in enumerate(lists[bucket]):
+            t0 = time.perf_counter()
+            seeds = [engine.validate_seeds(r) for r in reqs]
+            coal = sample(seeds)               # ends with the host copy
+            t1 = time.perf_counter()
+            msgs = engine.scatter(coal)
+            t2 = time.perf_counter()
+            lat[bucket].append(((t2 - t0) * 1e3, (t1 - t0) * 1e3,
+                                (t2 - t1) * 1e3))
+            need(coal.bucket == bucket, f"bucket {coal.bucket} != {bucket}")
+            if on_batch is not None:
+                on_batch(bucket, i, seeds, coal, msgs)
+    return lat
+
+
+def medians(passes) -> dict:
+    """Per bucket: the medians over the warm micro-batches of every pass
+    in ``passes`` (the first of each bucket in a pass is left out)."""
+    out = {}
+    for bucket in BUCKETS:
+        steady = [r for lat in passes for r in lat[bucket][1:]]
+        out[str(bucket)] = {
+            "latency_ms_median": statistics.median(t for t, _, _ in steady),
+            "sample_ms_median": statistics.median(s for _, s, _ in steady),
+            "scatter_ms_median": statistics.median(c for _, _, c in steady),
+            "latency_ms_all": [[t for t, _, _ in lat[bucket]]
+                               for lat in passes]}
     return out
 
 
@@ -749,6 +895,7 @@ def run_slice(torch, dev, indptr, indices, feat, labels, rng):
     from glt_tpu_torch import ops
     from glt_tpu_torch import random as trandom
     from glt_tpu_torch.models import GraphSAGE
+    from glt_tpu_torch.sampler import NodeSamplerInput
     from glt_tpu_torch.serving import ServingOptions, SubgraphEngine
 
     topo = CSRTopo.from_csr_arrays(indptr, indices)
@@ -762,55 +909,65 @@ def run_slice(torch, dev, indptr, indices, feat, labels, rng):
     torch.cuda.synchronize()
 
     # -- the main path: counts set to 0 just before, read just after ----
+    # warmup() captures each bucket's graph (one eager warm-up run, then
+    # the capture); every micro-batch after it is a replay.
     for fn in kernel_wrappers(ops).values():
         fn.launches = 0
     trandom.threefry2x32.calls = 0
-    first, lat, served, nmsg, logits_first = {}, {}, 0, 0, {}
-    for bucket in BUCKETS:
-        lat[bucket] = []
-        for i, reqs in enumerate(lists[bucket]):
-            t0 = time.perf_counter()
-            seeds = [engine.validate_seeds(r) for r in reqs]
-            coal = engine.sample(seeds)        # ends with the host copy
-            t1 = time.perf_counter()
-            msgs = engine.scatter(coal)
-            t2 = time.perf_counter()
-            lat[bucket].append(((t2 - t0) * 1e3, (t1 - t0) * 1e3,
-                                (t2 - t1) * 1e3))
-            need(coal.bucket == bucket, f"bucket {coal.bucket} != {bucket}")
-            served += 1
+    first, logits_first, counts = {}, {}, {}
+    nmsg = [0]
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    def check(bucket, i, seeds, coal, msgs):
+        for m in msgs:
+            check_message(m, indptr, indices, feat, labels)
+            nmsg[0] += 1
+        outs = []
+        with torch.no_grad():
             for m in msgs:
-                check_message(m, indptr, indices, feat, labels)
-                nmsg += 1
-            outs = []
-            with torch.no_grad():
-                for m in msgs:
-                    b = message_to_batch(m, device=dev)
-                    out = model(b.x, b.edge_index, b.edge_mask)
-                    need(tuple(out.shape) == (m["node"].size, CLASSES),
-                         "logits shape")
-                    need(bool(torch.isfinite(out).all()), "logits not finite")
-                    outs.append(out)
-            if i == 0:
-                first[bucket] = (seeds, msgs)
-                logits_first[bucket] = [o.cpu() for o in outs]
+                b = message_to_batch(m, device=dev)
+                out = model(b.x, b.edge_index, b.edge_mask)
+                need(tuple(out.shape) == (m["node"].size, CLASSES),
+                     "logits shape")
+                need(bool(torch.isfinite(out).all()), "logits not finite")
+                outs.append(out)
+        if i == 0:
+            first[bucket] = (seeds, msgs)
+            logits_first[bucket] = [o.cpu() for o in outs]
+
+    lat = serve_timed(torch, engine, lists, engine.sample, check)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
     plain_calls = trandom.threefry2x32.calls
+    served = sum(len(v) for v in lists.values())
     need(plain_calls == 0, f"the serving path ran the plain threefry "
                            f"arithmetic on the card ({plain_calls} calls)")
-    need(launches["sample_neighbors_cuda"] == len(FANOUTS) * served,
-         f"B1 launched {launches['sample_neighbors_cuda']} times for "
-         f"{served} micro-batches of {len(FANOUTS)} hops")
-    need(launches["threefry_hash_cuda"] == 2 * served,
-         f"the hash kernel launched {launches['threefry_hash_cuda']} times "
-         f"for {served} micro-batches (fold_in and split each)")
+    need(engine.compiled_buckets() == list(BUCKETS),
+         f"captured buckets {engine.compiled_buckets()}")
+    # Per bucket: B1 once per hop in the warm-up and once per hop into
+    # the graph; replays move no counter.  The hash kernel: the split
+    # by hop in the warm-up and in the graph, and one fold_in per
+    # micro-batch (warmup()'s included), outside the graph.
+    nb = len(BUCKETS)
+    need(launches["sample_neighbors_cuda"] == 2 * len(FANOUTS) * nb,
+         f"B1 launched {launches['sample_neighbors_cuda']} times to "
+         f"capture {nb} buckets of {len(FANOUTS)} hops")
+    need(launches["threefry_hash_cuda"] == 2 * nb + nb + served,
+         f"the hash kernel launched {launches['threefry_hash_cuda']} "
+         f"times for {nb} captures and {served + nb} micro-batches")
+    need(launches["gather_rows_cuda"] == 2 * nb,
+         f"B2 launched {launches['gather_rows_cuda']} times for {nb} "
+         f"captures")
 
     # -- the same first micro-batch per bucket on the CPU: equal ---------
     cds = Dataset(graph=Graph(topo, device="cpu"), device="cpu")
     cds.init_node_features(feat)
     cds.init_node_labels(labels)
     cengine = SubgraphEngine(cds, ServingOptions(**opts))
+    cengine.warmup()                    # the same key counters
     cmodel = random_model(torch, GraphSAGE, "cpu")
     logit_err = 0.0
     for bucket in BUCKETS:
@@ -832,24 +989,71 @@ def run_slice(torch, dev, indptr, indices, feat, labels, rng):
             need(err <= 1e-4 * max(scale, 1.0),
                  f"bucket {bucket}: card and CPU logits differ by {err}")
 
-    profiled = profile_buckets(torch, engine, lists)
-
-    per_bucket = {}
+    # -- per bucket, a replayed micro-batch == the eager route -----------
+    feature = ds.get_node_feature()
     for bucket in BUCKETS:
-        steady = lat[bucket][1:]            # the first call warms up
-        med = statistics.median(t for t, _, _ in steady)
-        per_bucket[str(bucket)] = {
-            "latency_ms_median": med,
-            "sample_ms_median": statistics.median(s for _, s, _ in steady),
-            "scatter_ms_median": statistics.median(c for _, _, c in steady),
-            "latency_ms_first": lat[bucket][0][0],
-            "latency_ms_all": [t for t, _, _ in lat[bucket]],
-            "profile": profiled[bucket],
-        }
+        reqs = [engine.validate_seeds(r) for r in lists[bucket][0]]
+        s = engine._sampler(bucket)
+        count = s._call_count
+        coal = engine.sample(reqs)
+        seeds = np.full((bucket,), -1, np.int32)
+        flat = np.concatenate(reqs)
+        seeds[: flat.size] = flat
+        out = s.sample_from_nodes(
+            NodeSamplerInput(seeds),
+            key=trandom.fold_in(s._base_key, count))
+        want = (out.node, out.row, out.col, out.edge_mask,
+                feature.gather(out.node))
+        got = (coal.node, coal.row, coal.col, coal.edge_mask, coal.x)
+        for name, w, g in zip(("node", "row", "col", "edge_mask", "x"),
+                              want, got):
+            need(torch.equal(w.cpu(), torch.from_numpy(g)),
+                 f"bucket {bucket}: the replayed {name} differs from the "
+                 f"eager route's")
+
+    # -- graph against eager in this run: profiles, then medians ---------
+    profiled = {r: profile_buckets(torch, engine, lists, r)
+                for r in ("graph", "eager")}
+    for bucket in BUCKETS:
+        b1 = profiled["graph"][bucket]["b1_kernels"]
+        need(b1 == len(FANOUTS), f"bucket {bucket}: B1 ran {b1} times per "
+                                 f"replayed micro-batch, not "
+                                 f"{len(FANOUTS)}")
+    # Timed passes without the checks, in turns: graph, eager, eager,
+    # graph (the checked pass above runs the model and the host checks
+    # between micro-batches, which would tilt the comparison).
+    routes = {"graph": engine.sample,
+              "eager": lambda seeds: eager_sample(torch, engine, seeds)}
+    passes = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        passes[route].append(serve_timed(torch, engine, lists,
+                                         routes[route]))
+    graph_med, eager_med = medians(passes["graph"]), medians(passes["eager"])
+    per_bucket = {}
+    for bucket in map(str, BUCKETS):
+        per_bucket[bucket] = dict(graph_med[bucket])
+        per_bucket[bucket]["latency_ms_first"] = lat[int(bucket)][0][0]
+        per_bucket[bucket]["checked_pass_ms"] = [
+            t for t, _, _ in lat[int(bucket)]]
+        per_bucket[bucket]["profile"] = profiled["graph"][int(bucket)]
+        per_bucket[bucket]["eager"] = dict(
+            eager_med[bucket], profile=profiled["eager"][int(bucket)])
     return {"launches": launches, "plain_hash_calls": plain_calls,
-            "micro_batches": served,
-            "messages_checked": nmsg, "per_bucket": per_bucket,
+            "micro_batches": served, "warmup_s": warmup_s,
+            "messages_checked": nmsg[0], "per_bucket": per_bucket,
             "cpu_logit_rel_err": logit_err}
+
+
+def copy_state(torch, state, GraphSAGE, adam, dev):
+    """A TrainState with its own bf16 model and Adam, holding copies of
+    ``state``'s weights, optimizer state and step."""
+    from glt_tpu_torch.models import TrainState
+
+    model = random_model(torch, GraphSAGE, dev, dtype=torch.bfloat16)
+    model.load_state_dict(state.model.state_dict())
+    opt = adam(LR)(model.parameters())
+    opt.load_state_dict(state.optimizer.state_dict())
+    return TrainState(model, opt, state.step)
 
 
 # -- phase 5: training -------------------------------------------------------
@@ -877,7 +1081,6 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
         NodeSamplerInput,
         calibrate_node_capacity,
     )
-    from torch.profiler import profile
 
     topo = CSRTopo.from_csr_arrays(indptr, indices)
     ds = Dataset(graph=Graph(topo, device=dev), device=dev)
@@ -929,28 +1132,75 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
     plain_calls = trandom.threefry2x32.calls
     need(plain_calls == 0, f"the training path ran the plain threefry "
                            f"arithmetic on the card ({plain_calls} calls)")
-    samples = (losses.shape[0] + CAL_BATCHES + len(eval_accs)
+    # B1 once per hop of each eager sample; the epoch's first block runs
+    # eagerly, the second is captured (its launches counted once) and
+    # replayed, and the rest replay without moving a counter.
+    samples = (CAL_BATCHES + 2 * GROUP + len(eval_accs)
                + loader.overflow_batches)
     need(launches["sample_neighbors_cuda"] == len(FANOUTS) * samples,
          f"B1 launched {launches['sample_neighbors_cuda']} times for "
-         f"{samples} samples of {len(FANOUTS)} hops")
+         f"{samples} eager and captured samples of {len(FANOUTS)} hops")
     peak = torch.cuda.max_memory_allocated()
     block_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    step_ms = statistics.median(block_ms[1:]) / GROUP   # warm blocks
+    step_ms = statistics.median(block_ms[2:]) / GROUP   # replayed blocks
 
-    # -- one more block under the profiler --------------------------------
+    # -- one block replayed and the same block eager, from one state ------
     prof_idx = perm[-(EVAL_BATCHES + GROUP) * TRAIN_BS:
                     -EVAL_BATCHES * TRAIN_BS]          # 8 full batches
     blk = next(node_seed_blocks(prof_idx, TRAIN_BS, GROUP,
                                 np.random.default_rng(6)))
     need(bool((blk >= 0).all()), "the profiled block holds padding")
-    torch.cuda.synchronize()
-    with profile(activities=profiler_activities(torch)) as prof:
+    twin = copy_state(torch, state, GraphSAGE, adam, dev)
+    key7 = trandom.PRNGKey(7, device=dev)
+    with profile_window(torch) as prof:
         t1 = time.perf_counter()
-        state, _, _, _ = step(state, blk, trandom.PRNGKey(7, device=dev))
+        state, ls_graph, _, _ = step(state, blk, key7)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3 / GROUP
     profiled = device_profile(torch, prof, GROUP, wall)
+    profiled["b1_kernels"] = b1_kernels(torch, prof) / GROUP
+    need(profiled["b1_kernels"] == len(FANOUTS),
+         f"B1 ran {profiled['b1_kernels']} times a replayed step")
+
+    def eager_step():
+        # A fresh step's first call at a block shape runs eagerly.
+        return make_scanned_node_train_step(
+            sampler, ds.get_node_feature(), labels, TRAIN_BS,
+            fused_frontier=True)
+
+    fresh = eager_step()
+    with profile_window(torch) as prof:
+        t1 = time.perf_counter()
+        twin, ls_eager, _, _ = fresh(twin, blk, key7)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3 / GROUP
+    eager_profiled = device_profile(torch, prof, GROUP, wall)
+    eager_profiled["b1_kernels"] = b1_kernels(torch, prof) / GROUP
+    lg, le = ls_graph.double().cpu(), ls_eager.double().cpu()
+    replay_rel = ((lg - le).abs() / le.abs().clamp(min=1e-30)).tolist()
+    need(replay_rel[0] <= 1e-3, f"replayed block's first loss {lg[0]} vs "
+                                f"eager {le[0]}")
+    need(max(replay_rel) <= LOSS_RTOL,
+         f"replayed block's losses {lg.tolist()} vs eager {le.tolist()}")
+    # Blocks timed in turns, eager, graph, graph, eager: the eager ones
+    # on the copy through fresh steps, the graph ones replayed.
+    turn_ms = {"eager": [], "graph": []}
+    for j, (route, eb) in enumerate(zip(
+            ("eager", "graph", "graph", "eager"),
+            node_seed_blocks(train_idx[: 4 * GROUP * TRAIN_BS], TRAIN_BS,
+                             GROUP, np.random.default_rng(10)))):
+        run = eager_step() if route == "eager" else step
+        key = trandom.PRNGKey(11 + j, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if route == "eager":
+            twin, _, _, _ = run(twin, eb, key)
+        else:
+            state, _, _, _ = run(state, eb, key)
+        torch.cuda.synchronize()
+        turn_ms[route].append((time.perf_counter() - t1) * 1e3)
+    eager_block_ms = turn_ms["eager"]
+    del twin
 
     # -- one block's x through B3 equals the plain gather ----------------
     rows = ds.get_node_feature().hot_rows
@@ -989,7 +1239,13 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
         pair.append(float(ls[0]))
     loss_err = abs(pair[0] - pair[1]) / max(abs(pair[1]), 1e-30)
     need(loss_err <= LOSS_RTOL, f"card loss {pair[0]} vs CPU {pair[1]}")
+
+    cached = run_cached_block(torch, dev, sampler, ds, labels, train_idx,
+                              rows, lab)
+    batched = run_batched_sample(torch, dev, sampler, prof_idx)
     return {
+        "feature_cache_block": cached,
+        "batched_sample": batched,
         "node_capacity": node_cap,
         "full_node_capacity": sampler.full_node_capacity,
         "calibrate_s": cal_s,
@@ -1001,6 +1257,11 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
         "block_ms": block_ms,
         "step_ms_median": step_ms,
         "steps_per_s": 1e3 / step_ms,
+        "eager_block_ms": eager_block_ms,
+        "eager_step_ms_median": statistics.median(eager_block_ms) / GROUP,
+        "turn_graph_block_ms": turn_ms["graph"],
+        "replay_vs_eager_rel": replay_rel,
+        "eager_profile": eager_profiled,
         "max_memory_allocated": peak,
         "launches": launches,
         "plain_hash_calls": plain_calls,
@@ -1011,6 +1272,123 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
         "card_loss": pair[0],
         "cpu_loss_rel_err": loss_err,
     }, node_list, rows
+
+
+def run_cached_block(torch, dev, sampler, ds, labels, train_idx, rows,
+                     lab) -> dict:
+    """The scanned node step with ``feature_cache=`` (CACHE_ROWS rows)
+    for three blocks: eager, captured, replayed.  A recording wrapper
+    round the model copies each batch's ``x`` into a static buffer (an
+    in-place copy, which the graph replays); the replayed block's ``x``
+    must equal the uncached gather of the same samples bit for bit."""
+    from glt_tpu_torch import ops
+    from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.data.feature_cache import cache_init, cache_stats
+    from glt_tpu_torch.models import (
+        GraphSAGE,
+        adam,
+        create_train_state,
+        make_gather_xy,
+        make_scanned_node_train_step,
+        node_seed_blocks,
+    )
+    from glt_tpu_torch.sampler import NodeSamplerInput
+
+    inner = random_model(torch, GraphSAGE, dev, dtype=torch.bfloat16)
+
+    class Recorder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.inner = inner
+            self.calls = 0
+            self.x = torch.zeros((GROUP, sampler.node_capacity, FEAT_DIM),
+                                 device=dev)
+
+        def forward(self, x, edge_index, edge_mask, dropout_key=None):
+            self.x[self.calls % GROUP].copy_(x)
+            self.calls += 1
+            return self.inner(x, edge_index, edge_mask,
+                              dropout_key=dropout_key)
+
+    rec = Recorder()
+    state = create_train_state(rec, adam(LR))
+    step = make_scanned_node_train_step(
+        sampler, ds.get_node_feature(), labels, TRAIN_BS,
+        fused_frontier=True, feature_cache=cache_init(
+            PRODUCTS_N, CACHE_ROWS, FEAT_DIM, device=dev))
+    blocks = list(node_seed_blocks(train_idx[: 3 * GROUP * TRAIN_BS],
+                                   TRAIN_BS, GROUP,
+                                   np.random.default_rng(9)))
+    b1 = ops.sample_neighbors_cuda.launches
+    block_ms = []
+    for i, blk in enumerate(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses, _, _ = step(state, blk,
+                                   trandom.PRNGKey(50 + i, device=dev))
+        torch.cuda.synchronize()
+        block_ms.append((time.perf_counter() - t0) * 1e3)
+        need(bool(torch.isfinite(losses).all()), "cached block: losses")
+    launched = ops.sample_neighbors_cuda.launches - b1
+    need(launched == 2 * GROUP * len(FANOUTS),
+         f"cached block: B1 launched {launched} times (eager block and "
+         f"capture), not {2 * GROUP * len(FANOUTS)}")
+    plain_xy = make_gather_xy()
+    keys = trandom.split(trandom.PRNGKey(52, device=dev), GROUP)
+    for g in range(GROUP):
+        out = sampler.sample_from_nodes(NodeSamplerInput(blocks[2][g]),
+                                        key=keys[g])
+        xp, _ = plain_xy(rows, lab, out)
+        need(torch.equal(rec.x[g], xp),
+             f"cached block: the replayed batch {g}'s x differs from the "
+             f"uncached gather")
+    stats = cache_stats(step.feature_cache())
+    need(stats["hits"] + stats["misses"] > 0, "the cache served nothing")
+    return {"cache_rows": CACHE_ROWS, "block_ms": block_ms,
+            "stats": stats}
+
+
+def run_batched_sample(torch, dev, sampler, ids) -> dict:
+    """``sample_from_nodes_batched`` at G = GROUP on the training
+    sampler: the first call captures, the second replays and must equal
+    GROUP eager ``sample_from_nodes`` calls under ``split(key, G)``
+    (every field and the overflow flags); then the replay and the loop,
+    timed."""
+    from glt_tpu_torch import ops
+    from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.models import node_seed_blocks
+    from glt_tpu_torch.sampler import NodeSamplerInput
+
+    blk = next(node_seed_blocks(ids, TRAIN_BS, GROUP,
+                                np.random.default_rng(12)))
+    sampler.sample_from_nodes_batched(blk[::-1].copy())     # captures
+    key = trandom.PRNGKey(60, device=dev)
+    b1 = ops.sample_neighbors_cuda.launches
+    out = sampler.sample_from_nodes_batched(blk, key=key)
+    need(ops.sample_neighbors_cuda.launches == b1,
+         "the second batched call launched B1: not a replay")
+    keys = trandom.split(key, GROUP)
+    fields = ("node", "row", "col", "batch", "node_mask", "edge_mask",
+              "num_sampled_nodes", "num_sampled_edges")
+    for g in range(GROUP):
+        one = sampler.sample_from_nodes(NodeSamplerInput(blk[g]),
+                                        key=keys[g])
+        for f in fields:
+            need(torch.equal(getattr(out, f)[g], getattr(one, f)),
+                 f"batched sample {g}: {f} differs from the loop's")
+        need(torch.equal(out.metadata["overflow"][g],
+                         one.metadata["overflow"]),
+             f"batched sample {g}: overflow flag differs")
+
+    def loop():
+        return [sampler.sample_from_nodes(NodeSamplerInput(blk[g]),
+                                          key=keys[g])
+                for g in range(GROUP)]
+
+    return {"G": GROUP, "batch_size": TRAIN_BS,
+            "replay_ms": host_ms(torch, lambda: sampler.
+                                 sample_from_nodes_batched(blk, key=key)),
+            "loop_ms": host_ms(torch, loop)}
 
 
 # -- phase 6: the compressed feature store -------------------------------
@@ -1137,10 +1515,12 @@ def run_store(torch, dev, indptr, indices, feat, labels, train_nodes):
             # Layer 1's sweeps 11..13 (256-wide input) under the profiler.
             if (layer, sweep) == (1, 10):
                 prof.start()
+                settle_profiler(torch)
+                kept["prof_t0"] = time.perf_counter()
             elif (layer, sweep) == (1, 10 + PROFILED):
                 torch.cuda.synchronize()
                 prof.stop()
-                kept["prof_wall_ms"] = (stamps[-1][1] - stamps[-1 - PROFILED][1]
+                kept["prof_wall_ms"] = (stamps[-1][1] - kept.pop("prof_t0")
                                         ) * 1e3 / PROFILED
             if layer == 0 and sweep in check_sweeps:
                 block_len = min(d.block_size,
@@ -1390,7 +1770,6 @@ def run_link(torch, dev, indptr, indices, feat, rng):
         NeighborSampler,
         NodeSamplerInput,
     )
-    from torch.profiler import profile
 
     rep = {}
     topo = CSRTopo.from_csr_arrays(indptr, indices)
@@ -1421,7 +1800,7 @@ def run_link(torch, dev, indptr, indices, feat, rng):
     hit = got.cpu().numpy()
     need(bool(hit[:half][(qs[:half] >= 0) & (qd[:half] >= 0)].all()),
          "edge_in_csr missed a real edge")
-    with profile(activities=profiler_activities(torch)) as prof:
+    with profile_window(torch) as prof:
         ops.edge_in_csr(*args, graph.edge_keys)
         torch.cuda.synchronize()
     rep["edge_in_csr"] = {
@@ -1636,8 +2015,7 @@ def run_link(torch, dev, indptr, indices, feat, rng):
                                    trandom.PRNGKey(50, device=dev))),
             ("subgraph", lambda: gstep(gstate, *gblocks[1],
                                        trandom.PRNGKey(51, device=dev)))):
-        torch.cuda.synchronize()
-        with profile(activities=profiler_activities(torch)) as prof:
+        with profile_window(torch) as prof:
             t1 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1782,22 +2160,27 @@ def main() -> int:
              "the serving path never launched B1")
         need(sl["launches"]["gather_rows_cuda"] > 0,
              "the serving path never launched B2")
-        log(f"serving: {sl['micro_batches']} micro-batches, "
-            f"{sl['messages_checked']} messages checked, CPU run equal, "
-            f"launches {sl['launches']} ({time.perf_counter() - t0:.1f} s)")
+        log(f"serving: warmup captured {len(BUCKETS)} buckets in "
+            f"{sl['warmup_s']:.2f} s; {sl['micro_batches']} replayed "
+            f"micro-batches, {sl['messages_checked']} messages checked, CPU "
+            f"run equal, a replay per bucket == the eager route, launches "
+            f"{sl['launches']} ({time.perf_counter() - t0:.1f} s)")
         for b, row in sl["per_bucket"].items():
-            log(f"  bucket {b}: median {row['latency_ms_median']:.2f} ms "
-                f"(device stage {row['sample_ms_median']:.2f} ms, host "
-                f"scatter {row['scatter_ms_median']:.2f} ms; first "
-                f"{row['latency_ms_first']:.2f} ms)")
-            p = row["profile"]
-            log(f"    profiled: wall {p['wall_ms']:.2f} ms, "
-                f"{p['kernels']:.0f} kernels {p['kernels_ms']:.3f} ms "
-                f"({p['kernel_share']:.1%}), {p['copies']:.0f} copies "
-                f"{p['copies_ms']:.3f} ms ({p['copy_share']:.1%}), "
-                f"{p['memsets']:.0f} memsets {p['memsets_ms']:.3f} ms")
-            for c in p["copy_kinds"]:
-                log(f"      {c['count']:.2f} x {c['name']}: {c['ms']:.3f} ms")
+            log(f"  bucket {b}: first replayed micro-batch "
+                f"{row['latency_ms_first']:.2f} ms; two timed passes a "
+                f"route, in turns:")
+            for name, r in (("graph", row), ("eager", row["eager"])):
+                p = r["profile"]
+                log(f"  bucket {b} {name}: median "
+                    f"{r['latency_ms_median']:.2f} ms (device stage "
+                    f"{r['sample_ms_median']:.2f} ms, host scatter "
+                    f"{r['scatter_ms_median']:.2f} ms); profiled wall "
+                    f"{p['wall_ms']:.2f} ms, {p['launch_calls']:.0f} host "
+                    f"launch calls ({p['runtime_calls']:.0f} runtime "
+                    f"calls), {p['kernels']:.0f} kernels "
+                    f"{p['kernels_ms']:.3f} ms ({p['kernel_share']:.1%}), "
+                    f"B1 {p['b1_kernels']:.0f}, {p['copies']:.0f} copies "
+                    f"{p['copies_ms']:.3f} ms, {p['memsets']:.0f} memsets")
 
         # 5. training
         t0 = time.perf_counter()
@@ -1810,25 +2193,46 @@ def main() -> int:
                                         f"launched {k}")
         b3 = time_fused_kernel(torch, ops, rows, node_list)
         del rows
-        p = tr["profile"]
         log(f"training: {tr['steps']} steps in {TRAIN_BLOCKS} blocks of "
             f"{GROUP}, node capacity {tr['node_capacity']} of "
             f"{tr['full_node_capacity']}, {tr['overflow_batches']} overflow "
             f"batches, losses {tr['losses'][0]:.4f} -> "
             f"{tr['losses'][-1]:.4f} (finite), launches {tr['launches']} "
             f"({time.perf_counter() - t0:.1f} s)")
-        log(f"  step: median {tr['step_ms_median']:.2f} ms over warm blocks "
-            f"({tr['steps_per_s']:.2f} steps/s), peak memory "
+        log(f"  step: median {tr['step_ms_median']:.2f} ms over replayed "
+            f"blocks ({tr['steps_per_s']:.2f} steps/s; blocks "
+            + ", ".join(f"{b:.1f}" for b in tr["block_ms"])
+            + f" ms: eager, capture, replays); in turns, eager blocks "
+            + ", ".join(f"{b:.1f}" for b in tr["eager_block_ms"])
+            + " ms, replayed " + ", ".join(
+                f"{b:.1f}" for b in tr["turn_graph_block_ms"])
+            + f" ms (eager step median {tr['eager_step_ms_median']:.2f} "
+            f"ms); peak memory "
             f"{tr['max_memory_allocated'] / 2**30:.2f} GiB; card vs CPU "
             f"loss {tr['card_loss']:.6f} vs {tr['cpu_loss']:.6f} (rel "
             f"{tr['cpu_loss_rel_err']:.2e}); x through B3 equal to the "
-            f"plain gather")
-        log(f"  profiled step: wall {p['wall_ms']:.2f} ms, "
-            f"{p['kernels']:.0f} kernels {p['kernels_ms']:.3f} ms "
-            f"({p['kernel_share']:.1%}), {p['copies']:.0f} copies "
-            f"{p['copies_ms']:.3f} ms, {p['memsets']:.0f} memsets "
-            f"{p['memsets_ms']:.3f} ms; launches per step "
-            f"{tr['launches_per_step']}")
+            f"plain gather; replayed vs eager block losses rel "
+            f"{tr['replay_vs_eager_rel'][0]:.2e} (first), "
+            f"{max(tr['replay_vs_eager_rel']):.2e} (max)")
+        for name, p in (("replayed", tr["profile"]),
+                        ("eager", tr["eager_profile"])):
+            log(f"  profiled {name} step: wall {p['wall_ms']:.2f} ms, "
+                f"{p['launch_calls']:.1f} host launch calls "
+                f"({p['runtime_calls']:.1f} runtime calls), "
+                f"{p['kernels']:.1f} kernels {p['kernels_ms']:.3f} ms "
+                f"({p['kernel_share']:.1%}), B1 {p['b1_kernels']:.0f}, "
+                f"{p['copies']:.0f} copies {p['copies_ms']:.3f} ms, "
+                f"{p['memsets']:.0f} memsets {p['memsets_ms']:.3f} ms")
+        fc, bs = tr["feature_cache_block"], tr["batched_sample"]
+        log(f"  feature_cache block ({fc['cache_rows']} rows): eager, "
+            f"captured, replayed in " + ", ".join(
+                f"{b:.1f}" for b in fc["block_ms"]) + f" ms; the replay's x "
+            f"== the uncached gather; hits {fc['stats']['hits']}, misses "
+            f"{fc['stats']['misses']} (rate "
+            f"{fc['stats']['hit_rate']:.4f})")
+        log(f"  sample_from_nodes_batched G={bs['G']} x {bs['batch_size']}: "
+            f"replay == the loop; replay {bs['replay_ms']:.2f} ms, loop of "
+            f"{bs['G']} eager samples {bs['loop_ms']:.2f} ms")
         log(f"  B3 {b3['shape']}: kernel {b3['ms']:.4f} ms, plain "
             f"{b3['plain_ms']:.4f} ms, library {b3['library_ms']:.4f} ms, "
             f"bound {b3['bound_ms']:.4f} ms")
@@ -2004,5 +2408,67 @@ def main() -> int:
     return 0
 
 
+def profiler_settle_check(windows: int) -> int:
+    """``--profiler-settle-check N``: serve PROFILED replayed micro-batches
+    per window, N windows per bucket with and without the settle time,
+    and count the windows whose profile lacks a B1 kernel, the graph
+    replays with no kernel record, and those with no device record at
+    all.  Prints one JSON line; not part of the smoke."""
+    import torch
+    from glt_tpu_torch.data import CSRTopo, Dataset, Graph
+    from glt_tpu_torch.ops import cuda_lib
+    from glt_tpu_torch.serving import ServingOptions, SubgraphEngine
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    cuda_lib.library()
+    indptr, indices = build_graph(0)
+    drng = np.random.default_rng(1)
+    ds = Dataset(graph=Graph(CSRTopo.from_csr_arrays(indptr, indices),
+                             device="cuda"), device="cuda")
+    ds.init_node_features(drng.standard_normal((PRODUCTS_N, FEAT_DIM),
+                                               dtype=np.float32))
+    ds.init_node_labels(drng.integers(0, CLASSES, PRODUCTS_N)
+                        .astype(np.int32))
+    engine = SubgraphEngine(ds, ServingOptions(num_neighbors=FANOUTS,
+                                               seed_buckets=BUCKETS))
+    engine.warmup()
+    lists = request_lists(np.random.default_rng(2), PRODUCTS_N)
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = []
+    for bucket in BUCKETS:
+        for settle_s in (0.0, PROFILER_SETTLE_S):
+            short = no_kernels = empty = 0
+            for _ in range(windows):
+                with profile_window(torch, settle_s) as prof:
+                    for reqs in lists[bucket][-PROFILED:]:
+                        engine.scatter(engine.sample(
+                            [engine.validate_seeds(r) for r in reqs]))
+                    torch.cuda.synchronize()
+                evs = list(prof.events())
+                dev_evs = [ev for ev in evs if ev.device_type == cuda]
+                any_rec = {ev.id for ev in dev_evs}
+                kern_rec = {ev.id for ev in dev_evs
+                            if not ev.name.startswith(("Memcpy", "Memset"))}
+                replays = [ev.id for ev in evs if ev.device_type != cuda
+                           and ev.name == "cudaGraphLaunch"]
+                no_kernels += sum(i not in kern_rec for i in replays)
+                empty += sum(i not in any_rec for i in replays)
+                short += b1_kernels(torch, prof) != PROFILED * len(FANOUTS)
+            rows.append({"bucket": bucket, "settle_s": settle_s,
+                         "windows": windows, "windows_short_of_b1": short,
+                         "replays_without_kernel_records": no_kernels,
+                         "replays_without_records": empty})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({"profiler_settle_check": rows, "device": smi}),
+          flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--profiler-settle-check"]:
+        sys.exit(profiler_settle_check(int(sys.argv[2])))
     sys.exit(main())

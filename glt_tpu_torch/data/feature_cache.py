@@ -124,7 +124,10 @@ def cache_insert(state: FeatureCacheState, ids: torch.Tensor,
     wslot = torch.where(do, slot, cap).long()
     # Evict: clear the id->slot entry of each claimed slot's resident.
     evicted = torch.where(do, state.slot_ids[wslot], -1)
-    state.id2slot[torch.where(evicted >= 0, evicted, n + 1).long()] = -1
+    # index_fill_ takes -1 by value: no host->device copy, so a CUDA
+    # graph can capture the insert.
+    state.id2slot.index_fill_(
+        0, torch.where(evicted >= 0, evicted, n + 1).long(), -1)
     sets = do & _last_positions(torch.where(do, ids, _INT32_MAX))
     state.id2slot[torch.where(sets, ids, n + 1).long()] = torch.where(
         sets, slot, -1)

@@ -1,7 +1,7 @@
 from .link_loader import LinkLoader, LinkNeighborLoader
 from .node_loader import NeighborLoader, NodeLoader
 from .subgraph_loader import SubGraphLoader
-from .transform import Batch, to_batch
+from .transform import Batch, as_pyg_v1_adjs, to_batch
 
 __all__ = ["Batch", "LinkLoader", "LinkNeighborLoader", "NeighborLoader",
-           "NodeLoader", "SubGraphLoader", "to_batch"]
+           "NodeLoader", "SubGraphLoader", "as_pyg_v1_adjs", "to_batch"]

@@ -56,3 +56,26 @@ def to_batch(out: SamplerOutput, x: Optional[torch.Tensor] = None,
         batch_size=batch_size,
         metadata=out.metadata,
     )
+
+
+def as_pyg_v1_adjs(batch: Batch, batch_size: int, fanouts,
+                   frontier_cap: Optional[int] = None):
+    """PyG v1's layered output (cf. ``glt_tpu``'s ``as_pyg_v1_adjs``):
+    ``(batch_size, n_id, adjs)`` with one ``(edge_index, e_id, size)``
+    triple per hop, outermost hop first, the order PyG v1 models
+    consume.  A hop's edges are a contiguous segment of the batch's
+    padded COO, since the sampler concatenates the hops in order; the
+    widths are the sampler's static ones for ``batch_size``."""
+    from ..sampler.neighbor_sampler import hop_widths
+
+    widths = hop_widths(batch_size, list(fanouts), frontier_cap)
+    n = batch.node.shape[0]
+    adjs = []
+    lo = 0
+    for w, f in zip(widths, fanouts):
+        hi = lo + w * f
+        adjs.append((batch.edge_index[:, lo:hi],
+                     None if batch.edge_id is None else batch.edge_id[lo:hi],
+                     (n, n)))
+        lo = hi
+    return batch_size, batch.node, list(reversed(adjs))

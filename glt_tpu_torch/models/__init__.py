@@ -6,6 +6,7 @@ from .train import (
     adam,
     create_train_state,
     link_seed_blocks,
+    make_cached_gather_xy,
     make_eval_step,
     make_gather_xy,
     make_scanned_link_train_step,
@@ -18,7 +19,8 @@ from .train import (
 )
 
 __all__ = ["GraphSAGE", "SAGEConv", "TrainState", "adam",
-           "create_train_state", "link_seed_blocks", "make_eval_step",
+           "create_train_state", "link_seed_blocks", "make_cached_gather_xy",
+           "make_eval_step",
            "make_gather_xy", "make_scanned_link_train_step",
            "make_scanned_node_train_step",
            "make_scanned_subgraph_train_step", "make_train_step",

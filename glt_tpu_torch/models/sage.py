@@ -2,11 +2,15 @@
 a stack of :class:`SAGEConv`, relu + dropout between layers.
 
 Dropout randomness is explicit, as flax's ``rngs={"dropout": key}``:
-it runs only when the caller passes a ``torch.Generator`` and draws from
-that generator alone, never from torch's global one.  The train steps
-seed one per step from ``(dropout_seed, step)``; without a generator
-the forward is deterministic (evaluation).  Flax's dropout bits are not
-reproduced: a parity test runs with ``dropout_rate=0``.
+it runs only when the caller passes a threefry ``dropout_key``
+(:mod:`glt_tpu_torch.random`), never from torch's global generator.
+Layer ``i``'s mask is ``bernoulli(split(dropout_key, L - 1)[i], keep)``:
+hash-kernel launches on the card reading the key from device memory,
+so a CUDA graph replays a step's dropout with whatever key the step
+derives on the card.  The train steps pass ``fold_in(PRNGKey(
+dropout_seed), step)``; without a key the forward is deterministic
+(evaluation).  Flax's dropout bits are not reproduced: a parity test
+runs with ``dropout_rate=0``.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import random as trandom
 from .conv import SAGEConv
 
 
@@ -36,25 +41,27 @@ class GraphSAGE(nn.Module):
             for i in range(num_layers))
         self.dropout_rate = float(dropout_rate)
 
-    def _dropout(self, x: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
         rate = self.dropout_rate
-        if generator is None or rate == 0.0:
-            return x
         if rate >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - rate
-        bits = torch.empty_like(x).bernoulli_(keep, generator=generator)
-        return torch.where(bits.bool(), x / keep, 0)
+        return torch.where(trandom.bernoulli(key, keep, x.shape), x / keep,
+                           0)
 
     def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
                 edge_mask: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Logits ``[num_nodes, out]``; dropout draws from ``generator``
+                dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits ``[num_nodes, out]``; dropout draws from ``dropout_key``
         when one is given (training) and is off otherwise."""
         last = len(self.convs) - 1
+        keys = None
+        if dropout_key is not None and self.dropout_rate > 0.0 and last:
+            keys = trandom.split(dropout_key, last)
         for i, conv in enumerate(self.convs):
             x = conv(x, edge_index, edge_mask)
             if i != last:
-                x = self._dropout(torch.relu(x), generator)
+                x = torch.relu(x)
+                if keys is not None:
+                    x = self._dropout(x, keys[i])
         return x

@@ -13,16 +13,22 @@ until the epoch's one host fetch.  Link prediction
 induced-subgraph models (:func:`make_scanned_subgraph_train_step`) take
 the same shape: ``G`` seed-edge or seed-node batches per call, the loss
 a caller's function of the embeddings.  ``glt_tpu`` compiles the block
-as one ``lax.scan`` program; here the "scan" is a Python loop over the
-block's rows, launched eagerly (a CUDA graph per block is later work).
+as one ``lax.scan`` program.  Here the "scan" is a Python loop over the
+block's rows; on the card the node step captures it, once per block
+shape, as one CUDA graph (:mod:`glt_tpu_torch.utils.graphs`) and
+replays it (the first call at a shape runs eagerly and creates Adam's
+state).  The link and subgraph steps run eagerly.
 
 State: :class:`TrainState` holds the ``nn.Module``, its optimizer and a
 host ``int`` step counter.  The model and optimizer update in place (a
-torch optimizer owns its parameters); the steps return a new
-``TrainState`` with the advanced counter, as ``glt_tpu`` returns new
-state.  Dropout draws from a ``torch.Generator`` seeded per step from
-``fold_in(PRNGKey(dropout_seed), step)``, the key ``glt_tpu`` uses; the
-global torch generator is never used.
+torch optimizer owns its parameters; on the card :func:`adam` keeps
+its step count on the device, ``capturable=True``); the steps return a
+new ``TrainState`` with the advanced counter, as ``glt_tpu`` returns new
+state.  Dropout draws from the threefry key ``fold_in(PRNGKey(
+dropout_seed), step)``, the key ``glt_tpu`` uses; the scanned node step
+folds in a device copy of the step counter that the block advances in
+place, so a replayed block draws each step's own masks.  The global
+torch generator is never used.
 """
 from __future__ import annotations
 
@@ -35,14 +41,16 @@ from torch import nn
 
 from .. import random as trandom
 from ..data.feature import Feature
+from ..data.feature_cache import FeatureCacheState, cache_gather
 from ..loader.transform import Batch
 from ..ops.dedup_gather import dedup_gather_rows
 from ..ops.fused_frontier import fused_frontier
 from ..ops.gather_cuda import gather_rows
-from ..ops.unique import relabel_by_reference
+from ..ops.unique import relabel_by_reference, unique_first_occurrence
 from ..sampler.base import NodeSamplerInput
 from ..typing import PADDING_ID
 from ..utils.device import same_device
+from ..utils.graphs import CapturedProgram
 
 OptimizerFactory = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
 
@@ -55,10 +63,14 @@ class TrainState(NamedTuple):
 
 def adam(learning_rate: float) -> OptimizerFactory:
     """``optax.adam(learning_rate)`` with optax's defaults (b1 0.9, b2
-    0.999, eps 1e-8) as a factory: ``adam(lr)(model.parameters())``."""
+    0.999, eps 1e-8) as a factory: ``adam(lr)(model.parameters())``.
+    Parameters on the card get ``capturable=True`` (the step count lives
+    on the device), which a CUDA graph of the step needs."""
     def make(params):
+        params = list(params)
         return torch.optim.Adam(params, lr=learning_rate,
-                                betas=(0.9, 0.999), eps=1e-8)
+                                betas=(0.9, 0.999), eps=1e-8,
+                                capturable=any(p.is_cuda for p in params))
     return make
 
 
@@ -88,33 +100,26 @@ def _model_device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _seed_dropout(gen: torch.Generator, dropout_seed: int, step: int
-                  ) -> torch.Generator:
-    """Seed ``gen`` with the words of ``fold_in(PRNGKey(dropout_seed),
-    step)``, hashed on the host: one stream per step.  (The CPU
-    generator keeps only a seed's low 32 bits, so the step must reach
-    them.)"""
-    k = trandom.fold_in(trandom.PRNGKey(dropout_seed, device="cpu"), step)
-    gen.manual_seed((int(k[0]) << 32) | int(k[1]))
-    return gen
-
-
-def _update(state: TrainState, loss: torch.Tensor) -> TrainState:
-    opt = state.optimizer
+def _backward_and_step(opt: torch.optim.Optimizer,
+                       loss: torch.Tensor) -> None:
     opt.zero_grad(set_to_none=True)
     loss.backward()
     opt.step()
-    return TrainState(state.model, opt, state.step + 1)
+
+
+def _update(state: TrainState, loss: torch.Tensor) -> TrainState:
+    _backward_and_step(state.optimizer, loss)
+    return TrainState(state.model, state.optimizer, state.step + 1)
 
 
 def make_train_step(batch_size: int, dropout_seed: int = 0) -> Callable:
     """``(state, batch) -> (state, loss, acc)``: one fwd/bwd and
     optimizer step on a :class:`~glt_tpu_torch.loader.transform.Batch`."""
     def train_step(state: TrainState, batch: Batch):
-        gen = torch.Generator(device=_model_device(state.model))
+        base = trandom.PRNGKey(dropout_seed,
+                               device=_model_device(state.model))
         logits = state.model(batch.x, batch.edge_index, batch.edge_mask,
-                             generator=_seed_dropout(gen, dropout_seed,
-                                                     state.step))
+                             dropout_key=trandom.fold_in(base, state.step))
         loss, acc = seed_cross_entropy(logits, batch.y, batch_size,
                                        batch.node_mask)
         return _update(state, loss), loss.detach(), acc
@@ -156,6 +161,63 @@ def make_gather_xy(id2index: Optional[torch.Tensor] = None,
     return gather_xy
 
 
+def make_cached_gather_xy(id2index: Optional[torch.Tensor] = None
+                          ) -> Callable:
+    """Dedup + cross-batch-cache batch gather: ``(cache, rows, labels,
+    out) -> (cache, x, y)`` (cf. ``glt_tpu``'s ``make_cached_gather_xy``).
+
+    The node list goes through one unique pass; the unique ids are
+    served by :func:`~glt_tpu_torch.data.feature_cache.cache_gather`
+    (hits from the device cache table, misses gathered from ``rows`` and
+    inserted; kernel B2 reads both on the card), then the rows expand to
+    every batch position.  ``x`` is bit-identical to
+    :func:`make_gather_xy`'s as long as ``rows`` is unchanged.  The
+    returned cache must feed the next call (its large tensors are
+    updated in place; see :mod:`~glt_tpu_torch.data.feature_cache`).
+    """
+    def gather_xy(cache: FeatureCacheState, rows: torch.Tensor, labels,
+                  out):
+        ids = out.node.to(torch.int32)
+        uniq, inv, _ = unique_first_occurrence(ids)
+
+        def fetch(fids):
+            v = fids >= 0
+            fidx = torch.where(v, fids, 0)
+            if id2index is not None:
+                fidx = id2index[fidx.clamp(
+                    max=id2index.shape[0] - 1).long()]
+            got = gather_rows(rows, fidx.to(torch.int32).contiguous())
+            return torch.where(v[:, None], got, 0)
+
+        cache, urows = cache_gather(cache, uniq, fetch)
+        x = urows[inv.clamp(0, max(inv.shape[0] - 1, 0)).long()]
+        x = torch.where((inv >= 0)[:, None], x, 0)
+        if labels is None:
+            return cache, x, None
+        valid = ids >= 0
+        gid = torch.where(valid, ids, 0)
+        y = torch.where(valid,
+                        labels[gid.clamp(max=labels.shape[0] - 1).long()],
+                        PADDING_ID)
+        return cache, x, y
+
+    return gather_xy
+
+
+def _check_cache(feature_cache: FeatureCacheState, rows_dtype, dim: int
+                 ) -> None:
+    """The cache table's dtype and width must match the feature rows, or
+    the cached ``x`` would change dtype against the uncached one."""
+    if feature_cache.table.dtype != rows_dtype:
+        raise ValueError(
+            f"feature_cache dtype {feature_cache.table.dtype} != feature "
+            f"rows dtype {rows_dtype}; build it with cache_init(..., "
+            f"dtype=rows.dtype)")
+    if feature_cache.dim != dim:
+        raise ValueError(
+            f"feature_cache dim {feature_cache.dim} != feature dim {dim}")
+
+
 def make_eval_step(batch_size: int) -> Callable:
     """``(model, batch) -> (loss, acc)`` without dropout or gradients."""
     def eval_step(model: nn.Module, batch: Batch):
@@ -195,7 +257,8 @@ def _device_labels(labels, dev: torch.device) -> torch.Tensor:
 def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
                                  dropout_seed: int = 0, dedup: bool = False,
                                  fused_frontier: bool = False,
-                                 feature_cache=None) -> Callable:
+                                 feature_cache: Optional[FeatureCacheState]
+                                 = None) -> Callable:
     """Train ``G`` consecutive seed batches per call.
 
     Returns ``step(state, seeds_blk, key) -> (state, losses [G], accs
@@ -209,56 +272,135 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
     uncapped sampler).
 
     ``dedup`` / ``fused_frontier`` pick the feature gather as in
-    :func:`make_gather_xy`.  The model and optimizer must live on the
-    sampler's graph device.  ``feature_cache`` is not ported yet.
+    :func:`make_gather_xy`.  ``feature_cache`` (a
+    :class:`~glt_tpu_torch.data.feature_cache.FeatureCacheState` of the
+    rows' dtype and width) routes it through the cross-batch cache of
+    :func:`make_cached_gather_xy` instead; the cache wins over
+    ``fused_frontier``, as in ``glt_tpu``.  Its state carries across
+    batches and blocks: ``step.feature_cache()`` reads it (the held
+    tensors, updated in place) and ``step.set_feature_cache(state)``
+    replaces it (the checkpoint-restore seam).  ``x`` is bit-identical
+    on every route.  The model and optimizer must live on the sampler's
+    graph device.
+
+    On the card the block is one CUDA graph per real-batch pattern of
+    the block (a ``[G]`` bool tuple), over static seed and key buffers:
+    the first call at a pattern, or after the model's, the optimizer's
+    or the cache's tensors were replaced, runs eagerly (it creates
+    Adam's state); the next captures the block and every later call
+    replays it.  On the CPU every call runs eagerly.
     """
-    if feature_cache is not None:
-        raise NotImplementedError(
-            "the cross-batch feature cache is not ported yet")
     g = sampler.graph
     dev = sampler.device
     hot_rows, id2index = _device_rows(rows, dev)
     labels_dev = _device_labels(labels, dev)
     gather_xy = make_gather_xy(id2index, dedup=dedup, fused=fused_frontier)
-    gen = torch.Generator(device=dev)
+    cached_xy = make_cached_gather_xy(id2index)
+    if feature_cache is not None:
+        _check_cache(feature_cache, hot_rows.dtype, hot_rows.shape[-1])
+    holder = {"cache": feature_cache}
+    dropout_base = trandom.PRNGKey(dropout_seed, device=dev)
+    # The step counter as the block sees it: set from state.step before
+    # each call, advanced in place once per real batch.
+    step_count = torch.zeros((), dtype=torch.int32, device=dev)
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    programs = {}    # real pattern -> (CapturedProgram, bound storage)
+    warm = {}        # real pattern -> bound storage of its eager call
+
+    def block(model, opt, seeds, key, real):
+        keys = trandom.split(key, len(real))
+        cache = holder["cache"]
+        losses, accs, ovfs = [], [], []
+        for i, is_real in enumerate(real):
+            if not is_real:
+                losses.append(zero_f)
+                accs.append(zero_f)
+                ovfs.append(zero_i)
+                continue
+            out = sampler._sample_impl(g.indptr, g.indices,
+                                       g.gather_edge_ids, seeds[i], keys[i])
+            if cache is None:
+                x, y = gather_xy(hot_rows, labels_dev, out)
+            else:
+                cache, x, y = cached_xy(cache, hot_rows, labels_dev, out)
+            logits = model(x, torch.stack([out.row, out.col]),
+                           out.edge_mask,
+                           dropout_key=trandom.fold_in(dropout_base,
+                                                       step_count))
+            loss, acc = seed_cross_entropy(logits, y, batch_size,
+                                           out.node_mask)
+            _backward_and_step(opt, loss)
+            step_count.add_(1)
+            losses.append(loss.detach())
+            accs.append(acc.to(torch.float32))
+            ovfs.append(out.metadata["overflow"].to(torch.int32)
+                        if out.metadata else zero_i)
+        if cache is not None:
+            # The new scalars go into the held state, so the next block
+            # (or replay) reads them where it read the old ones.
+            held = holder["cache"]
+            for name in ("clock", "hits", "misses"):
+                getattr(held, name).copy_(getattr(cache, name))
+        return torch.stack(losses), torch.stack(accs), torch.stack(ovfs)
+
+    def bound(state) -> tuple:
+        """The storage a captured block reads and writes in place."""
+        ts = list(state.model.parameters()) + [
+            t for st in state.optimizer.state.values() for t in st.values()
+            if isinstance(t, torch.Tensor)]
+        if holder["cache"] is not None:
+            ts += list(holder["cache"])
+        return tuple(t.data_ptr() for t in ts)
+
+    def replayed(state, blk, key, real):
+        """The block through its CUDA graph, or ``None`` when this call
+        runs eagerly (the first at its pattern and storage)."""
+        now = bound(state)
+        entry = programs.get(real)
+        if entry is not None and entry[1] == now:
+            return entry[0](blk, key)
+        programs.pop(real, None)
+        if warm.get(real) != now:
+            return None
+        model, opt = state.model, state.optimizer
+        prog = CapturedProgram(
+            lambda seeds, k: block(model, opt, seeds, k, real),
+            [torch.from_numpy(blk).to(dev), key.clone()], warmup=0)
+        programs[real] = (prog, now)
+        return prog.replay()
 
     def step(state: TrainState, seeds_blk, key: torch.Tensor):
         if isinstance(seeds_blk, torch.Tensor):
             raise TypeError("seeds_blk must be a host array: the "
                             "padded-batch no-op is decided on the host")
         _check_model(state, dev)
-        blk = np.asarray(seeds_blk)
-        real = (blk >= 0).any(axis=1)
-        seeds_dev = torch.from_numpy(
-            np.ascontiguousarray(blk, dtype=np.int32)).to(dev)
-        keys = trandom.split(key, blk.shape[0])
-        losses, accs, ovfs = [], [], []
-        for i in range(blk.shape[0]):
-            if not real[i]:
-                losses.append(zero_f)
-                accs.append(zero_f)
-                ovfs.append(zero_i)
-                continue
-            out = sampler._sample_impl(g.indptr, g.indices,
-                                       g.gather_edge_ids, seeds_dev[i],
-                                       keys[i])
-            x, y = gather_xy(hot_rows, labels_dev, out)
-            edge_index = torch.stack([out.row, out.col])
-            logits = state.model(x, edge_index, out.edge_mask,
-                                 generator=_seed_dropout(gen, dropout_seed,
-                                                         state.step))
-            loss, acc = seed_cross_entropy(logits, y, batch_size,
-                                           out.node_mask)
-            state = _update(state, loss)
-            losses.append(loss.detach())
-            accs.append(acc.to(torch.float32))
-            ovfs.append(out.metadata["overflow"].to(torch.int32)
-                        if out.metadata else zero_i)
-        return (state, torch.stack(losses), torch.stack(accs),
-                torch.stack(ovfs))
+        blk = np.ascontiguousarray(np.asarray(seeds_blk), dtype=np.int32)
+        real = tuple(bool(r) for r in (blk >= 0).any(axis=1))
+        step_count.fill_(state.step)
+        outs = None
+        if dev.type == "cuda" and any(real):
+            outs = replayed(state, blk, key, real)
+            if outs is not None:
+                outs = tuple(t.clone() for t in outs)
+        if outs is None:
+            outs = block(state.model, state.optimizer,
+                         torch.from_numpy(blk).to(dev), key, real)
+            if dev.type == "cuda":
+                warm[real] = bound(state)
+        state = TrainState(state.model, state.optimizer,
+                           state.step + sum(real))
+        return (state,) + tuple(outs)
 
+    def set_feature_cache(new_cache: FeatureCacheState) -> None:
+        # Checkpoint-restore seam: a resumed run pushes its restored
+        # cache in before the first block; a captured block bound to the
+        # old tensors is captured again after one eager call.
+        _check_cache(new_cache, hot_rows.dtype, hot_rows.shape[-1])
+        holder["cache"] = new_cache
+
+    step.feature_cache = lambda: holder["cache"]
+    step.set_feature_cache = set_feature_cache
     return step
 
 

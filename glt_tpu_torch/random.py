@@ -16,7 +16,8 @@ reproduces ``jax.random`` under its defaults (``threefry2x32``,
   ``(0, data)``, and ``randint`` draws two 32-bit words per value and
   reduces them with jax's span trick;
 * ``uniform`` takes one 32-bit word per value and keeps its top 23
-  bits as the mantissa of a float in [1, 2), as jax does;
+  bits as the mantissa of a float in [1, 2), as jax does, and
+  ``bernoulli`` is ``uniform < p`` decided on those 23 bits;
 * on a CUDA key, ``split`` and ``fold_in`` (and the random bits' hash)
   are one launch of the hash kernel (``csrc/threefry.cu``); the masked
   arithmetic is its plain version, which the CPU runs and
@@ -28,6 +29,8 @@ No global torch generator is used.
 """
 from __future__ import annotations
 
+import math
+import struct
 from typing import Sequence, Tuple, Union
 
 import torch
@@ -236,3 +239,16 @@ def uniform(key: torch.Tensor, shape: Union[int, Sequence[int]] = (),
     span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
     scaled = (floats.double() * span.double() + lo.double()).float()
     return torch.maximum(lo, scaled)
+
+
+def bernoulli(key: torch.Tensor, p: float,
+              shape: Union[int, Sequence[int]] = ()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform(key, shape) <
+    p`` in float32, decided on the 23 mantissa bits, which are exact:
+    ``uniform`` is ``(bits >> 9) / 2**23``, so the test is ``bits >> 9 <
+    ceil(float32(p) * 2**23)``.  ``key`` may be a batch ``[*K, 2]``.
+    One hash-kernel launch for a CUDA key and no host->device copy, so a
+    CUDA graph can capture it."""
+    p32 = struct.unpack("f", struct.pack("f", float(p)))[0]
+    bound = math.ceil(p32 * (1 << 23))
+    return (_random_bits(key, _shape(shape)) >> 9) < bound

@@ -18,11 +18,13 @@ modes (``last_hop_dedup``) and the occupancy-capped node buffer
 :func:`calibrate_node_capacity`) are ported, and so are the link path
 (:meth:`NeighborSampler.sample_from_edges`, with binary or triplet
 negatives, uniform or weighted), the induced subgraph
-(:meth:`NeighborSampler.subgraph`) and the one-hop primitive.  The
-batched node entry point is later work.
+(:meth:`NeighborSampler.subgraph`), the one-hop primitive and the
+batched node entry point (:meth:`NeighborSampler.sample_from_nodes_batched`:
+``G`` batches in one CUDA graph on the card, a loop on the CPU).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -42,6 +44,7 @@ from ..ops.unique import (
     unique_first_occurrence,
 )
 from ..typing import PADDING_ID
+from ..utils.graphs import CapturedProgram
 from .base import (
     EdgeSamplerInput,
     NegativeSampling,
@@ -115,6 +118,16 @@ def calibrate_node_capacity(sampler: "NeighborSampler", seed_batches=None,
                sampler.full_node_capacity)
 
 
+def _clone(v):
+    """A copy of a tensor, or of each tensor in a dict, out of a
+    graph's static buffers."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, dict):
+        return {k: _clone(t) for k, t in v.items()}
+    return v
+
+
 def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, torch.full((n,), PADDING_ID, dtype=torch.int32,
                                     device=x.device)])
@@ -185,6 +198,7 @@ class NeighborSampler:
             w * f for w, f in zip(self._widths, self.num_neighbors))
         self._full_sibling: Optional["NeighborSampler"] = None
         self._union_siblings = {}
+        self._batched_programs = {}     # G -> CapturedProgram (CUDA)
 
     def full_capacity_sibling(self) -> "NeighborSampler":
         """Uncapped twin (same graph, fanouts and modes, its own key
@@ -382,6 +396,75 @@ class NeighborSampler:
         g = self.graph
         return self._sample_impl(g.indptr, g.indices, g.gather_edge_ids,
                                  seeds, key)
+
+    def _sample_many(self, seeds: torch.Tensor, key: torch.Tensor
+                     ) -> SamplerOutput:
+        """``G`` samples of ``seeds [G, batch_size]``, batch ``g`` under
+        ``split(key, G)[g]``, stacked on a leading axis."""
+        g = self.graph
+        keys = trandom.split(key, seeds.shape[0])
+        outs = [self._sample_impl(g.indptr, g.indices, g.gather_edge_ids,
+                                  seeds[i], keys[i])
+                for i in range(seeds.shape[0])]
+
+        def stacked(name):
+            return torch.stack([getattr(o, name) for o in outs])
+
+        return SamplerOutput(
+            node=stacked("node"), row=stacked("row"), col=stacked("col"),
+            edge=stacked("edge") if self.with_edge else None,
+            batch=stacked("batch"), node_mask=stacked("node_mask"),
+            edge_mask=stacked("edge_mask"),
+            num_sampled_nodes=stacked("num_sampled_nodes"),
+            num_sampled_edges=stacked("num_sampled_edges"),
+            metadata=({"overflow": torch.stack(
+                [o.metadata["overflow"] for o in outs])}
+                if self.capped else None))
+
+    def sample_from_nodes_batched(self, seeds,
+                                  key: Optional[torch.Tensor] = None
+                                  ) -> SamplerOutput:
+        """Sample ``G`` seed batches in one device program (cf.
+        ``glt_tpu``'s ``sample_from_nodes_batched``).
+
+        ``seeds``: ``[G, batch_size]`` ids, -1 padded (a host array or a
+        tensor).  Batch ``g`` samples with ``split(key, G)[g]``, so it
+        equals ``sample_from_nodes`` of ``seeds[g]`` under that key; the
+        result is a :class:`SamplerOutput` stacked on a leading axis
+        ``G``.  ``key=None`` takes the next key of the call counter, as
+        one ``sample_from_nodes`` call does.
+
+        On the card the ``G`` samples are one CUDA graph per ``G``,
+        captured at the first call (after one eager warm-up under the
+        same explicit key, which leaves the counter alone) and replayed
+        over static seed and key buffers; the outputs are copied out of
+        the graph's buffers.  On the CPU the batches run in a loop.
+        """
+        if isinstance(seeds, torch.Tensor):
+            blk = seeds.to(device=self.device, dtype=torch.int32)
+        else:
+            blk = np.ascontiguousarray(np.asarray(seeds), dtype=np.int32)
+        if blk.ndim != 2 or blk.shape[1] != self.batch_size:
+            raise ValueError(f"expected [G, {self.batch_size}] seeds, got "
+                             f"{tuple(blk.shape)}")
+        if key is None:
+            key = self._next_key()
+        if self.device.type != "cuda":
+            return self._sample_many(torch.as_tensor(blk), key)
+        g = int(blk.shape[0])
+        prog = self._batched_programs.get(g)
+        if prog is None:
+            buf = torch.empty(tuple(blk.shape), dtype=torch.int32,
+                              device=self.device)
+            buf.copy_(torch.as_tensor(blk))
+            prog = CapturedProgram(self._sample_many, [buf, key.clone()])
+            self._batched_programs[g] = prog
+            out = prog.replay()
+        else:
+            out = prog(blk, key)
+        return SamplerOutput(**{
+            f.name: _clone(getattr(out, f.name))
+            for f in dataclasses.fields(SamplerOutput)})
 
     def sample_one_hop(self, srcs, fanout: int,
                        key: Optional[torch.Tensor] = None):

@@ -16,8 +16,15 @@
   turns into a :class:`~glt_tpu_torch.loader.transform.Batch`.
 
 The device stage runs on the dataset's device: the sampler (kernel B1
-per hop on the card) and one feature gather (kernel B2), then one host
-fetch of the results.
+per hop on the card) and one feature gather (kernel B2, or B4 from a
+compressed store), then one host fetch of the results.  On the card
+that stage is one CUDA graph per bucket, as ``glt_tpu`` compiles one
+program per bucket: :meth:`SubgraphEngine.warmup` (or a bucket's first
+micro-batch) captures it, and every micro-batch replays it over static
+seed and key buffers, then takes the pinned copies and the one wait.  A
+tiered feature (``split_ratio < 1``) reads its ids on the host, so its
+gather runs eagerly after the replayed sample.  On the CPU the stage
+runs eagerly.
 """
 from __future__ import annotations
 
@@ -28,9 +35,9 @@ import numpy as np
 import torch
 
 from ..distributed.sample_message import SampleMessage
-from ..sampler.base import NodeSamplerInput
 from ..sampler.neighbor_sampler import NeighborSampler
 from ..typing import PADDING_ID
+from ..utils.graphs import CapturedProgram
 from .errors import BadRequest
 from .options import ServingOptions
 
@@ -104,6 +111,7 @@ class SubgraphEngine:
                   if options.with_labels else None)
         self._labels = None if labels is None else np.asarray(labels)
         self._samplers: Dict[int, NeighborSampler] = {}
+        self._programs: Dict[int, CapturedProgram] = {}
         self._lock = threading.Lock()
 
     # -- request validation -------------------------------------------------
@@ -154,14 +162,56 @@ class SubgraphEngine:
             return s
 
     def compiled_buckets(self) -> List[int]:
+        """The buckets with a program: captured graphs on the card,
+        samplers on the CPU."""
         with self._lock:
+            if self.graph.device.type == "cuda":
+                return sorted(self._programs)
             return sorted(self._samplers)
 
+    def warmup(self) -> None:
+        """Build every bucket's program up front (optional; the first
+        real micro-batch per bucket otherwise pays the capture).  Serves
+        one single-seed micro-batch per bucket, so each bucket's key
+        counter advances once, as in ``glt_tpu``."""
+        for b in self.buckets:
+            self.sample([np.zeros((1,), np.int32)], bucket=b)
+
     # -- device stage -------------------------------------------------------
+    def _device_stage(self, sampler: NeighborSampler, seeds: torch.Tensor,
+                      key: torch.Tensor):
+        """Sample, and gather where the feature lives on the device (x
+        is None for a tiered feature): ``(node, row, col, edge,
+        edge_mask, x)``."""
+        g = self.graph
+        out = sampler._sample_impl(g.indptr, g.indices, g.gather_edge_ids,
+                                   seeds, key)
+        f = self._feature
+        x = (f.gather(out.node) if f is not None and f.hot_count == f.size
+             else None)
+        return out.node, out.row, out.col, out.edge, out.edge_mask, x
+
+    def _program(self, bucket: int, sampler: NeighborSampler,
+                 seeds: np.ndarray, key: torch.Tensor) -> CapturedProgram:
+        """The bucket's captured device stage, captured now at this
+        micro-batch's seeds and key if it has none (the warm-up run uses
+        that explicit key and leaves the key counter alone)."""
+        prog = self._programs.get(bucket)
+        if prog is None:
+            buf = torch.from_numpy(seeds).to(self.graph.device)
+            prog = CapturedProgram(
+                lambda sd, k: self._device_stage(sampler, sd, k),
+                [buf, key.clone()])
+            with self._lock:
+                self._programs[bucket] = prog
+        return prog
+
     def sample(self, seed_lists: Sequence[np.ndarray],
                bucket: Optional[int] = None) -> CoalescedSample:
         """Run one coalesced micro-batch through the shared sampler and
-        gather, then copy the merged sample to the host.
+        gather, then copy the merged sample to the host: on the card one
+        graph replay and one device->host wait for the whole micro-batch,
+        however many requests ride it.
 
         ``seed_lists``: per-request canonical seed arrays (see
         :meth:`validate_seeds`).
@@ -174,12 +224,18 @@ class SubgraphEngine:
         for s in seed_lists:
             seeds[off: off + s.size] = s
             off += s.size
-        out = self._sampler(bucket).sample_from_nodes(NodeSamplerInput(seeds))
-        x = None
-        if self._feature is not None:
-            x = self._feature.gather(out.node)
+        sampler = self._sampler(bucket)
+        key = sampler._next_key()
+        if self.graph.device.type == "cuda":
+            node, row, col, edge, edge_mask, x = self._program(
+                bucket, sampler, seeds, key)(seeds, key)
+        else:
+            node, row, col, edge, edge_mask, x = self._device_stage(
+                sampler, torch.from_numpy(seeds), key)
+        if self._feature is not None and x is None:
+            x = self._feature.gather(node)
         node, row, col, edge, edge_mask, x_h = _fetch(
-            out.node, out.row, out.col, out.edge, out.edge_mask, x)
+            node, row, col, edge, edge_mask, x)
         y = None
         if self._labels is not None:
             safe = np.clip(node, 0, self._labels.shape[0] - 1)

@@ -213,8 +213,9 @@ def scale_zero_rows(spec: QuantSpec, dim: int) -> np.ndarray:
     return out
 
 
+# [8, d] floats per spec, never dropped: a captured CUDA graph reads
+# the tensor it saw at capture.
 _SZ_CACHE: Dict[Tuple, torch.Tensor] = {}
-_SZ_CACHE_MAX = 32
 
 
 def scale_zero_tensor(spec: QuantSpec, dim: int, device) -> torch.Tensor:
@@ -229,8 +230,6 @@ def scale_zero_tensor(spec: QuantSpec, dim: int, device) -> torch.Tensor:
            else np.asarray(spec.zero, np.float32).tobytes())
     t = _SZ_CACHE.get(key)
     if t is None:
-        if len(_SZ_CACHE) >= _SZ_CACHE_MAX:
-            _SZ_CACHE.clear()
         t = torch.from_numpy(scale_zero_rows(spec, dim)).to(dev)
         _SZ_CACHE[key] = t
     return t

@@ -47,6 +47,9 @@ LINK_MODULES = (
     "glt_tpu_torch.examples.datasets",
     "glt_tpu_torch.examples.graph_sage_unsup_ppi",
     "glt_tpu_torch.examples.seal_link_pred")
+# The one-program slice's modules.
+GRAPH_MODULES = ("glt_tpu_torch.utils.graphs", "glt_tpu_torch.ckpt",
+                 "glt_tpu_torch.ckpt.state")
 
 
 def test_port_imports_no_jax():
@@ -60,3 +63,4 @@ def test_port_imports_no_jax():
     assert int(proc.stdout.split()[-1]) >= 40, proc.stdout
     walked = set(proc.stdout.splitlines()[-2].split())
     assert set(LINK_MODULES) <= walked, sorted(set(LINK_MODULES) - walked)
+    assert set(GRAPH_MODULES) <= walked, sorted(set(GRAPH_MODULES) - walked)

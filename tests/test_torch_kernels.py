@@ -49,6 +49,7 @@ from glt_tpu_torch.sampler import (
 from glt_tpu_torch.serving import ServingOptions, SubgraphEngine
 from glt_tpu_torch.store import DiskFeatureStore, quant, write_feature_store
 from glt_tpu_torch.utils.device import resolve_device
+from glt_tpu_torch.utils.graphs import CapturedProgram, GraphCaptureError
 
 # One intra-op thread: the suite runs in parallel workers.
 torch.set_num_threads(1)
@@ -213,36 +214,79 @@ def test_sampler_on_card_equals_cpu(cuda_device, dedup, last_hop_dedup):
             assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
 
 
+def _serving_dataset(dev, n=3000):
+    indptr, indices, _, _ = _graph(2, n)
+    feat = np.random.default_rng(0).standard_normal((n, 100)).astype(
+        np.float32)
+    ds = Dataset(graph=Graph(CSRTopo.from_csr_arrays(indptr, indices),
+                             device=dev), device=dev)
+    ds.init_node_features(feat)
+    ds.init_node_labels(np.arange(n) % 47)
+    return ds
+
+
 @pytest.mark.cuda
 def test_serving_on_card_equals_cpu(cuda_device):
     """The slice on a small graph: card and CPU engines give equal
-    messages; the card run launched B1 once per hop, B2 once and the
-    hash kernel for the micro-batch's keys."""
-    indptr, indices, _, _ = _graph(2, 3000)
-    feat = np.random.default_rng(0).standard_normal((3000, 100)).astype(
-        np.float32)
-    labels = np.arange(3000) % 47
+    messages.  The card's first micro-batch of a bucket runs the device
+    stage once eagerly (the warm-up) and once into its CUDA graph: B1
+    twice per hop, B2 twice, the hash kernel for the call's fold_in and
+    twice for the hop split; the second micro-batch replays the graph
+    and launches only the fold_in."""
     msgs = []
     for dev in (cuda_device, "cpu"):
-        ds = Dataset(graph=Graph(CSRTopo.from_csr_arrays(indptr, indices),
-                                 device=dev), device=dev)
-        ds.init_node_features(feat)
-        ds.init_node_labels(labels)
-        eng = SubgraphEngine(ds, ServingOptions(num_neighbors=(15, 10, 5)))
-        b1 = sample_cuda.sample_neighbors_cuda.launches
-        b2 = gather_cuda.gather_rows_cuda.launches
-        h = threefry_cuda.threefry_hash_cuda.launches
-        reqs = [eng.validate_seeds(np.arange(i, i + 20)) for i in (5, 15)]
-        msgs.append(eng.scatter(eng.sample(reqs)))
-        if dev is cuda_device:
-            # once per hop; the keys: fold_in of the call, split by hop
-            assert sample_cuda.sample_neighbors_cuda.launches == b1 + 3
-            assert gather_cuda.gather_rows_cuda.launches == b2 + 1
-            assert threefry_cuda.threefry_hash_cuda.launches == h + 2
-    for a, b in zip(*msgs):
-        assert sorted(a) == sorted(b)
-        for k in a:
-            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        eng = SubgraphEngine(_serving_dataset(dev),
+                             ServingOptions(num_neighbors=(15, 10, 5)))
+        for i, first in enumerate((5, 45)):
+            b1 = sample_cuda.sample_neighbors_cuda.launches
+            b2 = gather_cuda.gather_rows_cuda.launches
+            h = threefry_cuda.threefry_hash_cuda.launches
+            reqs = [eng.validate_seeds(np.arange(j, j + 20))
+                    for j in (first, first + 10)]
+            if dev == "cpu":
+                msgs[i].append(eng.scatter(eng.sample(reqs)))
+                continue
+            msgs.append([eng.scatter(eng.sample(reqs))])
+            captured = i == 0
+            assert sample_cuda.sample_neighbors_cuda.launches == \
+                b1 + 6 * captured
+            assert gather_cuda.gather_rows_cuda.launches == \
+                b2 + 2 * captured
+            assert threefry_cuda.threefry_hash_cuda.launches == \
+                h + 1 + 2 * captured
+        if dev != "cpu":
+            assert eng.compiled_buckets() == [128]
+    for card, cpu in msgs:
+        for a, b in zip(card, cpu):
+            assert sorted(a) == sorted(b)
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_replayed_micro_batch_equals_eager(cuda_device):
+    """After ``warmup()`` every bucket is a captured graph; a replayed
+    micro-batch is ``torch.equal`` to the eager route (the sampler and
+    the gather called directly) at the same key."""
+    ds = _serving_dataset(cuda_device)
+    eng = SubgraphEngine(ds, ServingOptions(num_neighbors=(15, 10, 5)))
+    eng.warmup()
+    assert eng.compiled_buckets() == [8, 32, 128]
+    for n_seeds, bucket in ((3, 8), (30, 32), (90, 128)):
+        seeds = eng.validate_seeds(np.arange(7, 7 + n_seeds) * 11 % 3000)
+        s = eng._sampler(bucket)
+        key = trandom.fold_in(s._base_key, s._call_count)
+        coal = eng.sample([seeds])
+        assert coal.bucket == bucket
+        padded = np.full(bucket, -1, np.int32)
+        padded[:n_seeds] = seeds
+        out = s.sample_from_nodes(NodeSamplerInput(padded), key=key)
+        want = (out.node, out.row, out.col, out.edge, out.edge_mask,
+                ds.get_node_feature().gather(out.node))
+        got = (coal.node, coal.row, coal.col, coal.edge, coal.edge_mask,
+               coal.x)
+        for w, g in zip(want, got):
+            assert torch.equal(w.cpu(), torch.from_numpy(g))
 
 
 def _frontier_ids(case, n, b, rng):
@@ -454,8 +498,8 @@ def test_compressed_entry_points_on_card_equal_cpu(cuda_device, codec):
 def test_serving_from_compressed_store_on_card_equals_cpu(
         cuda_device, tmp_path, codec, split):
     """Serving from a compressed store: the card's messages equal the
-    CPU's and the host decode (``cpu_get``); at split 1.0 the card
-    launched B4."""
+    CPU's and the host decode (``cpu_get``); the card launched B4 (in
+    the bucket's graph at split 1.0, after it at split 0.5)."""
     indptr, indices, _, _ = _graph(2, 3000)
     feat = np.random.default_rng(0).standard_normal((3000, 100)).astype(
         np.float32)
@@ -471,7 +515,10 @@ def test_serving_from_compressed_store_on_card_equals_cpu(
         reqs = [eng.validate_seeds(np.arange(i, i + 20)) for i in (5, 15)]
         msgs.append(eng.scatter(eng.sample(reqs)))
         if dev is cuda_device:
-            assert gather_rows_dequant_cuda.launches == b4 + 1
+            # split 1.0: B4 in the warm-up and the captured graph; split
+            # 0.5: once, eagerly after the replayed sample
+            assert gather_rows_dequant_cuda.launches == \
+                b4 + (2 if split == 1.0 else 1)
         for m in msgs[-1]:
             np.testing.assert_array_equal(
                 m["x"], ds.node_features.cpu_get(m["node"]))
@@ -647,6 +694,15 @@ def test_kernel_wrappers_refuse_bad_input(bad):
             sample_cuda.sample_neighbors_cuda(t32, t32, t32[:, None], 3, key)
 
 
+def test_captured_program_refuses_cpu_buffers():
+    """A CUDA graph is built for CUDA buffers only: on the CPU the
+    callers run eagerly and never construct one."""
+    with pytest.raises(ValueError, match="CUDA"):
+        CapturedProgram(lambda x: x + 1, [torch.zeros(3)])
+    with pytest.raises(ValueError, match="CUDA"):
+        CapturedProgram(lambda: None, [])
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     """Without CUDA an entry point raises unless asked for the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -684,3 +740,95 @@ def test_link_entry_points_default_to_cuda(monkeypatch):
         NegativeSampling("binary", 1, weight=[1.0, 2.0]).cdf()
     g = Graph(topo, device="cpu", with_sorted_columns=True)
     assert g.sorted_indices.tolist() == [1, 2]
+
+
+# -- CUDA graphs ----------------------------------------------------------------
+@pytest.mark.cuda
+def test_replayed_batched_sample_equals_loop(cuda_device):
+    """``sample_from_nodes_batched`` replayed (its second call) is
+    ``torch.equal`` to G eager ``sample_from_nodes`` calls under
+    ``split(key, G)``; its outputs are copies, not the graph's
+    buffers."""
+    indptr, indices, edge_ids, _ = _graph(3, 4000)
+    g = Graph(CSRTopo.from_csr_arrays(indptr, indices, edge_ids=edge_ids),
+              device=cuda_device)
+    s = NeighborSampler(g, [15, 10, 5], batch_size=64, frontier_cap=512)
+    rng = np.random.default_rng(4)
+    first = s.sample_from_nodes_batched(rng.integers(-1, 4000, (8, 64)))
+    seeds = rng.integers(-1, 4000, (8, 64))
+    key = trandom.PRNGKey(21, device=cuda_device)
+    b1 = sample_cuda.sample_neighbors_cuda.launches
+    out = s.sample_from_nodes_batched(seeds, key=key)
+    assert sample_cuda.sample_neighbors_cuda.launches == b1   # a replay
+    for i, k in enumerate(trandom.split(key, 8)):
+        one = s.sample_from_nodes(NodeSamplerInput(seeds[i]), key=k)
+        for f in ("node", "row", "col", "edge", "node_mask", "edge_mask",
+                  "num_sampled_nodes", "num_sampled_edges"):
+            assert torch.equal(getattr(out, f)[i], getattr(one, f)), f
+    assert out.node.data_ptr() != first.node.data_ptr()
+
+
+@pytest.mark.cuda
+def test_replayed_block_matches_eager(cuda_device):
+    """A small f32 GraphSAGE (dropout 0.5) through the scanned node
+    step: calls 2 and 3 replay the captured block, and each matches an
+    eager block from the same state (a fresh step, whose first call is
+    eager) within 1e-5: the same keys and dropout masks, the losses
+    apart only by the order of ``index_add_``'s atomics."""
+    indptr, indices, _, _ = _graph(5, 2000)
+    rng = np.random.default_rng(0)
+    feat = rng.standard_normal((2000, 32)).astype(np.float32)
+    labels = rng.integers(0, 7, 2000)
+    g = Graph(CSRTopo.from_csr_arrays(indptr, indices), device=cuda_device)
+    s = NeighborSampler(g, [10, 5], batch_size=64, with_edge=False)
+
+    def state():
+        torch.manual_seed(0)
+        return create_train_state(
+            GraphSAGE(32, 16, 7, num_layers=2, dropout_rate=0.5).to(
+                cuda_device), adam(1e-2))
+
+    def step():
+        return make_scanned_node_train_step(s, feat, labels, 64)
+
+    blocks = list(node_seed_blocks(np.arange(2000), 64, 4,
+                                   np.random.default_rng(1)))[:3]
+    graph_step, a, b = step(), state(), state()
+    b1 = sample_cuda.sample_neighbors_cuda.launches
+    for i, blk in enumerate(blocks):
+        key = trandom.PRNGKey(i, device=cuda_device)
+        a, la, _, _ = graph_step(a, blk, key)
+        b, lb, _, _ = step()(b, blk, key)
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=1e-6)
+        assert a.step == b.step == 4 * (i + 1)
+    # eager blocks 1-3 of b, eager block 1 and the capture of a
+    assert sample_cuda.sample_neighbors_cuda.launches == b1 + 2 * 4 * 5
+    for pa, pb in zip(a.model.parameters(), b.model.parameters()):
+        torch.testing.assert_close(pa, pb, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda_device, monkeypatch):
+    """A host sync inside a capture raises GraphCaptureError, and the
+    engine never serves the micro-batch eagerly in its place."""
+    buf = torch.zeros(4, device=cuda_device)
+    with pytest.raises(GraphCaptureError):
+        CapturedProgram(lambda x: torch.tensor(float(x.sum()),
+                                               device=x.device), [buf],
+                        warmup=0)
+    eng = SubgraphEngine(_serving_dataset(cuda_device),
+                         ServingOptions(num_neighbors=(15, 10, 5)))
+    stage = eng._device_stage
+
+    def syncing(sampler, seeds, key):
+        out = stage(sampler, seeds, key)
+        int(out[0].max())                   # a host sync
+        return out
+
+    monkeypatch.setattr(eng, "_device_stage", syncing)
+    for _ in range(2):
+        with pytest.raises(GraphCaptureError):
+            eng.sample([eng.validate_seeds([1, 2, 3])])
+    assert eng.compiled_buckets() == []
+    # the device still works after the failed captures
+    assert float(buf.add(1).sum()) == 4.0

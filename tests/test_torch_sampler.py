@@ -5,6 +5,7 @@ last_hop_dedup in {True, False}, uncapped and under occupancy caps that
 do and do not overflow; every SamplerOutput field, the overflow flag
 included, compares with ==.
 """
+import jax
 import numpy as np
 import pytest
 import torch
@@ -17,6 +18,7 @@ from glt_tpu.sampler import calibrate_node_capacity as jax_calibrate
 from glt_tpu.sampler.neighbor_sampler import measure_occupancy as jax_occ
 from glt_tpu.sampler.neighbor_sampler import hop_widths as jax_widths
 from glt_tpu.sampler.neighbor_sampler import max_sampled_nodes as jax_cap
+from glt_tpu_torch import random as trandom
 from glt_tpu_torch.data import CSRTopo, Graph
 from glt_tpu_torch.sampler import (
     NeighborSampler,
@@ -182,3 +184,33 @@ def test_calibrate_and_sibling_match_jax(last_hop_dedup):
     assert tp.full_capacity_sibling() is tp
     with pytest.raises(ValueError, match="frontier floor"):
         NeighborSampler(tg, [5, 3, 2], node_capacity=10, **kw)
+
+
+@pytest.mark.parametrize("cap", [None, 64])
+def test_sample_from_nodes_batched_matches_jax(cap):
+    """G = 3 batches in one call == ``glt_tpu``'s stacked output, under
+    an explicit key and under the call counter (which advances once a
+    call, as one ``sample_from_nodes`` does); batch g == the single
+    sample under ``split(key, G)[g]``."""
+    jg, tg, n = _graphs("explicit")
+    kw = dict(batch_size=16, frontier_cap=20, seed=6, node_capacity=cap)
+    js = JaxSampler(jg, [5, 3, 2], sample_force="xla", **kw)
+    ts = NeighborSampler(tg, [5, 3, 2], **kw)
+    seeds = np.random.default_rng(3).integers(-1, n, (3, 16))
+    seeds[2] = -1                           # a fully padded batch
+    _compare(js.sample_from_nodes_batched(seeds, key=jax.random.PRNGKey(9)),
+             ts.sample_from_nodes_batched(
+                 seeds, key=trandom.PRNGKey(9, device="cpu")))
+    for _ in range(2):
+        _compare(js.sample_from_nodes_batched(seeds),
+                 ts.sample_from_nodes_batched(torch.from_numpy(seeds)))
+    _compare(js.sample_from_nodes(JaxInput(seeds[0])),
+             ts.sample_from_nodes(NodeSamplerInput(seeds[0])))
+    key = trandom.PRNGKey(4, device="cpu")
+    out = ts.sample_from_nodes_batched(seeds, key=key)
+    for g, k in enumerate(trandom.split(key, 3)):
+        one = ts.sample_from_nodes(NodeSamplerInput(seeds[g]), key=k)
+        for f in FIELDS:
+            assert torch.equal(getattr(out, f)[g], getattr(one, f)), f
+    with pytest.raises(ValueError, match="expected"):
+        ts.sample_from_nodes_batched(seeds[:, :8])

@@ -103,6 +103,37 @@ def test_messages_equal(engines):
             np.testing.assert_array_equal(tm["node"][:nb], tm["batch"])
 
 
+def test_warmup_matches_jax():
+    """``warmup()`` builds every bucket on both engines and advances
+    each bucket's key counter once, so the requests served after it give
+    == messages; ``compiled_buckets()`` agree before and after."""
+    indptr, indices = _load("indptr"), _load("indices")
+    feat, labels = _load("feat"), _load("labels")
+    jds = JaxDataset()
+    jds.graph = JaxGraph(JaxTopo((indptr, indices), layout="CSR"))
+    jds.init_node_features(feat)
+    jds.init_node_labels(labels)
+    tds = (Dataset(device="cpu").init_graph((indptr, indices), layout="CSR")
+           .init_node_features(feat).init_node_labels(labels))
+    jeng, teng = JaxEngine(jds, JaxOptions(**OPTS)), SubgraphEngine(
+        tds, ServingOptions(**OPTS))
+    assert teng.compiled_buckets() == jeng.compiled_buckets() == []
+    jeng.warmup()
+    teng.warmup()
+    assert teng.compiled_buckets() == jeng.compiled_buckets() == [8, 32, 128]
+    for reqs in _request_lists()[::2]:
+        jmsgs = jeng.scatter(jeng.sample([jeng.validate_seeds(r)
+                                          for r in reqs]))
+        tmsgs = teng.scatter(teng.sample([teng.validate_seeds(r)
+                                          for r in reqs]))
+        assert len(jmsgs) == len(tmsgs)
+        for jm, tm in zip(jmsgs, tmsgs):
+            assert sorted(jm) == sorted(tm)
+            for k in jm:
+                np.testing.assert_array_equal(np.asarray(jm[k]), tm[k],
+                                              err_msg=k)
+
+
 def test_bf16_features_travel_as_raw_bits():
     """bf16 rows reach the message bit for bit: glt_tpu's ``x`` is
     bfloat16, the port's holds the same 16-bit patterns as uint16 (numpy

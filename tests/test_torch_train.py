@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from glt_tpu.data import CSRTopo as JaxTopo
+from glt_tpu.data import feature_cache as jcache
 from glt_tpu.data import Graph as JaxGraph
 from glt_tpu.loader.transform import to_batch as jax_to_batch
 from glt_tpu.models import GraphSAGE as JaxSAGE
@@ -27,12 +28,14 @@ from glt_tpu.sampler import NeighborSampler as JaxSampler
 from glt_tpu.sampler import NodeSamplerInput as JaxInput
 from glt_tpu_torch import random as trandom
 from glt_tpu_torch.data import CSRTopo, Feature, Graph
+from glt_tpu_torch.data.feature_cache import cache_init, cache_stats
 from glt_tpu_torch.loader.transform import Batch, to_batch
 from glt_tpu_torch.models import (
     GraphSAGE,
     adam,
     create_train_state,
     make_eval_step,
+    make_cached_gather_xy,
     make_gather_xy,
     make_scanned_node_train_step,
     make_train_step,
@@ -294,6 +297,78 @@ def test_gather_xy_routes_equal():
                                     -1))
 
 
+def _assert_cache(jc, tc):
+    for name in jc._fields:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(jc, name)), getattr(tc, name).numpy(),
+            err_msg=name)
+
+
+@pytest.mark.parametrize("capacity", [8, 64])
+def test_cached_gather_xy_matches_jax(capacity):
+    """The cached gather over five batches (capacity 8 evicts on every
+    batch, 64 holds the graph): ``x``, ``y`` and the whole cache state
+    == ``glt_tpu``'s, and ``x`` == the uncached gather's."""
+    js, ts, feat, labels = _pair()
+    perm = np.random.default_rng(1).permutation(N).astype(np.int32)
+    rows = feat[np.argsort(perm)]
+    jxy = jtrain.make_cached_gather_xy(jnp.asarray(perm), force="xla")
+    txy = make_cached_gather_xy(torch.from_numpy(perm))
+    plain = make_gather_xy(torch.from_numpy(perm))
+    jc = jcache.cache_init(N, capacity, DIM)
+    tc = cache_init(N, capacity, DIM, device="cpu")
+    rng = np.random.default_rng(2)
+    for _ in range(5):
+        seeds = rng.integers(-1, N, BS)
+        jout = js.sample_from_nodes(JaxInput(seeds))
+        tout = ts.sample_from_nodes(NodeSamplerInput(seeds))
+        jc, jx, jy = jxy(jc, jnp.asarray(rows), jnp.asarray(labels), jout)
+        tc, tx, ty = txy(tc, torch.from_numpy(rows),
+                         torch.from_numpy(labels), tout)
+        np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+        px, py = plain(torch.from_numpy(rows), torch.from_numpy(labels),
+                       tout)
+        assert torch.equal(tx, px) and torch.equal(ty, py)
+        _assert_cache(jc, tc)
+    assert cache_stats(tc)["misses"] > 0 and cache_stats(tc)["hits"] > 0
+
+
+def test_scanned_block_with_cache_matches_jax():
+    """Two blocks through both scanned steps with ``feature_cache=``:
+    losses and params within 1e-5, the live cache state ==; the seam
+    swaps the cache in, and the cache wins over ``fused_frontier``."""
+    js, ts, feat, labels = _pair()
+    jm, params, tm = _models(js.node_capacity)
+    tx = optax.adam(LR)
+    blocks = list(node_seed_blocks(np.arange(N), BS, 2,
+                                   np.random.default_rng(3)))
+    jstep = jtrain.make_scanned_node_train_step(
+        jm, tx, js, feat, labels, BS, feature_cache=jcache.cache_init(
+            N, 24, DIM))
+    jstate = jtrain.TrainState(params, tx.init(params),
+                               jnp.zeros((), jnp.int32))
+    tstep = make_scanned_node_train_step(
+        ts, Feature(feat, device="cpu"), labels, BS, fused_frontier=True,
+        feature_cache=cache_init(N, 24, DIM, device="cpu"))
+    state = create_train_state(tm, adam(LR))
+    for i, blk in enumerate(blocks):
+        jstate, jl, ja, _ = jstep(jstate, blk, jax.random.PRNGKey(i))
+        state, tl, ta, _ = tstep(state, blk,
+                                 trandom.PRNGKey(i, device="cpu"))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-6)
+        _assert_cache(jstep.feature_cache(), tstep.feature_cache())
+    _assert_params(jstate.params, tm)
+    assert state.step == int(jstate.step)
+    fresh = cache_init(N, 24, DIM, device="cpu")
+    tstep.set_feature_cache(fresh)
+    assert tstep.feature_cache() is fresh
+    with pytest.raises(ValueError, match="feature_cache"):
+        tstep.set_feature_cache(cache_init(N, 24, DIM + 1, device="cpu"))
+
+
 def test_node_seed_blocks_match_jax():
     idx = np.arange(100, 171)
     for bs, g in ((16, 2), (8, 3), (71, 1)):
@@ -351,8 +426,11 @@ def test_run_scanned_epoch_trims_and_resumes():
 
 
 def test_dropout_draws_from_its_own_generator():
-    """Dropout never touches torch's global generator; the same
-    (dropout_seed, step) gives the same update, another seed another."""
+    """Dropout draws from its own threefry key, never from torch's
+    global generator; the same (dropout_seed, step) gives the same
+    update, another seed another.  The scanned block, whose step counter
+    lives on the device, draws the masks of the one-batch train step at
+    each step."""
     _, ts, feat, labels = _pair()
     _, _, tm = _models(ts.node_capacity, dropout=0.5)
     blk = next(node_seed_blocks(np.arange(48), BS, 2,
@@ -370,12 +448,28 @@ def test_dropout_draws_from_its_own_generator():
     assert torch.equal(runs[0], runs[1])
     assert not torch.equal(runs[0], runs[2])
 
+    m = copy.deepcopy(tm)
+    state = create_train_state(m, adam(LR))
+    tstep = make_train_step(BS, dropout_seed=0)
+    fe = Feature(feat, device="cpu")
+    lab = torch.from_numpy(labels)
+    keys = trandom.split(key, 2)
+    for i in range(2):
+        out = ts.sample_from_nodes(NodeSamplerInput(blk[i]), key=keys[i])
+        y = torch.where(out.node >= 0, lab[out.node.clamp(0, N - 1).long()],
+                        -1)
+        state, loss, _ = tstep(state, to_batch(
+            out, x=fe.gather(out.node), y=y, batch_size=BS))
+        assert float(loss) == pytest.approx(float(runs[0][i]), rel=1e-6)
+
 
 def test_step_refuses_mismatched_devices():
     _, ts, feat, labels = _pair()
-    with pytest.raises(NotImplementedError):
-        make_scanned_node_train_step(ts, feat, labels, BS,
-                                     feature_cache=object())
+    for dtype, dim in ((torch.float64, DIM), (torch.float32, DIM + 1)):
+        with pytest.raises(ValueError, match="feature_cache"):
+            make_scanned_node_train_step(
+                ts, feat, labels, BS, feature_cache=cache_init(
+                    N, 8, dim, dtype=dtype, device="cpu"))
     meta = torch.nn.Linear(2, 2, device="meta")
     step = make_scanned_node_train_step(ts, feat, labels, BS)
     bad = create_train_state(meta, adam(LR))
