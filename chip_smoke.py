@@ -104,8 +104,29 @@ Phases (the first failure exits non-zero and prints no result line):
    induced edges exactly the real edges among its nodes within the
    degree cap, one profiled block of each step, and B2 timed at the link
    batch's node list;
-9. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-8) and the ok line.
+9. hetero: the settings of ``examples/rgat_igbh.py`` (R-GAT, hidden 32,
+   2 layers, 2 heads, fanout (4, 4), Adam 5e-3) on synthetic IGBH at
+   scale 1,000 and of ``examples/train_hgt_mag.py`` (HGT, hidden 64, 4
+   heads, dropout 0.3, fanout (5, 5), Adam 1e-3) on synthetic MAG at
+   scale 490, built on the card by the port's dataset functions, 64 papers a
+   batch.  Per model, with the launch counts set to 0 just before and
+   read just after: 4 ``HeteroNeighborLoader`` batches (every valid edge
+   of every reversed edge type a real edge of its forward type with its
+   id, ``x`` equal to the rows, ``y`` to the labels) and 6 scanned blocks
+   at G = 8 (eager, captured, replayed): B1 once per (hop, edge type) with
+   a nonzero width in every sample (6 for R-GAT, 9 for HGT), B2 once per
+   node type a batch, the plain threefry arithmetic never on the card.
+   Then loader batch 0 sampled again on the CPU (every field
+   ``torch.equal``), one batch's loss on the CPU from a copy of the state
+   within F32_LOSS_RTOL, one replayed block against an eager block from
+   copies of one state (first loss within F32_LOSS_RTOL, all within 1e-3)
+   with both profiled (B1 by name per replayed step), HGT's attention mass
+   per destination 1 or 0 within 1e-5, and B1 and B2 timed at this
+   phase's shapes.  Then ``HeteroLinkNeighborLoader`` on MAG's writes
+   (binary x 1, fanout (5, 5), 64 seed edges) for 4 batches: positives
+   decode to their seed edges, negatives that are edges counted;
+10. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-9) and the ok line.
 
 Details go to ``build/results/chip_smoke.json``.  Imports torch, numpy
 and glt_tpu_torch only.  Every profiled window starts with
@@ -117,6 +138,7 @@ bucket, with and without the settle time, and runs no phase.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import re
@@ -162,6 +184,20 @@ LINK_FANOUT, LINK_BS, LINK_CAP, LINK_HIDDEN = (10, 10), 256, 4096, 64
 LINK_BATCHES, LINK_BLOCKS = 4, 4
 SEAL_FANOUT, SEAL_BS, SEAL_DEGREE, SEAL_HIDDEN = (8, 8), 32, 16, 32
 SEAL_BLOCKS = 4
+# Heterogeneous phase: examples/rgat_igbh.py's settings (R-GAT hidden 32,
+# 2 layers, 2 heads, GAT convs, dropout 0, fanout (4, 4), Adam 5e-3) on
+# synthetic IGBH at scale 1,000 (IGBH-small's 1,000,000 papers) and
+# examples/train_hgt_mag.py's (HGT hidden 64, 4 heads, 2 layers, dropout
+# 0.3, fanout (5, 5), Adam 1e-3) on synthetic MAG at scale 490 (735,000
+# papers, ogbn-mag's 736,389); batches of 64 papers, G = 8.
+HETERO = {
+    "rgat": {"dataset": "synthetic_igbh", "scale": 1000, "fanout": (4, 4),
+             "lr": 5e-3, "b1_per_step": 6, "seed": 31},
+    "hgt": {"dataset": "synthetic_mag", "scale": 490, "fanout": (5, 5),
+            "lr": 1e-3, "b1_per_step": 9, "seed": 32},
+}
+HET_BS, HET_BATCHES, HET_BLOCKS = 64, 4, 6
+HGT_HIDDEN, HGT_HEADS = 64, 4
 EDGE_PAIRS, SORT_ROWS = 1 << 20, 4096
 WORK_DIR = os.path.join("build", "tmp")
 SLEEP_CYCLES = 40_000_000         # ~20 ms at the H100's 1.98 GHz
@@ -1044,15 +1080,19 @@ def run_slice(torch, dev, indptr, indices, feat, labels, rng):
             "cpu_logit_rel_err": logit_err}
 
 
-def copy_state(torch, state, GraphSAGE, adam, dev):
-    """A TrainState with its own bf16 model and Adam, holding copies of
-    ``state``'s weights, optimizer state and step."""
+def copy_state(state, make, tx):
+    """A TrainState with its own model (from ``make()``) and optimizer
+    (``tx``), holding copies of ``state``'s weights, optimizer state and
+    step."""
     from glt_tpu_torch.models import TrainState
 
-    model = random_model(torch, GraphSAGE, dev, dtype=torch.bfloat16)
+    model = make()
     model.load_state_dict(state.model.state_dict())
-    opt = adam(LR)(model.parameters())
-    opt.load_state_dict(state.optimizer.state_dict())
+    opt = tx(model.parameters())
+    # A deep copy: load_state_dict keeps the given tensors where their
+    # device and dtype already fit, so the two optimizers would share
+    # (and both update) one set of moments.
+    opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
     return TrainState(model, opt, state.step)
 
 
@@ -1150,7 +1190,8 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
     blk = next(node_seed_blocks(prof_idx, TRAIN_BS, GROUP,
                                 np.random.default_rng(6)))
     need(bool((blk >= 0).all()), "the profiled block holds padding")
-    twin = copy_state(torch, state, GraphSAGE, adam, dev)
+    twin = copy_state(state, lambda: random_model(
+        torch, GraphSAGE, dev, dtype=torch.bfloat16), adam(LR))
     key7 = trandom.PRNGKey(7, device=dev)
     with profile_window(torch) as prof:
         t1 = time.perf_counter()
@@ -2053,6 +2094,385 @@ def run_link(torch, dev, indptr, indices, feat, rng):
     return rep
 
 
+# -- phase 9: heterogeneous graphs -------------------------------------------
+def hetero_host(ds):
+    """Host copies for the checks: per edge type the CSR and the CSR
+    position of each edge id; per node type the feature rows."""
+    csr = {}
+    for et, g in ds.graph.items():
+        topo = g.topo
+        pos = np.empty(topo.edge_ids.shape[0], np.int64)
+        pos[topo.edge_ids] = np.arange(topo.edge_ids.shape[0])
+        csr[et] = (topo.indptr, topo.indices, pos)
+    feats = {t: ds.get_node_feature(t).hot_rows.cpu().numpy()
+             for t in ds.get_node_types()}
+    return csr, feats
+
+
+def check_hetero_batch(b, csr, feats, labels):
+    """Every valid edge of every reversed edge type is a real edge of its
+    forward type (its id at that edge's CSR position); ``x[t]`` equals
+    the rows (zeros on padding); ``y`` equals the labels.  Returns the
+    number of edges checked."""
+    from glt_tpu_torch.typing import reverse_edge_type
+
+    node = {t: v.cpu().numpy() for t, v in b.node.items()}
+    edges = 0
+    for rev, ei in b.edge_index.items():
+        fwd = reverse_edge_type(rev)
+        indptr, indices, pos = csr[fwd]
+        m = b.edge_mask[rev].cpu().numpy()
+        ei = ei.cpu().numpy()[:, m]
+        dst, src = node[rev[0]][ei[0]], node[rev[2]][ei[1]]
+        need((dst >= 0).all() and (src >= 0).all(),
+             f"{rev}: an edge leaves the node set")
+        p = pos[b.edge_id[rev].cpu().numpy()[m]]
+        need(np.array_equal(indices[p], dst) and (p >= indptr[src]).all()
+             and (p < indptr[src + 1]).all(),
+             f"{rev}: an edge is not an edge of {fwd}")
+        edges += int(m.sum())
+    for t, x in b.x.items():
+        x = x.cpu().numpy()
+        valid = node[t] >= 0
+        need(np.array_equal(x[valid], feats[t][node[t][valid]])
+             and not x[~valid].any(), f"x[{t}] differs from its rows")
+    y = b.y["paper"].cpu().numpy()
+    valid = node["paper"] >= 0
+    need(np.array_equal(y[valid], labels[node["paper"][valid]])
+         and (y[~valid] == -1).all(), "y differs from the labels")
+    return edges
+
+
+def b1_per_sample(sampler, widths=None) -> int:
+    """B1 launches of one sample: its (hop, edge type) pairs with a
+    nonzero fanout and source width."""
+    widths = sampler.hop_widths if widths is None else widths
+    return sum(1 for et in sampler.edge_types
+               for h, f in enumerate(sampler.num_neighbors[et])
+               if f > 0 and widths[h][et[0]] > 0)
+
+
+def attention_mass(torch, model, b) -> float:
+    """HGT's attention mass per destination against 1 for a node with an
+    incoming edge of any type and 0 otherwise: the largest deviation over
+    layers, node types and heads."""
+    model.record_attention()
+    with torch.no_grad():
+        model(b.x, b.edge_index, b.edge_mask)
+    model.record_attention(False)
+    worst = 0.0
+    for layer in model.layers:
+        for t, mass in layer.att_weight_sum.items():
+            has_in = torch.zeros(mass.shape[0], dtype=torch.bool,
+                                 device=mass.device)
+            for et, ei in b.edge_index.items():
+                if et[2] == t:
+                    has_in[ei[1][b.edge_mask[et]].long()] = True
+            worst = max(worst, float((mass - has_in.float()[:, None])
+                                     .abs().max()))
+    return worst
+
+
+def time_hetero_kernels(torch, ops, trandom, ds, sampler, out, sm_mhz):
+    """B1 at this configuration's hop shapes (the seed frontier, then the
+    widest next-hop frontier, of sample ``out``) and B2 at each node
+    type's node list of ``out``, against their bounds."""
+    widths = sampler.hop_widths
+    t1 = max(widths[1], key=lambda t: widths[1][t])
+    lo = int(out.num_sampled_nodes[t1][0])
+    frontiers = [(0, sampler.input_type,
+                  out.node[sampler.input_type][:sampler.batch_size]),
+                 (1, t1, out.node[t1][lo: lo + widths[1][t1]])]
+    rows = {"B1": [], "B2": []}
+    for hop, t, frontier in frontiers:
+        frontier = frontier.contiguous()
+        et = next(e for e in sampler.edge_types if e[0] == t)
+        g = ds.get_graph(et)
+        f = sampler.num_neighbors[et][hop]
+        key = trandom.PRNGKey(hop, device=frontier.device)
+
+        def b1(fn=ops.sample_neighbors_cuda):
+            return fn(g.indptr, g.indices, frontier, f, key,
+                      edge_ids=g.gather_edge_ids)
+
+        nbytes, nops = b1_work(g.indptr, frontier, f, b1().mask)
+        bound, by = bound_of(nbytes, nops, sm_mhz)
+        rows["B1"].append({
+            "edge_type": list(et), "shape": [int(frontier.shape[0]), f],
+            "ms": cuda_ms(torch, b1),
+            "plain_ms": cuda_ms(torch, lambda: b1(
+                ops.sample_neighbors_plain), reps=5, rounds=3),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "int_ops": nops, "library_ms": None})
+    for t, node in out.node.items():
+        table = ds.get_node_feature(t).hot_rows
+        d = table.shape[1]
+        idx = torch.where(node >= 0, node, 0).to(torch.int32).contiguous()
+        uniq = int(torch.unique(idx).numel())
+        nbytes = idx.shape[0] * 4 + uniq * d * 4 + idx.shape[0] * d * 4
+        lib = idx.long()
+        rows["B2"].append({
+            "node_type": t, "shape": [int(idx.shape[0]), d],
+            "ms": cuda_ms(torch, lambda: ops.gather_rows_cuda(table, idx)),
+            "plain_ms": cuda_ms(torch, lambda: ops.gather_rows_plain(
+                table, idx)),
+            "library_ms": cuda_ms(torch, lambda: torch.index_select(
+                table, 0, lib)),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "bytes": nbytes})
+    return rows
+
+
+def run_hetero_model(torch, ops, trandom, dev, name, sm_mhz):
+    """One configuration of phase 9: ``name`` is "rgat" (the rgat_igbh
+    twin's settings on IGBH) or "hgt" (the train_hgt_mag twin's on MAG);
+    see the module docstring."""
+    import argparse
+
+    from glt_tpu_torch.data import Dataset, Feature, Graph
+    from glt_tpu_torch.examples import datasets as tdatasets
+    from glt_tpu_torch.examples import rgat_igbh, train_hgt_mag
+    from glt_tpu_torch.loader import HeteroNeighborLoader
+    from glt_tpu_torch.models import (
+        adam,
+        init_hetero_state,
+        make_eval_step,
+        make_scanned_hetero_train_step,
+        node_seed_blocks,
+        run_scanned_epoch,
+    )
+    from glt_tpu_torch.sampler import HeteroNeighborSampler, NodeSamplerInput
+
+    cfg = HETERO[name]
+    twin = rgat_igbh if name == "rgat" else train_hgt_mag
+    args = argparse.Namespace(hidden=HGT_HIDDEN, heads=HGT_HEADS,
+                              fanout=list(cfg["fanout"]), bf16=False,
+                              device=str(dev))
+    t0 = time.perf_counter()
+    ds, train_idx, classes = getattr(tdatasets, cfg["dataset"])(
+        scale=cfg["scale"], device=dev)
+    csr, feats = hetero_host(ds)
+    labels = ds.get_node_label("paper")
+    rep = {"build_s": time.perf_counter() - t0,
+           "nodes": {t: int(f.shape[0]) for t, f in feats.items()},
+           "edges": {"__".join(et): int(c[1].shape[0])
+                     for et, c in csr.items()}}
+    rng = np.random.default_rng(cfg["seed"])
+    perm = rng.permutation(train_idx)
+    loader_idx = perm[: HET_BATCHES * HET_BS]
+    train_ids = perm[HET_BATCHES * HET_BS:][: HET_BLOCKS * GROUP * HET_BS]
+    feat_of = {t: ds.get_node_feature(t) for t in ds.get_node_types()}
+    label_of = {"paper": labels}
+
+    def make():
+        return twin.make_model(ds, classes, args)
+
+    # -- the main path: counts set to 0 just before, read just after ------
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    trandom.threefry2x32.calls = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loader = HeteroNeighborLoader(ds, cfg["fanout"], ("paper", loader_idx),
+                                  batch_size=HET_BS, shuffle=True, seed=0)
+    batches = list(loader)
+    sampler = HeteroNeighborSampler(ds.graph, cfg["fanout"], "paper",
+                                    batch_size=HET_BS, seed=0)
+    state = init_hetero_state(make(), adam(cfg["lr"]), sampler, feat_of)
+    step = make_scanned_hetero_train_step(sampler, feat_of, label_of, HET_BS)
+    stamps = [time.perf_counter()]
+    state, losses, accs, _ = run_scanned_epoch(
+        step, state, train_ids, HET_BS, GROUP, np.random.default_rng(5),
+        trandom.PRNGKey(100, device=dev),
+        on_block=lambda st, i: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+    plain_calls = trandom.threefry2x32.calls
+    peak = torch.cuda.max_memory_allocated()
+    need(plain_calls == 0, f"{name}: the hetero path ran the plain threefry "
+                           f"arithmetic on the card ({plain_calls} calls)")
+    per_sample = b1_per_sample(sampler)
+    need(per_sample == cfg["b1_per_step"], f"{name}: {per_sample} B1 "
+                                           f"launches a sample")
+    # The loader's samples (its prefetch included), the eager block and
+    # the capture; the replays move no counter.
+    samples = loader.sampler._call_count + 2 * GROUP
+    need(launches["sample_neighbors_cuda"] == per_sample * samples,
+         f"{name}: B1 launched {launches['sample_neighbors_cuda']} times "
+         f"for {samples} samples of {per_sample}")
+    ntypes = len(feat_of)
+    need(launches["gather_rows_cuda"] == ntypes * (len(batches) + 2 * GROUP),
+         f"{name}: B2 launched {launches['gather_rows_cuda']} times, not "
+         f"once per node type a batch")
+    need(launches["threefry_hash_cuda"] > 0, f"{name}: no hash-kernel launch")
+    need(losses.shape == (HET_BLOCKS * GROUP,)
+         and bool(np.isfinite(losses).all()), f"{name}: losses {losses}")
+    block_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+    # -- the loader's batches ---------------------------------------------
+    need(len(batches) == HET_BATCHES, f"{name}: {len(batches)} batches")
+    checked = sum(check_hetero_batch(b, csr, feats, labels) for b in batches)
+    cpu_ds = Dataset(device="cpu")
+    cpu_ds.graph = {et: Graph(g.topo, device="cpu")
+                    for et, g in ds.graph.items()}
+    cpu_ds.node_features = {t: Feature(f, device="cpu")
+                            for t, f in feats.items()}
+    cpu_ds.node_labels = ds.node_labels
+    cb = next(iter(HeteroNeighborLoader(
+        cpu_ds, cfg["fanout"], ("paper", loader_idx), batch_size=HET_BS,
+        shuffle=True, seed=0)))
+    gb = batches[0]
+    for f in ("x", "y", "edge_index", "edge_id", "node", "node_mask",
+              "edge_mask", "batch"):
+        for k, v in getattr(cb, f).items():
+            need(torch.equal(getattr(gb, f)[k].cpu(), v),
+                 f"{name}: batch 0 on the card and the CPU differ in "
+                 f"{f}[{k}]")
+
+    # -- one batch's loss on the CPU, from a copy of the state -------------
+    ev = make_eval_step(HET_BS, target_type="paper")
+    pair = []
+    for d, b in ((dev, gb), ("cpu", cb)):
+        m = make()
+        m.load_state_dict(state.model.state_dict())
+        pair.append(float(ev(m.to(d), b)[0]))
+    loss_err = abs(pair[0] - pair[1]) / max(abs(pair[1]), 1e-30)
+    need(loss_err <= F32_LOSS_RTOL, f"{name}: card loss {pair[0]} vs CPU "
+                                    f"{pair[1]}")
+
+    # -- one replayed block against an eager block from one state ---------
+    blk = next(node_seed_blocks(perm[-GROUP * HET_BS:], HET_BS, GROUP,
+                                np.random.default_rng(6)))
+    twin_state = copy_state(state, make, adam(cfg["lr"]))
+    key = trandom.PRNGKey(7, device=dev)
+    with profile_window(torch) as prof:
+        t1 = time.perf_counter()
+        state, ls_graph, _ = step(state, blk, key)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3 / GROUP
+    profiled = device_profile(torch, prof, GROUP, wall)
+    profiled["b1_kernels"] = b1_kernels(torch, prof) / GROUP
+    need(profiled["b1_kernels"] == per_sample,
+         f"{name}: B1 ran {profiled['b1_kernels']} times a replayed step, "
+         f"not {per_sample}")
+    fresh = make_scanned_hetero_train_step(sampler, feat_of, label_of,
+                                           HET_BS)
+    with profile_window(torch) as prof:
+        t1 = time.perf_counter()
+        twin_state, ls_eager, _ = fresh(twin_state, blk, key)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3 / GROUP
+    eager_profiled = device_profile(torch, prof, GROUP, wall)
+    eager_profiled["b1_kernels"] = b1_kernels(torch, prof) / GROUP
+    lg, le = ls_graph.double().cpu(), ls_eager.double().cpu()
+    replay_rel = ((lg - le).abs() / le.abs().clamp(min=1e-30)).tolist()
+    need(replay_rel[0] <= F32_LOSS_RTOL,
+         f"{name}: replayed block's first loss {lg[0]} vs eager {le[0]}")
+    need(max(replay_rel) <= 1e-3, f"{name}: replayed block's losses "
+                                  f"{lg.tolist()} vs eager {le.tolist()}")
+    eager_ms = []
+    for j in range(2):
+        fresh = make_scanned_hetero_train_step(sampler, feat_of, label_of,
+                                               HET_BS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        twin_state, _, _ = fresh(twin_state, blk,
+                                 trandom.PRNGKey(8 + j, device=dev))
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t1) * 1e3)
+    mass_err = None
+    if name == "hgt":
+        mass_err = attention_mass(torch, state.model, gb)
+        need(mass_err <= 1e-5, f"hgt: attention mass off by {mass_err}")
+    out = sampler.sample_from_nodes(NodeSamplerInput(blk[0]),
+                                    key=trandom.PRNGKey(9, device=dev))
+    rep.update({
+        "launches": launches, "plain_hash_calls": plain_calls,
+        "b1_per_sample": per_sample, "samples": samples,
+        "node_capacity": sampler.node_capacity,
+        "loader_batches": len(batches), "edges_checked": checked,
+        "losses": losses.tolist(), "accs": accs.tolist(),
+        "block_ms": block_ms,
+        "step_ms_median": statistics.median(block_ms[2:]) / GROUP,
+        "eager_block_ms": eager_ms,
+        "eager_step_ms_median": statistics.median(eager_ms) / GROUP,
+        "replay_vs_eager_rel": replay_rel, "profile": profiled,
+        "eager_profile": eager_profiled, "max_memory_allocated": peak,
+        "card_loss": pair[0], "cpu_loss": pair[1],
+        "cpu_loss_rel_err": loss_err, "attention_mass_err": mass_err,
+        "kernels": time_hetero_kernels(torch, ops, trandom, ds, sampler,
+                                       out, sm_mhz)})
+    return rep, ds, csr
+
+
+def run_hetero_link(torch, ops, trandom, ds, csr):
+    """``HeteroLinkNeighborLoader`` on MAG's ``writes`` (binary x 1,
+    fanout (5, 5), 64 seed edges a batch) for HET_BATCHES batches:
+    positives decode to their seed edges; negatives that are real edges
+    are counted against the host CSR."""
+    from glt_tpu_torch.loader import HeteroLinkNeighborLoader
+    from glt_tpu_torch.sampler import NegativeSampling
+
+    et = ("author", "writes", "paper")
+    indptr, indices, _ = csr[et]
+    rng = np.random.default_rng(21)
+    pos = rng.integers(0, indices.shape[0], HET_BATCHES * HET_BS)
+    eli = np.stack([edge_sources(indptr, pos), indices[pos]])
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    trandom.threefry2x32.calls = 0
+    torch.cuda.synchronize()
+    loader = HeteroLinkNeighborLoader(
+        ds, list(HETERO["hgt"]["fanout"]), (et, eli), batch_size=HET_BS,
+        neg_sampling=NegativeSampling("binary", 1), seed=3)
+    batches = list(loader)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+    plain_calls = trandom.threefry2x32.calls
+    need(plain_calls == 0, "hetero link: plain threefry on the card")
+    s = loader.sampler
+    widths = s._edge_plan(et, "binary", 1)[0]
+    per_sample = b1_per_sample(s, widths)
+    need(launches["sample_neighbors_cuda"] == per_sample * s._call_count,
+         f"hetero link: B1 launched {launches['sample_neighbors_cuda']} "
+         f"times for {s._call_count} samples of {per_sample}")
+    need(len(batches) == HET_BATCHES, "hetero link: batch count")
+    neg_edges = 0
+    for i, b in enumerate(batches):
+        lab = b.metadata["edge_label"].cpu().numpy()
+        e = b.metadata["edge_label_index"].cpu().numpy()
+        src = b.node["author"].cpu().numpy()[e[0]]
+        dst = b.node["paper"].cpu().numpy()[e[1]]
+        seed = eli[:, i * HET_BS: (i + 1) * HET_BS]
+        need(np.array_equal(src[:HET_BS], seed[0])
+             and np.array_equal(dst[:HET_BS], seed[1])
+             and (lab[:HET_BS] == 1).all() and (lab[HET_BS:] == 0).all(),
+             f"hetero link batch {i}: a positive does not decode to its "
+             f"seed edge")
+        need((e[:, HET_BS:] >= 0).all(), "hetero link: a negative is not "
+                                         "in the batch")
+        neg_edges += sum(is_edge(indptr, indices, a, c) for a, c in
+                         zip(src[HET_BS:].tolist(), dst[HET_BS:].tolist()))
+    return {"launches": launches, "plain_hash_calls": plain_calls,
+            "b1_per_sample": per_sample, "samples": s._call_count,
+            "negatives": HET_BATCHES * HET_BS,
+            "negatives_that_are_edges": int(neg_edges)}
+
+
+def run_hetero(torch, ops, trandom, dev, sm_mhz) -> dict:
+    """Phase 9 (see the module docstring)."""
+    rep = {}
+    rep["rgat"], _, _ = run_hetero_model(torch, ops, trandom, dev, "rgat",
+                                         sm_mhz)
+    rep["hgt"], ds, csr = run_hetero_model(torch, ops, trandom, dev, "hgt",
+                                           sm_mhz)
+    rep["link"] = run_hetero_link(torch, ops, trandom, ds, csr)
+    rep["launches"] = {k: sum(rep[p]["launches"][k]
+                              for p in ("rgat", "hgt", "link"))
+                       for k in rep["link"]["launches"]}
+    return rep
+
+
 def main() -> int:
     try:
         import torch
@@ -2343,12 +2763,49 @@ def main() -> int:
             f"{b2l['ms']:.4f} ms, plain {b2l['plain_ms']:.4f} ms, library "
             f"{b2l['library_ms']:.4f} ms, bound {b2l['bound_ms']:.4f} ms "
             f"({time.perf_counter() - t0:.1f} s)")
+
+        # 9. heterogeneous graphs
+        t0 = time.perf_counter()
+        report["hetero"] = het = run_hetero(torch, ops, trandom, dev, sm_mhz)
+        for name in ("rgat", "hgt"):
+            h = het[name]
+            log(f"hetero {name}: {h['nodes']} nodes built in "
+                f"{h['build_s']:.1f} s; {h['loader_batches']} loader "
+                f"batches ({h['edges_checked']} edges checked against the "
+                f"CSR, x and y equal), batch 0 == CPU; {len(h['losses'])} "
+                f"steps, losses {h['losses'][0]:.4f} -> "
+                f"{h['losses'][-1]:.4f}; B1 {h['b1_per_sample']} a sample; "
+                f"card vs CPU loss rel {h['cpu_loss_rel_err']:.2e}; "
+                f"replayed vs eager rel {h['replay_vs_eager_rel'][0]:.2e} "
+                f"(first), {max(h['replay_vs_eager_rel']):.2e} (max)"
+                + ("" if h["attention_mass_err"] is None else
+                   f"; attention mass within {h['attention_mass_err']:.1e}"))
+            log(f"  step: replayed {h['step_ms_median']:.2f} ms, eager "
+                f"{h['eager_step_ms_median']:.2f} ms (blocks " + ", ".join(
+                    f"{b:.1f}" for b in h["block_ms"]) + " ms: eager, "
+                f"capture, replays); peak memory "
+                f"{h['max_memory_allocated'] / 2**30:.2f} GiB")
+            for route, p in (("replayed", h["profile"]),
+                             ("eager", h["eager_profile"])):
+                log(f"  profiled {route} step: wall {p['wall_ms']:.2f} ms, "
+                    f"{p['launch_calls']:.1f} host launch calls, "
+                    f"{p['kernels']:.1f} kernels {p['kernels_ms']:.3f} ms "
+                    f"({p['kernel_share']:.1%}), B1 {p['b1_kernels']:.0f}")
+            for k in h["kernels"]["B1"] + h["kernels"]["B2"]:
+                log(f"  {'B1' if 'edge_type' in k else 'B2'} {k['shape']}: "
+                    f"kernel {k['ms']:.5f} ms, plain {k['plain_ms']:.4f} ms, "
+                    f"bound {k['bound_ms']:.5f} ms by {k['bound_by']}")
+        hl = het["link"]
+        log(f"  hetero link loader: {HET_BATCHES} batches, positives == seed "
+            f"edges, {hl['negatives_that_are_edges']} of {hl['negatives']} "
+            f"negatives are edges; launches {het['launches']} "
+            f"({time.perf_counter() - t0:.1f} s)")
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
-                       for p in (sl, tr, st, report["digits"], lk))
+                       for p in (sl, tr, st, report["digits"], lk, het))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
@@ -2397,7 +2854,9 @@ def main() -> int:
     report["kernels"] = kernels
     report["kernel_detail"] = {"B1": b1, "hash": hk, "B2": b2, "B3": b3,
                                "B4": b4, "B4_bf16": b4_bf16, "B5": b5,
-                               "B2_link": lk["b2_link"]}
+                               "B2_link": lk["b2_link"],
+                               "hetero": {n: het[n]["kernels"]
+                                          for n in ("rgat", "hgt")}}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     log(report["device"]["nvidia_smi"])

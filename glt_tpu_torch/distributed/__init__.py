@@ -1,3 +1,9 @@
-from .sample_message import SampleMessage, message_to_batch
+from .sample_message import (
+    SampleMessage,
+    hetero_batch_to_message,
+    message_to_batch,
+    message_to_hetero_batch,
+)
 
-__all__ = ["SampleMessage", "message_to_batch"]
+__all__ = ["SampleMessage", "hetero_batch_to_message", "message_to_batch",
+           "message_to_hetero_batch"]

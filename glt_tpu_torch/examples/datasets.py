@@ -29,3 +29,68 @@ def synthetic_ppi(scale: float = 1.0, dim: int = 50, seed: int = 0,
     topo = ds.get_graph().topo
     src, dst = csr_to_coo(topo.indptr, topo.indices)
     return ds, np.stack([src, dst])
+
+
+def _synthetic_citation_hetero(node_counts, relations, scale, seed,
+                               device, label_type="paper", classes=8):
+    """Citation-shaped hetero graph: ``node_counts`` maps a type to
+    ``(floor, base)``, its count ``max(floor, base * scale)``;
+    ``relations`` holds ``(src_t, rel, dst_t, degree, reversed_rel)``,
+    each source node linking to ``degree`` uniform destinations, and the
+    reverse edge type added where ``reversed_rel`` is set.  Labels live
+    on ``label_type``, whose features are noisy one-hot labels; the
+    other types' features are noise.  Returns ``(dataset, train ids,
+    classes)``."""
+    rng = np.random.default_rng(seed)
+    n = {t: max(floor, int(base * scale))
+         for t, (floor, base) in node_counts.items()}
+    ei = {}
+    for src_t, rel, dst_t, deg, rev in relations:
+        src = np.repeat(np.arange(n[src_t]), deg)
+        dst = rng.integers(0, n[dst_t], n[src_t] * deg)
+        edges = np.stack([src, dst])
+        ei[(src_t, rel, dst_t)] = edges
+        if rev is not None:
+            ei[(dst_t, rev, src_t)] = edges[::-1]
+    labels = rng.integers(0, classes, n[label_type]).astype(np.int32)
+    feats = {t: rng.normal(size=(c, classes)).astype(np.float32)
+             for t, c in n.items()}
+    feats[label_type] = (np.eye(classes, dtype=np.float32)[labels]
+                         + feats[label_type] * 0.3)
+    ds = (Dataset(device=device)
+          .init_graph(ei, num_nodes=n)
+          .init_node_features(feats)
+          .init_node_labels({label_type: labels}))
+    return ds, np.arange(n[label_type]), classes
+
+
+def synthetic_igbh(scale: float = 1.0, seed: int = 0,
+                   device: DeviceLike = None):
+    """IGBH-shaped hetero graph: paper (1,000 x scale, cites 4 papers),
+    author (800 x scale, writes 3 papers), institute (80 x scale, one
+    affiliation an author), the reverse of each cross-type relation, 8
+    classes on papers."""
+    return _synthetic_citation_hetero(
+        {"paper": (200, 1000), "author": (150, 800), "institute": (20, 80)},
+        [("paper", "cites", "paper", 4, None),
+         ("author", "writes", "paper", 3, "rev_writes"),
+         ("author", "affiliated", "institute", 1, "rev_affiliated")],
+        scale, seed, device)
+
+
+def synthetic_mag(scale: float = 1.0, seed: int = 0,
+                  device: DeviceLike = None):
+    """OGB-MAG-shaped hetero graph: paper (1,500 x scale), author (1,000
+    x scale), institution (100 x scale) and field_of_study (200 x scale)
+    with MAG's four relations (cites 4, writes 3, affiliated_with 1,
+    has_topic 2 a source node) and the reverses of the cross-type ones,
+    8 venue classes on papers."""
+    return _synthetic_citation_hetero(
+        {"paper": (300, 1500), "author": (200, 1000),
+         "institution": (30, 100), "field_of_study": (50, 200)},
+        [("paper", "cites", "paper", 4, None),
+         ("author", "writes", "paper", 3, "rev_writes"),
+         ("author", "affiliated_with", "institution", 1,
+          "rev_affiliated_with"),
+         ("paper", "has_topic", "field_of_study", 2, "rev_has_topic")],
+        scale, seed, device)

@@ -7,7 +7,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..sampler.base import SamplerOutput
+from ..sampler.base import HeteroSamplerOutput, SamplerOutput
+from ..typing import EdgeType, NodeType
 
 
 @dataclasses.dataclass
@@ -37,6 +38,25 @@ class Batch:
     @property
     def num_nodes(self) -> int:
         return int(self.node.shape[0])
+
+
+@dataclasses.dataclass
+class HeteroBatch:
+    """Heterogeneous batch (the PyG ``HeteroData`` analog): the fields
+    of :class:`Batch` as dicts keyed by node type or (reversed) edge
+    type.  ``x`` lacks a type without features; ``y`` holds the types
+    with labels."""
+    x: Dict[NodeType, Any]
+    y: Optional[Dict[NodeType, Any]]
+    edge_index: Dict[EdgeType, Any]
+    edge_id: Dict[EdgeType, Any]
+    node: Dict[NodeType, Any]
+    node_mask: Dict[NodeType, Any]
+    edge_mask: Dict[EdgeType, Any]
+    batch: Optional[Dict[NodeType, Any]]
+    batch_size: int = 0
+    input_type: Optional[NodeType] = None
+    metadata: Optional[Dict[str, Any]] = None
 
 
 def to_batch(out: SamplerOutput, x: Optional[torch.Tensor] = None,
@@ -79,3 +99,18 @@ def as_pyg_v1_adjs(batch: Batch, batch_size: int, fanouts,
                      (n, n)))
         lo = hi
     return batch_size, batch.node, list(reversed(adjs))
+
+
+def to_hetero_batch(out: HeteroSamplerOutput,
+                    x: Optional[Dict[NodeType, torch.Tensor]] = None,
+                    y: Optional[Dict[NodeType, torch.Tensor]] = None,
+                    batch_size: int = 0) -> HeteroBatch:
+    """Assemble a :class:`HeteroBatch` from hetero sampler output and
+    gathered tensors (``edge_index[et] = stack([row, col])``)."""
+    return HeteroBatch(
+        x=x or {}, y=y,
+        edge_index={et: torch.stack([out.row[et], out.col[et]])
+                    for et in out.row},
+        edge_id=out.edge, node=out.node, node_mask=out.node_mask,
+        edge_mask=out.edge_mask, batch=out.batch, batch_size=batch_size,
+        input_type=out.input_type, metadata=out.metadata)

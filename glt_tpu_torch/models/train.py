@@ -12,12 +12,15 @@ until the epoch's one host fetch.  Link prediction
 (:func:`make_scanned_link_train_step` over :func:`link_seed_blocks`) and
 induced-subgraph models (:func:`make_scanned_subgraph_train_step`) take
 the same shape: ``G`` seed-edge or seed-node batches per call, the loss
-a caller's function of the embeddings.  ``glt_tpu`` compiles the block
+a caller's function of the embeddings; so do hetero graphs
+(:func:`make_scanned_hetero_train_step`, per-type inputs and the loss
+on the seed type).  ``glt_tpu`` compiles the block
 as one ``lax.scan`` program.  Here the "scan" is a Python loop over the
 block's rows; on the card the node step captures it, once per block
 shape, as one CUDA graph (:mod:`glt_tpu_torch.utils.graphs`) and
 replays it (the first call at a shape runs eagerly and creates Adam's
-state).  The link and subgraph steps run eagerly.
+state), and so does the hetero step.  The link and subgraph steps run
+eagerly.
 
 State: :class:`TrainState` holds the ``nn.Module``, its optimizer and a
 host ``int`` step counter.  The model and optimizer update in place (a
@@ -42,13 +45,12 @@ from torch import nn
 from .. import random as trandom
 from ..data.feature import Feature
 from ..data.feature_cache import FeatureCacheState, cache_gather
-from ..loader.transform import Batch
 from ..ops.dedup_gather import dedup_gather_rows
 from ..ops.fused_frontier import fused_frontier
 from ..ops.gather_cuda import gather_rows
 from ..ops.unique import relabel_by_reference, unique_first_occurrence
 from ..sampler.base import NodeSamplerInput
-from ..typing import PADDING_ID
+from ..typing import PADDING_ID, reverse_edge_type
 from ..utils.device import same_device
 from ..utils.graphs import CapturedProgram
 
@@ -112,16 +114,28 @@ def _update(state: TrainState, loss: torch.Tensor) -> TrainState:
     return TrainState(state.model, state.optimizer, state.step + 1)
 
 
-def make_train_step(batch_size: int, dropout_seed: int = 0) -> Callable:
+def _targets(batch, target_type: Optional[str]):
+    """``(y, node_mask)`` of the supervised rows: the batch's, or a
+    hetero batch's ``target_type`` entries."""
+    if target_type is None:
+        return batch.y, batch.node_mask
+    return batch.y[target_type], batch.node_mask[target_type]
+
+
+def make_train_step(batch_size: int, dropout_seed: int = 0,
+                    target_type: Optional[str] = None) -> Callable:
     """``(state, batch) -> (state, loss, acc)``: one fwd/bwd and
-    optimizer step on a :class:`~glt_tpu_torch.loader.transform.Batch`."""
-    def train_step(state: TrainState, batch: Batch):
+    optimizer step on a :class:`~glt_tpu_torch.loader.transform.Batch`,
+    or with ``target_type`` on a
+    :class:`~glt_tpu_torch.loader.transform.HeteroBatch` (the loss over
+    that type's seed rows)."""
+    def train_step(state: TrainState, batch):
         base = trandom.PRNGKey(dropout_seed,
                                device=_model_device(state.model))
         logits = state.model(batch.x, batch.edge_index, batch.edge_mask,
                              dropout_key=trandom.fold_in(base, state.step))
-        loss, acc = seed_cross_entropy(logits, batch.y, batch_size,
-                                       batch.node_mask)
+        y, node_mask = _targets(batch, target_type)
+        loss, acc = seed_cross_entropy(logits, y, batch_size, node_mask)
         return _update(state, loss), loss.detach(), acc
 
     return train_step
@@ -140,25 +154,35 @@ def make_gather_xy(id2index: Optional[torch.Tensor] = None,
     """
     def gather_xy(rows: torch.Tensor, labels: torch.Tensor, out):
         ids = out.node
-        valid = ids >= 0
-        gid = torch.where(valid, ids, 0)
         if fused:
             x = fused_frontier(rows, ids, id2index=id2index).features
         elif dedup:
             x = dedup_gather_rows(rows, ids, id2index=id2index)
         else:
-            ridx = gid
-            if id2index is not None:
-                ridx = id2index[gid.clamp(max=id2index.shape[0] - 1).long()]
-            x = gather_rows(rows, ridx.to(torch.int32).contiguous())
-            x = torch.where(valid[:, None], x, 0)
-        if labels is None:
-            return x, None
-        lab = labels[gid.clamp(max=labels.shape[0] - 1).long()]
-        y = torch.where(valid, lab, PADDING_ID)
-        return x, y
+            x = gather_ids(rows, ids, id2index)
+        return x, None if labels is None else gather_labels(labels, ids)
 
     return gather_xy
+
+
+def gather_ids(rows: torch.Tensor, ids: torch.Tensor,
+               id2index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``rows`` of the global ``ids`` (through ``id2index`` when given),
+    zeros on padding: kernel B2 for CUDA rows."""
+    valid = ids >= 0
+    ridx = torch.where(valid, ids, 0)
+    if id2index is not None:
+        ridx = id2index[ridx.clamp(max=id2index.shape[0] - 1).long()]
+    x = gather_rows(rows, ridx.to(torch.int32).contiguous())
+    return torch.where(valid[:, None], x, 0)
+
+
+def gather_labels(labels: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``labels`` of the global ``ids``, -1 on padding."""
+    valid = ids >= 0
+    gid = torch.where(valid, ids, 0)
+    lab = labels[gid.clamp(max=labels.shape[0] - 1).long()]
+    return torch.where(valid, lab, PADDING_ID)
 
 
 def make_cached_gather_xy(id2index: Optional[torch.Tensor] = None
@@ -180,26 +204,12 @@ def make_cached_gather_xy(id2index: Optional[torch.Tensor] = None
         ids = out.node.to(torch.int32)
         uniq, inv, _ = unique_first_occurrence(ids)
 
-        def fetch(fids):
-            v = fids >= 0
-            fidx = torch.where(v, fids, 0)
-            if id2index is not None:
-                fidx = id2index[fidx.clamp(
-                    max=id2index.shape[0] - 1).long()]
-            got = gather_rows(rows, fidx.to(torch.int32).contiguous())
-            return torch.where(v[:, None], got, 0)
-
-        cache, urows = cache_gather(cache, uniq, fetch)
+        cache, urows = cache_gather(
+            cache, uniq, lambda fids: gather_ids(rows, fids, id2index))
         x = urows[inv.clamp(0, max(inv.shape[0] - 1, 0)).long()]
         x = torch.where((inv >= 0)[:, None], x, 0)
-        if labels is None:
-            return cache, x, None
-        valid = ids >= 0
-        gid = torch.where(valid, ids, 0)
-        y = torch.where(valid,
-                        labels[gid.clamp(max=labels.shape[0] - 1).long()],
-                        PADDING_ID)
-        return cache, x, y
+        return cache, x, (None if labels is None
+                          else gather_labels(labels, ids))
 
     return gather_xy
 
@@ -218,13 +228,15 @@ def _check_cache(feature_cache: FeatureCacheState, rows_dtype, dim: int
             f"feature_cache dim {feature_cache.dim} != feature dim {dim}")
 
 
-def make_eval_step(batch_size: int) -> Callable:
-    """``(model, batch) -> (loss, acc)`` without dropout or gradients."""
-    def eval_step(model: nn.Module, batch: Batch):
+def make_eval_step(batch_size: int,
+                   target_type: Optional[str] = None) -> Callable:
+    """``(model, batch) -> (loss, acc)`` without dropout or gradients
+    (``target_type`` as in :func:`make_train_step`)."""
+    def eval_step(model: nn.Module, batch):
         with torch.no_grad():
             logits = model(batch.x, batch.edge_index, batch.edge_mask)
-            return seed_cross_entropy(logits, batch.y, batch_size,
-                                      batch.node_mask)
+            y, node_mask = _targets(batch, target_type)
+            return seed_cross_entropy(logits, y, batch_size, node_mask)
 
     return eval_step
 
@@ -252,6 +264,80 @@ def _device_labels(labels, dev: torch.device) -> torch.Tensor:
                              f"sampler's graph on {dev}")
         return labels.to(torch.int32)
     return torch.from_numpy(np.asarray(labels).astype(np.int32)).to(dev)
+
+
+class _ScannedBlocks:
+    """A scanned train step over host ``[G, B]`` seed blocks:
+    ``step(state, seeds_blk, key) -> (state, *outputs)``.
+
+    ``block(model, opt, seeds, key, real)`` trains the block's real
+    batches (``real``: a ``[G]`` bool tuple from the host block, so a
+    fully padded batch is a no-op without a sync) and advances
+    ``step_count`` in place per real batch; ``step_count`` is set from
+    ``state.step`` before each call.  On the card the block is one CUDA
+    graph per real pattern over static seed and key buffers: the first
+    call at a pattern, or after the tensors it reads in place (the
+    model's, the optimizer's, ``held()``) were replaced, runs eagerly
+    (it creates Adam's state); the next captures the block and every
+    later call replays it.  A failed capture raises.  On the CPU every
+    call runs eagerly.
+    """
+
+    def __init__(self, dev: torch.device, block: Callable,
+                 step_count: torch.Tensor, held: Callable[[], tuple] = tuple):
+        self.dev = dev
+        self.block = block
+        self.step_count = step_count
+        self.held = held
+        self._programs = {}  # real pattern -> (CapturedProgram, storage)
+        self._warm = {}      # real pattern -> storage of its eager call
+
+    def _bound(self, state) -> tuple:
+        """The storage a captured block reads and writes in place."""
+        ts = list(state.model.parameters()) + [
+            t for st in state.optimizer.state.values() for t in st.values()
+            if isinstance(t, torch.Tensor)] + list(self.held())
+        return tuple(t.data_ptr() for t in ts)
+
+    def _replayed(self, state, blk, key, real):
+        """The block through its CUDA graph, or ``None`` when this call
+        runs eagerly (the first at its pattern and storage)."""
+        now = self._bound(state)
+        entry = self._programs.get(real)
+        if entry is not None and entry[1] == now:
+            return entry[0](blk, key)
+        self._programs.pop(real, None)
+        if self._warm.get(real) != now:
+            return None
+        model, opt = state.model, state.optimizer
+        prog = CapturedProgram(
+            lambda seeds, k: self.block(model, opt, seeds, k, real),
+            [torch.from_numpy(blk).to(self.dev), key.clone()], warmup=0)
+        self._programs[real] = (prog, now)
+        return prog.replay()
+
+    def __call__(self, state: TrainState, seeds_blk, key: torch.Tensor):
+        if isinstance(seeds_blk, torch.Tensor):
+            raise TypeError("seeds_blk must be a host array: the "
+                            "padded-batch no-op is decided on the host")
+        dev = self.dev
+        _check_model(state, dev)
+        blk = np.ascontiguousarray(np.asarray(seeds_blk), dtype=np.int32)
+        real = tuple(bool(r) for r in (blk >= 0).any(axis=1))
+        self.step_count.fill_(state.step)
+        outs = None
+        if dev.type == "cuda" and any(real):
+            outs = self._replayed(state, blk, key, real)
+            if outs is not None:
+                outs = tuple(t.clone() for t in outs)
+        if outs is None:
+            outs = self.block(state.model, state.optimizer,
+                              torch.from_numpy(blk).to(dev), key, real)
+            if dev.type == "cuda":
+                self._warm[real] = self._bound(state)
+        state = TrainState(state.model, state.optimizer,
+                           state.step + sum(real))
+        return (state,) + tuple(outs)
 
 
 def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
@@ -305,8 +391,6 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
     step_count = torch.zeros((), dtype=torch.int32, device=dev)
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    programs = {}    # real pattern -> (CapturedProgram, bound storage)
-    warm = {}        # real pattern -> bound storage of its eager call
 
     def block(model, opt, seeds, key, real):
         keys = trandom.split(key, len(real))
@@ -344,53 +428,8 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
                 getattr(held, name).copy_(getattr(cache, name))
         return torch.stack(losses), torch.stack(accs), torch.stack(ovfs)
 
-    def bound(state) -> tuple:
-        """The storage a captured block reads and writes in place."""
-        ts = list(state.model.parameters()) + [
-            t for st in state.optimizer.state.values() for t in st.values()
-            if isinstance(t, torch.Tensor)]
-        if holder["cache"] is not None:
-            ts += list(holder["cache"])
-        return tuple(t.data_ptr() for t in ts)
-
-    def replayed(state, blk, key, real):
-        """The block through its CUDA graph, or ``None`` when this call
-        runs eagerly (the first at its pattern and storage)."""
-        now = bound(state)
-        entry = programs.get(real)
-        if entry is not None and entry[1] == now:
-            return entry[0](blk, key)
-        programs.pop(real, None)
-        if warm.get(real) != now:
-            return None
-        model, opt = state.model, state.optimizer
-        prog = CapturedProgram(
-            lambda seeds, k: block(model, opt, seeds, k, real),
-            [torch.from_numpy(blk).to(dev), key.clone()], warmup=0)
-        programs[real] = (prog, now)
-        return prog.replay()
-
-    def step(state: TrainState, seeds_blk, key: torch.Tensor):
-        if isinstance(seeds_blk, torch.Tensor):
-            raise TypeError("seeds_blk must be a host array: the "
-                            "padded-batch no-op is decided on the host")
-        _check_model(state, dev)
-        blk = np.ascontiguousarray(np.asarray(seeds_blk), dtype=np.int32)
-        real = tuple(bool(r) for r in (blk >= 0).any(axis=1))
-        step_count.fill_(state.step)
-        outs = None
-        if dev.type == "cuda" and any(real):
-            outs = replayed(state, blk, key, real)
-            if outs is not None:
-                outs = tuple(t.clone() for t in outs)
-        if outs is None:
-            outs = block(state.model, state.optimizer,
-                         torch.from_numpy(blk).to(dev), key, real)
-            if dev.type == "cuda":
-                warm[real] = bound(state)
-        state = TrainState(state.model, state.optimizer,
-                           state.step + sum(real))
-        return (state,) + tuple(outs)
+    step = _ScannedBlocks(dev, block, step_count, lambda: (
+        () if holder["cache"] is None else tuple(holder["cache"])))
 
     def set_feature_cache(new_cache: FeatureCacheState) -> None:
         # Checkpoint-restore seam: a resumed run pushes its restored
@@ -402,6 +441,122 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
     step.feature_cache = lambda: holder["cache"]
     step.set_feature_cache = set_feature_cache
     return step
+
+
+def hetero_init_shapes(sampler, feats, rows_of):
+    """Zero-filled ``(x, edge_index, edge_mask)`` of a hetero sampler's
+    static output shapes: ``x[t]`` ``[capacity_t, d_t]`` for each type
+    with features (``rows_of(feats[t])`` gives the ``[N_t, d_t]`` rows
+    whose width and dtype the dummy takes), and per reversed edge type
+    a ``[2, edges]`` -1 COO and an all-False mask."""
+    capacity = sampler.node_capacity
+    widths = sampler.hop_widths
+    dev = sampler.device
+    x = {}
+    for t in feats:
+        if t in capacity:
+            rows = rows_of(feats[t])
+            x[t] = torch.zeros((max(capacity[t], 1), rows.shape[-1]),
+                               dtype=rows.dtype, device=dev)
+    ei, mask = {}, {}
+    for et in sampler.edge_types:
+        ecap = max(sum(widths[hop][et[0]] * f
+                       for hop, f in enumerate(sampler.num_neighbors[et])
+                       if f > 0), 1)
+        rev = reverse_edge_type(et)
+        ei[rev] = torch.full((2, ecap), PADDING_ID, dtype=torch.int32,
+                             device=dev)
+        mask[rev] = torch.zeros((ecap,), dtype=torch.bool, device=dev)
+    return x, ei, mask
+
+
+def init_hetero_state(model: nn.Module, tx: OptimizerFactory, sampler,
+                      feats) -> TrainState:
+    """State at step 0 for a hetero model whose per-type input widths
+    (``model.in_features``) must match ``feats`` (``node_type -> Feature
+    | [N_t, d] array``); the torch model is built with its widths, so
+    no dummy forward runs, but the sampler's static shapes
+    (:func:`hetero_init_shapes`) are checked against them."""
+    x, _, _ = hetero_init_shapes(
+        sampler, feats, lambda f: f.hot_rows if isinstance(f, Feature)
+        else np.asarray(f))
+    widths = {t: int(v.shape[-1]) for t, v in x.items()}
+    if widths != dict(model.in_features):
+        raise ValueError(f"the model takes per-type widths "
+                         f"{dict(model.in_features)}, the features have "
+                         f"{widths}")
+    return create_train_state(model, tx)
+
+
+def make_scanned_hetero_train_step(sampler, feats, labels, batch_size: int,
+                                   dropout_seed: int = 0) -> Callable:
+    """Train ``G`` consecutive hetero seed batches per call (cf.
+    ``glt_tpu``'s ``make_scanned_hetero_train_step``).
+
+    Per batch: the multi-type multi-hop sample
+    (:class:`~glt_tpu_torch.sampler.HeteroNeighborSampler`; kernel B1
+    once per (hop, edge type) with a nonzero width), each node type's
+    feature gather (kernel B2 once per type with features), the target
+    type's label gather, fwd/bwd and the optimizer step.
+
+    Args:
+      sampler: a :class:`~glt_tpu_torch.sampler.HeteroNeighborSampler`.
+      feats: ``node_type -> Feature | [N_t, d] array``, wholly on the
+        sampler's device.
+      labels: ``node_type -> [N_t]`` int labels; the sampler's
+        ``input_type`` entry is the supervised target.
+
+    Returns ``step(state, seeds_blk, key) -> (state, losses [G], accs
+    [G])`` over a HOST ``[G, B]`` block (-1 padded); batch ``g`` samples
+    with ``split(key, G)[g]`` and drops out with ``fold_in(PRNGKey(
+    dropout_seed), step)``.  A fully padded batch is a no-op with loss
+    and accuracy 0.  On the card the block is one CUDA graph per
+    real-batch pattern, as the node step's; on the CPU it runs eagerly.
+    """
+    dev = sampler.device
+    tgt = sampler.input_type
+
+    def resident(f):
+        if isinstance(f, Feature) and f.hot_count < f.size:
+            raise ValueError(
+                "the scanned hetero step needs device-resident features")
+        return _device_rows(f, dev)
+
+    rows = {t: resident(f) for t, f in feats.items()}
+    labels_tgt = _device_labels(labels[tgt], dev)
+    graph_arrays = sampler.graph_arrays()
+    widths, cap = sampler._widths, sampler._capacity
+    dropout_base = trandom.PRNGKey(dropout_seed, device=dev)
+    step_count = torch.zeros((), dtype=torch.int32, device=dev)
+    zero_f = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def block(model, opt, seeds, key, real):
+        keys = trandom.split(key, len(real))
+        losses, accs = [], []
+        for i, is_real in enumerate(real):
+            if not is_real:
+                losses.append(zero_f)
+                accs.append(zero_f)
+                continue
+            out = sampler._sample_impl(widths, cap, graph_arrays,
+                                       {tgt: seeds[i]}, keys[i])
+            x = {t: gather_ids(rows[t][0], node, rows[t][1])
+                 for t, node in out.node.items() if t in rows}
+            y = gather_labels(labels_tgt, out.node[tgt])
+            edge_index = {et: torch.stack([out.row[et], out.col[et]])
+                          for et in out.row}
+            logits = model(x, edge_index, out.edge_mask,
+                           dropout_key=trandom.fold_in(dropout_base,
+                                                       step_count))
+            loss, acc = seed_cross_entropy(logits, y, batch_size,
+                                           out.node_mask[tgt])
+            _backward_and_step(opt, loss)
+            step_count.add_(1)
+            losses.append(loss.detach())
+            accs.append(acc.to(torch.float32))
+        return torch.stack(losses), torch.stack(accs)
+
+    return _ScannedBlocks(dev, block, step_count)
 
 
 def _check_model(state: TrainState, dev: torch.device) -> None:
@@ -547,12 +702,13 @@ def node_seed_blocks(train_idx, batch_size: int, group: int, rng):
 def run_scanned_epoch(step, state: TrainState, train_idx, batch_size: int,
                       group: int, rng, base_key: torch.Tensor,
                       start_block: int = 0, on_block=None):
-    """One epoch through a scanned train step.
+    """One epoch through a scanned train step (node or hetero).
 
     Shuffles ``train_idx`` into ``[G, B]`` blocks and drives ``step`` per
     block under ``fold_in(base_key, i)``; the metrics come back in ONE
     device->host copy at the end.  Returns ``(state, losses [n_real],
-    accs [n_real], overflow_count)`` as host numpy.
+    accs [n_real], overflow_count)`` as host numpy; ``overflow_count``
+    is 0 for a step without overflow flags (the hetero step).
 
     ``start_block``/``on_block`` are the resume seam: the first
     ``start_block`` blocks are skipped without disturbing the key
@@ -567,10 +723,12 @@ def run_scanned_epoch(step, state: TrainState, train_idx, batch_size: int,
     for i, blk in enumerate(blocks):
         if i < start_block:
             continue
-        state, ls, ac, ov = step(state, blk, trandom.fold_in(base_key, i))
+        res = step(state, blk, trandom.fold_in(base_key, i))
+        state, ls = res[0], res[1]
         losses.append(ls)
-        accs.append(ac)
-        ovfs.append(ov)
+        accs.append(res[2])
+        if len(res) > 3:
+            ovfs.append(res[3])
         if on_block is not None:
             if ls.is_cuda:
                 torch.cuda.synchronize(ls.device)
@@ -579,7 +737,9 @@ def run_scanned_epoch(step, state: TrainState, train_idx, batch_size: int,
         empty = np.zeros((0,), np.float32)
         return state, empty, empty, 0
     n = sum(ls.shape[0] for ls in losses)
-    host = torch.cat([torch.cat(losses), torch.cat(accs),
-                      torch.cat(ovfs).to(torch.float32)]).cpu().numpy()
+    parts = [torch.cat(losses), torch.cat(accs)]
+    if ovfs:
+        parts.append(torch.cat(ovfs).to(torch.float32))
+    host = torch.cat(parts).cpu().numpy()
     return (state, host[:n][:n_real], host[n: 2 * n][:n_real],
             int(host[2 * n:].sum()))

@@ -44,24 +44,26 @@ _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 IntOrTensor = Union[int, torch.Tensor]
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
 def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
                  x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The threefry2x32 hash (20 rounds) of counter words ``(x1, x2)``
     under key words ``(k1, k2)``; all arguments broadcast together and
-    hold uint32 values in int64 tensors."""
+    hold uint32 values in int64 tensors.  The rounds update two fresh
+    words in place (a third of the allocations of the plain
+    expressions, the same bits)."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    a = (x1 + ks[0]) & _M32
-    b = (x2 + ks[1]) & _M32
+    a, b = (t.contiguous() for t in torch.broadcast_tensors(
+        (x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32))
+    rot = torch.empty_like(b)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            a = (a + b) & _M32
-            b = _rotl(b, r) ^ a
-        a = (a + ks[(i + 1) % 3]) & _M32
-        b = (b + ks[(i + 2) % 3] + (i + 1)) & _M32
+            a.add_(b).bitwise_and_(_M32)
+            # b = rotl(b, r) ^ a
+            torch.bitwise_left_shift(b, r, out=rot)
+            b.bitwise_right_shift_(32 - r).bitwise_or_(rot)
+            b.bitwise_and_(_M32).bitwise_xor_(a)
+        a.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        b.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_M32)
     return a, b
 
 

@@ -133,3 +133,22 @@ class SamplerOutput:
     num_sampled_edges: Optional[torch.Tensor] = None
     input_type: Optional[Any] = None
     metadata: Optional[Dict[str, Any]] = None
+
+
+@dataclasses.dataclass
+class HeteroSamplerOutput:
+    """Heterogeneous sampling result: dicts keyed by node type or edge
+    type, each value with :class:`SamplerOutput`'s static-shape
+    meaning.  The edge types of ``row``/``col``/``edge`` are the
+    *reversed* types (dst <- src), as the reference emits."""
+    node: Dict[NodeType, torch.Tensor]
+    row: Dict[EdgeType, torch.Tensor]
+    col: Dict[EdgeType, torch.Tensor]
+    edge: Dict[EdgeType, torch.Tensor]
+    batch: Optional[Dict[NodeType, torch.Tensor]] = None
+    node_mask: Optional[Dict[NodeType, torch.Tensor]] = None
+    edge_mask: Optional[Dict[EdgeType, torch.Tensor]] = None
+    num_sampled_nodes: Optional[Dict[NodeType, torch.Tensor]] = None
+    num_sampled_edges: Optional[Dict[EdgeType, torch.Tensor]] = None
+    input_type: Optional[Any] = None
+    metadata: Optional[Dict[str, Any]] = None

@@ -488,12 +488,10 @@ class NeighborSampler:
         ids, at most ``batch_size`` of them) and, per
         ``inputs.neg_sampling``, their negatives: the batch of
         :meth:`sample_from_edge_tensors`, with ``metadata["num_pos"]``
-        the number of seed edges.
+        the number of seed edges.  ``inputs.input_type`` is ignored, as
+        in ``glt_tpu`` (hetero seed edges go to
+        :class:`~glt_tpu_torch.sampler.HeteroNeighborSampler`).
         """
-        if inputs.input_type is not None:
-            raise NotImplementedError(
-                "heterogeneous link sampling is not ported yet (ROADMAP "
-                "queue A: heterogeneous graphs)")
         q = self.batch_size
         dev = self.device
         src = torch.from_numpy(_pad_ids(inputs.row, q)).to(dev)

@@ -50,6 +50,17 @@ LINK_MODULES = (
 # The one-program slice's modules.
 GRAPH_MODULES = ("glt_tpu_torch.utils.graphs", "glt_tpu_torch.ckpt",
                  "glt_tpu_torch.ckpt.state")
+# The heterogeneous slice's modules.
+HETERO_MODULES = (
+    "glt_tpu_torch.typing", "glt_tpu_torch.data.dataset",
+    "glt_tpu_torch.sampler.hetero_neighbor_sampler",
+    "glt_tpu_torch.loader.hetero_neighbor_loader",
+    "glt_tpu_torch.loader.hetero_link_loader",
+    "glt_tpu_torch.models.gat", "glt_tpu_torch.models.rgat",
+    "glt_tpu_torch.models.hgt", "glt_tpu_torch.models.convert",
+    "glt_tpu_torch.distributed.sample_message",
+    "glt_tpu_torch.examples.hetero", "glt_tpu_torch.examples.train_hgt_mag",
+    "glt_tpu_torch.examples.rgat_igbh")
 
 
 def test_port_imports_no_jax():
@@ -64,3 +75,5 @@ def test_port_imports_no_jax():
     walked = set(proc.stdout.splitlines()[-2].split())
     assert set(LINK_MODULES) <= walked, sorted(set(LINK_MODULES) - walked)
     assert set(GRAPH_MODULES) <= walked, sorted(set(GRAPH_MODULES) - walked)
+    assert set(HETERO_MODULES) <= walked, sorted(set(HETERO_MODULES)
+                                                 - walked)

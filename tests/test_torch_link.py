@@ -207,11 +207,17 @@ def test_sample_from_edges_last_hop_leaf_block_and_sort_dedup():
 
 
 def test_hetero_link_input_raises():
-    _, tg, ei = _graphs()
+    """The homogeneous sampler ignores ``input_type``, as glt_tpu's does
+    (it raised while hetero graphs were not ported)."""
+    jg, tg, ei = _graphs()
+    js = JaxSampler(jg, [2], batch_size=4, sample_force="xla")
     ts = NeighborSampler(tg, [2], batch_size=4)
-    inp = EdgeSamplerInput(ei[0, :4], ei[1, :4], input_type=("u", "to", "v"))
-    with pytest.raises(NotImplementedError, match="heterogeneous"):
-        ts.sample_from_edges(inp)
+    et = ("u", "to", "v")
+    inp = EdgeSamplerInput(ei[0, :4], ei[1, :4], input_type=et)
+    want = js.sample_from_edges(JaxEdgeInput(ei[0, :4], ei[1, :4],
+                                             input_type=et))
+    got = ts.sample_from_edges(inp)
+    _compare_out(want, got)
     assert len(inp) == 4 and len(inp[1:3]) == 2
 
 
