@@ -125,11 +125,46 @@ Phases (the first failure exits non-zero and prints no result line):
    phase's shapes.  Then ``HeteroLinkNeighborLoader`` on MAG's writes
    (binary x 1, fanout (5, 5), 64 seed edges) for 4 batches: positives
    decode to their seed edges, negatives that are edges counted;
-10. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-9) and the ok line.
+10. checkpoints and observability: phase 5's node step (capped at its
+   calibrated capacity, B3 gather, bf16) on the products graph through
+   ``glt_tpu_torch.ckpt.TrainLoop`` with a ``Tracer`` installed and
+   metrics on, the train set cut to CKPT_BLOCKS blocks an epoch, a
+   checkpoint every block, CKPT_EPOCHS epochs; with the launch counts set
+   to 0 just before and read just after: the run without a kill (epoch
+   by epoch: one capture of ``scanned_node_step`` in epoch 1, none in
+   epoch 2), a ``SimulatedPreemption`` after block KILL_AT and a resume
+   into a fresh model, optimizer and TrainLoop (one re-capture; the
+   restored parameters and Adam's state equal to the killed run's at its
+   kill; keys, seeds, a sampled batch and the cursor equal to the run
+   without a kill, losses within LOSS_RTOL, the parameters' L2 gap to it
+   within PARAM_DRIFT_X times a second run's, the largest differences
+   printed; a planted fault, the same resume with Adam's state dropped,
+   must fail both the state check and that gate); the SIGKILL leg:
+   ``chip_smoke.py --ckpt-worker`` processes on a SMALL_N-node graph of
+   the same recipe and widths (one straight through, one
+   killed by ``FaultPlan(kill_at_train_step=WORKER_KILL_AT)``, one
+   resumed from the store), the resumed losses within LOSS_RTOL of the
+   straight run's; ``RefreshDriver(checkpointer=)`` on another such
+   graph from an int8 store (split 1.0: B4), killed after one sweep and
+   resumed, its rows within REFRESH_RTOL of a straight refresh, and a
+   second straight refresh as the control (each layer's differing rows
+   and sweeps printed for both).  B1, B3, the hash kernel and B4 must
+   launch, the plain threefry never.  Then
+   the save and resume medians (from the trace's ``ckpt.*`` spans) and a
+   checkpoint's bytes, the ``glt.device.*`` gauges and the owner
+   snapshot (no owner over ``memory_allocated()``, ``params`` at least
+   three live models' parameters, a probe tensor claimed exactly while
+   it lives and dropped after), the memcpy roofline against the
+   datasheet, the span summary, one triggered
+   ``torch.profiler`` capture and its flight index, and the host-clock
+   ms of a replayed node step with tracing and metrics on and off (in
+   turns);
+11. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-10) and the ok line.
 
-Details go to ``build/results/chip_smoke.json``.  Imports torch, numpy
-and glt_tpu_torch only.  Every profiled window starts with
+Details go to ``build/results/chip_smoke.json`` (phase 10's trace to
+``build/results/phase10_trace.json``).  Imports torch, numpy and
+glt_tpu_torch only.  Every profiled window starts with
 PROFILER_SETTLE_S of idle time: the profiler can lose the device records
 of work launched just after it starts.  ``python3 chip_smoke.py
 --profiler-settle-check N`` counts those losses over N windows per
@@ -139,9 +174,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -199,6 +236,24 @@ HETERO = {
 HET_BS, HET_BATCHES, HET_BLOCKS = 64, 4, 6
 HGT_HIDDEN, HGT_HEADS = 64, 4
 EDGE_PAIRS, SORT_ROWS = 1 << 20, 4096
+# Checkpoint and observability phase: phase 5's node step through
+# TrainLoop, the train set cut to CKPT_BLOCKS full blocks an epoch (no
+# partial block, so epoch 2 replays only patterns epoch 1 captured).
+CKPT_BLOCKS, CKPT_EPOCHS, KILL_AT = 3, 2, 4
+# A resumed run's parameters may sit at most PARAM_DRIFT_X times as far
+# (L2, relative to how far training moved them) from the run without a
+# kill as a second run without a kill does; PARAM_GAP_FLOOR stands in
+# for that control when the card happens to repeat a run bit for bit
+# (a replayed block and its eager twin differ by ~1e-6, PERF.md).
+PARAM_DRIFT_X, PARAM_GAP_FLOOR = 4.0, 1e-6
+# The owner census's probe, and how far the caching allocator may round
+# an allocation of that size (an unsplit cached block, < 2 MiB more).
+PROBE_BYTES, ALLOC_ROUNDING = 64 << 20, 2 << 20
+# The SIGKILL worker and the refresh leg: a graph of SMALL_N nodes made
+# by the products recipe (same degrees law, widths and model), so each
+# worker process builds it in seconds; WORKER_BLOCKS blocks an epoch.
+SMALL_N, WORKER_BLOCKS, WORKER_KILL_AT = 200_000, 2, 3
+OBS_TIMED_TURNS = ("off", "on", "on", "off")
 WORK_DIR = os.path.join("build", "tmp")
 SLEEP_CYCLES = 40_000_000         # ~20 ms at the H100's 1.98 GHz
 OUT_DIR = os.path.join("build", "results")
@@ -241,12 +296,12 @@ def powerlaw_degrees(n, avg_deg, rng, alpha=1.8, dmax=50_000):
     return np.minimum(deg, dmax)
 
 
-def build_graph(seed: int = 0):
+def build_graph(seed: int = 0, n: int = PRODUCTS_N):
     rng = np.random.default_rng(seed)
-    deg = powerlaw_degrees(PRODUCTS_N, AVG_DEG, rng)
-    indptr = np.zeros(PRODUCTS_N + 1, dtype=np.int64)
+    deg = powerlaw_degrees(n, AVG_DEG, rng)
+    indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(deg, out=indptr[1:])
-    indices = rng.integers(0, PRODUCTS_N, int(indptr[-1]), dtype=np.int64)
+    indices = rng.integers(0, n, int(indptr[-1]), dtype=np.int64)
     return indptr, indices
 
 
@@ -2473,6 +2528,643 @@ def run_hetero(torch, ops, trandom, dev, sm_mhz) -> dict:
     return rep
 
 
+# -- phase 10: checkpoints and observability ---------------------------------
+def small_arrays(seed: int):
+    """A SMALL_N-node graph of the products recipe (numpy seed ``seed``)
+    with 100-wide features and 47-class labels (seed ``seed + 1``)."""
+    indptr, indices = build_graph(seed, SMALL_N)
+    drng = np.random.default_rng(seed + 1)
+    feat = drng.standard_normal((SMALL_N, FEAT_DIM), dtype=np.float32)
+    labels = drng.integers(0, CLASSES, SMALL_N).astype(np.int32)
+    return indptr, indices, feat, labels
+
+
+def node_step(torch, dev, indptr, indices, feat, labels, node_cap):
+    """Phase 5's scanned node step (capped sampler, B3 gather) on a
+    graph built on ``dev``: ``(sampler, step)``."""
+    from glt_tpu_torch.data import CSRTopo, Dataset, Graph
+    from glt_tpu_torch.models import make_scanned_node_train_step
+    from glt_tpu_torch.sampler import NeighborSampler
+
+    ds = Dataset(graph=Graph(CSRTopo.from_csr_arrays(indptr, indices),
+                             device=dev), device=dev)
+    ds.init_node_features(feat)
+    sampler = NeighborSampler(ds.get_graph(), FANOUTS,
+                              node_capacity=node_cap, batch_size=TRAIN_BS,
+                              frontier_cap=FRONTIER_CAP, with_edge=False)
+    return sampler, make_scanned_node_train_step(
+        sampler, ds.get_node_feature(), labels, TRAIN_BS,
+        fused_frontier=True)
+
+
+def node_step_loop(torch, dev, step, train_idx, epochs, checkpointer=None,
+                   fault_plan=None, rng_seed=21, key_seed=22):
+    """A TrainLoop over ``step`` (bf16 GraphSAGE, dropout 0.5, Adam) from
+    a fresh model of numpy seed 0."""
+    from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.ckpt import TrainLoop
+    from glt_tpu_torch.models import GraphSAGE, adam, create_train_state
+
+    state = create_train_state(
+        random_model(torch, GraphSAGE, dev, dtype=torch.bfloat16), adam(LR))
+    return TrainLoop(step, state, train_idx, TRAIN_BS, GROUP, epochs,
+                     np.random.default_rng(rng_seed),
+                     trandom.PRNGKey(key_seed, device=dev),
+                     checkpointer=checkpointer, fault_plan=fault_plan)
+
+
+def param_gap(a, b) -> float:
+    """The L2 distance between two parameter lists (float64 sums)."""
+    return float(sum(float((x.detach().double() - y.detach().double())
+                           .pow(2).sum()) for x, y in zip(a, b))) ** 0.5
+
+
+def state_mismatch(a, b) -> list:
+    """Where two train states differ: parameters, Adam's state and the
+    step compared exactly (a restore is a copy, so on the card too)."""
+    bad = [] if a.step == b.step else [f"step {a.step} vs {b.step}"]
+    pa, pb = list(a.model.parameters()), list(b.model.parameters())
+    for i, (x, y) in enumerate(zip(pa, pb)):
+        if not torch_equal(x, y):
+            bad.append(f"param {i}")
+        sa, sb = a.optimizer.state.get(x, {}), b.optimizer.state.get(y, {})
+        if sorted(sa) != sorted(sb):
+            bad.append(f"optimizer state {i}: keys {sorted(sa)} vs "
+                       f"{sorted(sb)}")
+            continue
+        bad += [f"optimizer state {i}.{k}" for k in sa
+                if not torch_equal(sa[k], sb[k])]
+    return bad
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+        return x.shape == y.shape and x.dtype == y.dtype and bool(
+            torch.equal(x, y.to(x.device)))
+    return x == y
+
+
+def param_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in state.model.state_dict().values():
+        h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ckpt_worker(root: str, out: str, node_cap: int, kill_at=None) -> int:
+    """``--ckpt-worker``: one training process of the SIGKILL leg on the
+    SMALL_N graph: checkpoint every block, resume from ``root`` if it
+    holds one, SIGKILL itself after block ``kill_at`` when given, else
+    write the losses, a parameter digest and its launch counts to
+    ``out``."""
+    import torch
+    from glt_tpu_torch import ops
+    from glt_tpu_torch.ckpt import Checkpointer
+    from glt_tpu_torch.ops import cuda_lib
+    from glt_tpu_torch.testing import FaultPlan
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    cuda_lib.library()                      # the parent's cached build
+    dev = torch.device(DEVICE)
+    _, step = node_step(torch, dev, *small_arrays(3), int(node_cap))
+    train_idx = np.random.default_rng(5).permutation(SMALL_N)[
+        : WORKER_BLOCKS * GROUP * TRAIN_BS]
+    plan = (None if kill_at is None
+            else FaultPlan(kill_at_train_step=int(kill_at)))
+    loop = node_step_loop(torch, dev, step, train_idx, CKPT_EPOCHS,
+                          Checkpointer(root, every_n_steps=1, keep=2), plan)
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    setup_s = time.perf_counter() - t0
+    snap = loop.resume()
+    state = loop.run()                      # a kill_at run dies in here
+    torch.cuda.synchronize()
+    res = {"resumed_from": None if snap is None else snap.step,
+           "losses": loop.losses, "param_digest": param_digest(state),
+           "launches": {k: fn.launches
+                        for k, fn in kernel_wrappers(ops).items()},
+           "setup_s": setup_s, "wall_s": time.perf_counter() - t0}
+    tmp = f"{out}.tmp-{os.getpid()}"
+    with open(tmp, "w") as fh:
+        json.dump(res, fh)
+    os.replace(tmp, out)
+    return 0
+
+
+def run_sigkill(torch, node_cap: int, work: str) -> dict:
+    """The SIGKILL leg: a worker run straight through, a worker that
+    SIGKILLs itself after block WORKER_KILL_AT, and a worker that
+    resumes from its checkpoints; the resumed losses against the
+    straight run's."""
+    from glt_tpu_torch.ckpt import latest_step
+
+    script = os.path.abspath(__file__)
+
+    def worker(root, out, *kill):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, script, "--ckpt-worker", root, out,
+             str(node_cap), *map(str, kill)], capture_output=True,
+            text=True, timeout=600, cwd=os.path.dirname(script))
+        return proc, time.perf_counter() - t
+
+    ref_out = os.path.join(work, "worker_ref.json")
+    proc, ref_s = worker(os.path.join(work, "worker_ref"), ref_out)
+    need(proc.returncode == 0, f"SIGKILL leg: the straight worker failed "
+                               f"({proc.returncode}): {proc.stderr[-2000:]}")
+    ref = json.load(open(ref_out))
+    root = os.path.join(work, "worker_chaos")
+    out = os.path.join(work, "worker_chaos.json")
+    proc, kill_s = worker(root, out, WORKER_KILL_AT)
+    need(proc.returncode == -signal.SIGKILL,
+         f"SIGKILL leg: the worker exited {proc.returncode}, not by "
+         f"SIGKILL: {proc.stderr[-2000:]}")
+    need(not os.path.exists(out) and latest_step(root) == WORKER_KILL_AT,
+         f"SIGKILL leg: newest checkpoint {latest_step(root)}, not "
+         f"{WORKER_KILL_AT}")
+    proc, resume_s = worker(root, out)
+    need(proc.returncode == 0, f"SIGKILL leg: the resumed worker failed "
+                               f"({proc.returncode}): {proc.stderr[-2000:]}")
+    got = json.load(open(out))
+    need(got["resumed_from"] == WORKER_KILL_AT, "SIGKILL leg: resume step")
+    tail = ref["losses"][len(ref["losses"]) - len(got["losses"]):]
+    need(len(got["losses"]) == (CKPT_EPOCHS * WORKER_BLOCKS
+                                - WORKER_KILL_AT) * GROUP,
+         f"SIGKILL leg: {len(got['losses'])} losses after the resume")
+    diffs = [abs(a - b) for a, b in zip(got["losses"], tail)]
+    rel = max(d / max(abs(b), 1e-30) for d, b in zip(diffs, tail))
+    need(rel <= LOSS_RTOL, f"SIGKILL leg: resumed losses {got['losses']} "
+                           f"vs the straight run's {tail}")
+    for k in ("sample_neighbors_cuda", "fused_frontier_cuda",
+              "threefry_hash_cuda"):
+        need(got["launches"][k] > 0, f"SIGKILL leg: the resumed worker "
+                                     f"never launched {k}")
+    return {"nodes": SMALL_N, "blocks_per_epoch": WORKER_BLOCKS,
+            "kill_at": WORKER_KILL_AT, "loss_max_abs_diff": max(diffs),
+            "loss_max_rel_diff": rel,
+            "losses_bit_identical": got["losses"] == tail,
+            "params_bit_identical":
+                got["param_digest"] == ref["param_digest"],
+            "worker_s": {"straight": ref_s, "killed": kill_s,
+                         "resumed": resume_s},
+            "worker_setup_s": got["setup_s"],
+            "resumed_launches": got["launches"]}
+
+
+def run_refresh_resume(torch, dev, work: str) -> dict:
+    """``RefreshDriver(checkpointer=)`` on the SMALL_N graph from an int8
+    store (split 1.0: B4): a refresh straight through, one killed after
+    its first sweep, and a fresh driver resumed from the checkpoints;
+    the resumed rows within REFRESH_RTOL of the straight run's.  A second
+    straight refresh is the control: each layer's rows, straight against
+    straight and straight against resumed, with the sweeps that differ."""
+    from glt_tpu_torch.ckpt import Checkpointer, latest_step
+    from glt_tpu_torch.models import GraphSAGE
+    from glt_tpu_torch.refresh import RefreshDriver, sage_refresh_layers
+    from glt_tpu_torch.store import DiskFeatureStore, write_feature_store
+
+    indptr, indices, feat, _ = small_arrays(7)
+    root = write_feature_store(os.path.join(work, "int8"), feat,
+                               codec="int8")
+    layers = sage_refresh_layers(random_model(torch, GraphSAGE, dev,
+                                              dropout_rate=0.0))
+    ck_root = os.path.join(work, "refresh_ck")
+
+    class Killed(Exception):
+        pass
+
+    def kill(drv, layer, sweep):
+        raise Killed
+
+    def driver(out, **kw):
+        return RefreshDriver(indptr, indices, layers, DiskFeatureStore(root),
+                             os.path.join(work, out),
+                             block_size=REFRESH_BLOCK,
+                             max_degree=REFRESH_MAX_DEGREE,
+                             split_ratio=1.0, device=dev, **kw)
+
+    t0 = time.perf_counter()
+    straight = driver("straight").run()
+    straight_s = time.perf_counter() - t0
+    driver("straight2").run()
+    try:
+        driver("resumed", on_sweep=kill, checkpointer=Checkpointer(
+            ck_root, every_n_steps=1, keep=2)).run()
+        raise Failed("refresh leg: the kill did not fire")
+    except Killed:
+        pass
+    need(latest_step(ck_root) == 1, "refresh leg: no checkpoint of sweep 1")
+    t0 = time.perf_counter()
+    resumed = driver("resumed", checkpointer=Checkpointer(
+        ck_root, every_n_steps=1, keep=2)).run()
+    resumed_s = time.perf_counter() - t0
+    n_layers = len(layers)
+    need(resumed["nodes"] == n_layers * SMALL_N - min(REFRESH_BLOCK,
+                                                      SMALL_N),
+         f"refresh leg: the resumed driver refreshed {resumed['nodes']} "
+         f"nodes")
+    want = DiskFeatureStore(straight["out_root"]).read_rows(
+        np.arange(SMALL_N))
+    got = DiskFeatureStore(resumed["out_root"]).read_rows(np.arange(SMALL_N))
+    err = float(np.abs(got - want).max())
+    rel = err / max(float(np.abs(want).max()), 1e-30)
+    need(rel <= REFRESH_RTOL, f"refresh leg: resumed rows vs straight rel "
+                              f"{rel}")
+
+    def rows(run, layer):
+        return DiskFeatureStore(os.path.join(work, run, f"layer_{layer}")
+                                ).read_rows(np.arange(SMALL_N))
+
+    per_layer = []
+    for layer in range(n_layers):
+        base = rows("straight", layer)
+        entry = {}
+        for run in ("straight2", "resumed"):
+            d = np.abs(rows(run, layer) - base).max(axis=1)
+            sweeps = np.unique(np.nonzero(d)[0] // REFRESH_BLOCK)
+            entry[run] = {"max_abs_diff": float(d.max()),
+                          "rows_differ": int(np.count_nonzero(d)),
+                          "sweeps_differ": sweeps[:8].tolist(),
+                          "n_sweeps_differ": int(sweeps.size)}
+        per_layer.append(entry)
+    return {"nodes": SMALL_N, "layers": n_layers,
+            "num_sweeps": straight["num_sweeps"], "rows_max_abs_diff": err,
+            "rows_rel_diff": rel, "bit_identical": err == 0.0,
+            "control_max_abs_diff": per_layer[-1]["straight2"][
+                "max_abs_diff"], "per_layer": per_layer,
+            "straight_s": straight_s, "resumed_s": resumed_s}
+
+
+def owner_bytes(owners: dict, owner: str) -> int:
+    return owners.get(owner, {}).get("bytes", 0)
+
+
+def spans_ms(tracer, name: str) -> list:
+    return [e["dur"] / 1e3 for e in tracer.events
+            if e.get("ph") == "X" and e["name"] == name]
+
+
+def run_ckpt_obs(torch, dev, indptr, indices, feat, labels, node_cap,
+                 rng) -> dict:
+    """Phase 10 (see the module docstring)."""
+    import shutil
+
+    from glt_tpu_torch import obs, ops
+    from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.ckpt import (Checkpointer, capture_key, capture_rng,
+                                    restore_key, restore_rng)
+    from glt_tpu_torch.models import (adam, node_seed_blocks,
+                                      run_scanned_epoch)
+    from glt_tpu_torch.obs import compilewatch, flight, profiler, roofline
+    from glt_tpu_torch.obs import device as obs_device
+    from glt_tpu_torch.sampler import NodeSamplerInput
+    from glt_tpu_torch.testing import FaultPlan, SimulatedPreemption
+
+    os.makedirs(WORK_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(dir=WORK_DIR)
+    rep = {}
+    try:
+        sampler, step = node_step(torch, dev, indptr, indices, feat, labels,
+                                  node_cap)
+        train_idx = rng.permutation(PRODUCTS_N)[
+            : CKPT_BLOCKS * GROUP * TRAIN_BS]
+        rep["train_set"] = {"seeds": int(train_idx.size),
+                            "blocks_per_epoch": CKPT_BLOCKS,
+                            "epochs": CKPT_EPOCHS}
+
+        def loop(root, plan=None, epochs=CKPT_EPOCHS, **kw):
+            ck = Checkpointer(os.path.join(work, root), every_n_steps=1,
+                              keep=2)
+            return node_step_loop(torch, dev, step, train_idx, epochs, ck,
+                                  plan, **kw)
+
+        # -- the main path: counts set to 0 just before, read just after --
+        obs.metrics.reset()
+        obs.metrics.enable()
+        tracer = obs.start_trace(process_name="chip_smoke")
+        compilewatch.reset_for_tests()
+        for fn in kernel_wrappers(ops).values():
+            fn.launches = 0
+        trandom.threefry2x32.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # The run without a kill, one epoch at a time.
+        ref = loop("ref", epochs=1)
+        init = [p.detach().clone() for p in ref.state.model.parameters()]
+        ref.run()
+        c1 = compilewatch.counts()
+        ref.epochs = CKPT_EPOCHS
+        ref.run()
+        c2 = compilewatch.counts()
+        captures_epoch = {
+            "epoch1": c1, "epoch2": {k: c2[k] - c1.get(k, 0) for k in c2}}
+        need(c1.get("scanned_node_step") == 1,
+             f"epoch 1 captured {c1} (one block pattern)")
+        need(captures_epoch["epoch2"].get("scanned_node_step") == 0,
+             f"a steady epoch captured {captures_epoch['epoch2']}")
+        # Killed in process after block KILL_AT, then a fresh model,
+        # optimizer and TrainLoop (wrong seeds) resume.
+        victim = loop("kill", FaultPlan(preempt_at_train_step=KILL_AT))
+        try:
+            victim.run()
+            raise Failed("the in-process kill did not fire")
+        except SimulatedPreemption:
+            pass
+        shutil.copytree(os.path.join(work, "kill"),
+                        os.path.join(work, "fault"))
+        before = compilewatch.counts("scanned_node_step")
+        revived = loop("kill", rng_seed=999, key_seed=0)
+        snap = revived.resume()
+        need(snap is not None and snap.step == KILL_AT,
+             f"resumed from {None if snap is None else snap.step}")
+        need(all(st["step"].is_cuda for st in
+                 revived.state.optimizer.state.values()),
+             "Adam's step left the card in the restore")
+        # The restore against the killed run's live state at its kill.
+        restored_off = state_mismatch(revived.state, victim.state)
+        need(not restored_off, f"the restore differs from the state at the "
+                               f"kill: {restored_off[:5]}")
+        final = revived.run()
+        torch.cuda.synchronize()
+        recaptures = compilewatch.counts("scanned_node_step") - before
+        need(recaptures == 1, f"{recaptures} captures after the resume, "
+                              f"not one per block pattern")
+        main_s = time.perf_counter() - t0
+        # What holds on the card: the integers exactly, the losses within
+        # the node step's tolerance.
+        need(revived.global_step == ref.global_step == CKPT_EPOCHS
+             * CKPT_BLOCKS and revived.epoch == ref.epoch,
+             "the resumed cursor differs")
+        need(np.array_equal(capture_key(revived.base_key),
+                             capture_key(ref.base_key)), "base keys differ")
+        need(capture_rng(revived.rng) == capture_rng(ref.rng),
+             "the shuffle streams differ after the resume")
+        lp = snap.components["loop"]
+        e, nb = int(lp["epoch"]), int(lp["next_block"])
+        blk = list(node_seed_blocks(train_idx, TRAIN_BS, GROUP, restore_rng(
+            lp["rng_at_epoch_start"])))[nb]
+        fresh = np.random.default_rng(21)
+        for _ in range(e):
+            list(node_seed_blocks(train_idx, TRAIN_BS, GROUP, fresh))
+        need(np.array_equal(blk, list(node_seed_blocks(
+            train_idx, TRAIN_BS, GROUP, fresh))[nb]),
+            "the resumed block's seeds differ")
+        keys = [trandom.split(trandom.fold_in(trandom.fold_in(
+            k, e), nb), GROUP)[0] for k in (
+            restore_key(lp["base_key"], device=dev),
+            trandom.PRNGKey(22, device=dev))]
+        need(torch.equal(keys[0], keys[1]), "the resumed block's keys differ")
+        outs = [sampler.sample_from_nodes(NodeSamplerInput(blk[0]), key=k)
+                for k in keys]
+        need(torch.equal(outs[0].node, outs[1].node)
+             and torch.equal(outs[0].row, outs[1].row),
+             "the resumed block's sampled ids differ")
+        tail = ref.losses[len(ref.losses) - len(revived.losses):]
+        diffs = [abs(a - b) for a, b in zip(revived.losses, tail)]
+        loss_rel = max(d / max(abs(b), 1e-30) for d, b in zip(diffs, tail))
+        need(loss_rel <= LOSS_RTOL, f"resumed losses {revived.losses} vs "
+                                    f"the run without a kill {tail}")
+        pdiff = max(float((a.detach().float() - b.detach().float()).abs().max())
+                    for a, b in zip(final.model.parameters(),
+                                    ref.state.model.parameters()))
+        rep["in_process"] = ip = {
+            "kill_at": KILL_AT, "resumed_blocks": len(revived.losses)
+            // GROUP, "loss_max_abs_diff": max(diffs),
+            "loss_max_rel_diff": loss_rel,
+            "losses_bit_identical": revived.losses == tail,
+            "param_max_abs_diff": pdiff, "main_s": main_s}
+        rep["captures"] = {"per_epoch": captures_epoch,
+                           "after_resume": recaptures,
+                           "all": compilewatch.counts()}
+        # The node step's checkpoints, from the trace (the refresh leg
+        # saves cursors into the same trace).
+        saves = spans_ms(tracer, "ckpt.save")
+        resumes = spans_ms(tracer, "ckpt.resume")
+        ck_dir = os.path.join(work, "ref", "step_%08d" % ref.global_step)
+        rep["checkpoint"] = {
+            "save_ms_median": statistics.median(saves), "saves": len(saves),
+            "resume_ms_median": statistics.median(resumes),
+            "resumes": len(resumes),
+            "bytes": sum(os.path.getsize(os.path.join(ck_dir, f))
+                         for f in os.listdir(ck_dir))}
+        # The control: a second run without a kill, against the first.
+        twin = loop("twin")
+        twin_state = twin.run()
+        ip["run_to_run_loss_max_abs_diff"] = max(
+            abs(a - b) for a, b in zip(twin.losses, ref.losses))
+        ip["run_to_run_param_max_abs_diff"] = max(
+            float((a.detach().float() - b.detach().float()).abs().max())
+            for a, b in zip(twin_state.model.parameters(),
+                            ref.state.model.parameters()))
+        # A planted fault: the same resume with Adam's state dropped.
+        bad = loop("fault", rng_seed=999, key_seed=0)
+        bad.resume()
+        st = bad.state
+        bad.state = type(st)(st.model, adam(LR)(st.model.parameters()),
+                             st.step)
+        fault_off = state_mismatch(bad.state, victim.state)
+        need(fault_off, "the state check passes a restore without Adam's "
+                        "state")
+        bad_state = bad.run()
+        # The parameter gaps, relative to how far the run moved them.
+        ref_p = list(ref.state.model.parameters())
+        moved = param_gap(ref_p, init)
+        gaps = {k: param_gap(list(st.model.parameters()), ref_p) / moved
+                for k, st in (("resumed", final), ("run_to_run", twin_state),
+                              ("fault", bad_state))}
+        gate = PARAM_DRIFT_X * max(gaps["run_to_run"], PARAM_GAP_FLOOR)
+        ip.update(param_moved_l2=moved, param_rel_gap=gaps,
+                  param_gate=gate, fault_state_mismatch=len(fault_off),
+                  fault_loss_max_abs_diff=max(
+                      abs(a - b) for a, b in zip(bad.losses, tail)))
+        need(gaps["resumed"] <= gate,
+             f"resumed parameters {gaps['resumed']:.3e} from the run "
+             f"without a kill, over the gate {gate:.3e}")
+        need(gaps["fault"] > gate,
+             f"the planted fault's parameters sit {gaps['fault']:.3e} "
+             f"from the run without a kill, inside the gate {gate:.3e}")
+        rep["sigkill"] = run_sigkill(torch, node_cap, work)
+        rep["refresh"] = run_refresh_resume(torch, dev, work)
+        torch.cuda.synchronize()
+        rep["launches"] = {k: fn.launches
+                           for k, fn in kernel_wrappers(ops).items()}
+        rep["plain_hash_calls"] = trandom.threefry2x32.calls
+        need(rep["plain_hash_calls"] == 0,
+             "phase 10 ran the plain threefry arithmetic on the card")
+        for k in ("sample_neighbors_cuda", "fused_frontier_cuda",
+                  "threefry_hash_cuda", "gather_rows_dequant_cuda"):
+            need(rep["launches"][k] > 0, f"phase 10 never launched {k}")
+
+        # -- readings ------------------------------------------------------
+        gc.collect()
+        torch.cuda.synchronize()
+        gauges = obs_device.publish_device_stats()
+        snap_mem = obs_device.snapshot()
+        allocated = torch.cuda.memory_allocated()
+        census = snap_mem["owners"]
+        # The owners sum to the total by construction ("other" is the
+        # rest of memory_allocated); what can fail is the claims.
+        need(owner_bytes(census, "other") >= 0
+             and all(v["bytes"] <= allocated for v in census.values()),
+             f"owners {census} claim more than memory_allocated "
+             f"{allocated}")
+        live_params = sum(p.untyped_storage().nbytes()
+                          for st in (ref.state, final, twin_state)
+                          for p in st.model.parameters())
+        need(owner_bytes(census, "params") >= live_params,
+             f"params owner {census.get('params')} below the {live_params} "
+             f"B of three live models")
+        # A probe of known size is claimed while it lives, and only then.
+        probe = torch.empty(PROBE_BYTES, dtype=torch.uint8, device=dev)
+        obs_device.register_owner("probe", probe)
+        held = obs_device.snapshot()["owners"]
+        del probe
+        gone = obs_device.snapshot()["owners"]
+        drift = [owner_bytes(o, "other") - owner_bytes(census, "other")
+                 for o in (held, gone)]
+        need(owner_bytes(held, "probe") == PROBE_BYTES
+             and "probe" not in gone
+             and all(abs(d) < ALLOC_ROUNDING for d in drift),
+             f"the probe's census: held {held}, released {gone}")
+        rep["device"] = {"gauges": gauges, "owners": census,
+                         "total": snap_mem["total"],
+                         "memory_allocated": allocated,
+                         "live_params": live_params,
+                         "probe_other_drift": drift}
+        roof = roofline.measure_memcpy_roofline()
+        rep["roofline"] = dict(roof, datasheet=roofline.peak_hbm_gb_s())
+        rep["span_summary"] = obs.format_summary(
+            obs.summarize_trace(tracer.chrome_trace())).splitlines()
+        prof = profiler.arm(os.path.join(OUT_DIR, "profiles"), millis=50,
+                            min_interval_s=0.0)
+        try:
+            cap_dir = prof.trigger("phase10")
+        finally:
+            profiler.disarm()
+        need(cap_dir is not None and os.path.isfile(
+            os.path.join(cap_dir, "trace.json")),
+            "the triggered profiler capture wrote nothing")
+        index = [c for c in profiler.capture_index(flight.recorder().events())
+                 if c["dir"] == cap_dir]
+        need(len(index) == 1, "the capture is not in the flight index")
+        rep["profiler_capture"] = {"dir": cap_dir, "flight_index": index[0]}
+        # A replayed node step with tracing and metrics on, and off.
+        state = final
+        turns = {"on": [], "off": []}
+        for j, mode in enumerate(OBS_TIMED_TURNS):
+            if mode == "on":
+                obs.metrics.enable()
+                obs.install(tracer)
+            else:
+                obs.metrics.disable()
+                obs.install(None)
+            stamps = [time.perf_counter()]
+            state = run_scanned_epoch(
+                step, state, train_idx, TRAIN_BS, GROUP,
+                np.random.default_rng(40 + j),
+                trandom.PRNGKey(41 + j, device=dev),
+                on_block=lambda st, i: stamps.append(time.perf_counter()))[0]
+            turns[mode] += [(b - a) * 1e3 / GROUP
+                            for a, b in zip(stamps[1:], stamps[2:])]
+        rep["obs_overhead"] = {
+            f"step_ms_{m}": statistics.median(v) for m, v in turns.items()}
+        rep["obs_overhead"]["blocks_timed"] = {m: len(v)
+                                              for m, v in turns.items()}
+    finally:
+        obs.stop_trace(os.path.join(OUT_DIR, "phase10_trace.json"))
+        obs.metrics.disable()
+        shutil.rmtree(work, ignore_errors=True)
+    return rep
+
+
+def log_ckpt_obs(co: dict, card: str, wall_s: float) -> None:
+    """Phase 10's lines (each number measured on ``card``)."""
+    ts, ip, sk, rf = (co["train_set"], co["in_process"], co["sigkill"],
+                      co["refresh"])
+    ck = co["checkpoint"]
+    log(f"ckpt: [{card}] node step at the products settings through "
+        f"TrainLoop, checkpoint every block; train set cut to "
+        f"{ts['seeds']} seeds ({ts['blocks_per_epoch']} blocks of {GROUP} "
+        f"x {TRAIN_BS}) x {ts['epochs']} epochs; save median "
+        f"{ck['save_ms_median']:.2f} ms over {ck['saves']} saves, resume "
+        f"median {ck['resume_ms_median']:.2f} ms over {ck['resumes']}, a "
+        f"checkpoint {ck['bytes']} B")
+    log(f"  killed in process after block {ip['kill_at']}, resumed in a "
+        f"fresh model, optimizer and TrainLoop: keys, seeds, sampled ids "
+        f"and cursors equal; losses bit-identical: "
+        f"{ip['losses_bit_identical']}, max abs diff "
+        f"{ip['loss_max_abs_diff']:.3e} (rel {ip['loss_max_rel_diff']:.3e}"
+        f"); params max abs diff {ip['param_max_abs_diff']:.3e}; two runs "
+        f"without a kill: losses {ip['run_to_run_loss_max_abs_diff']:.3e}, "
+        f"params {ip['run_to_run_param_max_abs_diff']:.3e} apart")
+    g = ip["param_rel_gap"]
+    log(f"  restored state == the killed run's at its kill (params, Adam's "
+        f"moments and step); params L2 from the run without a kill, over "
+        f"the {ip['param_moved_l2']:.4e} training moved them: resumed "
+        f"{g['resumed']:.3e}, a second run {g['run_to_run']:.3e}, gate "
+        f"{ip['param_gate']:.3e}; planted fault (resume without Adam's "
+        f"state): {ip['fault_state_mismatch']} state mismatches, params "
+        f"{g['fault']:.3e}, losses {ip['fault_loss_max_abs_diff']:.3e} "
+        f"apart")
+    cap = co["captures"]
+    log(f"  captures: epoch 1 {cap['per_epoch']['epoch1']}, epoch 2 "
+        f"{cap['per_epoch']['epoch2']}; after the resume "
+        f"{cap['after_resume']} (scanned_node_step); all {cap['all']}")
+    log(f"  SIGKILL: {sk['nodes']}-node graph at the same widths, "
+        f"{sk['blocks_per_epoch']} blocks an epoch, killed after block "
+        f"{sk['kill_at']}, resumed in a new process: losses bit-identical: "
+        f"{sk['losses_bit_identical']}, params bit-identical: "
+        f"{sk['params_bit_identical']}, max abs diff "
+        f"{sk['loss_max_abs_diff']:.3e} (rel {sk['loss_max_rel_diff']:.3e})"
+        f"; workers " + ", ".join(f"{k} {v:.1f} s"
+                                  for k, v in sk["worker_s"].items()))
+    log(f"  refresh: {rf['nodes']} nodes x {rf['layers']} layers x "
+        f"{rf['num_sweeps']} sweeps from int8 (B4), killed after one "
+        f"sweep and resumed: rows max abs diff {rf['rows_max_abs_diff']:.3e}"
+        f" (rel {rf['rows_rel_diff']:.3e}); a second straight refresh "
+        f"{rf['control_max_abs_diff']:.3e} apart; straight "
+        f"{rf['straight_s']:.1f} s, resumed {rf['resumed_s']:.1f} s")
+    for layer, e in enumerate(rf["per_layer"]):
+        log(f"    layer {layer}: " + "; ".join(
+            f"{run} max abs {v['max_abs_diff']:.3e}, {v['rows_differ']} rows"
+            f" in {v['n_sweeps_differ']} sweeps {v['sweeps_differ']}"
+            for run, v in e.items()))
+    dv = co["device"]
+    log(f"  device gauges: " + ", ".join(
+        f"{k}={v:.0f}" for k, v in sorted(dv["gauges"].items())))
+    log(f"  owners: " + ", ".join(
+        f"{k} {v['bytes']} B" for k, v in sorted(dv["owners"].items()))
+        + f"; total {dv['total']['bytes']} B (memory_allocated "
+        f"{dv['memory_allocated']} B; the sum holds by construction); "
+        f"params >= the {dv['live_params']} B of three live models; a "
+        f"{PROBE_BYTES} B probe claimed while alive, released after, "
+        f"'other' moved {dv['probe_other_drift']} B")
+    rl = co["roofline"]
+    log(f"  memcpy roofline: {rl['memcpy_gb_s']:.1f} GB/s over "
+        f"{rl['bytes']:.0f} B x {rl['iters']:.0f} passes; datasheet "
+        f"{rl['datasheet']['gb_s']:.0f} GB/s ({rl['datasheet']['source']}):"
+        f" {rl['memcpy_gb_s'] / rl['datasheet']['gb_s']:.1%}")
+    log("  span summary:")
+    for line in co["span_summary"]:
+        log("    " + line)
+    pc = co["profiler_capture"]
+    log(f"  triggered torch.profiler capture: {pc['dir']}; flight index "
+        f"{json.dumps(pc['flight_index'])}")
+    oo = co["obs_overhead"]
+    log(f"  replayed node step, host clock: tracing and metrics on "
+        f"{oo['step_ms_on']:.3f} ms, off {oo['step_ms_off']:.3f} ms "
+        f"(medians of {oo['blocks_timed']['on']} and "
+        f"{oo['blocks_timed']['off']} blocks, in turns); launches "
+        f"{co['launches']} ({wall_s:.1f} s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -2800,12 +3492,19 @@ def main() -> int:
             f"edges, {hl['negatives_that_are_edges']} of {hl['negatives']} "
             f"negatives are edges; launches {het['launches']} "
             f"({time.perf_counter() - t0:.1f} s)")
+
+        # 10. checkpoints and observability
+        t0 = time.perf_counter()
+        report["ckpt_obs"] = co = run_ckpt_obs(
+            torch, dev, indptr, indices, feat, labels, tr["node_capacity"],
+            np.random.default_rng(50))
+        log_ckpt_obs(co, smi[0], time.perf_counter() - t0)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
-                       for p in (sl, tr, st, report["digits"], lk, het))
+                       for p in (sl, tr, st, report["digits"], lk, het, co))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
@@ -2928,6 +3627,8 @@ def profiler_settle_check(windows: int) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ckpt-worker"]:
+        sys.exit(ckpt_worker(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--profiler-settle-check"]:
         sys.exit(profiler_settle_check(int(sys.argv[2])))
     sys.exit(main())

@@ -6,7 +6,9 @@ store on the device, so repeat lookups (hub nodes under power-law
 sampling) skip the host.  Replacement is FIFO over a clock hand: misses
 claim consecutive slots, evicting the oldest resident (the id->slot
 entry of the evicted id is cleared in the same pass).  Hit/miss counters
-are device scalars, read with :func:`cache_stats`.
+are device scalars, read with :func:`publish_cache_stats` (which also
+publishes them as ``glt.cache.*`` gauges) or its alias
+:func:`cache_stats`.
 
 Layout (``C`` = capacity, ``N`` = id space, ``d`` = row width):
   * ``table``    ``[C + 1, d]``  cached rows; row ``C`` absorbs masked
@@ -30,6 +32,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..obs import device as _device
+from ..obs import metrics as _metrics
 from ..utils.device import DeviceLike, resolve_device
 
 _INT32_MAX = 2**31 - 1
@@ -60,8 +64,10 @@ def cache_init(num_ids: int, capacity: int, dim: int,
         raise ValueError(f"cache capacity must be positive, got {capacity}")
     dev = resolve_device(device)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    table = torch.zeros((capacity + 1, dim), dtype=dtype, device=dev)
+    _device.register_owner("feature_cache", table)
     return FeatureCacheState(
-        table=torch.zeros((capacity + 1, dim), dtype=dtype, device=dev),
+        table=table,
         slot_ids=torch.full((capacity + 1,), -1, dtype=torch.int32,
                             device=dev),
         id2slot=torch.full((num_ids + 2,), -1, dtype=torch.int32,
@@ -162,11 +168,14 @@ def cache_gather(state: FeatureCacheState, ids: torch.Tensor,
         misses=state.misses + miss.sum(dtype=torch.int32)), rows
 
 
-def cache_stats(state: FeatureCacheState) -> dict:
-    """Host copy of the counters (a sync: call outside timed regions)."""
+def publish_cache_stats(state: FeatureCacheState,
+                        namespace: str = "glt.cache") -> dict:
+    """Host copy of the counters, also published as ``glt.cache.*``
+    gauges when metrics are enabled (a sync: call outside timed
+    regions)."""
     h = int(state.hits)
     m = int(state.misses)
-    return {
+    stats = {
         "hits": h,
         "misses": m,
         "lookups": h + m,
@@ -174,3 +183,14 @@ def cache_stats(state: FeatureCacheState) -> dict:
         "capacity": state.capacity,
         "resident": int((state.slot_ids[:-1] >= 0).sum()),
     }
+    if _metrics.enabled():
+        for k, v in stats.items():
+            _metrics.gauge(f"{namespace}.{k}",
+                           "feature cache counter (device-scalar fetch)"
+                           ).set(v)
+    return stats
+
+
+def cache_stats(state: FeatureCacheState) -> dict:
+    """Alias of :func:`publish_cache_stats`."""
+    return publish_cache_stats(state)

@@ -18,6 +18,12 @@ check does not stall the queue.
 
 ``state_dict``/``load_state_dict`` carry the epoch cursor and the
 shuffle stream (``glt_tpu``'s dict, key for key).
+
+Host-boundary instrumentation, as in ``glt_tpu``: the spans
+``loader.sample_dispatch`` and ``loader.collate`` measure the host's
+enqueue cost only (device completion is observed by the consumer's own
+sync, never forced here: a per-batch fence would serialize the prefetch
+queue), with ``glt.loader.*`` counters and histograms beside them.
 """
 from __future__ import annotations
 
@@ -29,10 +35,22 @@ import torch
 
 from ..ckpt.state import capture_rng, load_rng
 from ..data.dataset import Dataset
+from ..obs import metrics as _metrics
+from ..obs.trace import span as _span
 from ..sampler.base import NodeSamplerInput
 from ..sampler.neighbor_sampler import NeighborSampler
 from ..typing import PADDING_ID
 from .transform import Batch, as_pyg_v1_adjs, to_batch
+
+_M_BATCHES = _metrics.counter(
+    "glt.loader.batches", "batches delivered by Node/NeighborLoader")
+_M_OVERFLOW = _metrics.counter(
+    "glt.loader.overflow_batches",
+    "occupancy-capped batches re-sampled at full capacity")
+_M_SAMPLE_MS = _metrics.histogram(
+    "glt.loader.sample_dispatch_ms", "sampler dispatch wall per batch")
+_M_COLLATE_MS = _metrics.histogram(
+    "glt.loader.collate_ms", "feature/label collate dispatch per batch")
 
 
 class NodeLoader:
@@ -113,14 +131,19 @@ class NodeLoader:
                     # A hint to a store-backed feature's DRAM stager; a
                     # no-op for resident features.
                     feat.stage_ahead(seeds)
-                out = self.sampler.sample_from_nodes(NodeSamplerInput(seeds))
+                with _span("loader.sample_dispatch"), _M_SAMPLE_MS.time():
+                    out = self.sampler.sample_from_nodes(
+                        NodeSamplerInput(seeds))
                 pending.append((out, self._prime_overflow_flag(out),
                                 seeds.shape[0]))
             if not pending:
                 return
             out, flag, num_seeds = pending.popleft()
             out = self._maybe_refetch_overflow(out, flag)
-            yield self._collate_fn(out, num_seeds)
+            with _span("loader.collate"), _M_COLLATE_MS.time():
+                batch = self._collate_fn(out, num_seeds)
+            _M_BATCHES.inc()
+            yield batch
 
     def _prime_overflow_flag(self, out):
         """Start the overflow flag's copy to the host: ``(host flag,
@@ -150,6 +173,7 @@ class NodeLoader:
         if not bool(flag):
             return out
         self.overflow_batches += 1
+        _M_OVERFLOW.inc()
         return self.sampler.full_capacity_sibling().sample_from_nodes(
             NodeSamplerInput(out.batch))
 

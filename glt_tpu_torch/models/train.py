@@ -32,9 +32,19 @@ dropout_seed), step)``, the key ``glt_tpu`` uses; the scanned node step
 folds in a device copy of the step counter that the block advances in
 place, so a replayed block draws each step's own masks.  The global
 torch generator is never used.
+
+Observability (:mod:`glt_tpu_torch.obs`, as in ``glt_tpu``): the epoch
+driver counts ``glt.train.steps``/``glt.train.epochs``, times
+``glt.train.block_ms``, opens the spans ``train.scanned_epoch`` and
+``train.scanned_block_dispatch`` on the host, feeds the profiler's spike
+detector, publishes the device gauges and records a ``train.epoch``
+flight event per epoch; captures count under ``scanned_node_step`` /
+``scanned_hetero_step``.  Nothing inside a captured block opens a span
+or touches a metric: a replay runs no Python.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
@@ -45,6 +55,12 @@ from torch import nn
 from .. import random as trandom
 from ..data.feature import Feature
 from ..data.feature_cache import FeatureCacheState, cache_gather
+from ..obs import compilewatch as _compilewatch
+from ..obs import device as _device
+from ..obs import flight as _flight
+from ..obs import metrics as _metrics
+from ..obs import profiler as _profiler
+from ..obs.trace import span as _span
 from ..ops.dedup_gather import dedup_gather_rows
 from ..ops.fused_frontier import fused_frontier
 from ..ops.gather_cuda import gather_rows
@@ -55,6 +71,15 @@ from ..utils.device import same_device
 from ..utils.graphs import CapturedProgram
 
 OptimizerFactory = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
+
+# Epoch-driver instrumentation: only the HOST loop is instrumented.
+_M_STEPS = _metrics.counter(
+    "glt.train.steps", "train steps dispatched by the epoch drivers")
+_M_EPOCHS = _metrics.counter(
+    "glt.train.epochs", "scanned epochs driven")
+_M_BLOCK_MS = _metrics.histogram(
+    "glt.train.block_ms",
+    "wall per [G, B] block: dispatch + (when a hook syncs) device wait")
 
 
 class TrainState(NamedTuple):
@@ -80,6 +105,8 @@ def create_train_state(model: nn.Module, tx: OptimizerFactory
                        ) -> TrainState:
     """State at step 0 for ``model`` (already on its device) and the
     optimizer that ``tx`` builds over its parameters."""
+    for p in model.parameters():
+        _device.register_owner("params", p)
     return TrainState(model=model, optimizer=tx(model.parameters()), step=0)
 
 
@@ -280,12 +307,15 @@ class _ScannedBlocks:
     model's, the optimizer's, ``held()``) were replaced, runs eagerly
     (it creates Adam's state); the next captures the block and every
     later call replays it.  A failed capture raises.  On the CPU every
-    call runs eagerly.
+    call runs eagerly.  Captures count under the compilewatch label
+    ``program``.
     """
 
     def __init__(self, dev: torch.device, block: Callable,
-                 step_count: torch.Tensor, held: Callable[[], tuple] = tuple):
+                 step_count: torch.Tensor, program: str,
+                 held: Callable[[], tuple] = tuple):
         self.dev = dev
+        self.program = program
         self.block = block
         self.step_count = step_count
         self.held = held
@@ -327,7 +357,8 @@ class _ScannedBlocks:
         self.step_count.fill_(state.step)
         outs = None
         if dev.type == "cuda" and any(real):
-            outs = self._replayed(state, blk, key, real)
+            with _compilewatch.label(self.program):
+                outs = self._replayed(state, blk, key, real)
             if outs is not None:
                 outs = tuple(t.clone() for t in outs)
         if outs is None:
@@ -428,8 +459,9 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
                 getattr(held, name).copy_(getattr(cache, name))
         return torch.stack(losses), torch.stack(accs), torch.stack(ovfs)
 
-    step = _ScannedBlocks(dev, block, step_count, lambda: (
-        () if holder["cache"] is None else tuple(holder["cache"])))
+    step = _ScannedBlocks(dev, block, step_count, "scanned_node_step",
+                          lambda: (() if holder["cache"] is None
+                                   else tuple(holder["cache"])))
 
     def set_feature_cache(new_cache: FeatureCacheState) -> None:
         # Checkpoint-restore seam: a resumed run pushes its restored
@@ -556,7 +588,7 @@ def make_scanned_hetero_train_step(sampler, feats, labels, batch_size: int,
             accs.append(acc.to(torch.float32))
         return torch.stack(losses), torch.stack(accs)
 
-    return _ScannedBlocks(dev, block, step_count)
+    return _ScannedBlocks(dev, block, step_count, "scanned_hetero_step")
 
 
 def _check_model(state: TrainState, dev: torch.device) -> None:
@@ -710,36 +742,57 @@ def run_scanned_epoch(step, state: TrainState, train_idx, batch_size: int,
     accs [n_real], overflow_count)`` as host numpy; ``overflow_count``
     is 0 for a step without overflow flags (the hetero step).
 
-    ``start_block``/``on_block`` are the resume seam: the first
+    ``start_block``/``on_block`` are the resume seam
+    (:class:`~glt_tpu_torch.ckpt.driver.TrainLoop`): the first
     ``start_block`` blocks are skipped without disturbing the key
     schedule (block ``i`` always trains under ``fold_in(base_key, i)``),
     and ``on_block(state, i)`` fires after block ``i``'s device work has
     finished.
     """
     n_real = -(-len(train_idx) // batch_size)
+    n_blocks = -(-len(train_idx) // (batch_size * group))
     n_real = max(0, n_real - int(start_block) * group)
     losses, accs, ovfs = [], [], []
     blocks = node_seed_blocks(train_idx, batch_size, group, rng)
-    for i, blk in enumerate(blocks):
-        if i < start_block:
-            continue
-        res = step(state, blk, trandom.fold_in(base_key, i))
-        state, ls = res[0], res[1]
-        losses.append(ls)
-        accs.append(res[2])
-        if len(res) > 3:
-            ovfs.append(res[3])
-        if on_block is not None:
-            if ls.is_cuda:
-                torch.cuda.synchronize(ls.device)
-            on_block(state, i)
-    if not losses:
-        empty = np.zeros((0,), np.float32)
-        return state, empty, empty, 0
-    n = sum(ls.shape[0] for ls in losses)
-    parts = [torch.cat(losses), torch.cat(accs)]
-    if ovfs:
-        parts.append(torch.cat(ovfs).to(torch.float32))
-    host = torch.cat(parts).cpu().numpy()
+    with _span("train.scanned_epoch", blocks=n_blocks,
+               start_block=int(start_block)):
+        t_epoch0 = time.perf_counter()
+        for i, blk in enumerate(blocks):
+            if i < start_block:
+                continue
+            t_blk0 = time.perf_counter()
+            with _span("train.scanned_block_dispatch"):
+                res = step(state, blk, trandom.fold_in(base_key, i))
+            _M_STEPS.inc()
+            state, ls = res[0], res[1]
+            losses.append(ls)
+            accs.append(res[2])
+            if len(res) > 3:
+                ovfs.append(res[3])
+            if on_block is not None:
+                # The hook may checkpoint: the block's device work
+                # finishes first, so the state it captures is post-block.
+                if ls.is_cuda:
+                    torch.cuda.synchronize(ls.device)
+                on_block(state, i)
+            blk_ms = (time.perf_counter() - t_blk0) * 1e3
+            _M_BLOCK_MS.observe(blk_ms)
+            _profiler.spike_observe(blk_ms)
+        _M_EPOCHS.inc()
+        # Epoch boundary: refresh the glt.device.* gauges (absent on
+        # the CPU) and advance the live-bytes leak watch.
+        _device.observe_epoch()
+        _flight.record("train.epoch", blocks=n_blocks - int(start_block),
+                       start_block=int(start_block),
+                       duration_ms=(time.perf_counter() - t_epoch0) * 1e3)
+        if not losses:
+            empty = np.zeros((0,), np.float32)
+            return state, empty, empty, 0
+        n = sum(ls.shape[0] for ls in losses)
+        parts = [torch.cat(losses), torch.cat(accs)]
+        if ovfs:
+            parts.append(torch.cat(ovfs).to(torch.float32))
+        # The epoch's one host copy is its sync: the span closes after.
+        host = torch.cat(parts).cpu().numpy()
     return (state, host[:n][:n_real], host[n: 2 * n][:n_real],
             int(host[2 * n:].sum()))

@@ -29,10 +29,19 @@ Data path per sweep (one partition of ``block_size`` nodes):
    back through a fresh tiered ``Feature``.
 
 Sweeps cover disjoint row ranges and row encoding is a pure function, so
-rewriting a range after an interruption is bit-identical: a driver given
-the :meth:`RefreshDriver.state_dict` of an interrupted one resumes at
-its next sweep, the writer re-attaches to its deterministic partial
-file, and the published sha256 equals an uninterrupted run's.
+an interrupted refresh can resume: a driver given the
+:meth:`RefreshDriver.state_dict` of an interrupted one (by hand, or
+through a ``checkpointer=`` that saves it at sweep boundaries) resumes
+at its next sweep and the writer re-attaches to its partial file.  On
+the CPU the published sha256 then equals an uninterrupted run's.  On
+the card a layer's ``index_add_`` adds by atomics in an order that
+changes from run to run, so two uninterrupted refreshes already differ
+in the last bits, and a resumed one is as close to either as they are
+to each other (``chip_smoke.py`` phase 10 prints both; PERF.md).
+
+Each sweep runs under ``compilewatch.label("refresh_sweep_{l}")`` and
+sets the ``glt.refresh.*`` gauge, histogram and tier counters, as in
+``glt_tpu``.
 
 Nodes whose degree exceeds ``max_degree`` are truncated to their first
 ``max_degree`` CSR neighbors; size it to the graph's max degree for an
@@ -48,6 +57,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..obs import compilewatch
+from ..obs import metrics as _metrics
 from ..ops.subgraph import node_subgraph
 from ..store.disk import DiskFeatureStore, FeatureStoreWriter
 from ..utils.device import DeviceLike, resolve_device
@@ -97,8 +108,11 @@ class RefreshDriver:
         (``int8`` needs a whole-matrix calibration a streaming writer
         cannot do).
     checkpointer:
-        Not ported yet: anything but None raises.  Resume through
-        :meth:`state_dict` / :meth:`load_state_dict` instead.
+        Optional :class:`~glt_tpu_torch.ckpt.driver.Checkpointer`:
+        ``run()`` first resumes its newest snapshot, then saves the
+        cursor (as component ``"refresh"``) after every sweep its
+        cadence makes due, counting sweeps ``layer * num_sweeps + sweep
+        + 1``.
     on_sweep:
         Optional ``hook(driver, layer, sweep)`` called after each sweep's
         rows are written.
@@ -118,11 +132,6 @@ class RefreshDriver:
         if out_codec not in ("raw", "bf16"):
             raise ValueError(
                 f"refresh out_codec must be raw|bf16, got {out_codec!r}")
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "RefreshDriver(checkpointer=...) needs the checkpoint "
-                "store, which is not ported yet; resume with "
-                "state_dict()/load_state_dict()")
         self.device = resolve_device(device)
         self._indptr_np = np.asarray(indptr, np.int64)
         # int32 node ids (the engine's id width): the host frontier
@@ -145,6 +154,7 @@ class RefreshDriver:
         self.dram_budget_bytes = int(dram_budget_bytes)
         self.split_ratio = float(split_ratio)
         self.stage_threads = int(stage_threads)
+        self.checkpointer = checkpointer
         self.on_sweep = on_sweep
         self.num_sweeps = max(
             1, math.ceil(self.num_nodes / self.block_size))
@@ -210,9 +220,23 @@ class RefreshDriver:
 
     # -- main loop -----------------------------------------------------
     def run(self) -> RefreshReport:
-        """Refresh every layer from the resume cursor on; returns a
+        """Refresh every layer from the resume cursor on (with a
+        ``checkpointer``, first from its newest snapshot); returns a
         summary report."""
+        if self.checkpointer is not None:
+            self.checkpointer.resume({"refresh": self})
         os.makedirs(self.workdir, exist_ok=True)
+        nodes_per_s = _metrics.gauge(
+            "glt.refresh.nodes_per_s",
+            "whole-graph refresh throughput (nodes/sec, last sweep)")
+        sweep_ms = _metrics.histogram(
+            "glt.refresh.sweep_ms", "per-sweep wall time (ms)")
+        tier_counters = {
+            k: _metrics.counter(
+                f"glt.refresh.bytes_from_{k}",
+                f"refresh gather bytes served from the {k} tier")
+            for k in ("hbm", "dram", "disk")
+        }
         from ..data.feature import Feature
 
         start_layer = self._layer
@@ -229,6 +253,7 @@ class RefreshDriver:
                 self._layer_root(layer), self.num_nodes, out_dim,
                 logical_dtype=np.float32, codec=self.out_codec,
                 overwrite=True)
+            label = f"refresh_sweep_{layer}"
             try:
                 first = self._sweep if layer == self._layer else 0
                 if first > 0 and not writer.reattached:
@@ -244,7 +269,8 @@ class RefreshDriver:
                     t0 = time.perf_counter()
                     frontier = torch.from_numpy(frontier_np).to(self.device)
                     x = feature.gather(frontier)
-                    h = self.step(layer_fn, x, frontier)
+                    with compilewatch.label(label):
+                        h = self.step(layer_fn, x, frontier)
                     if sweep + 1 < self.num_sweeps:
                         # Overlaps the step queued on the device.
                         nxt = self.frontier(sweep + 1)
@@ -253,13 +279,22 @@ class RefreshDriver:
                         lo, h[:block_len].float().cpu().numpy())
                     dt = time.perf_counter() - t0
                     stats1 = feature.store_stats() or {}
-                    for k in ("hbm", "dram", "disk"):
-                        self.totals[f"bytes_from_{k}"] += (
-                            stats1.get(f"bytes_from_{k}", 0)
-                            - stats0.get(f"bytes_from_{k}", 0))
+                    nodes_per_s.set(block_len / max(dt, 1e-9))
+                    sweep_ms.observe(dt * 1e3)
+                    for k, c in tier_counters.items():
+                        moved = (stats1.get(f"bytes_from_{k}", 0)
+                                 - stats0.get(f"bytes_from_{k}", 0))
+                        c.inc(moved)
+                        self.totals[f"bytes_from_{k}"] += moved
                     self.totals["nodes"] += block_len
                     self.totals["seconds"] += dt
                     self._layer, self._sweep = layer, sweep + 1
+                    ckpt = self.checkpointer
+                    if ckpt is not None:
+                        step_no = layer * self.num_sweeps + sweep + 1
+                        if ckpt.due(step_no):
+                            writer.flush()
+                            ckpt.save(step_no, {"refresh": self})
                     if self.on_sweep is not None:
                         self.on_sweep(self, layer, sweep)
                 end_stats = feature.store_stats() or {}

@@ -32,6 +32,7 @@ import torch
 
 from .. import random as trandom
 from ..data.graph import Graph
+from ..obs import compilewatch
 from ..ops.negative_sample import sample_negative_edges, weighted_draw
 from ..ops.neighbor_sample import sample_neighbors
 from ..ops.subgraph import node_subgraph
@@ -457,7 +458,8 @@ class NeighborSampler:
             buf = torch.empty(tuple(blk.shape), dtype=torch.int32,
                               device=self.device)
             buf.copy_(torch.as_tensor(blk))
-            prog = CapturedProgram(self._sample_many, [buf, key.clone()])
+            with compilewatch.label(f"sample_from_nodes_batched_{g}"):
+                prog = CapturedProgram(self._sample_many, [buf, key.clone()])
             self._batched_programs[g] = prog
             out = prog.replay()
         else:

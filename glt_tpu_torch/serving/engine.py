@@ -37,6 +37,8 @@ import torch
 from ..distributed.sample_message import SampleMessage
 from ..sampler.neighbor_sampler import NeighborSampler
 from ..typing import PADDING_ID
+from ..obs import compilewatch as _compilewatch
+from ..obs import device as _device
 from ..utils.graphs import CapturedProgram
 from .errors import BadRequest
 from .options import ServingOptions
@@ -199,9 +201,15 @@ class SubgraphEngine:
         prog = self._programs.get(bucket)
         if prog is None:
             buf = torch.from_numpy(seeds).to(self.graph.device)
-            prog = CapturedProgram(
-                lambda sd, k: self._device_stage(sampler, sd, k),
-                [buf, key.clone()])
+            # Each bucket captures once; any further capture under this
+            # label is bucket churn, the storm compilewatch catches.
+            with _compilewatch.label(f"serving_bucket_{bucket}"):
+                prog = CapturedProgram(
+                    lambda sd, k: self._device_stage(sampler, sd, k),
+                    [buf, key.clone()])
+            # The bucket's static buffers, for the device census.
+            for t in prog.outputs[:3]:
+                _device.register_owner("serving", t)
             with self._lock:
                 self._programs[bucket] = prog
         return prog

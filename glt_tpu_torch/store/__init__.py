@@ -13,11 +13,11 @@ from .disk import (
     write_feature_store,
 )
 from .quant import CODECS, QuantSpec, dequantize
-from .stager import DramStager
+from .stager import DramStager, publish_store_stats
 
 __all__ = [
     "CODECS", "DATA_NAME", "DiskFeatureStore", "DramStager",
     "FORMAT_VERSION", "FeatureStoreWriter", "MANIFEST_NAME", "QuantSpec",
-    "StoreCorruptError", "StoreError", "dequantize", "quant",
-    "write_feature_store",
+    "StoreCorruptError", "StoreError", "dequantize", "publish_store_stats",
+    "quant", "write_feature_store",
 ]

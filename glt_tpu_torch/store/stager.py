@@ -30,7 +30,10 @@ Failure semantics (the chaos contract):
   :meth:`gather` — never a silent zero-row batch.
 
 Counters (``bytes_from_dram`` / ``bytes_from_disk``, hit/miss, stage
-depth) are read with :meth:`stats` and :meth:`epoch_stats`.
+depth) are read with :meth:`stats` and :meth:`epoch_stats`, and
+published as ``glt.store.*`` gauges with :func:`publish_store_stats` /
+:meth:`DramStager.publish_epoch_stats`; an eviction records a
+``store.evict`` flight event.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ from typing import Optional
 
 import numpy as np
 
+from ..obs import device as _device
+from ..obs import flight as _flight
+from ..obs import metrics as _metrics
 from .disk import DiskFeatureStore
 
 
@@ -68,6 +74,7 @@ class DramStager:
         # THE feature-byte allocation — never grown (the enforced budget).
         self._buf = np.empty((self.capacity, store.dim), store.dtype)
         assert self._buf.nbytes <= self.dram_budget_bytes
+        _device.register_owner("stager", self._buf)
         # Residency metadata (out of budget, documented): store row ->
         # slot, slot -> store row, slot -> score, row -> access frequency.
         self._slot_of = np.full(store.num_rows, -1, np.int64)
@@ -127,6 +134,8 @@ class DramStager:
                     self._score[: self._used],
                     n_evict - 1)[:n_evict].astype(np.int64)
                 self._slot_of[self._row_of[victims]] = -1
+                _flight.record("store.evict", count=int(n_evict),
+                               resident=int(self._used))
             slots = np.arange(self._used, self._used + take, dtype=np.int64)
             self._used += take
             if victims is not None:
@@ -309,6 +318,12 @@ class DramStager:
         out["hit_rate"] = out["hits"] / total if total else 0.0
         return out
 
+    def publish_epoch_stats(self, namespace: str = "glt.store") -> dict:
+        """Epoch-boundary ``glt.store.*`` publication of
+        :meth:`epoch_stats` (``glt_tpu`` publishes from its
+        ``DiskColdStore``, which is not ported yet)."""
+        return publish_store_stats(self.epoch_stats(), namespace)
+
     def close(self) -> None:
         self._pool.shutdown(wait=False)
 
@@ -317,3 +332,15 @@ class DramStager:
             self.close()
         except Exception:
             pass
+
+
+def publish_store_stats(stats: dict, namespace: str = "glt.store") -> dict:
+    """Publish a stager stats dict as ``<namespace>.*`` gauges.
+
+    Host-side only; no overhead when metrics are disabled.  Returns the
+    stats dict for chaining."""
+    if _metrics.enabled():
+        for k, v in stats.items():
+            _metrics.gauge(f"{namespace}.{k}",
+                           f"glt_tpu.store tier metric {k}").set(float(v))
+    return stats

@@ -15,15 +15,21 @@ in place and never read a Python value that changes between calls: a
 replay does not run Python.
 
 A failed capture raises :class:`GraphCaptureError`; nothing runs
-eagerly in its place.  The object is built only for CUDA tensors: on
-the CPU the callers run ``fn`` eagerly, as before.
+eagerly in its place.  Each capture reports itself to
+:mod:`glt_tpu_torch.obs.compilewatch` (``glt.compile.count`` and
+``glt.compile.ms`` under the caller's ``compilewatch.label``), the
+port's counterpart of an XLA compilation.  The object is built only for
+CUDA tensors: on the CPU the callers run ``fn`` eagerly, as before.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+
+from ..obs import compilewatch
 
 
 class GraphCaptureError(RuntimeError):
@@ -78,6 +84,7 @@ class CapturedProgram:
                     fn(*inputs)
             cur.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
         try:
             with torch.cuda.device(dev), torch.cuda.graph(
                     self.graph, capture_error_mode="thread_local"):
@@ -88,6 +95,7 @@ class CapturedProgram:
             raise GraphCaptureError(
                 f"capturing {getattr(fn, '__name__', fn)!r} into a CUDA "
                 f"graph failed: {exc}") from exc
+        compilewatch.note_compile(None, (time.perf_counter() - t0) * 1e3)
 
     def replay(self) -> Any:
         """Replay the graph on the current stream; return the static

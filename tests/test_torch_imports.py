@@ -62,6 +62,15 @@ HETERO_MODULES = (
     "glt_tpu_torch.examples.hetero", "glt_tpu_torch.examples.train_hgt_mag",
     "glt_tpu_torch.examples.rgat_igbh")
 
+# The checkpoint and observability slice's modules.
+CKPT_OBS_MODULES = (
+    "glt_tpu_torch.ckpt.store", "glt_tpu_torch.ckpt.driver",
+    "glt_tpu_torch.testing", "glt_tpu_torch.testing.faults",
+    "glt_tpu_torch.obs", "glt_tpu_torch.obs.__main__") + tuple(
+    f"glt_tpu_torch.obs.{m}" for m in (
+        "metrics", "flight", "trace", "summarize", "merge", "slo",
+        "device", "compilewatch", "profiler", "roofline", "attrib"))
+
 
 def test_port_imports_no_jax():
     env = dict(os.environ)
@@ -77,3 +86,5 @@ def test_port_imports_no_jax():
     assert set(GRAPH_MODULES) <= walked, sorted(set(GRAPH_MODULES) - walked)
     assert set(HETERO_MODULES) <= walked, sorted(set(HETERO_MODULES)
                                                  - walked)
+    assert set(CKPT_OBS_MODULES) <= walked, sorted(set(CKPT_OBS_MODULES)
+                                                   - walked)

@@ -808,6 +808,95 @@ def test_replayed_block_matches_eager(cuda_device):
         torch.testing.assert_close(pa, pb, rtol=1e-5, atol=1e-5)
 
 
+def _small_node_step(dev):
+    """A small f32 GraphSAGE step (dropout 0.5) on a 2,000-node graph."""
+    indptr, indices, _, _ = _graph(5, 2000)
+    rng = np.random.default_rng(0)
+    feat = rng.standard_normal((2000, 32)).astype(np.float32)
+    labels = rng.integers(0, 7, 2000)
+    g = Graph(CSRTopo.from_csr_arrays(indptr, indices), device=dev)
+    s = NeighborSampler(g, [10, 5], batch_size=64, with_edge=False)
+
+    def state():
+        torch.manual_seed(0)
+        return create_train_state(
+            GraphSAGE(32, 16, 7, num_layers=2, dropout_rate=0.5).to(dev),
+            adam(1e-2))
+
+    return (lambda: make_scanned_node_train_step(s, feat, labels, 64),
+            state, list(node_seed_blocks(np.arange(2000), 64, 4,
+                                         np.random.default_rng(1)))[:4])
+
+
+@pytest.mark.cuda
+def test_replayed_block_after_restore_matches_unkilled(cuda_device,
+                                                       tmp_path):
+    """Blocks 0-1 run, the state is checkpointed and restored into a
+    fresh model and optimizer; the next blocks (one eager, one capture,
+    one replay, counted under ``scanned_node_step``) match the run that
+    was never stopped within the node step's tolerance, and Adam's step
+    stays a device tensor."""
+    from glt_tpu_torch.ckpt import (Checkpointer, capture_train_state,
+                                    restore_train_state)
+    from glt_tpu_torch.obs import compilewatch
+
+    make, state, blocks = _small_node_step(cuda_device)
+    keys = [trandom.PRNGKey(i, device=cuda_device) for i in range(4)]
+    ref_step, ref = make(), state()
+    ref_losses = []
+    for blk, key in zip(blocks, keys):
+        ref, ls, _, _ = ref_step(ref, blk, key)
+        ref_losses.append(ls)
+    step, a = make(), state()
+    for blk, key in zip(blocks[:2], keys[:2]):
+        a, _, _, _ = step(a, blk, key)
+    ck = Checkpointer(str(tmp_path), every_n_steps=1)
+    ck.save(2, {"ts": capture_train_state(a)})
+    b = restore_train_state(ck.resume().components["ts"], like=state())
+    assert all(st["step"].is_cuda for st in b.optimizer.state.values())
+    compilewatch.reset_for_tests()
+    for i in (2, 3):          # eager, then captured and replayed
+        b, lb, _, _ = step(b, blocks[i], keys[i])
+        torch.testing.assert_close(lb, ref_losses[i], rtol=1e-5, atol=1e-6)
+    assert b.step == ref.step == 16
+    assert compilewatch.counts("scanned_node_step") == 1
+    for pa, pb in zip(ref.model.parameters(), b.model.parameters()):
+        torch.testing.assert_close(pa, pb, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_capture_under_tracer_emits_no_span(cuda_device, tmp_path):
+    """With a Tracer installed and metrics on, the scanned block still
+    captures (no fence or sync inside it), and the step's calls (eager,
+    capture, replay) emit no span; the epoch driver's host spans wrap
+    the replays and validate."""
+    from glt_tpu_torch import obs
+    from glt_tpu_torch.models import run_scanned_epoch
+
+    make, state, blocks = _small_node_step(cuda_device)
+    step, a = make(), state()
+    obs.metrics.enable()
+    tracer = obs.start_trace()
+    try:
+        for i, blk in enumerate(blocks[:3]):
+            a, _, _, _ = step(a, blk, trandom.PRNGKey(i, device=cuda_device))
+        assert len(step._programs) == 1           # captured
+        assert tracer.events == []
+        run_scanned_epoch(step, a, np.arange(4 * 64 * 2), 64, 4,
+                          np.random.default_rng(2),
+                          trandom.PRNGKey(9, device=cuda_device),
+                          on_block=lambda st, i: None)
+        names = [e["name"] for e in tracer.events]
+        assert names.count("train.scanned_block_dispatch") == 2
+        assert set(names) == {"train.scanned_epoch",
+                              "train.scanned_block_dispatch"}
+    finally:
+        obs.stop_trace(str(tmp_path / "t.json"))
+        obs.metrics.disable()
+    assert obs.validate_chrome_trace(
+        obs.summarize.load_trace(str(tmp_path / "t.json"))) == []
+
+
 @pytest.mark.cuda
 def test_failed_capture_raises(cuda_device, monkeypatch):
     """A host sync inside a capture raises GraphCaptureError, and the
