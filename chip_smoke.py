@@ -257,6 +257,14 @@ OBS_TIMED_TURNS = ("off", "on", "on", "off")
 WORK_DIR = os.path.join("build", "tmp")
 SLEEP_CYCLES = 40_000_000         # ~20 ms at the H100's 1.98 GHz
 OUT_DIR = os.path.join("build", "results")
+# Distributed phase: examples/dist_train_papers100m.py's settings on its
+# synthetic graph at --scale 0.02 (2,221,199 nodes), --devices 4 as 4
+# shards on one card, --hot-ratio 1.0: 128-wide f32 features, 172
+# classes, batch 128 a shard, fanout (12, 10), GraphSAGE hidden 256 x 2,
+# dropout 0, Adam 1e-3; CHECK_ROWS loaded rows held to the host arrays.
+DIST_SHARDS, DIST_SCALE, DIST_DIM, DIST_CLASSES = 4, 0.02, 128, 172
+DIST_BS, DIST_FANOUT, DIST_STEPS = 128, (12, 10), 20
+DIST_LOAD_FACTOR, CHECK_ROWS = 2.0, 2048
 DEVICE = "cuda"
 
 
@@ -3165,6 +3173,376 @@ def log_ckpt_obs(co: dict, card: str, wall_s: float) -> None:
         f"{co['launches']} ({wall_s:.1f} s)")
 
 
+# -- phase 11: partition and train across a mesh of shards -----------------
+def dist_batch(torch, ds, seeds, key, **kw):
+    """The data half of one distributed step on ``ds``'s device
+    (``sample_and_gather``): per shard ``(out, x, y)``."""
+    from glt_tpu_torch.parallel.dist_train import sample_and_gather
+
+    dev = ds.graph.indptr.device
+    _, outs, xy = sample_and_gather(
+        ds.graph, ds.feature, ds.labels,
+        torch.from_numpy(np.asarray(seeds, np.int32)).to(dev), key,
+        DIST_FANOUT, **kw)
+    return [(o, x, y) for o, (x, y) in zip(outs, xy)]
+
+
+def same_batches(torch, a, b, what: str) -> None:
+    """Two per-shard batches ``torch.equal`` field by field."""
+    for s, ((oa, xa, ya), (ob, xb, yb)) in enumerate(zip(a, b)):
+        for f in ("node", "row", "col", "edge", "node_mask", "edge_mask",
+                  "num_sampled_nodes", "num_sampled_edges"):
+            need(torch.equal(getattr(oa, f).cpu(), getattr(ob, f).cpu()),
+                 f"{what}: shard {s} {f} differs")
+        need(torch.equal(xa.cpu(), xb.cpu()), f"{what}: shard {s} x differs")
+        need(torch.equal(ya.cpu(), yb.cpu()), f"{what}: shard {s} y differs")
+
+
+def check_dist_dataset(torch, ds, topo, papers, rng) -> int:
+    """CHECK_ROWS relabelled rows of the loaded shards against the host
+    arrays: each row's neighbors (relabelled, in CSR order) and edge ids,
+    its feature row and its label.  Returns the edges checked."""
+    rel = ds.relabel
+    c = rel.nodes_per_shard
+    live = np.flatnonzero(rel.new2old >= 0)
+    new = np.sort(rng.choice(live, min(CHECK_ROWS, live.size),
+                             replace=False))
+    old = rel.new2old[new]
+    shard, row = new // c, new % c
+    ip = ds.graph.indptr.cpu().numpy().astype(np.int64)
+    start, end = ip[shard, row], ip[shard, row + 1]
+    ostart = topo.indptr[old]
+    lens = end - start
+    need((lens == topo.indptr[old + 1] - ostart).all(),
+         "a loaded shard row has the wrong degree")
+    width = ds.graph.indices.shape[1]
+    within = np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens)
+    pos = np.repeat(shard * width + start, lens) + within
+    opos = np.repeat(ostart, lens) + within
+    flat = torch.from_numpy(pos).to(ds.graph.indices.device)
+    got_ix = ds.graph.indices.reshape(-1)[flat].cpu().numpy()
+    got_ei = ds.graph.edge_ids.reshape(-1)[flat].cpu().numpy()
+    need(np.array_equal(got_ix, rel.old2new[topo.indices[opos]]),
+         "a loaded shard row's neighbors differ from the relabelled CSR")
+    need(np.array_equal(got_ei, topo.edge_ids[opos]),
+         "a loaded shard row's edge ids differ")
+    idx = torch.from_numpy(new).to(ds.feature.rows.device)
+    rows = ds.feature.rows.reshape(-1, ds.feature.rows.shape[-1])[idx]
+    need(torch.equal(rows.cpu(), torch.from_numpy(papers.feat[old])),
+         "a loaded feature row differs")
+    need(np.array_equal(ds.labels.reshape(-1)[idx].cpu().numpy(),
+                        papers.labels[old]), "a loaded label differs")
+    return int(lens.sum())
+
+
+def served_requests(torch, ds, frontiers):
+    """Per shard, the local rows of the requests that landed on it after
+    the all-to-all of ``frontiers`` (one id vector a shard; -1 where a
+    slot carries no id of that shard)."""
+    from glt_tpu_torch.parallel.dist_sampler import _all_to_all, build_routing
+
+    g = ds.graph
+    c, s_count = g.nodes_per_shard, g.num_shards
+    req = _all_to_all([build_routing(f, c, s_count).buckets
+                       for f in frontiers])
+    out = []
+    for s, r in enumerate(req):
+        local = r - s * c
+        ok = (r >= 0) & (local >= 0) & (local < c)
+        out.append(torch.where(ok, local, -1).to(torch.int32).contiguous())
+    return out
+
+
+def time_dist_kernels(torch, ops, trandom, ds, batch, sm_mhz):
+    """B1 at the widest served request block (shard 0's hop-1 requests,
+    ``[S * 1536, 10]``, real edge ids) and B3 at shard 0's served feature
+    requests (``[S * node capacity, 128]`` f32), against their bounds."""
+    g = ds.graph
+    w1 = DIST_BS * DIST_FANOUT[0]
+    hop1 = []
+    for out, _, _ in batch:
+        c0 = int(out.num_sampled_nodes[0])
+        hop1.append(torch.cat([out.node, torch.full(
+            (w1,), -1, dtype=torch.int32, device=out.node.device)])
+            [c0: c0 + w1])
+    lid = served_requests(torch, ds, hop1)[0]
+    f = DIST_FANOUT[1]
+    key = trandom.PRNGKey(1, device=lid.device)
+
+    def b1(fn=ops.sample_neighbors_cuda):
+        return fn(g.indptr[0], g.indices[0], lid, f, key,
+                  edge_ids=g.edge_ids[0])
+
+    want = b1(ops.sample_neighbors_plain)
+    got = b1()
+    need(all(torch.equal(a, b) for a, b in zip(got, want)),
+         "B1 differs from its plain version at phase 11's shape")
+    nbytes, nops = b1_work(g.indptr[0], lid, f, want.mask)
+    nbytes += int(want.mask.sum()) * 4          # the edge-id read
+    bound, by = bound_of(nbytes, nops, sm_mhz)
+    row_b1 = {"shape": [int(lid.shape[0]), f], "ms": cuda_ms(torch, b1),
+              "plain_ms": cuda_ms(torch, lambda: b1(
+                  ops.sample_neighbors_plain), reps=5, rounds=3),
+              "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+              "int_ops": nops, "library_ms": None,
+              "live_rows": int((lid >= 0).sum())}
+    ids = served_requests(torch, ds, [o.node for o, _, _ in batch])[0]
+    table = ds.feature.rows[0]
+    _, inv, uidx = ops.frontier_plan(ids)
+    need(torch.equal(ops.fused_frontier_cuda(table, uidx, inv),
+                     ops.fused_frontier_plain(table, uidx, inv)),
+         "B3 differs from its plain version at phase 11's shape")
+    row_b3 = time_fused_kernel(torch, ops, table, ids)
+    row_b3["bound_by"] = "bytes"
+    return row_b1, row_b3
+
+
+def run_dist(torch, ops, trandom, dev, sm_mhz) -> dict:
+    """Phase 11 (see the module docstring)."""
+    import shutil
+    import traceback
+    import warnings
+
+    from glt_tpu_torch.data import CSRTopo, Graph
+    from glt_tpu_torch.examples import dist_train_papers100m as twin
+    from glt_tpu_torch.parallel import Mesh, make_dist_train_step
+    from glt_tpu_torch.sampler import NeighborSampler
+
+    rep = {}
+    cpu = torch.device("cpu")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    papers = twin.synthetic_papers(DIST_SCALE, DIST_SHARDS, DIST_BS,
+                                   DIST_DIM, DIST_CLASSES)
+    topo = CSRTopo(papers.edge_index, num_nodes=papers.n)
+    rep.update(nodes=papers.n, edges=int(papers.edge_index.shape[1]),
+               train_ids=int(papers.train_idx.size),
+               build_s=time.perf_counter() - t0)
+
+    # sample_prob of every rank on the card; rank 0 against the CPU.
+    t0 = time.perf_counter()
+    probs = twin.rank_probs(Graph(topo, device=dev), papers.train_idx,
+                            DIST_SHARDS, DIST_FANOUT, DIST_BS)
+    host_probs = [p.cpu().numpy() for p in probs]
+    rep["sample_prob_s"] = time.perf_counter() - t0
+    rank0 = np.array_split(papers.train_idx, DIST_SHARDS)[0]
+    want = NeighborSampler(Graph(topo, device=cpu), DIST_FANOUT,
+                           batch_size=DIST_BS).sample_prob(rank0, papers.n)
+    rep["sample_prob_max_abs_err"] = float(np.abs(
+        host_probs[0] - want.numpy()).max())
+    need(rep["sample_prob_max_abs_err"] <= 1e-6,
+         f"sample_prob on the card differs from the CPU's by "
+         f"{rep['sample_prob_max_abs_err']:.3e}")
+
+    part_dir = os.path.join(WORK_DIR, "dist_parts")
+    shutil.rmtree(part_dir, ignore_errors=True)
+    os.makedirs(WORK_DIR, exist_ok=True)
+    try:
+        rep["partition_s"] = twin.partition(papers, part_dir, DIST_SHARDS,
+                                            host_probs)
+        t0 = time.perf_counter()
+        ds = twin.load(part_dir, papers.labels, 1.0, dev)
+        torch.cuda.synchronize()
+        rep["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds_cpu = twin.load(part_dir, papers.labels, 1.0, cpu)
+        rep["cpu_load_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(part_dir, ignore_errors=True)
+    rep["nodes_per_shard"] = ds.relabel.nodes_per_shard
+    rep["edge_width"] = int(ds.graph.indices.shape[1])
+    rep["checked_edges"] = check_dist_dataset(torch, ds, topo, papers,
+                                              np.random.default_rng(11))
+    del topo
+
+    mesh = Mesh([dev] * DIST_SHARDS)
+    batches = ds.split_seeds(papers.train_idx, DIST_BS, shuffle=True,
+                             rng=np.random.default_rng(0))
+    need(batches.shape[0] >= DIST_STEPS + 4, "too few seed batches")
+    step = make_dist_train_step(ds.graph, ds.feature, ds.labels, mesh,
+                                DIST_FANOUT, DIST_BS, fused_frontier=True)
+    rep["collective_bytes"] = step.collective_bytes
+    state = twin.make_state(ds, DIST_FANOUT, DIST_BS, DIST_CLASSES, dev)
+    key = trandom.PRNGKey(0, device=dev)
+
+    # The main path: DIST_STEPS steps, counts set to 0 just before.
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    trandom.threefry2x32.calls = 0
+    losses, step_ms = [], []
+    for b in range(DIST_STEPS):
+        t0 = time.perf_counter()
+        state, loss, _ = step(state, batches[b], trandom.fold_in(key, b))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+    rep["plain_hash_calls"] = trandom.threefry2x32.calls
+    rep["main_launches"] = dict(launches)
+    losses = torch.stack(losses).cpu().numpy()
+    rep["losses"] = losses.tolist()
+    rep["step_ms"] = step_ms
+    rep["step_ms_median"] = statistics.median(step_ms[3:])
+    rep["subgraphs_per_s"] = DIST_SHARDS / rep["step_ms_median"] * 1e3
+    need(np.isfinite(losses).all(), "a distributed loss is not finite")
+    need(losses[-5:].mean() < losses[:5].mean(),
+         f"the distributed loss did not fall: {losses[:5].mean():.4f} -> "
+         f"{losses[-5:].mean():.4f}")
+    hops = len(DIST_FANOUT)
+    need(launches["sample_neighbors_cuda"] == DIST_SHARDS * hops * DIST_STEPS,
+         f"B1 ran {launches['sample_neighbors_cuda']} times in "
+         f"{DIST_STEPS} steps, not {DIST_SHARDS * hops} a step")
+    need(launches["fused_frontier_cuda"] == DIST_SHARDS * DIST_STEPS,
+         f"B3 ran {launches['fused_frontier_cuda']} times in {DIST_STEPS} "
+         f"steps, not {DIST_SHARDS} a step")
+    need(launches["threefry_hash_cuda"] > 0, "phase 11 never launched the "
+                                             "hash kernel")
+    need(rep["plain_hash_calls"] == 0,
+         "phase 11 ran the plain threefry arithmetic on the card")
+
+    # Against the CPU: step 0's batch and loss from the same weights.
+    k0, k0_cpu = trandom.fold_in(key, 0), trandom.fold_in(
+        trandom.PRNGKey(0, device=cpu), 0)
+    card0 = dist_batch(torch, ds, batches[0], k0, fused_frontier=True)
+    same_batches(torch, card0, dist_batch(torch, ds_cpu, batches[0], k0_cpu),
+                 "step 0's batch, card vs CPU")
+    cpu_step = make_dist_train_step(
+        ds_cpu.graph, ds_cpu.feature, ds_cpu.labels,
+        Mesh([cpu] * DIST_SHARDS), DIST_FANOUT, DIST_BS)
+    cpu_state = twin.make_state(ds_cpu, DIST_FANOUT, DIST_BS, DIST_CLASSES,
+                                cpu)
+    _, cpu_loss, _ = cpu_step(cpu_state, batches[0], k0_cpu)
+    rep["card_loss"], rep["cpu_loss"] = float(losses[0]), float(cpu_loss)
+    rep["cpu_loss_rel_err"] = abs(rep["card_loss"] - rep["cpu_loss"]) / max(
+        abs(rep["cpu_loss"]), 1e-12)
+    need(rep["cpu_loss_rel_err"] <= F32_LOSS_RTOL,
+         f"step 0's loss on the card {rep['card_loss']} vs CPU "
+         f"{rep['cpu_loss']}")
+
+    # Variants, each equal to its counterpart.
+    same_batches(torch, dist_batch(torch, ds, batches[0], k0, route="sort"),
+                 dist_batch(torch, ds, batches[0], k0, route="onepass"),
+                 "route sort vs onepass")
+    same_batches(torch, card0, dist_batch(torch, ds, batches[0], k0),
+                 "B3 vs the plain take")
+    same_batches(torch, card0, dist_batch(torch, ds, batches[0], k0,
+                                          dedup_gather=True,
+                                          fused_frontier=True),
+                 "dedup_gather vs not")
+    capped = dist_batch(torch, ds, batches[0], k0, fused_frontier=True,
+                        exchange_load_factor=DIST_LOAD_FACTOR)
+    same_batches(torch, capped, dist_batch(
+        torch, ds_cpu, batches[0], k0_cpu,
+        exchange_load_factor=DIST_LOAD_FACTOR), "capped, card vs CPU")
+    rep["capped_dropped"] = [int(o.metadata["exchange_dropped"])
+                             for o, _, _ in capped]
+    del ds_cpu, cpu_step, cpu_state
+
+    # The capped step: B1 twice a hop a shard.
+    cstep = make_dist_train_step(ds.graph, ds.feature, ds.labels, mesh,
+                                 DIST_FANOUT, DIST_BS, fused_frontier=True,
+                                 exchange_load_factor=DIST_LOAD_FACTOR)
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    for b in range(DIST_STEPS, DIST_STEPS + 2):
+        state, loss, _ = cstep(state, batches[b], trandom.fold_in(key, b))
+    torch.cuda.synchronize()
+    capped_launches = {k: fn.launches
+                       for k, fn in kernel_wrappers(ops).items()}
+    need(capped_launches["sample_neighbors_cuda"]
+         == 2 * DIST_SHARDS * hops * 2,
+         f"B1 ran {capped_launches['sample_neighbors_cuda']} times in 2 "
+         f"capped steps, not {2 * DIST_SHARDS * hops} a step")
+    rep["capped_launches"] = capped_launches
+    rep["launches"] = {k: v + capped_launches[k]
+                       for k, v in launches.items()}
+
+    # Host syncs of a warm step, each by its innermost frames (only
+    # those inside the step: switching the mode back warns as well).
+    torch.cuda.synchronize()
+    rep["syncs"] = []
+    in_step = [False]
+
+    def on_warning(message, category, filename, lineno, *rest):
+        if in_step[0] and "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")]
+            rep["syncs"].append(" < ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                for f in frames[-4:][::-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            in_step[0] = True
+            state, loss, _ = step(state, batches[DIST_STEPS + 2],
+                                  trandom.fold_in(key, DIST_STEPS + 2))
+            in_step[0] = False
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    # One profiled step.
+    with profile_window(torch) as prof:
+        t0 = time.perf_counter()
+        state, loss, _ = step(state, batches[DIST_STEPS + 3],
+                              trandom.fold_in(key, DIST_STEPS + 3))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rep["profile"] = device_profile(torch, prof, 1, wall)
+    rep["profile"]["b1_kernels"] = b1_kernels(torch, prof)
+    rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rep["kernels"] = dict(zip(("B1", "B3"), time_dist_kernels(
+        torch, ops, trandom, ds, card0, sm_mhz)))
+    return rep
+
+
+def log_dist(rep: dict, card: str) -> None:
+    """Phase 11's lines (each number measured on ``card``)."""
+    p, cb = rep["profile"], rep["collective_bytes"]
+    log(f"dist: [{card}] {rep['nodes']} nodes, {rep['edges']} edges built "
+        f"in {rep['build_s']:.1f} s; sample_prob of {DIST_SHARDS} ranks on "
+        f"the card {rep['sample_prob_s']:.2f} s (rank 0 vs CPU max abs "
+        f"{rep['sample_prob_max_abs_err']:.2e}); FrequencyPartitioner "
+        f"{rep['partition_s']:.1f} s; DistDataset.load {rep['load_s']:.1f} s "
+        f"(CPU {rep['cpu_load_s']:.1f} s): {DIST_SHARDS} shards x "
+        f"{rep['nodes_per_shard']} nodes, edge width {rep['edge_width']}, "
+        f"{CHECK_ROWS} rows ({rep['checked_edges']} edges) equal to the "
+        f"relabelled host arrays")
+    log(f"  {DIST_STEPS} steps (fused_frontier): losses "
+        f"{rep['losses'][0]:.4f} -> {rep['losses'][-1]:.4f}; warm step "
+        f"median {rep['step_ms_median']:.2f} ms "
+        f"({rep['subgraphs_per_s']:.1f} subgraphs/s); launches "
+        f"{rep['main_launches']}; plain threefry on the card "
+        f"{rep['plain_hash_calls']}; peak memory "
+        f"{rep['max_memory_allocated'] / 2**30:.2f} GiB")
+    log(f"  step 0 card vs CPU: batch equal, loss {rep['card_loss']:.6f} vs "
+        f"{rep['cpu_loss']:.6f} (rel {rep['cpu_loss_rel_err']:.2e}); sort == "
+        f"onepass, B3 == plain take, dedup_gather == not, capped (load "
+        f"factor {DIST_LOAD_FACTOR}) == its CPU run, exchange_dropped "
+        f"{rep['capped_dropped']}; capped step launches "
+        f"{rep['capped_launches']}")
+    log(f"  profiled step: wall {p['wall_ms']:.2f} ms, {p['kernels']:.0f} "
+        f"kernels {p['kernels_ms']:.3f} ms ({p['kernel_share']:.1%}), B1 "
+        f"{p['b1_kernels']}, {p['copies']:.0f} copies {p['copies_ms']:.3f} "
+        f"ms, {p['memsets']:.0f} memsets {p['memsets_ms']:.3f} ms, "
+        f"{p['launch_calls']:.0f} host launch calls; collective bytes "
+        f"{cb['ici']} (ici) {cb['dcn']} (dcn) a step; syncs in a warm step "
+        f"{len(rep['syncs'])}")
+    for where in rep["syncs"][:8]:
+        log(f"    sync at {where}")
+    for k in p["top_kernels"][:5]:
+        log(f"    {k['count']:.0f} x {k['name']}: {k['ms']:.3f} ms")
+    for name, k in rep["kernels"].items():
+        lib = ("" if k["library_ms"] is None
+               else f", library {k['library_ms']:.4f} ms")
+        log(f"  {name} {k['shape']}: kernel {k['ms']:.5f} ms, plain "
+            f"{k['plain_ms']:.4f} ms{lib}, bound {k['bound_ms']:.5f} ms by "
+            f"{k['bound_by']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3499,12 +3877,20 @@ def main() -> int:
             torch, dev, indptr, indices, feat, labels, tr["node_capacity"],
             np.random.default_rng(50))
         log_ckpt_obs(co, smi[0], time.perf_counter() - t0)
+
+        # 11. partition and train across a mesh of shards
+        t0 = time.perf_counter()
+        report["dist"] = dd = run_dist(torch, ops, trandom, dev, sm_mhz)
+        dd["seconds"] = time.perf_counter() - t0
+        log_dist(dd, smi[0])
+        log(f"  phase 11: {dd['seconds']:.1f} s")
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
-                       for p in (sl, tr, st, report["digits"], lk, het, co))
+                       for p in (sl, tr, st, report["digits"], lk, het, co,
+                                 dd))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
@@ -3555,7 +3941,8 @@ def main() -> int:
                                "B4": b4, "B4_bf16": b4_bf16, "B5": b5,
                                "B2_link": lk["b2_link"],
                                "hetero": {n: het[n]["kernels"]
-                                          for n in ("rgat", "hgt")}}
+                                          for n in ("rgat", "hgt")},
+                               "dist": dd["kernels"]}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     log(report["device"]["nvidia_smi"])

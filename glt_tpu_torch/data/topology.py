@@ -118,6 +118,10 @@ class CSRTopo:
     def in_degrees(self) -> np.ndarray:
         return np.bincount(self._indices, minlength=self.num_nodes)
 
+    def to_coo(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(row, col)`` of the out-edges in CSR order."""
+        return csr_to_coo(self._indptr, self._indices)
+
     def __repr__(self) -> str:
         return (f"CSRTopo(num_nodes={self.num_nodes}, "
                 f"num_edges={self.num_edges})")

@@ -1,3 +1,4 @@
+from .dist_dataset import DistDataset
 from .sample_message import (
     SampleMessage,
     hetero_batch_to_message,
@@ -5,5 +6,5 @@ from .sample_message import (
     message_to_hetero_batch,
 )
 
-__all__ = ["SampleMessage", "hetero_batch_to_message", "message_to_batch",
-           "message_to_hetero_batch"]
+__all__ = ["DistDataset", "SampleMessage", "hetero_batch_to_message",
+           "message_to_batch", "message_to_hetero_batch"]

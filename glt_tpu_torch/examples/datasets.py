@@ -10,6 +10,38 @@ from ..data.topology import csr_to_coo
 from ..utils.device import DeviceLike
 
 
+def synthetic_products(scale: float = 0.01, dim: int = 100,
+                       num_classes: int = 47, seed: int = 0,
+                       device: DeviceLike = None):
+    """ogbn-products-shaped graph (2.45M nodes, 12 out-edges a node at
+    scale 1.0), ~70 % of the edges within a node's class, features the
+    class embedding plus noise.  Returns ``(dataset, train ids)``."""
+    rng = np.random.default_rng(seed)
+    n = max(1000, int(2_449_029 * scale))
+    deg = 12
+    labels = rng.integers(0, num_classes, n).astype(np.int32)
+    indptr = (np.arange(n + 1) * deg).astype(np.int64)
+    targets = rng.integers(0, n, (n, deg), dtype=np.int64)
+    same_mask = rng.random((n, deg)) < 0.7
+    # Redirect same-class picks to a random member of the same class.
+    class_members = [np.flatnonzero(labels == c) for c in range(num_classes)]
+    for c in range(num_classes):
+        rows = np.flatnonzero(labels == c)
+        picks = rng.choice(class_members[c], size=(rows.shape[0], deg))
+        targets[rows] = np.where(same_mask[rows], picks, targets[rows])
+    indices = targets.reshape(-1)
+    feat = (np.eye(num_classes, dtype=np.float32)[labels]
+            @ rng.normal(0, 1, (num_classes, dim)).astype(np.float32))
+    feat += rng.normal(0, 0.5, (n, dim)).astype(np.float32)
+    ds = (Dataset(device=device)
+          .init_graph((indptr.astype(np.int32), indices.astype(np.int32)),
+                      layout="CSR")
+          .init_node_features(feat)
+          .init_node_labels(labels))
+    train_idx = rng.permutation(n)[: int(n * 0.1)]
+    return ds, train_idx
+
+
 def synthetic_ppi(scale: float = 1.0, dim: int = 50, seed: int = 0,
                   device: DeviceLike = None):
     """PPI-shaped graph for unsupervised link prediction: ``max(500,

@@ -1,0 +1,652 @@
+"""Distributed neighbor sampling over a mesh of shards: the all-to-all
+id exchange (cf. ``glt_tpu/parallel/dist_sampler.py``, the flat 1-D
+route).
+
+Per hop, every shard:
+
+  1. buckets its frontier ids by owner shard (static capacity);
+  2. sends the buckets to their owners (one all-to-all);
+  3. samples the requests that landed on it from its local CSR block;
+  4. sends the neighbor and edge-id blocks back (one all-to-all);
+  5. reads each id's answer out of the returned buckets (the stitch).
+
+The multi-hop loop and the inducer are those of the single-device
+sampler.  ``glt_tpu`` runs the shard bodies under ``shard_map`` in one
+XLA program.  Here the functions take per-shard sequences (one tensor
+per shard) and run each stage for every shard in turn; the collectives
+sit between the stages in :func:`_all_to_all`, the one place a mesh of
+several GPUs will swap in ``torch.distributed.all_to_all_single``.  On
+the card each hop is one launch of kernel B1 per shard for the served
+requests (two with ``exchange_load_factor``, which samples the
+locally owned ids apart), and every key derivation one launch of the
+hash kernel.  No stage reads a device value on the host.
+
+Left for later slices (ROADMAP queue A item 7): the 2-D mesh and
+``HierarchicalRouting``, ``collective="ring"``, the routing autotuner,
+``sample_from_edges``, ``subgraph`` and ``dist_edge_exists``.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import random as trandom
+from ..obs import metrics as _metrics
+from ..obs.trace import span as _span
+from ..ops.neighbor_sample import sample_neighbors
+from ..ops.unique import (
+    dense_induce,
+    dense_induce_final,
+    dense_induce_init,
+    dense_map_fits,
+    unique_first_occurrence,
+)
+from ..sampler.base import SamplerOutput
+from ..sampler.neighbor_sampler import hop_widths, max_sampled_nodes
+from ..typing import PADDING_ID
+from .multihost import Mesh, mesh_axis_sizes, resolve_mesh_axes
+from .sharding import check_on_mesh
+
+__all__ = [
+    "DistNeighborSampler", "Routing", "bounded_remote_cap", "build_routing",
+    "dist_sample_multi_hop", "exchange_byte_model", "exchange_one_hop",
+    "mesh_axis_sizes", "resolve_mesh_axes",
+]
+
+# Host-boundary instrumentation: the per-shard stages stay span-free.
+_M_DIST_BATCHES = _metrics.counter(
+    "glt.dist.sample_batches", "distributed sample programs dispatched")
+_M_DIST_SAMPLE_MS = _metrics.histogram(
+    "glt.dist.sample_dispatch_ms",
+    "dist sampler dispatch wall per batch")
+
+_LATER = "is left for a later slice (ROADMAP queue A item 7)"
+
+
+def bounded_remote_cap(width: int, load_factor: float,
+                       num_shards: int) -> int:
+    """Per-owner request-bucket capacity for the bounded exchange:
+    ``ceil(load_factor * width / num_shards)``, clamped to ``[1, width]``."""
+    return min(width,
+               max(1, -(-int(round(load_factor * width)) // num_shards)))
+
+
+class Routing(NamedTuple):
+    """Owner-bucketed routing plan for one shard's frontier (see
+    :func:`build_routing`): everything an exchange needs to scatter ids
+    into per-owner request buckets and to read the responses back.
+    Built once per hop frontier and shared by every exchange over it."""
+    buckets: torch.Tensor   # [S * cap] ids grouped by owner, -1 padded
+    slot: torch.Tensor      # [B] bucket slot each input id landed in
+    valid: torch.Tensor     # [B] input validity (overflowed ids excluded)
+    dropped: torch.Tensor   # [] int32: ids beyond an owner's cap
+
+
+# route='auto' takes the one-pass rank up to this many shards: its
+# [B, S] rank matrix is O(B*S) elementwise work against the sort's
+# O(B log B).
+_ONEPASS_MAX_SHARDS = 16
+
+
+def _route_choice(b: int, num_shards: int, cap: int, route: str) -> str:
+    """The bucketing implementation: an explicit ``route`` ('sort' |
+    'onepass'), else the shard-count heuristic (the autotuner is ROADMAP
+    queue A item 4)."""
+    del b, cap
+    if route in ("sort", "onepass"):
+        return route
+    if route != "auto":
+        raise ValueError(f"route must be auto|sort|onepass, got {route!r}"
+                         + (f"; the {route!r} topology {_LATER}"
+                            if route in ("flat", "hier") else ""))
+    return "onepass" if num_shards <= _ONEPASS_MAX_SHARDS else "sort"
+
+
+def _use_fused(fused: Optional[bool]) -> bool:
+    """Whether neighbors and edge ids (or rows and labels) ride one
+    payload collective (the default) or two."""
+    return True if fused is None else bool(fused)
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def _bucket_by_owner_sort(ids: torch.Tensor, owner: torch.Tensor,
+                          num_shards: int, cap: int) -> Routing:
+    """Sort-based bucketing: a stable sort by owner, the segment starts
+    by a search over the sorted owner keys."""
+    b = ids.shape[0]
+    dev = ids.device
+    ids = _i32(ids)
+    valid = ids >= 0
+    owner_key = _i32(torch.where(valid, owner, num_shards))  # padding last
+    order = torch.sort(owner_key, stable=True).indices
+    sorted_ids = ids[order]
+    sorted_owner = owner_key[order]
+
+    starts = _i32(torch.searchsorted(
+        sorted_owner, torch.arange(num_shards + 1, dtype=torch.int32,
+                                   device=dev)))
+    rank = torch.arange(b, dtype=torch.int32, device=dev) \
+        - starts[sorted_owner.long()]
+    fits = rank < cap
+    live = sorted_owner < num_shards
+    sorted_slot = _i32(torch.where(
+        live & fits, sorted_owner * cap + rank.clamp(max=cap - 1),
+        num_shards * cap))
+
+    # Every overflowing id lands in the dump slot, cut off after.
+    buckets = torch.full((num_shards * cap + 1,), PADDING_ID,
+                         dtype=torch.int32, device=dev).scatter_(
+        0, sorted_slot.long(), sorted_ids)[:-1]
+    # `order` is a permutation: one write per index.
+    slot = torch.zeros(b, dtype=torch.int32, device=dev).scatter_(
+        0, order, sorted_slot)
+    slot_valid = torch.zeros(b, dtype=torch.bool, device=dev).scatter_(
+        0, order, fits & live)
+    dropped = (live & ~fits).sum(dtype=torch.int32)
+    return Routing(buckets=buckets,
+                   slot=slot.clamp(max=num_shards * cap - 1),
+                   valid=valid & slot_valid, dropped=dropped)
+
+
+def _bucket_by_owner_onepass(ids: torch.Tensor, owner: torch.Tensor,
+                             num_shards: int, cap: int) -> Routing:
+    """Sort-free bucketing: each id's rank within its owner from a
+    cumulative sum over an ``[S, B]`` one-hot; every field equals
+    :func:`_bucket_by_owner_sort`'s.  The one-hot lies owner-major, so
+    the sum runs along the contiguous axis (on the card a scan down
+    the B rows of a ``[B, S]`` one-hot is ~100x slower)."""
+    dev = ids.device
+    ids = _i32(ids)
+    valid = ids >= 0
+    owner_key = _i32(torch.where(valid, owner, num_shards))
+    onehot = torch.arange(num_shards, dtype=torch.int32,
+                          device=dev)[:, None] == owner_key[None, :]
+    rank_m = torch.cumsum(onehot, 1, dtype=torch.int32) - 1
+    rank = torch.where(onehot, rank_m, 0).sum(0, dtype=torch.int32)
+    in_range = owner_key < num_shards
+    fits = rank < cap
+    slot = _i32(torch.where(in_range & fits,
+                            owner_key * cap + rank.clamp(max=cap - 1),
+                            num_shards * cap))
+    buckets = torch.full((num_shards * cap + 1,), PADDING_ID,
+                         dtype=torch.int32, device=dev).scatter_(
+        0, slot.long(), ids)[:-1]
+    dropped = (in_range & ~fits).sum(dtype=torch.int32)
+    return Routing(buckets=buckets,
+                   slot=slot.clamp(max=num_shards * cap - 1),
+                   valid=valid & in_range & fits, dropped=dropped)
+
+
+def _bucket_by_owner(ids: torch.Tensor, owner: torch.Tensor,
+                     num_shards: int, cap: int,
+                     route: str = "auto") -> Routing:
+    """Group ids into per-owner rows of a static ``[S, cap]`` buffer.
+
+    Input order is kept within each owner, so a valid id gets slot
+    ``owner * cap + rank-within-owner``.  With ``cap = len(ids)`` no id
+    can overflow; with a smaller cap the ids past an owner's cap are
+    marked invalid and counted in ``dropped``.  ``route`` picks the rank
+    computation ('onepass' or 'sort'; equal outputs).
+    """
+    if _route_choice(ids.shape[0], num_shards, cap, route) == "onepass":
+        return _bucket_by_owner_onepass(ids, owner, num_shards, cap)
+    return _bucket_by_owner_sort(ids, owner, num_shards, cap)
+
+
+def _owner(ids: torch.Tensor, nodes_per_shard: int) -> torch.Tensor:
+    # Floor division of a padding id is masked to -1.
+    return torch.where(ids >= 0, ids // nodes_per_shard, -1)
+
+
+def build_routing(ids: torch.Tensor, nodes_per_shard: int, num_shards: int,
+                  cap: Optional[int] = None,
+                  route: str = "auto") -> Routing:
+    """The owner-bucketed routing plan for one shard's frontier of global
+    ids (``[B]``, -1 padded); ``cap`` per owner, ``None`` -> ``B``
+    (no overflow)."""
+    return _bucket_by_owner(ids, _owner(ids, nodes_per_shard), num_shards,
+                            ids.shape[0] if cap is None else int(cap),
+                            route=route)
+
+
+def _bucket_payload(routing: Routing, payload: torch.Tensor,
+                    num_shards: int, cap: int) -> torch.Tensor:
+    """Scatter a payload into the same bucket slots as its ids."""
+    buckets = torch.full((num_shards * cap + 1,), PADDING_ID,
+                         dtype=torch.int32, device=payload.device)
+    slot = torch.where(routing.valid, routing.slot, num_shards * cap)
+    return buckets.scatter_(0, slot.long(), _i32(payload))[:-1]
+
+
+def exchange_byte_model(topology: str, num_hosts: int, chips_per_host: int,
+                        cap: int, payload_elems: int,
+                        hier_cap: Optional[int] = None,
+                        elem_bytes: int = 4):
+    """Per-device ``(ici_bytes, dcn_bytes)`` of one request+response round
+    trip, from static plan shapes: on the flat route each device sends
+    ``cap`` ids (and ``payload_elems`` response elements per slot) to
+    every peer, ``C - 1`` of them within a host and ``(H - 1) * C``
+    across hosts."""
+    del hier_cap
+    if topology != "flat":
+        raise NotImplementedError(f"the {topology!r} topology {_LATER}")
+    h, c = int(num_hosts), int(chips_per_host)
+    per_slot = (1 + int(payload_elems)) * int(elem_bytes)
+    return int((c - 1) * cap * per_slot), int((h - 1) * c * cap * per_slot)
+
+
+def _all_to_all(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The mesh's all-to-all: shard ``r`` sends row ``q`` of its ``[S *
+    c, ...]`` block to shard ``q``, where it lands as row ``r``
+    (``lax.all_to_all(x.reshape(S, c), axis, 0, 0)``).  With every
+    shard on one device this is one ``[S_src, S_dst, c] -> [S_dst,
+    S_src, c]`` transpose."""
+    s = len(blocks)
+    rest = tuple(blocks[0].shape[1:])
+    c = blocks[0].shape[0] // s
+    moved = torch.stack([b.reshape((s, c) + rest) for b in blocks]
+                        ).transpose(0, 1).contiguous()
+    return [moved[q].reshape((s * c,) + rest) for q in range(s)]
+
+
+def _shards(x, num_shards: int) -> list:
+    """A per-shard sequence from a list or an ``[S, ...]`` tensor."""
+    out = list(x)
+    if len(out) != num_shards:
+        raise ValueError(f"{len(out)} shard blocks for {num_shards} shards")
+    return out
+
+
+def exchange_one_hop(
+    seeds: Sequence[torch.Tensor],
+    indptr: Sequence[torch.Tensor],
+    indices: Sequence[torch.Tensor],
+    edge_ids: Sequence[torch.Tensor],
+    nodes_per_shard: int,
+    num_shards: int,
+    fanout: int,
+    keys: Sequence[torch.Tensor],
+    remote_cap: Optional[int] = None,
+    route: str = "auto",
+    fused: Optional[bool] = None,
+    routing: Optional[Sequence[Routing]] = None,
+):
+    """One distributed sampling hop over every shard.
+
+    Args:
+      seeds: per shard, ``[B]`` global seed ids (-1 padded).
+      indptr/indices/edge_ids: per shard, its local CSR block (the rows
+        of a :class:`~glt_tpu_torch.parallel.sharding.ShardedGraph`).
+      keys: per shard, its key (``glt_tpu`` folds the shard index in).
+      remote_cap: bounded exchange.  ``None`` reserves the whole frontier
+        width for every owner.  With a cap, locally owned seeds never
+        enter the exchange (they are sampled straight from the local
+        block) and only remote ids ride per-owner buckets of
+        ``remote_cap`` slots; ids past an owner's cap are dropped
+        (padding) and counted.
+      route / fused: the bucketing implementation and whether neighbors
+        and edge ids ride one response collective.
+      routing: per shard, a pre-built plan for ``seeds``; honoured only
+        when ``remote_cap`` is None (the capped path buckets the remote
+        subset, another plan).
+
+    Returns, per shard, ``(nbrs, eids, mask, dropped)``: the first three
+    ``[B, fanout]`` in seed order, ``dropped`` an int32 scalar (0 when
+    ``remote_cap`` is None).
+    """
+    S, c = num_shards, nodes_per_shard
+    seeds = _shards(seeds, S)
+    indptr, indices = _shards(indptr, S), _shards(indices, S)
+    edge_ids, keys = _shards(edge_ids, S), _shards(keys, S)
+    b = seeds[0].shape[0]
+    plans, local = [], []
+    for s in range(S):
+        owner = _owner(seeds[s], c)
+        if remote_cap is None:
+            plans.append(routing[s] if routing is not None else
+                         _bucket_by_owner(seeds[s], owner, S, b, route))
+            local.append(None)
+        else:
+            # Locally owned seeds: sampled here, no exchange.
+            is_local = owner == s
+            lout = sample_neighbors(
+                indptr[s], indices[s],
+                torch.where(is_local, seeds[s] - s * c, -1), fanout,
+                keys[s], edge_ids=edge_ids[s], key_by="slot")
+            local.append((is_local, lout.nbrs, lout.eids))
+            plans.append(_bucket_by_owner(
+                torch.where(is_local, PADDING_ID, seeds[s]), owner, S,
+                int(remote_cap), route))
+
+    # Request exchange: row q of shard s's requests = what shard q wants.
+    requests = _all_to_all([p.buckets for p in plans])
+    served = []
+    for s in range(S):
+        req = requests[s]
+        lid = torch.where(req >= 0, req - s * c, -1)
+        lid = torch.where((lid >= 0) & (lid < c), lid, -1)
+        served.append(sample_neighbors(
+            indptr[s], indices[s], lid, fanout, trandom.fold_in(keys[s], 1),
+            edge_ids=edge_ids[s], key_by="slot"))
+
+    # Response exchange, then the stitch: each seed's answer from its slot.
+    if _use_fused(fused):
+        resp = _all_to_all([torch.cat([o.nbrs, o.eids], -1)
+                            for o in served])
+        resp = [(r[:, :fanout], r[:, fanout:]) for r in resp]
+    else:
+        resp = list(zip(_all_to_all([o.nbrs for o in served]),
+                        _all_to_all([o.eids for o in served])))
+    out = []
+    for s in range(S):
+        p = plans[s]
+        sel = p.valid[:, None]
+        slot = p.slot.long()
+        nbrs = torch.where(sel, resp[s][0][slot], PADDING_ID)
+        eids = torch.where(sel, resp[s][1][slot], PADDING_ID)
+        if local[s] is not None:
+            is_local, lnbrs, leids = local[s]
+            nbrs = torch.where(is_local[:, None], lnbrs, nbrs)
+            eids = torch.where(is_local[:, None], leids, eids)
+        out.append((nbrs, eids, nbrs >= 0, p.dropped))
+    return out
+
+
+def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.cat([x, torch.full((n,), PADDING_ID, dtype=torch.int32,
+                                    device=x.device)])
+
+
+class _ShardState:
+    """One shard's inducer state across the hops."""
+
+    def __init__(self, seeds, num_global, cap, dense, width0):
+        if dense:
+            self.state = dense_induce_init(num_global, cap,
+                                           device=seeds.device)
+            self.state, _ = dense_induce(self.state, seeds)
+            self.node_buf, self.count = self.state.node_buf, self.state.count
+            self.frontier = self.node_buf[:width0]
+        else:
+            u0 = unique_first_occurrence(seeds)
+            self.node_buf, self.count = u0.uniques, u0.count
+            self.frontier = u0.uniques
+        self.frontier_start = torch.zeros((), dtype=torch.int32,
+                                          device=seeds.device)
+        self.counts = [self.count]
+        self.rows, self.cols, self.eids, self.emasks = [], [], [], []
+        self.edges_per_hop = []
+        self.leaf_mask = None
+
+
+def dist_sample_multi_hop(
+    indptr: Sequence[torch.Tensor],
+    indices: Sequence[torch.Tensor],
+    edge_ids: Sequence[torch.Tensor],
+    seeds: Sequence[torch.Tensor],
+    keys: Sequence[torch.Tensor],
+    num_neighbors: Sequence[int],
+    nodes_per_shard: int,
+    num_shards: int,
+    frontier_cap: Optional[int] = None,
+    collective: str = "all_to_all",
+    dedup: str = "auto",
+    last_hop_dedup: bool = True,
+    exchange_load_factor: Optional[float] = None,
+    route: str = "auto",
+    fused: Optional[bool] = None,
+) -> List[SamplerOutput]:
+    """Multi-hop sampling of every shard's seed batch; returns one
+    :class:`SamplerOutput` per shard.
+
+    The structure of the single-device sampler (frontier, cumulative
+    first-occurrence dedup, relabelled COO) with :func:`exchange_one_hop`
+    as the one-hop primitive; ``keys`` holds each shard's key, split
+    per hop.  ``dedup``: 'dense' keeps a per-shard ``[N_global]`` id map,
+    'sort' a growing unique buffer, 'auto' dense up to a ~1 GB map.
+    ``exchange_load_factor`` (α) bounds each hop's per-owner buckets at
+    ``ceil(α * width / num_shards)`` remote ids (locally owned ids skip
+    the exchange); the dropped requests are summed per shard in
+    ``metadata['exchange_dropped']``.  On the uncapped path each hop's
+    plan is built once by :func:`build_routing` and threaded in.
+    """
+    if collective != "all_to_all":
+        raise NotImplementedError(f"collective={collective!r} {_LATER}")
+    S, c = num_shards, nodes_per_shard
+    indptr, indices = _shards(indptr, S), _shards(indices, S)
+    edge_ids, seeds = _shards(edge_ids, S), _shards(seeds, S)
+    fanouts = list(num_neighbors)
+    b = seeds[0].shape[0]
+    widths = hop_widths(b, fanouts, frontier_cap)
+    cap = max_sampled_nodes(b, fanouts, frontier_cap)
+    num_global = c * S
+    if dedup == "auto":
+        dedup = "dense" if dense_map_fits(num_global) else "sort"
+    dense = dedup == "dense"
+    st = [_ShardState(_i32(seeds[s]), num_global, cap, dense, widths[0])
+          for s in range(S)]
+    hop_keys = [trandom.split(k, len(fanouts)) for k in _shards(keys, S)]
+    leaf_off = cap - widths[-1] * fanouts[-1]
+    dropped_total = [torch.zeros((), dtype=torch.int32,
+                                 device=seeds[s].device) for s in range(S)]
+
+    for i, f in enumerate(fanouts):
+        w = widths[i]
+        last = i + 1 == len(fanouts)
+        remote_cap = (None if exchange_load_factor is None
+                      else bounded_remote_cap(w, exchange_load_factor, S))
+        frontiers = [x.frontier for x in st]
+        hop_routing = (None if remote_cap is not None else
+                       [build_routing(fr, c, S, route=route)
+                        for fr in frontiers])
+        hop = exchange_one_hop(frontiers, indptr, indices, edge_ids, c, S,
+                               f, [k[i] for k in hop_keys],
+                               remote_cap=remote_cap, route=route,
+                               fused=fused, routing=hop_routing)
+        for s, x in enumerate(st):
+            nbrs, eids, mask, dropped = hop[s]
+            dev = nbrs.device
+            dropped_total[s] = dropped_total[s] + dropped
+            src_local = x.frontier_start + torch.arange(
+                w, dtype=torch.int32, device=dev)
+            src_local = torch.where(x.frontier >= 0, src_local, PADDING_ID)
+            cand = nbrs.reshape(-1)
+            if last and not last_hop_dedup:
+                # Leaf block: no inducer at the widest frontier.
+                x.leaf_mask = mask.reshape(-1)
+                leaf_ids = torch.where(x.leaf_mask, cand, PADDING_ID)
+                nbr_local = (leaf_off + torch.arange(
+                    w * f, dtype=torch.int32, device=dev)).reshape(w, f)
+                if dense:
+                    x.node_buf[leaf_off: leaf_off + w * f] = leaf_ids
+                else:
+                    x.node_buf = torch.cat([x.node_buf, leaf_ids])
+                new_count = x.count + x.leaf_mask.sum(dtype=torch.int32)
+            elif dense:
+                induce = dense_induce_final if last else dense_induce
+                x.state, nbr_local = induce(x.state, cand)
+                x.node_buf, new_count = x.state.node_buf, x.state.count
+                nbr_local = nbr_local.reshape(w, f)
+            else:
+                buflen = x.node_buf.shape[0]
+                merged = unique_first_occurrence(torch.cat([x.node_buf,
+                                                            cand]))
+                x.node_buf, new_count = merged.uniques, merged.count
+                nbr_local = merged.inverse[buflen:].reshape(w, f)
+            nbr_local = torch.where(mask, nbr_local, PADDING_ID)
+
+            x.rows.append(nbr_local.reshape(-1))
+            x.cols.append(src_local[:, None].expand(w, f).reshape(-1))
+            x.eids.append(eids.reshape(-1))
+            x.emasks.append(mask.reshape(-1))
+            x.edges_per_hop.append(mask.sum(dtype=torch.int32))
+            if not last:
+                nw = widths[i + 1]
+                start = x.count.clamp(0, x.node_buf.shape[0]).long()
+                at = start + torch.arange(nw, device=dev)
+                x.frontier = _pad(x.node_buf, nw)[at]
+                x.frontier_start = x.count
+            x.count = new_count
+            x.counts.append(x.count)
+
+    outs = []
+    for s, x in enumerate(st):
+        dev = x.count.device
+        node_buf = x.node_buf
+        if node_buf.shape[0] < cap:
+            node_buf = _pad(node_buf, cap - node_buf.shape[0])
+        node_buf = node_buf[:cap]
+        count = x.count.clamp(max=cap)
+        slots = torch.arange(cap, dtype=torch.int32, device=dev)
+        if x.leaf_mask is None:
+            node_mask = slots < count
+        else:
+            interior = (count - x.edges_per_hop[-1]).clamp(max=leaf_off)
+            node_mask = (slots < interior) | torch.cat([
+                torch.zeros(leaf_off, dtype=torch.bool, device=dev),
+                x.leaf_mask])
+        n = x.counts
+        outs.append(SamplerOutput(
+            node=node_buf,
+            row=torch.cat(x.rows),
+            col=torch.cat(x.cols),
+            edge=torch.cat(x.eids),
+            batch=seeds[s],
+            node_mask=node_mask,
+            edge_mask=torch.cat(x.emasks),
+            num_sampled_nodes=torch.stack(
+                [n[0]] + [n[j + 1] - n[j] for j in range(len(fanouts))]),
+            num_sampled_edges=torch.stack(x.edges_per_hop),
+            metadata=(None if exchange_load_factor is None
+                      else {"exchange_dropped": dropped_total[s]})))
+    return outs
+
+
+def _stack_outputs(outs: Sequence[SamplerOutput]) -> SamplerOutput:
+    """Per-shard outputs as one output whose fields lead with the shard
+    axis (``glt_tpu``'s ``shard_map`` result)."""
+    def stack(name):
+        return torch.stack([getattr(o, name) for o in outs])
+
+    meta = outs[0].metadata
+    return SamplerOutput(
+        node=stack("node"), row=stack("row"), col=stack("col"),
+        edge=stack("edge"), batch=stack("batch"),
+        node_mask=stack("node_mask"), edge_mask=stack("edge_mask"),
+        num_sampled_nodes=stack("num_sampled_nodes"),
+        num_sampled_edges=stack("num_sampled_edges"),
+        metadata=(None if meta is None else
+                  {k: torch.stack([o.metadata[k] for o in outs])
+                   for k in meta}))
+
+
+def seeds_on_mesh(seeds, mesh: Mesh) -> torch.Tensor:
+    """``[S, B]`` host seeds (numpy or a tensor) as an int32 tensor on the
+    mesh's device.  A host array goes through pinned memory, so the
+    copy does not wait for the device."""
+    if isinstance(seeds, torch.Tensor):
+        return seeds.to(device=mesh.device, dtype=torch.int32)
+    host = torch.from_numpy(np.ascontiguousarray(seeds, dtype=np.int32))
+    if mesh.device.type == "cuda":
+        return host.pin_memory().to(mesh.device, non_blocking=True)
+    return host
+
+
+class DistNeighborSampler:
+    """Multi-hop distributed sampler over a :class:`ShardedGraph` on a
+    :class:`~glt_tpu_torch.parallel.multihost.Mesh`.
+
+    The multi-hop structure is the single-device
+    :class:`~glt_tpu_torch.sampler.NeighborSampler`'s; only the one-hop
+    primitive is the all-to-all exchange.  :meth:`sample_from_nodes`
+    returns a :class:`SamplerOutput` whose fields lead with the shard
+    axis: each shard's batch is its own ego-subgraph, ready for
+    data-parallel training.
+    """
+
+    def __init__(self, sharded_graph, mesh: Mesh,
+                 axis_name: Optional[str] = None,
+                 num_neighbors: Sequence[int] = (15, 10, 5),
+                 batch_size: int = 512,
+                 frontier_cap: Optional[int] = None,
+                 collective: str = "all_to_all",
+                 seed: int = 0,
+                 last_hop_dedup: bool = True,
+                 exchange_load_factor: Optional[float] = None,
+                 route: str = "auto",
+                 fused: Optional[bool] = None,
+                 hier_load_factor: Optional[float] = None):
+        if collective != "all_to_all":
+            raise NotImplementedError(f"collective={collective!r} {_LATER}")
+        if hier_load_factor is not None:
+            raise NotImplementedError(f"hier_load_factor: the hierarchical "
+                                      f"routing {_LATER}")
+        g = sharded_graph
+        if g.num_shards != mesh.size:
+            raise ValueError(f"a graph of {g.num_shards} shards on a mesh "
+                             f"of {mesh.size}")
+        check_on_mesh(mesh, indptr=g.indptr, indices=g.indices,
+                      edge_ids=g.edge_ids)
+        self.collective = collective
+        self.last_hop_dedup = bool(last_hop_dedup)
+        self.exchange_load_factor = exchange_load_factor
+        self.fused = fused
+        self.g = g
+        self.mesh = mesh
+        self.axis_name = resolve_mesh_axes(mesh, axis_name)
+        self.mesh_shape = mesh_axis_sizes(mesh, self.axis_name)
+        self.num_neighbors = list(num_neighbors)
+        self.batch_size = int(batch_size)
+        self.frontier_cap = frontier_cap
+        self._base_key = trandom.PRNGKey(seed, device=mesh.device)
+        self._call_count = 0
+        self._widths = hop_widths(self.batch_size, self.num_neighbors,
+                                  frontier_cap)
+        # 'auto' resolves once, at the widest frontier, to the
+        # shard-count heuristic (glt_tpu's autotuner pins the same
+        # choice off the TPU).
+        self.route = _route_choice(max(self._widths), g.num_shards,
+                                   max(self._widths), route)
+        self.node_capacity = max_sampled_nodes(self.batch_size,
+                                               self.num_neighbors,
+                                               frontier_cap)
+
+    def _next_key(self) -> torch.Tensor:
+        key = trandom.fold_in(self._base_key, self._call_count)
+        self._call_count += 1
+        return key
+
+    def _sample_local(self, seeds: Sequence[torch.Tensor],
+                      key: torch.Tensor) -> List[SamplerOutput]:
+        """Every shard's body: shard ``s`` samples with ``fold_in(key,
+        s)``, as ``glt_tpu`` folds in the mesh axis index."""
+        g = self.g
+        return dist_sample_multi_hop(
+            g.indptr, g.indices, g.edge_ids, seeds,
+            [trandom.fold_in(key, s) for s in range(g.num_shards)],
+            self.num_neighbors, g.nodes_per_shard, g.num_shards,
+            self.frontier_cap, self.collective,
+            last_hop_dedup=self.last_hop_dedup,
+            exchange_load_factor=self.exchange_load_factor,
+            route=self.route, fused=self.fused)
+
+    def sample_from_nodes(self, seeds_per_shard,
+                          key: Optional[torch.Tensor] = None
+                          ) -> SamplerOutput:
+        """``seeds_per_shard``: ``[S, batch_size]`` global ids, -1
+        padded (a host array or a tensor)."""
+        if key is None:
+            key = self._next_key()
+        seeds = seeds_on_mesh(seeds_per_shard, self.mesh)
+        # The span times the host dispatch of every shard's stages; the
+        # consumer's sync sees the device work.
+        with _span("dist.sample_dispatch", route=self.route), \
+                _M_DIST_SAMPLE_MS.time():
+            out = _stack_outputs(self._sample_local(seeds, key))
+        _M_DIST_BATCHES.inc()
+        return out

@@ -20,7 +20,9 @@ modes (``last_hop_dedup``) and the occupancy-capped node buffer
 negatives, uniform or weighted), the induced subgraph
 (:meth:`NeighborSampler.subgraph`), the one-hop primitive and the
 batched node entry point (:meth:`NeighborSampler.sample_from_nodes_batched`:
-``G`` batches in one CUDA graph on the card, a loop on the CPU).
+``G`` batches in one CUDA graph on the card, a loop on the CPU) and
+the hotness estimate of the frequency partitioner
+(:meth:`NeighborSampler.sample_prob`).
 """
 from __future__ import annotations
 
@@ -584,6 +586,45 @@ class NeighborSampler:
                 meta["edge_label"] = torch.where(src >= 0, label, PADDING_ID)
         out.metadata = meta
         return out
+
+    # -- hotness estimation ----------------------------------------------------
+    def sample_prob(self, seed_ids, node_count: int) -> torch.Tensor:
+        """Per-node probability of being touched by sampling from
+        ``seed_ids`` (``[num_nodes]`` f32 on the sampler's device, zero
+        padded to ``node_count``).
+
+        One whole-graph sparse propagation per hop: an edge ``u -> v``
+        adds ``p_u * min(fanout / deg_u, 1)`` to ``p_v``; the hops'
+        results are union-bounded into a cumulative visit probability.
+        The frequency partitioner's hotness scores.  The sums go through
+        ``index_add_`` (atomics on the card), so they agree with
+        ``glt_tpu``'s ``segment_sum`` to f32 round-off, not bit for bit.
+        """
+        g = self.graph
+        indptr, indices = g.indptr, g.indices
+        dev = indptr.device
+        num_nodes = int(indptr.shape[0]) - 1
+        edge_src = torch.searchsorted(
+            indptr, torch.arange(indices.shape[0], dtype=indptr.dtype,
+                                 device=dev), right=True) - 1
+        deg = (indptr[1:] - indptr[:-1]).to(torch.float32)
+
+        prob = torch.zeros(num_nodes, dtype=torch.float32, device=dev)
+        seeds = torch.as_tensor(np.asarray(seed_ids, np.int64)).to(dev)
+        prob[seeds] = 1.0
+        total = prob
+        for f in self.num_neighbors:
+            w = torch.clamp(f / deg.clamp(min=1.0), max=1.0)
+            contrib = prob[edge_src] * w[edge_src]
+            nxt = torch.zeros(num_nodes, dtype=torch.float32,
+                              device=dev).index_add_(0, indices.long(),
+                                                     contrib)
+            prob = nxt.clamp(max=1.0)
+            total = (total + prob).clamp(max=1.0)
+        if node_count > num_nodes:
+            total = torch.cat([total, torch.zeros(
+                node_count - num_nodes, dtype=torch.float32, device=dev)])
+        return total
 
     # -- induced subgraph ----------------------------------------------------
     def subgraph(self, inputs: NodeSamplerInput, max_degree: int = 64,

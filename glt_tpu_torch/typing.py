@@ -2,7 +2,9 @@
 ``glt_tpu/typing.py``)."""
 from __future__ import annotations
 
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
 
 NodeType = str
 EdgeType = Tuple[str, str, str]
@@ -45,3 +47,20 @@ def reverse_edge_type(etype: EdgeType) -> EdgeType:
         else:
             rel = _REVERSE_PREFIX + rel
     return (dst, rel, src)
+
+
+class GraphPartitionData(NamedTuple):
+    """One partition's topology on the host: COO edges and their global
+    edge ids."""
+    edge_index: np.ndarray  # [2, E] global node ids (row=src, col=dst)
+    eids: np.ndarray        # [E] global edge ids
+    weights: Optional[np.ndarray] = None
+
+
+class FeaturePartitionData(NamedTuple):
+    """One partition's feature rows on the host and the global ids they
+    belong to, with the hot-cache rows of remote nodes."""
+    feats: np.ndarray            # [n, d]
+    ids: np.ndarray              # [n] global ids
+    cache_feats: Optional[np.ndarray] = None
+    cache_ids: Optional[np.ndarray] = None

@@ -71,6 +71,20 @@ CKPT_OBS_MODULES = (
         "metrics", "flight", "trace", "summarize", "merge", "slo",
         "device", "compilewatch", "profiler", "roofline", "attrib"))
 
+# The distributed slice's modules.
+DIST_MODULES = (
+    "glt_tpu_torch.partition", "glt_tpu_torch.partition.base",
+    "glt_tpu_torch.partition.random_partitioner",
+    "glt_tpu_torch.partition.frequency_partitioner",
+    "glt_tpu_torch.partition.contiguous", "glt_tpu_torch.parallel",
+    "glt_tpu_torch.parallel.multihost", "glt_tpu_torch.parallel.sharding",
+    "glt_tpu_torch.parallel.dist_sampler",
+    "glt_tpu_torch.parallel.dist_feature",
+    "glt_tpu_torch.parallel.dist_train",
+    "glt_tpu_torch.distributed.dist_dataset",
+    "glt_tpu_torch.examples.partition_dataset",
+    "glt_tpu_torch.examples.dist_train_papers100m")
+
 
 def test_port_imports_no_jax():
     env = dict(os.environ)
@@ -88,3 +102,4 @@ def test_port_imports_no_jax():
                                                  - walked)
     assert set(CKPT_OBS_MODULES) <= walked, sorted(set(CKPT_OBS_MODULES)
                                                    - walked)
+    assert set(DIST_MODULES) <= walked, sorted(set(DIST_MODULES) - walked)

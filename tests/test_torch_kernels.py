@@ -1010,3 +1010,95 @@ def test_replayed_hetero_block_matches_eager(cuda_device):
     assert sample_cuda.sample_neighbors_cuda.launches == b1 + 6 * (15 + 11)
     for pa, pb in zip(a.model.parameters(), b.model.parameters()):
         torch.testing.assert_close(pa, pb, rtol=1e-5, atol=1e-5)
+
+
+def _dist_pair(dev, shards=4):
+    """A small partition directory loaded on ``dev`` and on the CPU."""
+    import tempfile
+
+    from glt_tpu_torch.distributed import DistDataset
+    from glt_tpu_torch.partition import RandomPartitioner
+
+    rng = np.random.default_rng(5)
+    n = 600
+    indptr, indices, _, _ = _graph(seed=4, n=n)
+    src, dst = csr_to_coo(indptr, indices)
+    feat = rng.standard_normal((n, 12)).astype(np.float32)
+    labels = rng.integers(0, 5, n).astype(np.int32)
+    with tempfile.TemporaryDirectory() as root:
+        RandomPartitioner(root, shards, n, np.stack([src, dst]),
+                          node_feat=feat, seed=1).partition()
+        return (DistDataset.load(root, labels=labels, device=dev),
+                DistDataset.load(root, labels=labels, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capped", [False, True])
+def test_dist_sample_on_card_equals_cpu(cuda_device, capped):
+    """A 4-shard DistNeighborSampler batch on cuda:0 shards (B1 once per
+    hop a shard, twice capped) equals the CPU's bit for bit."""
+    from glt_tpu_torch.parallel import DistNeighborSampler, Mesh
+
+    gds, cds = _dist_pair(cuda_device)
+    kw = dict(num_neighbors=[5, 4], batch_size=16, seed=3,
+              exchange_load_factor=2.0 if capped else None)
+    gs = DistNeighborSampler(gds.graph, Mesh([cuda_device] * 4), **kw)
+    cs = DistNeighborSampler(cds.graph, Mesh(["cpu"] * 4), **kw)
+    seeds = cds.split_seeds(np.arange(600), 16, shuffle=True, seed=2)[0]
+    b1 = sample_cuda.sample_neighbors_cuda.launches
+    got = gs.sample_from_nodes(seeds)
+    assert sample_cuda.sample_neighbors_cuda.launches == b1 + 4 * 2 * (
+        2 if capped else 1)
+    want = cs.sample_from_nodes(seeds)
+    for f in ("node", "row", "col", "edge", "batch", "node_mask",
+              "edge_mask", "num_sampled_nodes", "num_sampled_edges"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_dist_step_loss_on_card_equals_cpu(cuda_device):
+    """One make_dist_train_step step (B3 serving the feature requests) on
+    cuda:0 shards gives the CPU's loss within 1e-5 from the same
+    weights."""
+    from glt_tpu_torch.parallel import (Mesh, init_dist_state,
+                                        make_dist_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gds, cds = _dist_pair(cuda_device)
+    seeds = cds.split_seeds(np.arange(600), 16, shuffle=True, seed=2)[0]
+    torch.manual_seed(0)
+    model = GraphSAGE(12, 32, 5, num_layers=2, dropout_rate=0.0)
+    losses = []
+    for ds, dev in ((gds, cuda_device), (cds, torch.device("cpu"))):
+        m = GraphSAGE(12, 32, 5, num_layers=2, dropout_rate=0.0).to(dev)
+        m.load_state_dict(model.state_dict())
+        state = init_dist_state(m, adam(1e-3), ds.graph, ds.feature, [5, 4],
+                                16)
+        step = make_dist_train_step(ds.graph, ds.feature, ds.labels,
+                                    Mesh([dev] * 4), [5, 4], 16,
+                                    fused_frontier=dev.type == "cuda")
+        b3 = fused_frontier_cuda.launches
+        state, loss, _ = step(state, seeds, trandom.PRNGKey(7, device=dev))
+        if dev.type == "cuda":
+            assert fused_frontier_cuda.launches == b3 + 4
+        losses.append(float(loss))
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_request_rows_b3_equals_take(cuda_device):
+    """The feature exchange's serve through B3 equals its plain masked
+    take bit for bit, padding and repeated hub rows included."""
+    from glt_tpu_torch.parallel.dist_feature import _request_rows
+
+    rng = np.random.default_rng(8)
+    rows = torch.from_numpy(rng.standard_normal((500, 128)).astype(
+        np.float32)).to(cuda_device)
+    req = np.concatenate([rng.integers(0, 500, 3000), np.full(64, 7),
+                          rng.integers(-600, 1100, 1000)]).astype(np.int32)
+    local = torch.from_numpy(req).to(cuda_device)
+    ok = (local >= 0) & (local < 500)
+    b3 = fused_frontier_cuda.launches
+    got = _request_rows(rows, local, ok, True)
+    assert fused_frontier_cuda.launches == b3 + 1
+    assert torch.equal(got, _request_rows(rows, local, ok, False))
