@@ -96,14 +96,18 @@ Phases (the first failure exits non-zero and prints no result line):
    triplet x2 and a weighted binary batch, 4 blocks of the scanned link
    step at G = 8 (GraphSAGE 64/64, unsupervised dot-product loss) and 4
    blocks of the scanned subgraph step at the SEAL settings (fanout (8,
-   8), max degree 16, 32 links a batch, GraphSAGE 32/32): B1 once per hop
-   of every sample, the plain threefry arithmetic never on the card.
+   8), max degree 16, 32 links a batch, GraphSAGE 32/32), each step's
+   first block eager, the second captured into a CUDA graph (one capture
+   a step), the rest replayed: B1 once per hop of every eager and
+   captured sample, the plain threefry arithmetic never on the card.
    Then link batch 0 and subgraph batch 0 sampled again on the CPU and
    required equal, one link and one subgraph batch's loss on the CPU
    within F32_LOSS_RTOL (both steps run f32), that subgraph batch's
    induced edges exactly the real edges among its nodes within the
-   degree cap, one profiled block of each step, and B2 timed at the link
-   batch's node list;
+   degree cap; per step one replayed block and the same block eager
+   from a copy of the state (a fresh step), both profiled, their losses
+   within F32_LOSS_RTOL, then blocks timed in turns (eager, replayed,
+   replayed, eager); and B2 timed at the link batch's node list;
 9. hetero: the settings of ``examples/rgat_igbh.py`` (R-GAT, hidden 32,
    2 layers, 2 heads, fanout (4, 4), Adam 5e-3) on synthetic IGBH at
    scale 1,000 and of ``examples/train_hgt_mag.py`` (HGT, hidden 64, 4
@@ -159,8 +163,34 @@ Phases (the first failure exits non-zero and prints no result line):
    ``torch.profiler`` capture and its flight index, and the host-clock
    ms of a replayed node step with tracing and metrics on and off (in
    turns);
-11. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-10) and the ok line.
+11. distributed: ``examples/dist_train_papers100m.py``'s settings at
+   DIST_SCALE (``sample_prob`` of every rank on the card, rank 0 within
+   1e-6 of the CPU's; ``FrequencyPartitioner``; ``DistDataset.load`` on
+   the card and the CPU, CHECK_ROWS rows held to the host arrays), 4
+   shards on ``cuda:0``, batch 128 a shard, fanout (12, 10), GraphSAGE
+   256 x 2, B3 serving.  With the launch counts set to 0 just before and
+   read just after: DIST_STEPS eager steps (B1 8 and B3 4 a step, the
+   loss falling); step 0's batch and loss against the CPU; the route,
+   dedup, B3 and capped variants against their counterparts; two capped
+   steps (B1 16 a step); a warm step's host syncs (none); one profiled
+   step.  Then the scanned step at G = GROUP: with the counts set to 0
+   just before and read just after, DIST_SCAN_BLOCKS blocks (eager,
+   captured, replays; B1 8 and B3 4 a slot in the eager block, none in
+   a replay, one capture); the first block's slot 0 against the CPU's
+   scanned step within F32_LOSS_RTOL; one replayed block and the same
+   block eager from a copy of the state, both profiled (B1 8 a replayed
+   step by name), their losses within F32_LOSS_RTOL;
+12. the example twins, each through its entry point with the launch
+   counts set to 0 just before and read just after:
+   ``train_sage_products`` at its widths (batch 1024, fanout (15, 10,
+   5), hidden 256, bf16) on TWIN_PRODUCTS_SCALE of the products graph,
+   three scanned epochs (two blocks an epoch, captured in the second
+   epoch, replayed in the third) and one loader epoch;
+   ``bipartite_sage_unsup`` and ``dist_train_sage`` (8 shards on the
+   card) at their defaults for TWIN_EPOCHS epochs: every loss finite,
+   the bipartite loss falling, the plain threefry never on the card;
+13. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-12) and the ok line.
 
 Details go to ``build/results/chip_smoke.json`` (phase 10's trace to
 ``build/results/phase10_trace.json``).  Imports torch, numpy and
@@ -265,6 +295,14 @@ OUT_DIR = os.path.join("build", "results")
 DIST_SHARDS, DIST_SCALE, DIST_DIM, DIST_CLASSES = 4, 0.02, 128, 172
 DIST_BS, DIST_FANOUT, DIST_STEPS = 128, (12, 10), 20
 DIST_LOAD_FACTOR, CHECK_ROWS = 2.0, 2048
+# The scanned distributed step: DIST_SCAN_BLOCKS blocks of GROUP slots
+# (eager, captured, replays), then one more replayed and eager block.
+DIST_SCAN_BLOCKS = 5
+# The example twins at their own widths, cut in depth: the products twin
+# at TWIN_PRODUCTS_SCALE (12 batches of 1024, two blocks an epoch) for
+# 3 scanned epochs (eager, captured, replayed) and 1 loader epoch; the
+# bipartite and dist_train_sage twins at their defaults for 2 epochs.
+TWIN_PRODUCTS_SCALE, TWIN_EPOCHS = 0.05, 2
 DEVICE = "cuda"
 
 
@@ -1868,6 +1906,7 @@ def run_link(torch, dev, indptr, indices, feat, rng):
         make_scanned_link_train_step,
         make_scanned_subgraph_train_step,
     )
+    from glt_tpu_torch.obs import compilewatch
     from glt_tpu_torch.sampler import (
         EdgeSamplerInput,
         NegativeSampling,
@@ -1927,6 +1966,8 @@ def run_link(torch, dev, indptr, indices, feat, rng):
     for fn in kernel_wrappers(ops).values():
         fn.launches = 0
     trandom.threefry2x32.calls = 0
+    captures0 = {p: compilewatch.counts(p)
+                 for p in ("scanned_link_step", "scanned_subgraph_step")}
     torch.cuda.synchronize()
     loader = LinkNeighborLoader(
         ds, LINK_FANOUT, loader_edges, batch_size=LINK_BS,
@@ -1990,11 +2031,16 @@ def run_link(torch, dev, indptr, indices, feat, rng):
     plain_calls = trandom.threefry2x32.calls
     need(plain_calls == 0, f"the link phase ran the plain threefry "
                            f"arithmetic on the card ({plain_calls} calls)")
-    samples = (len(batches) + 2 + LINK_BLOCKS * GROUP
-               + SEAL_BLOCKS * GROUP)
+    captures = {p: compilewatch.counts(p) - captures0[p] for p in captures0}
+    need(captures == {"scanned_link_step": 1, "scanned_subgraph_step": 1},
+         f"captures in the link phase: {captures}, not one a step")
+    # B1 once per hop of each eager sample: the loader's, the two
+    # variants', and each step's first block (eager) and second (its
+    # capture); the other blocks replay without moving a counter.
+    samples = len(batches) + 2 + 2 * GROUP + 2 * GROUP
     need(launches["sample_neighbors_cuda"] == 2 * samples,
          f"B1 launched {launches['sample_neighbors_cuda']} times for "
-         f"{samples} samples of 2 hops")
+         f"{samples} eager and captured samples of 2 hops")
     for k in ("threefry_hash_cuda", "gather_rows_cuda"):
         need(launches[k] > 0, f"the link phase never launched {k}")
     rep["launches"] = launches
@@ -2112,19 +2158,62 @@ def run_link(torch, dev, indptr, indices, feat, rng):
     need(seal_err <= F32_LOSS_RTOL,
          f"subgraph loss: card {seal_pair[0]} vs CPU {seal_pair[1]}")
 
-    # -- one profiled block of each ------------------------------------------
-    profiled = {}
-    for name, fn in (
-            ("link", lambda: lstep(lstate, *lblocks[1][:2],
-                                   trandom.PRNGKey(50, device=dev))),
-            ("subgraph", lambda: gstep(gstate, *gblocks[1],
-                                       trandom.PRNGKey(51, device=dev)))):
-        with profile_window(torch) as prof:
-            t1 = time.perf_counter()
-            fn()
+    # -- each step: a replayed block against an eager block from one state,
+    #    both profiled, then blocks timed in turns ------------------------
+    lmake = (lambda: link_model(torch, GraphSAGE, init_params, dev,
+                                LINK_HIDDEN))
+    gmake = (lambda: link_model(torch, GraphSAGE, init_params, dev,
+                                SEAL_HIDDEN))
+    states = {"link": lstate, "subgraph": gstate}
+    fresh = {"link": lambda: make_scanned_link_train_step(
+                 lsamp, ds.get_node_feature(), unsup_dot_loss,
+                 NegativeSampling("binary", 1)),
+             "subgraph": lambda: make_scanned_subgraph_train_step(
+                 gsamp, ds.get_node_feature(), pair_loss,
+                 max_degree=SEAL_DEGREE)}
+    graph_steps = {"link": lstep, "subgraph": gstep}
+    args = {"link": lblocks[1][:2], "subgraph": gblocks[1]}
+    makes = {"link": lmake, "subgraph": gmake}
+    profiled, replay_rel, turn_ms = {}, {}, {}
+    for name in ("link", "subgraph"):
+        twin = copy_state(states[name], makes[name], adam(LR))
+        key = trandom.PRNGKey(50, device=dev)
+        outs = {}
+        for route, run in (("replayed", graph_steps[name]),
+                           ("eager", fresh[name]())):
+            with profile_window(torch) as prof:
+                t1 = time.perf_counter()
+                if route == "replayed":
+                    states[name], ls = run(states[name], *args[name], key)
+                else:
+                    twin, ls = run(twin, *args[name], key)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t1) * 1e3 / GROUP
+            profiled[f"{name}_{route}"] = device_profile(torch, prof, GROUP,
+                                                         wall)
+            outs[route] = ls.double().cpu()
+        rel = ((outs["replayed"] - outs["eager"]).abs()
+               / outs["eager"].abs().clamp(min=1e-30)).tolist()
+        need(max(rel) <= F32_LOSS_RTOL,
+             f"{name}: replayed block's losses {outs['replayed'].tolist()} "
+             f"vs eager {outs['eager'].tolist()}")
+        replay_rel[name] = rel
+        # Blocks timed in turns, eager, graph, graph, eager: the eager
+        # ones on the copy through fresh steps, the graph ones replayed.
+        turn_ms[name] = {"eager": [], "graph": []}
+        for j, route in enumerate(("eager", "graph", "graph", "eager")):
+            key = trandom.PRNGKey(60 + j, device=dev)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t1) * 1e3 / GROUP
-        profiled[name] = device_profile(torch, prof, GROUP, wall)
+            t1 = time.perf_counter()
+            if route == "eager":
+                twin, _ = fresh[name]()(twin, *args[name], key)
+            else:
+                states[name], _ = graph_steps[name](states[name],
+                                                    *args[name], key)
+            torch.cuda.synchronize()
+            turn_ms[name][route].append((time.perf_counter() - t1) * 1e3)
+        del twin
+    lstate, gstate = states["link"], states["subgraph"]
 
     # -- B2 at the link path's node list ---------------------------------
     rows = ds.get_node_feature().hot_rows
@@ -2143,16 +2232,20 @@ def run_link(torch, dev, indptr, indices, feat, rng):
     rep.update({
         "link_losses": link_losses.tolist(),
         "link_block_ms": link_ms,
-        "link_step_ms_median": statistics.median(link_ms[1:]) / GROUP,
+        # Blocks 2 and 3 replay (block 0 is eager, block 1 captures).
+        "link_step_ms_median": statistics.median(link_ms[2:]) / GROUP,
         "link_cpu_loss": link_pair[1], "link_card_loss": link_pair[0],
         "link_cpu_loss_rel_err": link_err,
         "seal_losses": seal_losses.tolist(),
         "seal_block_ms": seal_ms,
-        "seal_step_ms_median": statistics.median(seal_ms[1:]) / GROUP,
+        "seal_step_ms_median": statistics.median(seal_ms[2:]) / GROUP,
         "seal_checked": {"nodes": n_nodes, "induced_edges": n_edges},
         "seal_cpu_loss": seal_pair[1], "seal_card_loss": seal_pair[0],
         "seal_cpu_loss_rel_err": seal_err,
         "profile": profiled,
+        "replay_vs_eager_rel": replay_rel,
+        "turn_ms": turn_ms,
+        "captures": captures,
     })
     return rep
 
@@ -3436,7 +3529,7 @@ def run_dist(torch, ops, trandom, dev, sm_mhz) -> dict:
         exchange_load_factor=DIST_LOAD_FACTOR), "capped, card vs CPU")
     rep["capped_dropped"] = [int(o.metadata["exchange_dropped"])
                              for o, _, _ in capped]
-    del ds_cpu, cpu_step, cpu_state
+    del cpu_step, cpu_state
 
     # The capped step: B1 twice a hop a shard.
     cstep = make_dist_train_step(ds.graph, ds.feature, ds.labels, mesh,
@@ -3493,9 +3586,138 @@ def run_dist(torch, ops, trandom, dev, sm_mhz) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     rep["profile"] = device_profile(torch, prof, 1, wall)
     rep["profile"]["b1_kernels"] = b1_kernels(torch, prof)
+
+    # The scanned step, its blocks captured into CUDA graphs.
+    rep["scanned"] = sc = run_scanned_dist(torch, ops, trandom, ds, ds_cpu,
+                                           mesh, state, batches)
+    del ds_cpu
+    rep["launches"] = {k: v + sc["launches"][k]
+                       for k, v in rep["launches"].items()}
     rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     rep["kernels"] = dict(zip(("B1", "B3"), time_dist_kernels(
         torch, ops, trandom, ds, card0, sm_mhz)))
+    return rep
+
+
+def run_scanned_dist(torch, ops, trandom, ds, ds_cpu, mesh, state,
+                     batches) -> dict:
+    """Phase 11's scanned step at the eager step's settings, G = GROUP
+    slots a block (see the module docstring)."""
+    from glt_tpu_torch.examples import dist_train_papers100m as twin
+    from glt_tpu_torch.models import adam
+    from glt_tpu_torch.obs import compilewatch
+    from glt_tpu_torch.parallel import Mesh, make_scanned_dist_train_step
+
+    dev, cpu = mesh.device, torch.device("cpu")
+    hops, G, S = len(DIST_FANOUT), GROUP, DIST_SHARDS
+
+    def make_step():
+        return make_scanned_dist_train_step(
+            ds.graph, ds.feature, ds.labels, mesh, DIST_FANOUT, DIST_BS,
+            fused_frontier=True)
+
+    def make_model():
+        return twin.make_state(ds, DIST_FANOUT, DIST_BS, DIST_CLASSES,
+                               dev).model
+
+    # Seed batches the eager steps did not train on, G to a block.
+    lo = DIST_STEPS + 4
+    blocks = [batches[lo + i * G: lo + (i + 1) * G]
+              for i in range(DIST_SCAN_BLOCKS + 1)]
+    need(all(b.shape[0] == G and (b >= 0).any(axis=(1, 2)).all()
+             for b in blocks), "too few seed batches for the scanned blocks")
+    # The first block's slot 0 on the CPU, from the same weights.
+    cpu_state = twin.make_state(ds_cpu, DIST_FANOUT, DIST_BS, DIST_CLASSES,
+                                cpu)
+    cpu_state.model.load_state_dict(state.model.state_dict())
+    step = make_step()
+    base = trandom.PRNGKey(200, device=dev)
+
+    # The main path: counts set to 0 just before, read just after.
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    trandom.threefry2x32.calls = 0
+    captures0 = compilewatch.counts("scanned_dist_step")
+    torch.cuda.synchronize()
+    block_ms, losses, eager = [], [], None
+    for i, blk in enumerate(blocks[:DIST_SCAN_BLOCKS]):
+        t0 = time.perf_counter()
+        state, ls, _ = step(state, blk, trandom.fold_in(base, i))
+        torch.cuda.synchronize()
+        block_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(ls)
+        if i == 0:
+            eager = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+    launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+    rep = {"plain_hash_calls": trandom.threefry2x32.calls,
+           "captures": compilewatch.counts("scanned_dist_step") - captures0,
+           "eager_block_launches": eager, "launches": launches,
+           "block_ms": block_ms}
+    need(rep["plain_hash_calls"] == 0,
+         "the scanned step ran the plain threefry arithmetic on the card")
+    need(rep["captures"] == 1, f"{rep['captures']} captures of the scanned "
+                               f"step, not 1")
+    need(eager["sample_neighbors_cuda"] == S * hops * G,
+         f"B1 ran {eager['sample_neighbors_cuda']} times in an eager block "
+         f"of {G} slots, not {S * hops} a slot")
+    need(eager["fused_frontier_cuda"] == S * G,
+         f"B3 ran {eager['fused_frontier_cuda']} times in an eager block of "
+         f"{G} slots, not {S} a slot")
+    # The capture records each launch once; a replay moves no counter.
+    for k in ("sample_neighbors_cuda", "fused_frontier_cuda"):
+        need(launches[k] == 2 * eager[k], f"{k}: {launches[k]} launches in "
+             f"an eager block, its capture and replays, not {2 * eager[k]}")
+    losses = torch.cat(losses).cpu().numpy()
+    need(losses.shape == (DIST_SCAN_BLOCKS * G,)
+         and bool(np.isfinite(losses).all()),
+         f"scanned losses: {losses}")
+    rep["losses"] = losses.tolist()
+    rep["step_ms_median"] = statistics.median(block_ms[2:]) / G
+    rep["subgraphs_per_s"] = S / rep["step_ms_median"] * 1e3
+
+    one = np.full_like(blocks[0], -1)
+    one[0] = blocks[0][0]
+    cpu_step = make_scanned_dist_train_step(
+        ds_cpu.graph, ds_cpu.feature, ds_cpu.labels, Mesh([cpu] * S),
+        DIST_FANOUT, DIST_BS)
+    _, cpu_ls, _ = cpu_step(cpu_state, one, trandom.fold_in(
+        trandom.PRNGKey(200, device=cpu), 0))
+    rep["cpu_slot_loss"], rep["card_slot_loss"] = (float(cpu_ls[0]),
+                                                   float(losses[0]))
+    rep["cpu_slot_rel_err"] = abs(rep["card_slot_loss"] - rep[
+        "cpu_slot_loss"]) / max(abs(rep["cpu_slot_loss"]), 1e-30)
+    need(rep["cpu_slot_rel_err"] <= F32_LOSS_RTOL,
+         f"the first block's slot 0: card {rep['card_slot_loss']} vs CPU "
+         f"{rep['cpu_slot_loss']}")
+    del cpu_state, cpu_step
+
+    # One block replayed and the same block eager from a copy of the
+    # state (a fresh step's first call), both profiled.
+    copy = copy_state(state, make_model, adam(LR))
+    blk, key = blocks[-1], trandom.PRNGKey(201, device=dev)
+    outs = {}
+    for route, run in (("replayed", step), ("eager", make_step())):
+        with profile_window(torch) as prof:
+            t0 = time.perf_counter()
+            if route == "replayed":
+                state, ls, _ = run(state, blk, key)
+            else:
+                copy, ls, _ = run(copy, blk, key)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / G
+        p = device_profile(torch, prof, G, wall)
+        p["b1_kernels"] = b1_kernels(torch, prof) / G
+        rep[f"{route}_profile"] = p
+        outs[route] = ls.double().cpu()
+    need(rep["replayed_profile"]["b1_kernels"] == S * hops,
+         f"B1 ran {rep['replayed_profile']['b1_kernels']} times a replayed "
+         f"step, not {S * hops}")
+    rel = ((outs["replayed"] - outs["eager"]).abs()
+           / outs["eager"].abs().clamp(min=1e-30)).tolist()
+    need(max(rel) <= F32_LOSS_RTOL,
+         f"replayed block's losses {outs['replayed'].tolist()} vs eager "
+         f"{outs['eager'].tolist()}")
+    rep["replay_vs_eager_rel"] = rel
     return rep
 
 
@@ -3535,12 +3757,108 @@ def log_dist(rep: dict, card: str) -> None:
         log(f"    sync at {where}")
     for k in p["top_kernels"][:5]:
         log(f"    {k['count']:.0f} x {k['name']}: {k['ms']:.3f} ms")
+    sc = rep["scanned"]
+    log(f"  scanned step [{card}]: {DIST_SCAN_BLOCKS} blocks of {GROUP} "
+        f"slots (eager, captured, replays) in " + ", ".join(
+            f"{b:.1f}" for b in sc["block_ms"]) + f" ms; replayed step "
+        f"median {sc['step_ms_median']:.2f} ms "
+        f"({sc['subgraphs_per_s']:.1f} subgraphs/s) against the eager "
+        f"step's {rep['step_ms_median']:.2f} ms "
+        f"({rep['subgraphs_per_s']:.1f} subgraphs/s); losses "
+        f"{sc['losses'][0]:.4f} -> {sc['losses'][-1]:.4f}; eager block "
+        f"B1 {sc['eager_block_launches']['sample_neighbors_cuda']}, B3 "
+        f"{sc['eager_block_launches']['fused_frontier_cuda']} "
+        f"({GROUP} slots); captures {sc['captures']}; slot 0 card vs CPU "
+        f"{sc['card_slot_loss']:.6f} vs {sc['cpu_slot_loss']:.6f} (rel "
+        f"{sc['cpu_slot_rel_err']:.2e}); replayed vs eager block rel max "
+        f"{max(sc['replay_vs_eager_rel']):.2e}")
+    for route in ("replayed", "eager"):
+        p = sc[f"{route}_profile"]
+        log(f"  profiled {route} scanned step: wall {p['wall_ms']:.2f} ms, "
+            f"{p['launch_calls']:.2f} host launch calls, {p['kernels']:.1f} "
+            f"kernels {p['kernels_ms']:.3f} ms ({p['kernel_share']:.1%}), "
+            f"B1 {p['b1_kernels']:.0f}, {p['copies']:.1f} copies, "
+            f"{p['memsets']:.1f} memsets")
     for name, k in rep["kernels"].items():
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
         log(f"  {name} {k['shape']}: kernel {k['ms']:.5f} ms, plain "
             f"{k['plain_ms']:.4f} ms{lib}, bound {k['bound_ms']:.5f} ms by "
             f"{k['bound_by']}")
+
+
+# -- phase 12: the example twins ------------------------------------------
+def run_twins(torch, ops, trandom) -> dict:
+    """Each twin through its entry point on the card, at its own widths
+    and a cut depth (see the module docstring), with the launch counts
+    set to 0 just before and read just after each."""
+    from glt_tpu_torch.examples import (
+        bipartite_sage_unsup,
+        dist_train_sage,
+        train_sage_products,
+    )
+    from glt_tpu_torch.obs import compilewatch
+
+    prod = ["--device", DEVICE, "--scale", str(TWIN_PRODUCTS_SCALE)]
+    runs = {
+        "train_sage_products": lambda: train_sage_products.main(
+            prod + ["--epochs", "3"]),
+        "train_sage_products_loader": lambda: train_sage_products.main(
+            prod + ["--epochs", "1", "--group", "0"]),
+        "bipartite_sage_unsup": lambda: bipartite_sage_unsup.main(
+            ["--device", DEVICE, "--epochs", str(TWIN_EPOCHS)]),
+        "dist_train_sage": lambda: dist_train_sage.main(
+            ["--device", DEVICE, "--epochs", str(TWIN_EPOCHS)]),
+    }
+    # The kernels each path must launch.
+    uses = {"train_sage_products": ("sample_neighbors_cuda",
+                                    "gather_rows_cuda"),
+            "train_sage_products_loader": ("sample_neighbors_cuda",
+                                           "gather_rows_cuda"),
+            "bipartite_sage_unsup": ("sample_neighbors_cuda",
+                                     "gather_rows_cuda"),
+            "dist_train_sage": ("sample_neighbors_cuda",)}
+    rep = {"launches": {k: 0 for k in kernel_wrappers(ops)}}
+    for name, run in runs.items():
+        for fn in kernel_wrappers(ops).values():
+            fn.launches = 0
+        trandom.threefry2x32.calls = 0
+        captures0 = compilewatch.counts("scanned_node_step")
+        t0 = time.perf_counter()
+        state, history = run()
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+        row = {"seconds": time.perf_counter() - t0, "steps": state.step,
+               "history": [np.asarray(h).tolist() for h in history],
+               "launches": launches,
+               "captures": compilewatch.counts("scanned_node_step")
+               - captures0}
+        need(trandom.threefry2x32.calls == 0,
+             f"{name}: the plain threefry arithmetic ran on the card")
+        need(state.step > 0 and all(np.isfinite(h).all() for h in history),
+             f"{name}: no step, or a loss not finite: {history}")
+        for k in uses[name]:
+            need(launches[k] > 0, f"{name} never launched {k}")
+        rep[name] = row
+        for k, v in launches.items():
+            rep["launches"][k] += v
+    # Two blocks an epoch of one real pattern each: captured in epoch 2.
+    need(rep["train_sage_products"]["captures"] == 2,
+         f"the products twin captured "
+         f"{rep['train_sage_products']['captures']} blocks, not 2")
+    bip = rep["bipartite_sage_unsup"]["history"]
+    need(bip[-1] < bip[0], f"the bipartite twin's loss did not fall: {bip}")
+    return rep
+
+
+def log_twins(rep: dict, card: str) -> None:
+    for name in ("train_sage_products", "train_sage_products_loader",
+                 "bipartite_sage_unsup", "dist_train_sage"):
+        r = rep[name]
+        first, last = (np.mean(r["history"][0]), np.mean(r["history"][-1]))
+        log(f"twin {name} [{card}]: {r['steps']} steps in "
+            f"{r['seconds']:.1f} s, loss {first:.4f} -> {last:.4f}, "
+            f"captures {r['captures']}, launches {r['launches']}")
 
 
 def main() -> int:
@@ -3808,25 +4126,40 @@ def main() -> int:
             f"{lk['loader_negatives_that_are_edges']} of "
             f"{lk['loader_negatives']} negatives are edges; batch 0 == CPU; "
             f"triplet x2 and weighted binary checked")
-        log(f"  scanned link step: {LINK_BLOCKS} blocks of {GROUP}, losses "
+        log(f"  scanned link step: {LINK_BLOCKS} blocks of {GROUP} (eager, "
+            f"captured, replays), losses "
             f"{lk['link_losses'][0]:.4f} -> {lk['link_losses'][-1]:.4f}, "
-            f"step median {lk['link_step_ms_median']:.2f} ms; card vs CPU "
+            f"replayed step median {lk['link_step_ms_median']:.2f} ms; "
+            f"card vs CPU "
             f"loss {lk['link_card_loss']:.6f} vs {lk['link_cpu_loss']:.6f} "
             f"(rel {lk['link_cpu_loss_rel_err']:.2e})")
-        log(f"  scanned subgraph step: {SEAL_BLOCKS} blocks of {GROUP}, "
+        log(f"  scanned subgraph step: {SEAL_BLOCKS} blocks of {GROUP} "
+            f"(eager, captured, replays), "
             f"losses {lk['seal_losses'][0]:.4f} -> "
-            f"{lk['seal_losses'][-1]:.4f}, step median "
+            f"{lk['seal_losses'][-1]:.4f}, replayed step median "
             f"{lk['seal_step_ms_median']:.2f} ms; batch 0 == CPU, its "
             f"induced edges ({lk['seal_checked']['nodes']} nodes, "
             f"{lk['seal_checked']['induced_edges']} edges) exact; card vs "
             f"CPU loss {lk['seal_card_loss']:.6f} vs "
             f"{lk['seal_cpu_loss']:.6f} (rel "
             f"{lk['seal_cpu_loss_rel_err']:.2e})")
-        for name, p in lk["profile"].items():
-            log(f"  profiled {name} step: wall {p['wall_ms']:.2f} ms, "
-                f"{p['kernels']:.0f} kernels {p['kernels_ms']:.3f} ms "
-                f"({p['kernel_share']:.1%}), {p['copies']:.0f} copies, "
-                f"{p['memsets']:.0f} memsets")
+        for name in ("link", "subgraph"):
+            tm = lk["turn_ms"][name]
+            log(f"  {name}: captures {lk['captures']}; replayed vs eager "
+                f"block losses rel max "
+                f"{max(lk['replay_vs_eager_rel'][name]):.2e}; in turns, "
+                f"eager blocks " + ", ".join(f"{b:.1f}" for b in tm["eager"])
+                + " ms, replayed " + ", ".join(
+                    f"{b:.1f}" for b in tm["graph"]) + f" ms (step "
+                f"{statistics.median(tm['graph']) / GROUP:.2f} vs "
+                f"{statistics.median(tm['eager']) / GROUP:.2f} ms)")
+            for route in ("replayed", "eager"):
+                p = lk["profile"][f"{name}_{route}"]
+                log(f"  profiled {route} {name} step: wall "
+                    f"{p['wall_ms']:.2f} ms, {p['launch_calls']:.1f} host "
+                    f"launch calls, {p['kernels']:.1f} kernels "
+                    f"{p['kernels_ms']:.3f} ms ({p['kernel_share']:.1%}), "
+                    f"{p['copies']:.1f} copies, {p['memsets']:.1f} memsets")
         log(f"  launches {lk['launches']} over {lk['samples']} samples (B1 "
             f"twice a sample); plain threefry on the card: "
             f"{lk['plain_hash_calls']}; B2 {b2l['shape']}: kernel "
@@ -3884,13 +4217,19 @@ def main() -> int:
         dd["seconds"] = time.perf_counter() - t0
         log_dist(dd, smi[0])
         log(f"  phase 11: {dd['seconds']:.1f} s")
+
+        # 12. the example twins
+        t0 = time.perf_counter()
+        report["twins"] = tw = run_twins(torch, ops, trandom)
+        log_twins(tw, smi[0])
+        log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
                        for p in (sl, tr, st, report["digits"], lk, het, co,
-                                 dd))
+                                 dd, tw))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",

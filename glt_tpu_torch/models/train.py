@@ -19,8 +19,8 @@ as one ``lax.scan`` program.  Here the "scan" is a Python loop over the
 block's rows; on the card the node step captures it, once per block
 shape, as one CUDA graph (:mod:`glt_tpu_torch.utils.graphs`) and
 replays it (the first call at a shape runs eagerly and creates Adam's
-state), and so does the hetero step.  The link and subgraph steps run
-eagerly.
+state), and so do the hetero, link and subgraph steps (the last two
+keyed by the block's shape alone: a padded batch still trains there).
 
 State: :class:`TrainState` holds the ``nn.Module``, its optimizer and a
 host ``int`` step counter.  The model and optimizer update in place (a
@@ -38,8 +38,9 @@ driver counts ``glt.train.steps``/``glt.train.epochs``, times
 ``glt.train.block_ms``, opens the spans ``train.scanned_epoch`` and
 ``train.scanned_block_dispatch`` on the host, feeds the profiler's spike
 detector, publishes the device gauges and records a ``train.epoch``
-flight event per epoch; captures count under ``scanned_node_step`` /
-``scanned_hetero_step``.  Nothing inside a captured block opens a span
+flight event per epoch; captures count under ``scanned_node_step``,
+``scanned_hetero_step``, ``scanned_link_step`` and
+``scanned_subgraph_step``.  Nothing inside a captured block opens a span
 or touches a metric: a replay runs no Python.
 """
 from __future__ import annotations
@@ -293,34 +294,59 @@ def _device_labels(labels, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(labels).astype(np.int32)).to(dev)
 
 
-class _ScannedBlocks:
-    """A scanned train step over host ``[G, B]`` seed blocks:
-    ``step(state, seeds_blk, key) -> (state, *outputs)``.
+def _host_array(blk) -> np.ndarray:
+    """A host block in the dtype ``jnp.asarray`` gives it (64-bit off):
+    integers as int32, float64 as float32.  A tensor raises: the
+    block's pattern (its real batches, its shapes) is decided on the
+    host, from the array the caller holds."""
+    if isinstance(blk, torch.Tensor):
+        raise TypeError("blocks must be host arrays: the block's pattern "
+                        "is decided on the host")
+    a = np.asarray(blk)
+    if a.dtype.kind in "iub":
+        a = a.astype(np.int32)
+    elif a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return np.ascontiguousarray(a)
 
-    ``block(model, opt, seeds, key, real)`` trains the block's real
-    batches (``real``: a ``[G]`` bool tuple from the host block, so a
-    fully padded batch is a no-op without a sync) and advances
-    ``step_count`` in place per real batch; ``step_count`` is set from
-    ``state.step`` before each call.  On the card the block is one CUDA
-    graph per real pattern over static seed and key buffers: the first
-    call at a pattern, or after the tensors it reads in place (the
-    model's, the optimizer's, ``held()``) were replaced, runs eagerly
-    (it creates Adam's state); the next captures the block and every
-    later call replays it.  A failed capture raises.  On the CPU every
-    call runs eagerly.  Captures count under the compilewatch label
-    ``program``.
+
+class _ScannedBlocks:
+    """A scanned train step over host blocks with a leading ``[G]`` axis:
+    ``step(state, *blocks, key) -> (state, *outputs)``.
+
+    ``block(model, opt, blocks, key, real)`` trains the block's batches
+    (``blocks``: the host blocks as device tensors; ``real``: a ``[G]``
+    bool tuple) and advances ``step_count`` (when given) in place per
+    real batch; ``step_count`` is set from ``state.step`` before each
+    call, and the returned state's counter moves by ``sum(real)``.  With
+    ``skip_padded`` a batch whose first block holds no id ``>= 0`` in
+    any position (all axes but the first) is not real: the block skips
+    it, so a fully padded batch is a no-op without a sync.  Without it
+    every batch is real (steps where a padded batch still trains), and
+    the pattern is the blocks' shapes alone.
+
+    On the card the block is one CUDA graph per pattern (the blocks'
+    shapes and ``real``) over static block and key buffers, filled
+    through pinned memory: the first call at a pattern, or after the
+    tensors it reads in place (the model's, the optimizer's, ``held()``)
+    were replaced, runs eagerly (it creates Adam's state); the next
+    captures the block and every later call replays it.  A failed
+    capture raises.  On the CPU every call runs eagerly.  Captures count
+    under the compilewatch label ``program``.
     """
 
     def __init__(self, dev: torch.device, block: Callable,
-                 step_count: torch.Tensor, program: str,
-                 held: Callable[[], tuple] = tuple):
+                 step_count: Optional[torch.Tensor], program: str,
+                 held: Callable[[], tuple] = tuple,
+                 skip_padded: bool = True):
         self.dev = dev
         self.program = program
         self.block = block
         self.step_count = step_count
         self.held = held
-        self._programs = {}  # real pattern -> (CapturedProgram, storage)
-        self._warm = {}      # real pattern -> storage of its eager call
+        self.skip_padded = skip_padded
+        self._programs = {}  # pattern -> (CapturedProgram, storage)
+        self._warm = {}      # pattern -> storage of its eager call
 
     def _bound(self, state) -> tuple:
         """The storage a captured block reads and writes in place."""
@@ -329,43 +355,50 @@ class _ScannedBlocks:
             if isinstance(t, torch.Tensor)] + list(self.held())
         return tuple(t.data_ptr() for t in ts)
 
-    def _replayed(self, state, blk, key, real):
+    def _replayed(self, state, blks, key, pattern, real):
         """The block through its CUDA graph, or ``None`` when this call
         runs eagerly (the first at its pattern and storage)."""
         now = self._bound(state)
-        entry = self._programs.get(real)
+        entry = self._programs.get(pattern)
         if entry is not None and entry[1] == now:
-            return entry[0](blk, key)
-        self._programs.pop(real, None)
-        if self._warm.get(real) != now:
+            return entry[0](*blks, key)
+        self._programs.pop(pattern, None)
+        if self._warm.get(pattern) != now:
             return None
         model, opt = state.model, state.optimizer
         prog = CapturedProgram(
-            lambda seeds, k: self.block(model, opt, seeds, k, real),
-            [torch.from_numpy(blk).to(self.dev), key.clone()], warmup=0)
-        self._programs[real] = (prog, now)
+            lambda *ins: self.block(model, opt, ins[:-1], ins[-1], real),
+            [torch.from_numpy(b).to(self.dev) for b in blks] + [key.clone()],
+            warmup=0)
+        self._programs[pattern] = (prog, now)
         return prog.replay()
 
-    def __call__(self, state: TrainState, seeds_blk, key: torch.Tensor):
-        if isinstance(seeds_blk, torch.Tensor):
-            raise TypeError("seeds_blk must be a host array: the "
-                            "padded-batch no-op is decided on the host")
+    def __call__(self, state: TrainState, *args):
+        *blocks, key = args
         dev = self.dev
         _check_model(state, dev)
-        blk = np.ascontiguousarray(np.asarray(seeds_blk), dtype=np.int32)
-        real = tuple(bool(r) for r in (blk >= 0).any(axis=1))
-        self.step_count.fill_(state.step)
+        blks = [_host_array(b) for b in blocks]
+        g = blks[0].shape[0]
+        if self.skip_padded:
+            real = tuple(bool(r) for r in
+                         (blks[0].reshape(g, -1) >= 0).any(axis=1))
+        else:
+            real = (True,) * g
+        pattern = (tuple(b.shape for b in blks), real)
+        if self.step_count is not None:
+            self.step_count.fill_(state.step)
         outs = None
         if dev.type == "cuda" and any(real):
             with _compilewatch.label(self.program):
-                outs = self._replayed(state, blk, key, real)
+                outs = self._replayed(state, blks, key, pattern, real)
             if outs is not None:
                 outs = tuple(t.clone() for t in outs)
         if outs is None:
             outs = self.block(state.model, state.optimizer,
-                              torch.from_numpy(blk).to(dev), key, real)
+                              tuple(torch.from_numpy(b).to(dev)
+                                    for b in blks), key, real)
             if dev.type == "cuda":
-                self._warm[real] = self._bound(state)
+                self._warm[pattern] = self._bound(state)
         state = TrainState(state.model, state.optimizer,
                            state.step + sum(real))
         return (state,) + tuple(outs)
@@ -423,7 +456,8 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
 
-    def block(model, opt, seeds, key, real):
+    def block(model, opt, blocks, key, real):
+        seeds, = blocks
         keys = trandom.split(key, len(real))
         cache = holder["cache"]
         losses, accs, ovfs = [], [], []
@@ -562,7 +596,8 @@ def make_scanned_hetero_train_step(sampler, feats, labels, batch_size: int,
     step_count = torch.zeros((), dtype=torch.int32, device=dev)
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
 
-    def block(model, opt, seeds, key, real):
+    def block(model, opt, blocks, key, real):
+        seeds, = blocks
         keys = trandom.split(key, len(real))
         losses, accs = [], []
         for i, is_real in enumerate(real):
@@ -597,17 +632,6 @@ def _check_model(state: TrainState, dev: torch.device) -> None:
                          f"the sampler's graph on {dev}")
 
 
-def _host_block(blk, dev: torch.device) -> torch.Tensor:
-    """A host block on ``dev`` in the dtype ``jnp.asarray`` gives it
-    (64-bit off): integers as int32, float64 as float32."""
-    a = np.asarray(blk)
-    if a.dtype.kind in "iu":
-        a = a.astype(np.int32)
-    elif a.dtype == np.float64:
-        a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-
 def make_scanned_link_train_step(sampler, rows, loss_fn, neg_sampling=None
                                  ) -> Callable:
     """Train ``G`` consecutive seed-edge batches per call.
@@ -628,28 +652,35 @@ def make_scanned_link_train_step(sampler, rows, loss_fn, neg_sampling=None
     binary mode it still draws ``q * amount`` negatives and trains on
     them, and the optimizer steps.  ``G`` is the blocks' leading axis
     (``glt_tpu``'s ``group``).
+
+    On the card the block is one CUDA graph per block shape, over static
+    ``[G, q]`` src and dst buffers and a key buffer: the first call at a
+    shape runs eagerly (it creates Adam's state and the lazily built
+    graph views), the next captures the block, and every later call
+    replays it.  On the CPU every call runs eagerly.
     """
     dev = sampler.device
     hot_rows, id2index = _device_rows(rows, dev)
     gather_xy = make_gather_xy(id2index)
+    if neg_sampling is not None:
+        neg_sampling.cdf(dev)   # a weight's cdf reaches the device here
 
-    def step(state: TrainState, src_blk, dst_blk, key: torch.Tensor):
-        _check_model(state, dev)
-        src, dst = _host_block(src_blk, dev), _host_block(dst_blk, dev)
-        keys = trandom.split(key, src.shape[0])
+    def block(model, opt, blocks, key, real):
+        src, dst = blocks
+        keys = trandom.split(key, len(real))
         losses = []
-        for i in range(src.shape[0]):
+        for i in range(len(real)):
             out = sampler.sample_from_edge_tensors(src[i], dst[i],
                                                    neg_sampling, keys[i])
             x, _ = gather_xy(hot_rows, None, out)
-            z = state.model(x, torch.stack([out.row, out.col]),
-                            out.edge_mask)
+            z = model(x, torch.stack([out.row, out.col]), out.edge_mask)
             loss = loss_fn(z, out.metadata)
-            state = _update(state, loss)
+            _backward_and_step(opt, loss)
             losses.append(loss.detach())
-        return state, torch.stack(losses)
+        return (torch.stack(losses),)
 
-    return step
+    return _ScannedBlocks(dev, block, None, "scanned_link_step",
+                          skip_padded=False)
 
 
 def make_scanned_subgraph_train_step(sampler, rows, loss_fn,
@@ -669,7 +700,9 @@ def make_scanned_subgraph_train_step(sampler, rows, loss_fn,
     Returns ``step(state, seeds_blk, y_blk, key) -> (state, losses
     [G])`` over host blocks ``seeds_blk [G, B]`` (-1 padded) and
     ``y_blk [G, ...]``; batch ``g`` uses ``split(key, G)[g]``, and a
-    fully padded batch still steps the optimizer, as in ``glt_tpu``.
+    fully padded batch still steps the optimizer, as in ``glt_tpu``.  On
+    the card the block is one CUDA graph per block shape over static
+    seed, label and key buffers, as the link step's.
     """
     if not sampler.last_hop_dedup:
         raise ValueError(
@@ -679,25 +712,24 @@ def make_scanned_subgraph_train_step(sampler, rows, loss_fn,
     gather_xy = make_gather_xy(id2index)
     b = sampler.batch_size
 
-    def step(state: TrainState, seeds_blk, y_blk, key: torch.Tensor):
-        _check_model(state, dev)
-        seeds, ys = _host_block(seeds_blk, dev), _host_block(y_blk, dev)
-        keys = trandom.split(key, seeds.shape[0])
+    def block(model, opt, blocks, key, real):
+        seeds, ys = blocks
+        keys = trandom.split(key, len(real))
         losses = []
-        for i in range(seeds.shape[0]):
+        for i in range(len(real)):
             out = sampler.subgraph(NodeSamplerInput(seeds[i]),
                                    max_degree=max_degree, key=keys[i])
             out.metadata = {"seed_index": relabel_by_reference(
                 out.node[:b], seeds[i])}
             x, _ = gather_xy(hot_rows, None, out)
-            z = state.model(x, torch.stack([out.row, out.col]),
-                            out.edge_mask)
+            z = model(x, torch.stack([out.row, out.col]), out.edge_mask)
             loss = loss_fn(z, out, ys[i])
-            state = _update(state, loss)
+            _backward_and_step(opt, loss)
             losses.append(loss.detach())
-        return state, torch.stack(losses)
+        return (torch.stack(losses),)
 
-    return step
+    return _ScannedBlocks(dev, block, None, "scanned_subgraph_step",
+                          skip_padded=False)
 
 
 def link_seed_blocks(edge_index, batch_size: int, group: int, rng):

@@ -16,9 +16,12 @@ from .dist_sampler import (
     exchange_one_hop,
 )
 from .dist_train import (
+    dist_seed_blocks,
     dist_step_byte_model,
     init_dist_state,
     make_dist_train_step,
+    make_scanned_dist_train_step,
+    run_scanned_dist_epoch,
 )
 from .multihost import Mesh, mesh_axis_sizes, resolve_mesh_axes
 from .sharding import (
@@ -40,6 +43,7 @@ __all__ = [
     "bounded_remote_cap",
     "build_routing",
     "dist_sample_multi_hop",
+    "dist_seed_blocks",
     "dist_step_byte_model",
     "exchange_byte_model",
     "exchange_gather",
@@ -47,10 +51,12 @@ __all__ = [
     "exchange_one_hop",
     "init_dist_state",
     "make_dist_train_step",
+    "make_scanned_dist_train_step",
     "mesh_axis_sizes",
     "multihost",
     "put_sharded",
     "resolve_mesh_axes",
+    "run_scanned_dist_epoch",
     "shard_bounds",
     "shard_feature",
     "shard_graph",

@@ -16,9 +16,15 @@ they were, decided on the device: the update runs and a ``where`` on
 the batch's validity keeps or drops it, so no host branch reads a
 device value.  The host step counter advances from the host seed array.
 
-Left for later slices (ROADMAP queue A item 7): the scanned step and
-its CUDA graph, ``dist_seed_blocks`` and ``run_scanned_dist_epoch``; the
-tiered step and its pipeline; the hetero steps.
+The scanned step (:func:`make_scanned_dist_train_step`) trains ``G``
+such batches a call over a host ``[G, S, B]`` block
+(:func:`dist_seed_blocks`, :func:`run_scanned_dist_epoch`); it skips a
+slot with no real seed on the host, and on the card the block is one
+CUDA graph per real-slot pattern, the counterpart of ``glt_tpu``'s one
+``shard_map`` program over a ``lax.scan``.
+
+Left for later slices (ROADMAP queue A item 7): the tiered step and its
+pipeline; the hetero steps.
 """
 from __future__ import annotations
 
@@ -28,8 +34,9 @@ import numpy as np
 import torch
 
 from .. import random as trandom
-from ..models.train import (OptimizerFactory, TrainState, _check_model,
-                            create_train_state, seed_cross_entropy)
+from ..models.train import (OptimizerFactory, TrainState, _backward_and_step,
+                            _check_model, _ScannedBlocks, create_train_state,
+                            seed_cross_entropy)
 from ..obs import metrics as _metrics
 from ..ops.unique import unique_first_occurrence
 from ..sampler.neighbor_sampler import hop_widths, max_sampled_nodes
@@ -191,6 +198,44 @@ def sample_and_gather(g: ShardedGraph, f: ShardedFeature,
     return keys, outs, xy
 
 
+def _mesh_loss(model, g: ShardedGraph, f: ShardedFeature,
+               labels: torch.Tensor, seeds: torch.Tensor, key: torch.Tensor,
+               num_neighbors: Sequence[int], batch_size: int, skw: dict):
+    """One batch of every shard (``seeds [S, B]`` on the mesh's device):
+    sample and gather (:func:`sample_and_gather`, the knobs in ``skw``),
+    each shard's forward with its own key as the dropout key, and the
+    means over the shards of the seed losses and accuracies."""
+    keys, outs, xy = sample_and_gather(g, f, labels, seeds, key,
+                                       num_neighbors, **skw)
+    losses, accs = [], []
+    for s, (out, (x, y)) in enumerate(zip(outs, xy)):
+        logits = model(x, torch.stack([out.row, out.col]), out.edge_mask,
+                       dropout_key=keys[s])
+        loss_s, acc_s = seed_cross_entropy(logits, y, batch_size,
+                                           out.node_mask)
+        losses.append(loss_s)
+        accs.append(acc_s.to(torch.float32))
+    return torch.stack(losses).mean(), torch.stack(accs).mean()
+
+
+def _check_step_args(g: ShardedGraph, f: ShardedFeature,
+                     labels: torch.Tensor, mesh: Mesh, axis_name,
+                     hier_load_factor):
+    """The mesh and its axes, checked as the steps need them: a 1-D mesh
+    of as many shards as the graph, every array on the mesh's device."""
+    axis_name = resolve_mesh_axes(mesh, axis_name)
+    mesh_shape = mesh_axis_sizes(mesh, axis_name)
+    if hier_load_factor is not None:
+        raise NotImplementedError(f"hier_load_factor: the hierarchical "
+                                  f"routing {_LATER}")
+    if g.num_shards != mesh.size:
+        raise ValueError(f"a graph of {g.num_shards} shards on a mesh of "
+                         f"{mesh.size}")
+    check_on_mesh(mesh, indptr=g.indptr, indices=g.indices,
+                  edge_ids=g.edge_ids, rows=f.rows, labels=labels)
+    return axis_name, mesh_shape
+
+
 def make_dist_train_step(
     g: ShardedGraph,
     f: ShardedFeature,
@@ -229,42 +274,26 @@ def make_dist_train_step(
     ``step.collective_bytes`` and adds it to the
     ``glt.dist.collective_bytes{axis=}`` counters per call.
     """
-    axis_name = resolve_mesh_axes(mesh, axis_name)
-    mesh_shape = mesh_axis_sizes(mesh, axis_name)
-    if hier_load_factor is not None:
-        raise NotImplementedError(f"hier_load_factor: the hierarchical "
-                                  f"routing {_LATER}")
-    if g.num_shards != mesh.size:
-        raise ValueError(f"a graph of {g.num_shards} shards on a mesh of "
-                         f"{mesh.size}")
-    check_on_mesh(mesh, indptr=g.indptr, indices=g.indices,
-                  edge_ids=g.edge_ids, rows=f.rows, labels=labels)
+    axis_name, mesh_shape = _check_step_args(g, f, labels, mesh, axis_name,
+                                             hier_load_factor)
     dev = mesh.device
     byte_model = dist_step_byte_model(
         g.nodes_per_shard, g.num_shards, num_neighbors, batch_size,
         frontier_cap, f.rows.shape[-1], axis_name, mesh_shape, route=route)
     record_bytes = _byte_counters(byte_model)
+    skw = dict(frontier_cap=frontier_cap, last_hop_dedup=last_hop_dedup,
+               exchange_load_factor=exchange_load_factor,
+               dedup_gather=dedup_gather, route=route, fused=fused,
+               fused_frontier=fused_frontier)
 
     def step(state: TrainState, seeds, key: torch.Tensor):
         record_bytes()
         _check_model(state, dev)
         host = _host_seeds(seeds)
         seeds_dev = seeds_on_mesh(host, mesh)
-        keys, outs, xy = sample_and_gather(
-            g, f, labels, seeds_dev, key, num_neighbors, frontier_cap,
-            last_hop_dedup, exchange_load_factor, dedup_gather, route,
-            fused, fused_frontier)
         model, opt = state.model, state.optimizer
-        losses, accs = [], []
-        for s, (out, (x, y)) in enumerate(zip(outs, xy)):
-            logits = model(x, torch.stack([out.row, out.col]),
-                           out.edge_mask, dropout_key=keys[s])
-            loss_s, acc_s = seed_cross_entropy(logits, y, batch_size,
-                                               out.node_mask)
-            losses.append(loss_s)
-            accs.append(acc_s.to(torch.float32))
-        loss = torch.stack(losses).mean()
-        acc = torch.stack(accs).mean()
+        loss, acc = _mesh_loss(model, g, f, labels, seeds_dev, key,
+                               num_neighbors, batch_size, skw)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         _masked_step(opt, (seeds_dev >= 0).any())
@@ -274,6 +303,146 @@ def make_dist_train_step(
 
     step.collective_bytes = byte_model
     return step
+
+
+def make_scanned_dist_train_step(
+    g: ShardedGraph,
+    f: ShardedFeature,
+    labels: torch.Tensor,          # [S, nodes_per_shard] int labels
+    mesh: Mesh,
+    num_neighbors: Sequence[int],
+    batch_size: int,
+    axis_name: Optional[str] = None,
+    frontier_cap: Optional[int] = None,
+    last_hop_dedup: bool = True,
+    exchange_load_factor: Optional[float] = None,
+    dedup_gather: bool = False,
+    route: str = "auto",
+    fused: Optional[bool] = None,
+    fused_frontier: bool = False,
+    hier_load_factor: Optional[float] = None,
+):
+    """Train ``G`` consecutive distributed batches per call (cf.
+    ``glt_tpu``'s ``make_scanned_dist_train_step``).
+
+    Returns ``step(state, seeds_blk [G, S, B], key) -> (state, losses
+    [G], accs [G])``: ``seeds_blk`` is a HOST block (-1 padded;
+    :func:`dist_seed_blocks`), slot ``g`` takes ``split(key, G)[g]`` and
+    shard ``s`` within it ``fold_in`` of that key with ``s``, for its
+    sample and its dropout, as :func:`make_dist_train_step` does per
+    call.  Losses and accuracies are the slots' means over the shards,
+    on the device.  A slot with no real seed on any shard is skipped on
+    the host (``glt_tpu``'s global ``lax.cond``): the parameters, the
+    optimizer's state and the step counter hold, and its loss and
+    accuracy are 0; the counter advances by the real slots.  The other
+    arguments mean what they mean for :func:`make_dist_train_step`.
+
+    On the card the block is one CUDA graph per real-slot pattern, over
+    a static ``[G, S, B]`` seed buffer filled through pinned memory and
+    a key buffer: the first call at a pattern runs eagerly (it creates
+    Adam's state), the next captures the block, and every later call
+    replays it; captures count under the compilewatch label
+    ``scanned_dist_step``.  The byte counters add ``G`` steps a call on
+    the host, outside the graph.  On the CPU every call runs eagerly.
+    """
+    axis_name, mesh_shape = _check_step_args(g, f, labels, mesh, axis_name,
+                                             hier_load_factor)
+    dev = mesh.device
+    S = g.num_shards
+    byte_model = dist_step_byte_model(
+        g.nodes_per_shard, S, num_neighbors, batch_size, frontier_cap,
+        f.rows.shape[-1], axis_name, mesh_shape, route=route)
+    record_bytes = _byte_counters(byte_model)
+    skw = dict(frontier_cap=frontier_cap, last_hop_dedup=last_hop_dedup,
+               exchange_load_factor=exchange_load_factor,
+               dedup_gather=dedup_gather, route=route, fused=fused,
+               fused_frontier=fused_frontier)
+    zero_f = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def block(model, opt, blocks, key, real):
+        seeds, = blocks
+        keys = trandom.split(key, len(real))
+        losses, accs = [], []
+        for i, is_real in enumerate(real):
+            if not is_real:
+                losses.append(zero_f)
+                accs.append(zero_f)
+                continue
+            loss, acc = _mesh_loss(model, g, f, labels, seeds[i], keys[i],
+                                   num_neighbors, batch_size, skw)
+            _backward_and_step(opt, loss)
+            losses.append(loss.detach())
+            accs.append(acc)
+        return torch.stack(losses), torch.stack(accs)
+
+    blocks = _ScannedBlocks(dev, block, None, "scanned_dist_step")
+
+    def step(state: TrainState, seeds_blk, key: torch.Tensor):
+        blk = _host_seeds(seeds_blk)
+        if blk.ndim != 3 or blk.shape[1:] != (S, batch_size):
+            raise ValueError(f"expected [G, {S}, {batch_size}] seeds, got "
+                             f"{tuple(blk.shape)}")
+        record_bytes(int(blk.shape[0]))
+        return blocks(state, blk, key)
+
+    step.collective_bytes = byte_model
+    return step
+
+
+def dist_seed_blocks(train_idx, num_shards: int, batch_size: int,
+                     group: int, rng):
+    """Shuffled ``[G, S, B]`` seed blocks, -1 padded: the epoch feed of
+    :func:`make_scanned_dist_train_step` (each slot one disjoint seed
+    batch per shard; trailing slots may be fully padded no-ops)."""
+    ids = np.asarray(train_idx)[rng.permutation(len(train_idx))]
+    per_block = batch_size * num_shards * group
+    for lo in range(0, len(ids), per_block):
+        blk = np.full((group, num_shards, batch_size), -1, np.int64)
+        chunk = ids[lo: lo + per_block]
+        blk.reshape(-1)[: chunk.shape[0]] = chunk
+        yield blk
+
+
+def run_scanned_dist_epoch(step, state: TrainState, train_idx,
+                           num_shards: int, batch_size: int, group: int,
+                           rng, base_key: torch.Tensor, start_block: int = 0,
+                           on_block=None):
+    """One epoch through :func:`make_scanned_dist_train_step`.
+
+    Shuffles ``train_idx`` into ``[G, S, B]`` blocks
+    (:func:`dist_seed_blocks`) and drives ``step`` once per block under
+    ``fold_in(base_key, i)``; the losses and accuracies come back in ONE
+    device->host copy at the end.  Returns ``(state, losses [n_real],
+    accs [n_real])`` as host numpy; ``n_real`` counts the real slots.
+    ``start_block``/``on_block`` are the resume seam of
+    :func:`~glt_tpu_torch.models.run_scanned_epoch`: the first
+    ``start_block`` blocks are skipped without moving the key schedule,
+    and ``on_block(state, i)`` fires after block ``i``'s device work has
+    finished.
+    """
+    blocks = list(dist_seed_blocks(train_idx, num_shards, batch_size,
+                                   group, rng))
+    n_real = -(-len(train_idx) // (batch_size * num_shards))
+    n_real = max(0, n_real - int(start_block) * group)
+    losses, accs = [], []
+    for i, blk in enumerate(blocks):
+        if i < start_block:
+            continue
+        state, ls, acs = step(state, blk, trandom.fold_in(base_key, i))
+        losses.append(ls)
+        accs.append(acs)
+        if on_block is not None:
+            # The hook may checkpoint: the block's device work finishes
+            # first, so the state it captures is post-block.
+            if ls.is_cuda:
+                torch.cuda.synchronize(ls.device)
+            on_block(state, i)
+    if not losses:
+        empty = np.zeros((0,), np.float32)
+        return state, empty, empty
+    n = sum(ls.shape[0] for ls in losses)
+    host = torch.cat(losses + accs).cpu().numpy()
+    return state, host[:n][:n_real], host[n:][:n_real]
 
 
 def init_dist_state(model: torch.nn.Module, tx: OptimizerFactory,

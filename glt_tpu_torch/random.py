@@ -183,6 +183,18 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return ((x - _I32_MIN) & _M32) + _I32_MIN
 
 
+def _device_scalar(v: IntOrTensor, dtype: torch.dtype,
+                   dev: torch.device) -> torch.Tensor:
+    """``v`` as a ``dtype`` tensor on ``dev``: a tensor is cast there, a
+    Python number becomes a device fill (no host->device copy, so a CUDA
+    graph can capture it; the fill rounds as ``torch.tensor`` does)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=dtype)
+    if getattr(v, "ndim", 0):          # a host array of bounds
+        return torch.as_tensor(v, dtype=dtype, device=dev)
+    return torch.full((), v, dtype=dtype, device=dev)
+
+
 def randint(key: torch.Tensor, shape: Union[int, Sequence[int]],
             minval: IntOrTensor, maxval: IntOrTensor, *,
             plain: bool = False) -> torch.Tensor:
@@ -198,8 +210,8 @@ def randint(key: torch.Tensor, shape: Union[int, Sequence[int]],
     """
     shape = _shape(shape)
     dev = key.device
-    lo_v = torch.as_tensor(minval, dtype=torch.int64, device=dev)
-    hi_v = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    lo_v, hi_v = (_device_scalar(v, torch.int64, dev)
+                  for v in (minval, maxval))
     out_of_range = hi_v > _I32_MAX
     lo_v = lo_v.clamp(_I32_MIN, _I32_MAX)
     hi_v = hi_v.clamp(_I32_MIN, _I32_MAX)
@@ -237,8 +249,8 @@ def uniform(key: torch.Tensor, shape: Union[int, Sequence[int]] = (),
     bits = _random_bits(key, _shape(shape))
     mant = (bits >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
+    lo = _device_scalar(minval, torch.float32, key.device)
+    span = _device_scalar(maxval, torch.float32, key.device) - lo
     scaled = (floats.double() * span.double() + lo.double()).float()
     return torch.maximum(lo, scaled)
 

@@ -549,8 +549,10 @@ class NeighborSampler:
                 neg_dst = weighted_draw(kneg, cdf, (q * amount,))
             else:
                 neg_dst = trandom.randint(kneg, (q * amount,), 0, num_nodes)
-            neg_dst = torch.where((src >= 0).repeat_interleave(amount),
-                                  neg_dst, PADDING_ID)
+            # Each positive's validity over its `amount` slots: a view
+            # and a copy, no host sync (a CUDA graph captures it).
+            pos_ok = (src >= 0)[:, None].expand(q, amount).reshape(-1)
+            neg_dst = torch.where(pos_ok, neg_dst, PADDING_ID)
             seed_ids = torch.cat([src, dst, neg_dst])
         else:
             seed_ids = torch.cat([src, dst])
@@ -596,9 +598,13 @@ class NeighborSampler:
         One whole-graph sparse propagation per hop: an edge ``u -> v``
         adds ``p_u * min(fanout / deg_u, 1)`` to ``p_v``; the hops'
         results are union-bounded into a cumulative visit probability.
-        The frequency partitioner's hotness scores.  The sums go through
-        ``index_add_`` (atomics on the card), so they agree with
-        ``glt_tpu``'s ``segment_sum`` to f32 round-off, not bit for bit.
+        The frequency partitioner's hotness scores.  The edge weight is a
+        tensor divided by a tensor, one correctly rounded division as in
+        ``glt_tpu`` (a Python number over a tensor would round a
+        reciprocal and then a product).  On the CPU the result equals
+        ``glt_tpu``'s bit for bit; on the card ``index_add_`` adds by
+        atomics, so the sums agree with ``segment_sum``'s to f32
+        round-off.
         """
         g = self.graph
         indptr, indices = g.indptr, g.indices
@@ -614,7 +620,8 @@ class NeighborSampler:
         prob[seeds] = 1.0
         total = prob
         for f in self.num_neighbors:
-            w = torch.clamp(f / deg.clamp(min=1.0), max=1.0)
+            w = torch.clamp(torch.full_like(deg, float(f))
+                            / deg.clamp(min=1.0), max=1.0)
             contrib = prob[edge_src] * w[edge_src]
             nxt = torch.zeros(num_nodes, dtype=torch.float32,
                               device=dev).index_add_(0, indices.long(),

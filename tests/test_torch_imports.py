@@ -85,6 +85,12 @@ DIST_MODULES = (
     "glt_tpu_torch.examples.partition_dataset",
     "glt_tpu_torch.examples.dist_train_papers100m")
 
+# The scanned-steps slice's example twins.
+TWIN_MODULES = (
+    "glt_tpu_torch.examples.train_sage_products",
+    "glt_tpu_torch.examples.bipartite_sage_unsup",
+    "glt_tpu_torch.examples.dist_train_sage")
+
 
 def test_port_imports_no_jax():
     env = dict(os.environ)
@@ -103,3 +109,4 @@ def test_port_imports_no_jax():
     assert set(CKPT_OBS_MODULES) <= walked, sorted(set(CKPT_OBS_MODULES)
                                                    - walked)
     assert set(DIST_MODULES) <= walked, sorted(set(DIST_MODULES) - walked)
+    assert set(TWIN_MODULES) <= walked, sorted(set(TWIN_MODULES) - walked)

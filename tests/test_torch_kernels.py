@@ -1102,3 +1102,156 @@ def test_request_rows_b3_equals_take(cuda_device):
     got = _request_rows(rows, local, ok, True)
     assert fused_frontier_cuda.launches == b3 + 1
     assert torch.equal(got, _request_rows(rows, local, ok, False))
+
+
+def _replayed_vs_eager(make_step, make_state, blocks, keys, program):
+    """Drive ``blocks`` through one step (eager, captured, replayed) and
+    each through a fresh step (eager) from a state of the same start;
+    returns the two loss lists and the two final states.  The graph step
+    captures once (under the compilewatch label ``program``), and its
+    last call is a replay: it moves no B1 counter."""
+    from glt_tpu_torch.obs import compilewatch
+
+    graph_step, a, b = make_step(), make_state(), make_state()
+    captures = compilewatch.counts(program)
+    got, want = [], []
+    for i, (blk, key) in enumerate(zip(blocks, keys)):
+        b1 = sample_cuda.sample_neighbors_cuda.launches
+        a, *la = graph_step(a, *blk, key)
+        if i == 2:
+            assert sample_cuda.sample_neighbors_cuda.launches == b1
+        b, *lb = make_step()(b, *blk, key)
+        got.append(la[0])
+        want.append(lb[0])
+    assert compilewatch.counts(program) == captures + 1
+    return got, want, a, b
+
+
+def _triplet_loss(z, meta):
+    """A margin loss over each positive and its negatives."""
+    last = z.shape[0] - 1
+    s = z[meta["src_index"].clamp(0, last).long()]
+    p = z[meta["dst_pos_index"].clamp(0, last).long()]
+    n = z[meta["dst_neg_index"].clamp(0, last).long()]
+    gap = (s[:, None] * n).sum(-1) - (s * p).sum(-1)[:, None]
+    return torch.relu(gap + 1.0).mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["binary", "triplet"])
+def test_replayed_link_block_matches_eager(cuda_device, mode):
+    """The scanned link step, binary and triplet: calls 2 and 3 replay
+    the block captured at its shape, and each matches an eager block
+    from the same state within 1e-5 (the losses apart only by the order
+    of ``index_add_``'s atomics); so do the final parameters."""
+    from glt_tpu_torch.examples.graph_sage_unsup_ppi import unsup_dot_loss
+    from glt_tpu_torch.models import (link_seed_blocks,
+                                      make_scanned_link_train_step)
+
+    indptr, indices, _, _ = _graph(5, 2000)
+    feat = np.random.default_rng(0).standard_normal((2000, 32)).astype(
+        np.float32)
+    g = Graph(CSRTopo.from_csr_arrays(indptr, indices), device=cuda_device)
+    s = NeighborSampler(g, [5, 3], batch_size=32, frontier_cap=256,
+                        with_edge=False)
+    neg = NegativeSampling(mode, 1 if mode == "binary" else 2)
+    loss = unsup_dot_loss if mode == "binary" else _triplet_loss
+
+    def state():
+        torch.manual_seed(0)
+        return create_train_state(
+            GraphSAGE(32, 16, 16, num_layers=2, dropout_rate=0.0).to(
+                cuda_device), adam(1e-2))
+
+    ei = np.stack(csr_to_coo(indptr, indices))
+    blocks = [(sb, db) for sb, db, _ in link_seed_blocks(
+        ei, 32, 4, np.random.default_rng(1))][:3]
+    keys = [trandom.PRNGKey(i, device=cuda_device) for i in range(3)]
+    got, want, a, b = _replayed_vs_eager(
+        lambda: make_scanned_link_train_step(s, feat, loss, neg), state,
+        blocks, keys, "scanned_link_step")
+    for la, lb in zip(got, want):
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=1e-6)
+    assert a.step == b.step == 12
+    for pa, pb in zip(a.model.parameters(), b.model.parameters()):
+        torch.testing.assert_close(pa, pb, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_replayed_subgraph_block_matches_eager(cuda_device):
+    """The scanned subgraph step: the replayed blocks match eager blocks
+    from the same state within 1e-5, their last batch fully padded."""
+    from glt_tpu_torch.examples.seal_link_pred import pair_loss
+    from glt_tpu_torch.models import make_scanned_subgraph_train_step
+
+    indptr, indices, _, _ = _graph(5, 2000)
+    feat = np.random.default_rng(0).standard_normal((2000, 32)).astype(
+        np.float32)
+    g = Graph(CSRTopo.from_csr_arrays(indptr, indices), device=cuda_device)
+    s = NeighborSampler(g, [4, 3], batch_size=16, with_edge=True)
+
+    def state():
+        torch.manual_seed(0)
+        return create_train_state(
+            GraphSAGE(32, 16, 16, num_layers=2, dropout_rate=0.0).to(
+                cuda_device), adam(1e-2))
+
+    rng = np.random.default_rng(2)
+    blocks = []
+    for _ in range(3):
+        sb = rng.integers(0, 2000, (4, 16))
+        yb = rng.integers(0, 2, (4, 8))
+        sb[-1], yb[-1] = -1, -1
+        blocks.append((sb, yb))
+    keys = [trandom.PRNGKey(10 + i, device=cuda_device) for i in range(3)]
+    got, want, a, b = _replayed_vs_eager(
+        lambda: make_scanned_subgraph_train_step(s, feat, pair_loss, 8),
+        state, blocks, keys, "scanned_subgraph_step")
+    for la, lb in zip(got, want):
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=1e-6)
+    assert a.step == b.step == 12
+    for pa, pb in zip(a.model.parameters(), b.model.parameters()):
+        torch.testing.assert_close(pa, pb, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_replayed_dist_block_matches_eager(cuda_device):
+    """The scanned distributed step over 4 shards on cuda:0 (B3 serving,
+    dropout 0.5): each replayed [G, S, B] block matches an eager block
+    from the same state within 1e-5; B1 runs 2 and B3 1 a shard a slot
+    in the eager block, none in a replay."""
+    from glt_tpu_torch.parallel import (Mesh, dist_seed_blocks,
+                                        init_dist_state,
+                                        make_scanned_dist_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gds, _ = _dist_pair(cuda_device)
+    blocks = [(blk,) for blk in dist_seed_blocks(
+        np.arange(600), 4, 16, 3, np.random.default_rng(3))][:3]
+    assert all((blk >= 0).all() for blk, in blocks)
+
+    def state():
+        torch.manual_seed(0)
+        m = GraphSAGE(12, 32, 5, num_layers=2, dropout_rate=0.5).to(
+            cuda_device)
+        return init_dist_state(m, adam(1e-3), gds.graph, gds.feature,
+                               [5, 4], 16)
+
+    def make():
+        return make_scanned_dist_train_step(
+            gds.graph, gds.feature, gds.labels, Mesh([cuda_device] * 4),
+            [5, 4], 16, fused_frontier=True)
+
+    b1, b3 = (sample_cuda.sample_neighbors_cuda.launches,
+              fused_frontier_cuda.launches)
+    make()(state(), *blocks[0], trandom.PRNGKey(0, device=cuda_device))
+    assert sample_cuda.sample_neighbors_cuda.launches == b1 + 3 * 4 * 2
+    assert fused_frontier_cuda.launches == b3 + 3 * 4
+    keys = [trandom.PRNGKey(20 + i, device=cuda_device) for i in range(3)]
+    got, want, a, b = _replayed_vs_eager(make, state, blocks, keys,
+                                         "scanned_dist_step")
+    for la, lb in zip(got, want):
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=1e-6)
+    assert a.step == b.step == 9
+    for pa, pb in zip(a.model.parameters(), b.model.parameters()):
+        torch.testing.assert_close(pa, pb, rtol=1e-5, atol=1e-5)

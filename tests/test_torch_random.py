@@ -149,3 +149,46 @@ def test_hash_plain_matches_jax(seed):
         threefry_hash_plain(tks, data=41))
     with pytest.raises(ValueError):
         threefry_hash_plain(tks)
+
+
+def _no_host_copies(monkeypatch):
+    """Make the two host->device tensor constructors raise: Python-number
+    bounds must become device fills, which a CUDA graph can capture."""
+    def refuse(*a, **k):
+        raise AssertionError("a bound went through a host copy")
+    monkeypatch.setattr(torch, "as_tensor", refuse)
+    monkeypatch.setattr(torch, "tensor", refuse)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("bounds", [(0, 7), (-5, 9), (7, 2),
+                                    (-2**31, 2**31 - 1),
+                                    (np.int64(3), np.int32(1000))])
+def test_randint_device_built_bounds(monkeypatch, seed, bounds):
+    """Scalar bounds built on the key's device, with no host copy, stay
+    ``==`` to ``jax.random.randint``."""
+    lo, hi = bounds
+    ref = jax.random.randint(jax.random.PRNGKey(seed), (3, 4), int(lo),
+                             int(hi), dtype=jnp.int32)
+    tk = trandom.PRNGKey(seed, device="cpu")
+    _no_host_copies(monkeypatch)
+    got = trandom.randint(tk, (3, 4), lo, hi)
+    monkeypatch.undo()
+    _eq(ref, got)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("bounds", [(0.0, 1.0), (-1.5, 2.7), (0.3, 0.30001),
+                                    (1e-3, 5e3)])
+def test_uniform_device_built_bounds(monkeypatch, seed, bounds):
+    """``uniform``'s bounds as device fills, with no host copy, stay
+    ``==`` to ``jax.random.uniform``."""
+    lo, hi = bounds
+    ref = jax.random.uniform(jax.random.PRNGKey(seed), (5, 3), jnp.float32,
+                             lo, hi)
+    tk = trandom.PRNGKey(seed, device="cpu")
+    _no_host_copies(monkeypatch)
+    got = trandom.uniform(tk, (5, 3), lo, hi)
+    monkeypatch.undo()
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
