@@ -189,8 +189,33 @@ Phases (the first failure exits non-zero and prints no result line):
    ``bipartite_sage_unsup`` and ``dist_train_sage`` (8 shards on the
    card) at their defaults for TWIN_EPOCHS epochs: every loss finite,
    the bipartite loss falling, the plain threefry never on the card;
-13. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-12) and the ok line.
+13. features that outgrow the card: phase 11's partition loaded by
+   ``DistDataset.load(hot_ratio=0.25)`` (the JAX example's default; a
+   quarter of each shard's rows on the card, the rest in host memory;
+   its rows equal to the whole load's), the twin's
+   ``TieredTrainPipeline`` at phase 11's settings (B3 serving the hot
+   rows, the default cold_cap of twice the node capacity).  Step 0's
+   stage outputs (sample, compact slots, cold ids, drops) equal the
+   CPU's, its tiered gather the hot_ratio-1.0 gather of phase 11, and
+   at cold_cap TIERED_SMALL_CAP the card and the CPU drop the same
+   requests, served as zero rows; B3 timed at shard 0's hot requests.
+   With the launch counts set to 0 just before and read just after:
+   TIERED_STEPS batches of one epoch (B1 8 and B3 4 in the eager batch
+   and in each graph's capture, one capture of the stage and of the
+   train step, the loss falling, no drops), step 0's loss within
+   F32_LOSS_RTOL of the CPU's, the step time from the host's stamps of
+   the train calls, peak memory.  Then 3 replayed steps profiled (B1 8,
+   B3 4 and 2 graph launches a step by name), 3 under the sync debug
+   mode (no sync on the main thread), and one step's parts timed alone
+   (sample+route, train, id fetch, host gather, H2D copy) for the
+   overlap.  The disk tier on a DISK_SCALE graph of the same recipe (a
+   raw store, a DRAM budget of an eighth of the cold bytes): staged rows
+   equal to HostColdStore's, DISK_STEPS losses within TIERED_DRIFT_RTOL.
+   Then on the same mesh ``sample_from_edges`` (binary x1, strict and
+   not) and ``subgraph`` equal to the CPU's, no strict negative an edge,
+   the induced edges CSR edges;
+14. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-13) and the ok line.
 
 Details go to ``build/results/chip_smoke.json`` (phase 10's trace to
 ``build/results/phase10_trace.json``).  Imports torch, numpy and
@@ -208,6 +233,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -303,6 +329,17 @@ DIST_SCAN_BLOCKS = 5
 # 3 scanned epochs (eager, captured, replayed) and 1 loader epoch; the
 # bipartite and dist_train_sage twins at their defaults for 2 epochs.
 TWIN_PRODUCTS_SCALE, TWIN_EPOCHS = 0.05, 2
+# Features that outgrow the card: phase 11's partition loaded at the JAX
+# example's --hot-ratio 0.25 and trained through TieredTrainPipeline for
+# TIERED_STEPS batches; a leg at cold_cap TIERED_SMALL_CAP; the disk
+# tier on a ~SMALL_N-node graph of the same recipe (DISK_SCALE) for
+# DISK_STEPS batches, its losses within TIERED_DRIFT_RTOL of the host
+# tier's (two runs' drift on the card, index_add_ atomics: PERF.md §7);
+# subgraphs at SUB_MAX_DEGREE, SUB_CHECK_EDGES induced edges a shard
+# checked against the CSR.
+TIERED_RATIO, TIERED_STEPS, TIERED_SMALL_CAP = 0.25, 24, 2048
+DISK_SCALE, DISK_STEPS, TIERED_DRIFT_RTOL = 0.0018, 6, 8.574e-04
+SUB_MAX_DEGREE, SUB_CHECK_EDGES = 32, 2000
 DEVICE = "cuda"
 
 
@@ -3390,9 +3427,12 @@ def time_dist_kernels(torch, ops, trandom, ds, batch, sm_mhz):
     return row_b1, row_b3
 
 
-def run_dist(torch, ops, trandom, dev, sm_mhz) -> dict:
-    """Phase 11 (see the module docstring)."""
-    import shutil
+def run_dist(torch, ops, trandom, dev, sm_mhz, part_dir: str,
+             keep: dict) -> dict:
+    """Phase 11 (see the module docstring).  Partitions into
+    ``part_dir`` (the caller deletes it) and leaves in ``keep`` what
+    phase 13 reuses: the papers graph, the card's and the CPU's loads at
+    hot ratio 1.0 and the seed batches."""
     import traceback
     import warnings
 
@@ -3427,21 +3467,15 @@ def run_dist(torch, ops, trandom, dev, sm_mhz) -> dict:
          f"sample_prob on the card differs from the CPU's by "
          f"{rep['sample_prob_max_abs_err']:.3e}")
 
-    part_dir = os.path.join(WORK_DIR, "dist_parts")
-    shutil.rmtree(part_dir, ignore_errors=True)
-    os.makedirs(WORK_DIR, exist_ok=True)
-    try:
-        rep["partition_s"] = twin.partition(papers, part_dir, DIST_SHARDS,
-                                            host_probs)
-        t0 = time.perf_counter()
-        ds = twin.load(part_dir, papers.labels, 1.0, dev)
-        torch.cuda.synchronize()
-        rep["load_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ds_cpu = twin.load(part_dir, papers.labels, 1.0, cpu)
-        rep["cpu_load_s"] = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(part_dir, ignore_errors=True)
+    rep["partition_s"] = twin.partition(papers, part_dir, DIST_SHARDS,
+                                        host_probs)
+    t0 = time.perf_counter()
+    ds = twin.load(part_dir, papers.labels, 1.0, dev)
+    torch.cuda.synchronize()
+    rep["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds_cpu = twin.load(part_dir, papers.labels, 1.0, cpu)
+    rep["cpu_load_s"] = time.perf_counter() - t0
     rep["nodes_per_shard"] = ds.relabel.nodes_per_shard
     rep["edge_width"] = int(ds.graph.indices.shape[1])
     rep["checked_edges"] = check_dist_dataset(torch, ds, topo, papers,
@@ -3590,7 +3624,7 @@ def run_dist(torch, ops, trandom, dev, sm_mhz) -> dict:
     # The scanned step, its blocks captured into CUDA graphs.
     rep["scanned"] = sc = run_scanned_dist(torch, ops, trandom, ds, ds_cpu,
                                            mesh, state, batches)
-    del ds_cpu
+    keep.update(papers=papers, ds=ds, ds_cpu=ds_cpu, batches=batches)
     rep["launches"] = {k: v + sc["launches"][k]
                        for k, v in rep["launches"].items()}
     rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -3785,6 +3819,577 @@ def log_dist(rep: dict, card: str) -> None:
         log(f"  {name} {k['shape']}: kernel {k['ms']:.5f} ms, plain "
             f"{k['plain_ms']:.4f} ms{lib}, bound {k['bound_ms']:.5f} ms by "
             f"{k['bound_by']}")
+
+
+# -- phase 13: features that outgrow the card --------------------------------
+STAGE_FIELDS = ("node", "row", "col", "edge", "batch", "node_mask",
+                "edge_mask", "num_sampled_nodes", "num_sampled_edges",
+                "slots", "ids", "dropped")
+
+
+def sharded_is_edge(ip, ix, c: int, s: int, d: int) -> bool:
+    """Whether ``(s, d)`` (relabelled ids) is an edge of the sharded CSR
+    ``ip [S, c + 1]``, ``ix [S, E]`` (host arrays)."""
+    sh, r = divmod(int(s), c)
+    return bool((ix[sh, ip[sh, r]:ip[sh, r + 1]] == d).any())
+
+
+def shard_edges(ip, ix, c: int, n: int, rng):
+    """``[S, n]`` seed edges, every shard's from its own CSR block, the
+    last 4 slots padding."""
+    S = ip.shape[0]
+    src = np.full((S, n), -1, np.int32)
+    dst = np.full((S, n), -1, np.int32)
+    for s in range(S):
+        e = rng.choice(int(ip[s, -1]), n - 4, replace=False)
+        src[s, : n - 4] = s * c + np.searchsorted(ip[s], e, side="right") - 1
+        dst[s, : n - 4] = ix[s, e]
+    return src, dst
+
+
+def b3_kernels(torch, prof) -> int:
+    """Device executions of kernel B3 (``fused_frontier_kernel``) in a
+    profiled window, by name."""
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and re.search(r"(^|[^A-Za-z_])fused_frontier_kernel",
+                             ev.name))
+
+
+def tiered_pipeline(ds, feature, mesh, cold_cap=None, cold_store=None):
+    """The twin's tiered pipeline over ``ds``'s graph and labels at
+    phase 11's settings (B3 serving the hot rows on the card)."""
+    from glt_tpu_torch.parallel import (DistNeighborSampler,
+                                        TieredTrainPipeline,
+                                        make_tiered_train_step)
+
+    sampler = DistNeighborSampler(ds.graph, mesh, num_neighbors=DIST_FANOUT,
+                                  batch_size=DIST_BS)
+    train = make_tiered_train_step(ds.graph, feature, ds.labels, mesh,
+                                   DIST_BS,
+                                   fused_frontier=mesh.device.type == "cuda")
+    return TieredTrainPipeline(sampler, train, feature, mesh,
+                               cold_cap=cold_cap, cold_store=cold_store)
+
+
+def staged(torch, pipe, seeds, key):
+    """One batch's stage 1 and cold staging through ``pipe``: ``(out,
+    rows, slots)``, the rows on the mesh's device."""
+    out, fut = pipe._sample_and_stage(seeds, key)
+    rows, slots, copied, _ = fut.result()
+    if copied is not None:
+        torch.cuda.current_stream().wait_event(copied)
+    return out, rows, slots
+
+
+def run_tiered(torch, ops, trandom, dev, sm_mhz, keep: dict,
+               part_dir: str) -> dict:
+    """Phase 13 (see the module docstring)."""
+    import threading
+    import traceback
+    import warnings
+
+    from glt_tpu_torch.data import CSRTopo, Graph
+    from glt_tpu_torch.examples import dist_train_papers100m as twin
+    from glt_tpu_torch.obs import compilewatch
+    from glt_tpu_torch.parallel import (DistNeighborSampler, Mesh,
+                                        TieredShardedFeature,
+                                        exchange_gather_xy)
+    from glt_tpu_torch.parallel.dist_sampler import seeds_on_mesh
+    from glt_tpu_torch.sampler import NegativeSampling, SamplerOutput
+    from glt_tpu_torch.store import (DiskColdStore, DiskFeatureStore,
+                                     write_feature_store)
+
+    rep = {}
+    cpu = torch.device("cpu")
+    S, hops = DIST_SHARDS, len(DIST_FANOUT)
+    papers, ds_cpu, batches = keep["papers"], keep["ds_cpu"], keep["batches"]
+    need(batches.shape[0] >= TIERED_STEPS + 12, "too few seed batches")
+
+    # The tiered load on the card, the entry point a user calls.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = twin.load(part_dir, papers.labels, TIERED_RATIO, dev)
+    torch.cuda.synchronize()
+    rep["load_s"] = time.perf_counter() - t0
+    f = ds.feature
+    need(isinstance(f, TieredShardedFeature), "hot_ratio 0.25 loaded no "
+                                              "TieredShardedFeature")
+    c, h = f.nodes_per_shard, f.hot_per_shard
+    rows = ds_cpu.feature.rows
+    need(torch.equal(f.hot.cpu(), rows[:, :h])
+         and np.array_equal(f.cold, rows[:, h:].numpy()),
+         "the tiered load's rows differ from the whole load's")
+    rep.update(nodes_per_shard=c, hot_per_shard=h,
+               hot_bytes=f.hot.numel() * f.hot.element_size(),
+               cold_bytes=int(f.cold.nbytes))
+    # The CPU's tiered feature: the whole CPU load's rows, split.
+    f_cpu = TieredShardedFeature(hot=rows[:, :h].contiguous(),
+                                 cold=rows[:, h:].numpy(), nodes_per_shard=c,
+                                 hot_per_shard=h, num_shards=S)
+    mesh, cmesh = Mesh([dev] * S), Mesh([cpu] * S)
+    key, ckey = (trandom.PRNGKey(300, device=d) for d in (dev, cpu))
+
+    def sample_key(k, i):
+        return trandom.fold_in(trandom.fold_in(k, i), 1)
+
+    # Step 0 against the CPU and the whole table: its stage's outputs,
+    # its tiered gather (== phase 11's hot_ratio-1.0 gather), a small
+    # cold_cap's drops.  A probe pipeline, so the main path's counts and
+    # captures start clean.
+    probe = tiered_pipeline(ds, f, mesh)
+    cprobe = tiered_pipeline(ds_cpu, f_cpu, cmesh)
+    b0 = batches[0]
+    got = probe._stage_prog(seeds_on_mesh(b0, mesh), sample_key(key, 0))
+    want = cprobe._stage_prog(seeds_on_mesh(b0, cmesh), sample_key(ckey, 0))
+    for name, a, b in zip(STAGE_FIELDS, got, want):
+        need(torch.equal(a.cpu(), b), f"step 0's {name}, card vs CPU")
+    rep["step0_cold_requests"] = int((got[10] >= 0).sum())
+    out, srows, slots = staged(torch, probe, b0, sample_key(key, 0))
+    full = keep["ds"]
+    tiered_xy = exchange_gather_xy(list(out.node), f.hot, ds.labels, c, S,
+                                   hot_per_shard=h, staged_rows=srows,
+                                   staged_slots=slots, fused_frontier=True)
+    full_xy = exchange_gather_xy(list(out.node), full.feature.rows,
+                                 full.labels, c, S)
+    for s, ((xt, yt), (xf, yf)) in enumerate(zip(tiered_xy, full_xy)):
+        need(torch.equal(xt, xf) and torch.equal(yt, yf),
+             f"step 0's tiered gather differs from the whole gather on "
+             f"shard {s}")
+    served = served_requests(torch, ds, list(out.node))[0]
+    hot_ids = torch.where(served < h, served, -1).contiguous()
+    _, inv, uidx = ops.frontier_plan(hot_ids)
+    need(torch.equal(ops.fused_frontier_cuda(f.hot[0], uidx, inv),
+                     ops.fused_frontier_plain(f.hot[0], uidx, inv)),
+         "B3 differs from its plain version at phase 13's shape")
+    rep["b3"] = time_fused_kernel(torch, ops, f.hot[0], hot_ids)
+    rep["b3"]["bound_by"] = "bytes"
+    small = [tiered_pipeline(d, ft, m, cold_cap=TIERED_SMALL_CAP)
+             for d, ft, m in ((ds, f, mesh), (ds_cpu, f_cpu, cmesh))]
+    (so, sr, ss), _ = (staged(torch, small[0], b0, sample_key(key, 0)),
+                       staged(torch, small[1], b0, sample_key(ckey, 0)))
+    rep["small_cap_dropped"] = [p.flush_dropped() for p in small]
+    need(rep["small_cap_dropped"][0] == rep["small_cap_dropped"][1] > 0,
+         f"cold_cap {TIERED_SMALL_CAP}: drops card vs CPU "
+         f"{rep['small_cap_dropped']}")
+    small_xy = exchange_gather_xy(list(so.node), f.hot, ds.labels, c, S,
+                                  hot_per_shard=h, staged_rows=sr,
+                                  staged_slots=ss, fused_frontier=True)
+    zeroed = 0
+    for (xs, _), (xf, _) in zip(small_xy, exchange_gather_xy(
+            list(so.node), full.feature.rows, full.labels, c, S)):
+        differ = (xs != xf).any(1)
+        need(bool((xs[differ] == 0).all()), "a dropped cold request was "
+                                            "served a nonzero row")
+        zeroed += int(differ.sum())
+    need(0 < zeroed <= rep["small_cap_dropped"][0],
+         f"{zeroed} zero rows for {rep['small_cap_dropped'][0]} drops")
+    rep["small_cap_zero_rows"] = zeroed
+    for p in small + [probe]:
+        p.close()
+    del full, full_xy, small_xy, tiered_xy, small, probe, srows, sr
+    keep.pop("ds")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The main path: TIERED_STEPS batches of one epoch, counts set to 0
+    # just before and read just after; the host stamps each train call
+    # (the pipeline's period once it is full).
+    pipe = tiered_pipeline(ds, f, mesh)
+    state = twin.make_state(ds, DIST_FANOUT, DIST_BS, DIST_CLASSES, dev)
+    rep["cold_cap"] = pipe.cold_cap
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rep["memory_allocated_before"] = torch.cuda.memory_allocated()
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    trandom.threefry2x32.calls = 0
+    caps0 = [compilewatch.counts(k) for k in ("tiered_stage",
+                                               "tiered_train_step")]
+    # The main thread's own host time a batch: enqueueing stage 1 and
+    # the train step, and waiting for the staging thread's result.
+    stamps, host = [], {"stage": [], "wait": [], "train": []}
+    train_step = pipe.train_step
+    sample_and_stage, train_staged = pipe._sample_and_stage, \
+        pipe._train_staged
+
+    def stamped(*args):
+        stamps.append(time.perf_counter())
+        return train_step(*args)
+
+    class TimedFuture:
+        def __init__(self, fut):
+            self.fut = fut
+
+        def result(self):
+            t1 = time.perf_counter()
+            res = self.fut.result()
+            host["wait"].append(time.perf_counter() - t1)
+            return res
+
+    def timed_stage(*args):
+        t1 = time.perf_counter()
+        out, fut = sample_and_stage(*args)
+        host["stage"].append(time.perf_counter() - t1)
+        return out, TimedFuture(fut)
+
+    def timed_train(*args):
+        t1 = time.perf_counter()
+        res = train_staged(*args)
+        host["train"].append(time.perf_counter() - t1)
+        return res
+
+    pipe.train_step = stamped
+    pipe._sample_and_stage, pipe._train_staged = timed_stage, timed_train
+    t0 = time.perf_counter()
+    state, losses, _ = pipe.run_epoch(state, list(batches[:TIERED_STEPS]),
+                                      key)
+    torch.cuda.synchronize()
+    rep["epoch_s"] = time.perf_counter() - t0
+    pipe.train_step = train_step
+    del pipe._sample_and_stage, pipe._train_staged
+    rep["main_thread_ms"] = {k: float(np.median(v[4:])) * 1e3
+                             for k, v in host.items()}
+    launches = {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+    rep["launches"] = launches
+    rep["plain_hash_calls"] = trandom.threefry2x32.calls
+    rep["captures"] = [compilewatch.counts(k) - c0 for k, c0 in zip(
+        ("tiered_stage", "tiered_train_step"), caps0)]
+    rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().numpy()
+    rep["losses"] = losses.tolist()
+    gaps = np.diff(np.asarray(stamps)) * 1e3
+    rep["step_ms"] = gaps.tolist()
+    rep["step_ms_median"] = float(np.median(gaps[4:]))
+    rep["subgraphs_per_s"] = S / rep["step_ms_median"] * 1e3
+    rep["dropped"] = pipe.flush_dropped()
+    rep["max_cold_rows"] = pipe.max_cold_rows
+    rep["h2d_bytes"] = S * pipe.cold_cap * f.dim * f.cold.itemsize
+    need(np.isfinite(losses).all(), "a tiered loss is not finite")
+    need(losses[-5:].mean() < losses[:5].mean(),
+         f"the tiered loss did not fall: {losses[:5].mean():.4f} -> "
+         f"{losses[-5:].mean():.4f}")
+    need(rep["dropped"] == 0, f"{rep['dropped']} cold requests past the "
+                              f"default cold_cap {pipe.cold_cap}")
+    need(rep["captures"] == [1, 1], f"captures of the stage and the train "
+                                    f"step: {rep['captures']}, not 1 each")
+    # The eager first batch and each graph's capture count; a replay
+    # moves no counter.
+    need(launches["sample_neighbors_cuda"] == 2 * S * hops,
+         f"B1 ran {launches['sample_neighbors_cuda']} times, not {S * hops} "
+         f"in the eager batch and {S * hops} in the stage's capture")
+    need(launches["fused_frontier_cuda"] == 2 * S,
+         f"B3 ran {launches['fused_frontier_cuda']} times, not {S} in the "
+         f"eager batch and {S} in the train step's capture")
+    need(launches["threefry_hash_cuda"] > 0, "phase 13 never launched the "
+                                             "hash kernel")
+    need(rep["plain_hash_calls"] == 0,
+         "phase 13 ran the plain threefry arithmetic on the card")
+
+    # Step 0's loss on the CPU from the same weights and keys.
+    cpipe = tiered_pipeline(ds_cpu, f_cpu, cmesh)
+    cstate = twin.make_state(ds_cpu, DIST_FANOUT, DIST_BS, DIST_CLASSES, cpu)
+    _, closs, _ = cpipe.run_epoch(cstate, [b0], ckey)
+    rep["cpu_loss"], rep["card_loss"] = float(closs[0]), float(losses[0])
+    rep["cpu_loss_rel_err"] = abs(rep["card_loss"] - rep["cpu_loss"]) / max(
+        abs(rep["cpu_loss"]), 1e-30)
+    need(rep["cpu_loss_rel_err"] <= F32_LOSS_RTOL,
+         f"step 0's tiered loss on the card {rep['card_loss']} vs CPU "
+         f"{rep['cpu_loss']}")
+    cpipe.close()
+    del cstate
+
+    # Replayed steps: profiled (B1 and B3 by name, graph launches), then
+    # one under the sync debug mode (the main thread's syncs only).
+    lo = TIERED_STEPS
+    key2 = trandom.PRNGKey(301, device=dev)
+    with profile_window(torch) as prof:
+        t0 = time.perf_counter()
+        state, _, _ = pipe.run_epoch(state, list(batches[lo:lo + 3]), key2)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 3
+    p = device_profile(torch, prof, 3, wall)
+    p["b1_kernels"] = b1_kernels(torch, prof) / 3
+    p["b3_kernels"] = b3_kernels(torch, prof) / 3
+    p["graph_launches"] = sum(
+        n for name, n in runtime_calls(torch, prof).items()
+        if "GraphLaunch" in name) / 3
+    rep["profile"] = p
+    need(p["b1_kernels"] == S * hops, f"B1 ran {p['b1_kernels']} times a "
+                                      f"replayed step, not {S * hops}")
+    need(p["b3_kernels"] == S, f"B3 ran {p['b3_kernels']} times a replayed "
+                               f"step, not {S}")
+    need(p["graph_launches"] == 2, f"{p['graph_launches']} graph launches a "
+                                   f"replayed step, not 2 (stage, train)")
+    rep["syncs"] = []
+    main = threading.main_thread()
+    in_step = [False]
+
+    def on_warning(message, category, filename, lineno, *rest):
+        if (in_step[0] and threading.current_thread() is main
+                and "synchroniz" in str(message)):
+            frames = [fr for fr in traceback.extract_stack()[:-1]
+                      if not fr.filename.endswith("warnings.py")]
+            rep["syncs"].append(" < ".join(
+                f"{os.path.basename(fr.filename)}:{fr.lineno} {fr.name}"
+                for fr in frames[-4:][::-1]))
+
+    key3 = trandom.PRNGKey(302, device=dev)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            in_step[0] = True
+            state, _, _ = pipe.run_epoch(state, list(batches[lo + 3:lo + 6]),
+                                         key3)
+            in_step[0] = False
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    need(not rep["syncs"], f"{len(rep['syncs'])} host syncs on the main "
+                           f"thread in warm steps: {rep['syncs'][:3]}")
+
+    # The stage split of one warm batch, each part alone: the main
+    # stream's sample+route graph and train graph (device ms), the id
+    # fetch and the host->device copy (device ms), the host gather.
+    seeds = seeds_on_mesh(batches[lo + 6], mesh)
+    k1 = sample_key(key, lo + 6)
+    res = pipe._stage_prog(seeds, k1)
+    ids = res[10]
+    split = {"sample_route_ms": cuda_ms(
+        torch, lambda: pipe._stage_prog(seeds, k1), reps=5, rounds=3)}
+    pin = dev.type == "cuda"
+    pinned = torch.empty(tuple(ids.shape), dtype=ids.dtype, pin_memory=pin)
+    shape = (S, pipe.cold_cap, f.dim)
+    hrows = torch.empty(shape, dtype=f.hot.dtype, pin_memory=pin)
+    drows = torch.empty(shape, dtype=f.hot.dtype, device=dev)
+    split["id_fetch_ms"] = cuda_ms(
+        torch, lambda: pinned.copy_(ids, non_blocking=True), reps=5,
+        rounds=3)
+    req = ids.cpu().numpy()
+
+    def gather():
+        futs = []
+        for s in range(S):
+            futs += pipe.cold_store.serve_into(hrows[s].numpy(), s, req[s],
+                                               pool=pipe._gather_pool)
+        for fu in futs:
+            fu.result()
+
+    split["host_gather_ms"] = statistics.median(
+        [host_ms(torch, gather, reps=1) for _ in range(5)])
+    split["h2d_ms"] = cuda_ms(
+        torch, lambda: drows.copy_(hrows, non_blocking=True), reps=5,
+        rounds=3)
+    out_w = SamplerOutput(node=res[0], row=res[1], col=res[2], edge=res[3],
+                          batch=res[4], node_mask=res[5], edge_mask=res[6])
+    slots_w = res[9]
+    split["train_ms"] = cuda_ms(torch, lambda: pipe.train_step(
+        state, out_w, (drows, slots_w), k1), reps=5, rounds=3)
+    split["device_ms"] = split["sample_route_ms"] + split["train_ms"]
+    split["stage_ms"] = (split["id_fetch_ms"] + split["host_gather_ms"]
+                         + split["h2d_ms"])
+    split["overlap"] = (split["device_ms"] + split["stage_ms"]
+                        - rep["step_ms_median"]) / min(split["device_ms"],
+                                                       split["stage_ms"])
+    split["h2d_gb_per_s"] = rep["h2d_bytes"] / split["h2d_ms"] / 1e6
+    rep["split"] = split
+    pipe.close()
+    del state
+
+    # The disk tier: a ~SMALL_N-node graph of the same recipe, its
+    # shard-major matrix as a raw store behind a DramStager holding an
+    # eighth of the cold bytes; staged rows == HostColdStore's, losses
+    # within the card's second-run drift.
+    t0 = time.perf_counter()
+    sp = twin.synthetic_papers(DISK_SCALE, S, DIST_BS, DIST_DIM, DIST_CLASSES)
+    sdir = os.path.join(WORK_DIR, "tiered_small_parts")
+    store_dir = os.path.join(WORK_DIR, "tiered_small_store")
+    shutil.rmtree(sdir, ignore_errors=True)
+    try:
+        probs = twin.rank_probs(Graph(CSRTopo(sp.edge_index, num_nodes=sp.n),
+                                      device=dev), sp.train_idx, S,
+                                DIST_FANOUT, DIST_BS)
+        twin.partition(sp, sdir, S, [q.cpu().numpy() for q in probs])
+        sds = twin.load(sdir, sp.labels, TIERED_RATIO, dev)
+        sf = sds.feature
+        write_feature_store(store_dir, np.concatenate([
+            np.concatenate([sf.hot[s].cpu().numpy(), sf.cold[s]])
+            for s in range(S)]), overwrite=True)
+        store = DiskFeatureStore(store_dir)
+        disk = DiskColdStore(store, sf.nodes_per_shard, sf.hot_per_shard,
+                             dram_budget_bytes=sf.cold.nbytes // 8,
+                             stage_threads=4)
+        dk = {"nodes": sp.n, "budget_bytes": sf.cold.nbytes // 8,
+              "build_s": time.perf_counter() - t0}
+        sbatches = sds.split_seeds(sp.train_idx, DIST_BS, shuffle=True,
+                                   rng=np.random.default_rng(1))
+        need(sbatches.shape[0] >= DISK_STEPS + 1, "too few small batches")
+        hpipe = tiered_pipeline(sds, sf, mesh)
+        dpipe = tiered_pipeline(sds, sf, mesh, cold_store=disk)
+        kd = trandom.PRNGKey(400, device=dev)
+        oh, rh, slh = staged(torch, hpipe, sbatches[0], sample_key(kd, 0))
+        od, rd, sld = staged(torch, dpipe, sbatches[0], sample_key(kd, 0))
+        live = slh >= 0
+        need(torch.equal(slh, sld) and torch.equal(rh[live], rd[live])
+             and int(live.sum()) > 0,
+             "DiskColdStore staged other rows than HostColdStore")
+        dk["staged_rows_checked"] = int(live.sum())
+        runs = {}
+        for name, pp in (("host", hpipe), ("host2", hpipe), ("disk", dpipe)):
+            st = twin.make_state(sds, DIST_FANOUT, DIST_BS, DIST_CLASSES, dev)
+            t1 = time.perf_counter()
+            _, ls, _ = pp.run_epoch(st, list(sbatches[:DISK_STEPS]), kd)
+            runs[name] = torch.stack(ls).double().cpu()
+            dk[f"{name}_s"] = time.perf_counter() - t1
+
+        def rel(a, b):
+            return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+        dk["disk_vs_host_rel"] = rel(runs["disk"], runs["host"])
+        dk["host_second_run_rel"] = rel(runs["host2"], runs["host"])
+        dk["losses"] = runs["disk"].tolist()
+        dk["stager"] = disk.stager.stats()
+        need(bool(torch.isfinite(runs["disk"]).all()),
+             "a DiskColdStore loss is not finite")
+        need(dk["disk_vs_host_rel"] <= TIERED_DRIFT_RTOL,
+             f"DiskColdStore losses {dk['disk_vs_host_rel']:.2e} from "
+             f"HostColdStore's, past the drift {TIERED_DRIFT_RTOL}")
+        need(dk["stager"]["bytes_from_disk"] > 0, "the disk tier read "
+                                                  "nothing")
+        hpipe.close()
+        dpipe.close()
+        rep["disk"] = dk
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+    # Part two on the same 4-shard mesh: seed edges (binary x1, strict
+    # and not) and induced subgraphs, each shard == the CPU's.
+    t0 = time.perf_counter()
+    ip = ds_cpu.graph.indptr.numpy().astype(np.int64)
+    ix = ds_cpu.graph.indices.numpy()
+    gs = DistNeighborSampler(ds.graph, mesh, num_neighbors=DIST_FANOUT,
+                             batch_size=DIST_BS, seed=5)
+    cs = DistNeighborSampler(ds_cpu.graph, cmesh, num_neighbors=DIST_FANOUT,
+                             batch_size=DIST_BS, seed=5)
+    src, dst = shard_edges(ip, ix, c, DIST_BS, np.random.default_rng(13))
+    neg = NegativeSampling("binary", 1)
+    ed = {"checked_negatives": 0, "negatives_that_are_edges": 0}
+    for strict in (False, True):
+        outs = [smp.sample_from_edges(src, dst, neg, strict=strict,
+                                      key=trandom.PRNGKey(7, device=d))
+                for smp, d in ((gs, dev), (cs, cpu))]
+        same_sampler_output(torch, *outs, f"sample_from_edges strict="
+                                          f"{strict}")
+        if strict:
+            want = outs[1]
+            for s in range(S):
+                node = want.node[s].numpy()
+                eli = want.metadata["edge_label_index"][s].numpy()
+                lab = want.metadata["edge_label"][s].numpy()
+                for (a, b), lb in zip(eli.T, lab):
+                    if lb == 0 and a >= 0 and b >= 0:
+                        ed["checked_negatives"] += 1
+                        ed["negatives_that_are_edges"] += sharded_is_edge(
+                            ip, ix, c, node[a], node[b])
+    need(ed["checked_negatives"] == S * (DIST_BS - 4),
+         f"{ed['checked_negatives']} strict negatives checked")
+    need(ed["negatives_that_are_edges"] == 0,
+         f"{ed['negatives_that_are_edges']} strict negatives are edges")
+    subs = [smp.subgraph(batches[1], max_degree=SUB_MAX_DEGREE,
+                         key=trandom.PRNGKey(8, device=d))
+            for smp, d in ((gs, dev), (cs, cpu))]
+    same_sampler_output(torch, *subs, "subgraph")
+    induced = 0
+    for s in range(S):
+        node = subs[1].node[s].numpy()
+        m = subs[1].edge_mask[s].numpy()
+        r, cc = subs[1].row[s].numpy()[m], subs[1].col[s].numpy()[m]
+        for a, b in zip(node[r][:SUB_CHECK_EDGES], node[cc][:SUB_CHECK_EDGES]):
+            need(sharded_is_edge(ip, ix, c, a, b), "an induced edge is not "
+                                                   "a CSR edge")
+            induced += 1
+    ed["induced_edges_checked"] = induced
+    ed["seconds"] = time.perf_counter() - t0
+    rep["edges"] = ed
+    return rep
+
+
+def same_sampler_output(torch, got, want, what: str) -> None:
+    """Two stacked sampler outputs (card, CPU) ``torch.equal`` field by
+    field, metadata included."""
+    for fld in ("node", "row", "col", "edge", "batch", "node_mask",
+                "edge_mask", "num_sampled_nodes", "num_sampled_edges"):
+        a, b = getattr(got, fld), getattr(want, fld)
+        need((a is None and b is None) or torch.equal(a.cpu(), b),
+             f"{what}: {fld} differs from the CPU's")
+    need(set(got.metadata) == set(want.metadata),
+         f"{what}: metadata keys differ")
+    for k, v in want.metadata.items():
+        need(torch.equal(got.metadata[k].cpu(), v),
+             f"{what}: metadata {k} differs from the CPU's")
+
+
+def log_tiered(rep: dict, dist: dict, card: str) -> None:
+    """Phase 13's lines (each number measured on ``card``)."""
+    sp, p, dk, ed = rep["split"], rep["profile"], rep["disk"], rep["edges"]
+    log(f"tiered: [{card}] DistDataset.load(hot_ratio={TIERED_RATIO}) "
+        f"{rep['load_s']:.1f} s: {rep['hot_per_shard']} of "
+        f"{rep['nodes_per_shard']} rows a shard on the card "
+        f"({rep['hot_bytes']} B), {rep['cold_bytes']} B in host memory; "
+        f"step 0 == CPU (stage outputs, {rep['step0_cold_requests']} cold "
+        f"requests), tiered gather == whole gather; cold_cap "
+        f"{TIERED_SMALL_CAP}: {rep['small_cap_dropped'][0]} drops on the "
+        f"card and the CPU, {rep['small_cap_zero_rows']} zero rows")
+    log(f"  {TIERED_STEPS} steps: losses {rep['losses'][0]:.4f} -> "
+        f"{rep['losses'][-1]:.4f}; step median {rep['step_ms_median']:.2f} "
+        f"ms ({rep['subgraphs_per_s']:.1f} subgraphs/s; epoch "
+        f"{rep['epoch_s']:.2f} s); cold_cap {rep['cold_cap']}, H2D "
+        f"{rep['h2d_bytes']} B a step, max cold rows {rep['max_cold_rows']}, "
+        f"drops {rep['dropped']}; captures {rep['captures']}; launches "
+        f"{rep['launches']}; card vs CPU step 0 loss {rep['card_loss']:.6f} "
+        f"vs {rep['cpu_loss']:.6f} (rel {rep['cpu_loss_rel_err']:.2e})")
+    mt = rep["main_thread_ms"]
+    log(f"  main thread a warm step: stage 1 enqueue {mt['stage']:.3f} ms, "
+        f"waiting for the staging thread {mt['wait']:.3f} ms, train "
+        f"enqueue {mt['train']:.3f} ms")
+    log(f"  peak memory {rep['max_memory_allocated'] / 2**30:.2f} GiB "
+        f"({rep['memory_allocated_before'] / 2**30:.2f} GiB before) against "
+        f"phase 11's {dist['max_memory_allocated'] / 2**30:.2f} GiB")
+    log(f"  stage split: sample+route {sp['sample_route_ms']:.3f} ms, train "
+        f"{sp['train_ms']:.3f} ms (device {sp['device_ms']:.3f} ms); id "
+        f"fetch {sp['id_fetch_ms']:.3f} ms, host gather "
+        f"{sp['host_gather_ms']:.3f} ms, H2D {sp['h2d_ms']:.3f} ms "
+        f"({sp['h2d_gb_per_s']:.1f} GB/s) (stage {sp['stage_ms']:.3f} ms); "
+        f"overlap {sp['overlap']:.2f}")
+    log(f"  profiled replayed step: wall {p['wall_ms']:.2f} ms, "
+        f"{p['kernels']:.1f} kernels {p['kernels_ms']:.3f} ms "
+        f"({p['kernel_share']:.1%}), B1 {p['b1_kernels']:.0f}, B3 "
+        f"{p['b3_kernels']:.0f}, graph launches {p['graph_launches']:.0f}, "
+        f"{p['launch_calls']:.1f} host launch calls, {p['copies']:.1f} "
+        f"copies {p['copies_ms']:.3f} ms; main-thread syncs in warm steps "
+        f"{len(rep['syncs'])}")
+    b3 = rep["b3"]
+    log(f"  B3 {b3['shape']} ({b3['unique_rows']} unique hot rows): kernel "
+        f"{b3['ms']:.5f} ms, plain {b3['plain_ms']:.4f} ms, library "
+        f"{b3['library_ms']:.4f} ms, bound {b3['bound_ms']:.5f} ms by bytes")
+    log(f"  DiskColdStore: {dk['nodes']} nodes, DRAM budget "
+        f"{dk['budget_bytes']} B, {dk['staged_rows_checked']} staged rows "
+        f"== HostColdStore's; {DISK_STEPS} steps, losses vs HostColdStore "
+        f"rel {dk['disk_vs_host_rel']:.2e} (a second host run "
+        f"{dk['host_second_run_rel']:.2e}); stager hit rate "
+        f"{dk['stager']['hit_rate']:.3f}, from disk "
+        f"{dk['stager']['bytes_from_disk']} B; epochs host "
+        f"{dk['host_s']:.2f} s, disk {dk['disk_s']:.2f} s")
+    log(f"  edges and subgraphs on the mesh: sample_from_edges binary x1 "
+        f"(strict and not) and subgraph (max degree {SUB_MAX_DEGREE}) == "
+        f"CPU; {ed['negatives_that_are_edges']} of "
+        f"{ed['checked_negatives']} strict negatives are edges; "
+        f"{ed['induced_edges_checked']} induced edges are CSR edges "
+        f"({ed['seconds']:.1f} s)")
 
 
 # -- phase 12: the example twins ------------------------------------------
@@ -4211,25 +4816,43 @@ def main() -> int:
             np.random.default_rng(50))
         log_ckpt_obs(co, smi[0], time.perf_counter() - t0)
 
-        # 11. partition and train across a mesh of shards
-        t0 = time.perf_counter()
-        report["dist"] = dd = run_dist(torch, ops, trandom, dev, sm_mhz)
-        dd["seconds"] = time.perf_counter() - t0
-        log_dist(dd, smi[0])
-        log(f"  phase 11: {dd['seconds']:.1f} s")
+        # 11. partition and train across a mesh of shards; phase 13
+        # reuses its partition directory and loads.
+        part_dir = os.path.join(WORK_DIR, "dist_parts")
+        shutil.rmtree(part_dir, ignore_errors=True)
+        os.makedirs(WORK_DIR, exist_ok=True)
+        keep = {}
+        try:
+            t0 = time.perf_counter()
+            report["dist"] = dd = run_dist(torch, ops, trandom, dev, sm_mhz,
+                                           part_dir, keep)
+            dd["seconds"] = time.perf_counter() - t0
+            log_dist(dd, smi[0])
+            log(f"  phase 11: {dd['seconds']:.1f} s")
 
-        # 12. the example twins
-        t0 = time.perf_counter()
-        report["twins"] = tw = run_twins(torch, ops, trandom)
-        log_twins(tw, smi[0])
-        log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+            # 12. the example twins
+            t0 = time.perf_counter()
+            report["twins"] = tw = run_twins(torch, ops, trandom)
+            log_twins(tw, smi[0])
+            log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+
+            # 13. features that outgrow the card
+            t0 = time.perf_counter()
+            report["tiered"] = ti = run_tiered(torch, ops, trandom, dev,
+                                               sm_mhz, keep, part_dir)
+            ti["seconds"] = time.perf_counter() - t0
+            log_tiered(ti, dd, smi[0])
+            log(f"  phase 13: {ti['seconds']:.1f} s")
+        finally:
+            keep.clear()
+            shutil.rmtree(part_dir, ignore_errors=True)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
                        for p in (sl, tr, st, report["digits"], lk, het, co,
-                                 dd, tw))
+                                 dd, tw, ti))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
@@ -4281,7 +4904,8 @@ def main() -> int:
                                "B2_link": lk["b2_link"],
                                "hetero": {n: het[n]["kernels"]
                                           for n in ("rgat", "hgt")},
-                               "dist": dd["kernels"]}
+                               "dist": dd["kernels"],
+                               "tiered": {"B3": ti["b3"]}}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     log(report["device"]["nvidia_smi"])

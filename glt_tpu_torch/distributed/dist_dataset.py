@@ -6,22 +6,25 @@ all-to-all routing, so the partition books fold into a one-time
 contiguous relabel (:func:`~glt_tpu_torch.partition.contiguous.contiguous_relabel`)
 instead of being read per lookup.  Hotness orders each partition's rows
 hottest-first (the rows the reference would have hot-cached come
-first).  Labels ride a sharded ``[S, c]`` block.
+first).  Labels ride a sharded ``[S, c]`` block.  With ``hot_ratio <
+1`` only each shard's hottest rows go to the device and the rest stay in
+host memory (:class:`~glt_tpu_torch.parallel.dist_feature.
+TieredShardedFeature`).
 
-``hot_ratio < 1`` (the host tier of ``TieredShardedFeature``) and
-``mesh=`` (each host loading only its own partitions) are left for
-later slices (ROADMAP queue A item 7).
+``mesh=`` (each host loading only its own partitions) is left for a
+later slice (ROADMAP queue A item 7).
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from ..data.topology import CSRTopo
+from ..parallel.dist_feature import TieredShardedFeature, shard_feature_tiered
 from ..parallel.sharding import (
     ShardedFeature,
     ShardedGraph,
@@ -41,7 +44,7 @@ from ..utils.device import DeviceLike, resolve_device
 class DistDataset(NamedTuple):
     """Everything the distributed train step consumes."""
     graph: ShardedGraph
-    feature: Optional[ShardedFeature]
+    feature: Optional[Union[ShardedFeature, TieredShardedFeature]]
     labels: Optional[torch.Tensor]         # [S, nodes_per_shard], -1 padded
     relabel: ContiguousRelabel
     num_parts: int
@@ -96,8 +99,10 @@ class DistDataset(NamedTuple):
 
         Args:
           root: a partitioner's output directory.
-          hot_ratio: fraction of each shard's rows on the device; only
-            1.0 (every row) is ported.
+          hot_ratio: fraction of each shard's rows on the device (the
+            hottest first); below 1 the feature is a
+            :class:`TieredShardedFeature` whose other rows stay in host
+            memory.
           labels: optional global ``[N]`` label array.
           hotness: optional global ``[N]`` score ordering each
             partition's rows hottest-first; default the in-degree.
@@ -105,10 +110,6 @@ class DistDataset(NamedTuple):
           mesh: per-host loading; not ported.
         """
         del axis_name
-        if hot_ratio < 1.0:
-            raise NotImplementedError(
-                "hot_ratio < 1: the host-tiered TieredShardedFeature is left "
-                "for a later slice (ROADMAP queue A item 7)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: loading each host's own partitions waits for "
@@ -145,15 +146,21 @@ class DistDataset(NamedTuple):
             CSRTopo(edge_index, edge_ids=edge_ids, num_nodes=num_nodes), rel)
         g = shard_graph(topo, num_parts, device=dev)
 
-        # 3) features into new-id order, then sharded.
+        # 3) features into new-id order, then tiered or sharded.
         feature = None
         if feat_dim is not None:
             all_ids = np.concatenate(feat_ids)
             all_rows = np.concatenate(feat_rows)
             full = np.zeros((num_nodes, feat_dim), all_rows.dtype)
             full[all_ids.astype(np.int64)] = all_rows
-            feature = shard_feature(relabel_rows(full, rel), num_parts,
-                                    dtype=dtype, device=dev)
+            new_order = relabel_rows(full, rel)
+            if hot_ratio >= 1.0:
+                feature = shard_feature(new_order, num_parts, dtype=dtype,
+                                        device=dev)
+            else:
+                feature = shard_feature_tiered(new_order, num_parts,
+                                               hot_ratio, dtype=dtype,
+                                               device=dev)
 
         lab = None
         if labels is not None:

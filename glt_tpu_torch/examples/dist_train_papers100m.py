@@ -1,16 +1,20 @@
 """Partition -> load -> distributed train on a papers100M-shaped graph.
 
 The port's twin of ``examples/dist_train_papers100m.py``, single process
-with every shard on one device (``--hot-ratio 1.0``, its non-tiered
-path):
+with every shard on one device:
 
   1. offline: the FrequencyPartitioner, fed by each rank's
      ``NeighborSampler.sample_prob`` (computed on ``--device``), writes
      the on-disk partition layout and the summed hotness;
   2. load: ``DistDataset.load`` relabels contiguously (hottest rows
-     first) and shards graph, features and labels onto the device;
-  3. train: ``make_dist_train_step`` over a mesh of ``--devices``
-     shards, one step per seed batch of every shard.
+     first) and shards graph, features and labels onto the device,
+     keeping only the hottest ``--hot-ratio`` of each shard's feature
+     rows there (the rest in host memory; 0.25 by default, as the JAX
+     example);
+  3. train: over a mesh of ``--devices`` shards, one step per seed
+     batch of every shard: below ``--hot-ratio 1`` the two-stage
+     ``TieredTrainPipeline`` (sample, host cold gather, train), at 1.0
+     ``make_dist_train_step``.
 
 The graph is the JAX example's synthetic one: ``--scale`` of
 papers100M's 111,059,956 nodes, 15 out-edges a node to destinations
@@ -22,9 +26,8 @@ label.  Weights come from numpy seed 0.
     python -m glt_tpu_torch.examples.dist_train_papers100m --device cpu \\
         --devices 4 --scale 2e-5
 
-The multi-host run (``GLT_NUM_PROCESSES``), the tiered path
-(``--hot-ratio`` below 1) and the real ogbn-papers100M files wait for
-later slices (ROADMAP queue A items 7 and 6).
+The multi-host run (``GLT_NUM_PROCESSES``) and the real ogbn-papers100M
+files wait for later slices (ROADMAP queue A items 7 and 6).
 """
 from __future__ import annotations
 
@@ -42,7 +45,9 @@ from .. import random as trandom
 from ..data import CSRTopo, Graph
 from ..distributed import DistDataset
 from ..models import GraphSAGE, TrainState, adam
-from ..parallel import Mesh, init_dist_state, make_dist_train_step
+from ..parallel import (DistNeighborSampler, Mesh, TieredShardedFeature,
+                        TieredTrainPipeline, init_dist_state,
+                        make_dist_train_step, make_tiered_train_step)
 from ..partition import FrequencyPartitioner
 from ..sampler import NeighborSampler
 from .train_sage_digits import init_params
@@ -61,9 +66,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--batch-size", type=int, default=128)
     ap.add_argument("--fanout", type=int, nargs="+", default=[12, 10])
-    ap.add_argument("--hot-ratio", type=float, default=1.0,
-                    help="fraction of each shard's rows on the device "
-                         "(only 1.0 is ported)")
+    ap.add_argument("--hot-ratio", type=float, default=0.25,
+                    help="fraction of each shard's feature rows on the "
+                         "device (the rest stay in host memory)")
     ap.add_argument("--part-dir", default=None,
                     help="reuse an existing partition dir")
     ap.add_argument("--device", default="cuda")
@@ -144,7 +149,9 @@ def make_state(ds: DistDataset, fanout: Sequence[int], batch_size: int,
                classes: int, device) -> TrainState:
     """GraphSAGE hidden 256, one layer a hop, dropout 0, Adam 1e-3,
     weights from numpy seed 0."""
-    model = GraphSAGE(ds.feature.rows.shape[-1], 256, classes,
+    tiered = isinstance(ds.feature, TieredShardedFeature)
+    dim = (ds.feature.hot if tiered else ds.feature.rows).shape[-1]
+    model = GraphSAGE(dim, 256, classes,
                       num_layers=len(fanout), dropout_rate=0.0)
     model = init_params(model).to(device)
     return init_dist_state(model, adam(1e-3), ds.graph, ds.feature, fanout,
@@ -154,12 +161,24 @@ def make_state(ds: DistDataset, fanout: Sequence[int], batch_size: int,
 def train(ds: DistDataset, mesh: Mesh, state: TrainState,
           train_idx: np.ndarray, fanout: Sequence[int], batch_size: int,
           epochs: int, **step_kw):
-    """``epochs`` epochs of the distributed step; epoch ``e``'s batch
-    ``b`` trains under ``fold_in(PRNGKey(e), b)``, the batches from one
-    shuffle Generator (seed 0) advancing across epochs.  Returns the
-    state and each epoch's losses (host numpy)."""
-    step = make_dist_train_step(ds.graph, ds.feature, ds.labels, mesh,
-                                fanout, batch_size, **step_kw)
+    """``epochs`` epochs, the batches from one shuffle Generator (seed
+    0) advancing across epochs, epoch ``e`` under ``PRNGKey(e)``: a
+    tiered feature trains through ``TieredTrainPipeline.run_epoch``,
+    a whole one through the distributed step, batch ``b`` under
+    ``fold_in(PRNGKey(e), b)``.  Returns the state and each epoch's
+    losses (host numpy)."""
+    tiered = isinstance(ds.feature, TieredShardedFeature)
+    if tiered:
+        sampler = DistNeighborSampler(ds.graph, mesh,
+                                      num_neighbors=fanout,
+                                      batch_size=batch_size)
+        pipe = TieredTrainPipeline(
+            sampler, make_tiered_train_step(ds.graph, ds.feature, ds.labels,
+                                            mesh, batch_size, **step_kw),
+            ds.feature, mesh)
+    else:
+        step = make_dist_train_step(ds.graph, ds.feature, ds.labels, mesh,
+                                    fanout, batch_size, **step_kw)
     shuffle_rng = np.random.default_rng(0)
     dev = mesh.device
     history = []
@@ -169,17 +188,25 @@ def train(ds: DistDataset, mesh: Mesh, state: TrainState,
         t0 = time.perf_counter()
         losses, accs = [], []
         key = trandom.PRNGKey(epoch, device=dev)
-        for b in range(batches.shape[0]):
-            state, loss, acc = step(state, batches[b],
-                                    trandom.fold_in(key, b))
-            losses.append(loss)
-            accs.append(acc)
+        if tiered:
+            state, losses, accs = pipe.run_epoch(state, list(batches), key)
+        else:
+            for b in range(batches.shape[0]):
+                state, loss, acc = step(state, batches[b],
+                                        trandom.fold_in(key, b))
+                losses.append(loss)
+                accs.append(acc)
         losses = torch.stack(losses).cpu().numpy()
         dt = time.perf_counter() - t0
         history.append(losses)
         print(f"epoch {epoch}: loss={float(np.mean(losses)):.4f} "
               f"acc={float(torch.stack(accs).mean()):.3f} time={dt:.2f}s "
               f"subgraphs/s={len(losses) * mesh.size / dt:.1f}")
+    if tiered:
+        dropped = pipe.flush_dropped()
+        pipe.close()
+        print(f"cold rows past cold_cap: {dropped}; most cold rows a "
+              f"shard served: {pipe.max_cold_rows} of {pipe.cold_cap}")
     return state, history
 
 
@@ -203,8 +230,12 @@ def main(argv: Optional[Sequence[str]] = None):
               f"edges into {args.devices} parts in {secs:.1f}s -> "
               f"{part_dir}")
     ds = load(part_dir, papers.labels, args.hot_ratio, args.device)
+    hot = (f"{ds.feature.hot_per_shard}/{ds.feature.nodes_per_shard}"
+           if isinstance(ds.feature, TieredShardedFeature)
+           else "all (no host tier)")
     print(f"loaded: {ds.graph.num_shards} shards x "
-          f"{ds.relabel.nodes_per_shard} nodes on {args.device}")
+          f"{ds.relabel.nodes_per_shard} nodes on {args.device}, hot "
+          f"rows a shard: {hot}")
     mesh = Mesh([args.device] * args.devices)
     state = make_state(ds, args.fanout, args.batch_size, args.classes,
                        args.device)

@@ -1,26 +1,45 @@
 """The distributed data plane over a mesh of shards (cf.
 ``glt_tpu/parallel``): sharded graph and features, the all-to-all
-sampler, the feature exchange and the distributed train step, with the
+sampler (nodes, seed edges, induced subgraphs), the feature exchange
+and its host tier, and the distributed train steps, with the
 shards of one :class:`~glt_tpu_torch.parallel.multihost.Mesh` in this
 process (see :mod:`.multihost` for what waits for a machine with more
 than one card)."""
 from . import multihost
-from .dist_feature import exchange_gather, exchange_gather_xy
+from .dist_feature import (
+    HostColdStore,
+    TieredShardedFeature,
+    cold_gather_host,
+    cold_mask,
+    compact_cold_requests,
+    exchange_gather,
+    exchange_gather_hot,
+    exchange_gather_xy,
+    merge_cold,
+    route_cold_requests,
+    shard_feature_tiered,
+    shard_feature_tiered_from_store,
+)
 from .dist_sampler import (
     DistNeighborSampler,
     Routing,
     bounded_remote_cap,
     build_routing,
+    build_sorted_edge_view,
+    dist_edge_exists,
+    dist_node_subgraph,
     dist_sample_multi_hop,
     exchange_byte_model,
     exchange_one_hop,
 )
 from .dist_train import (
+    TieredTrainPipeline,
     dist_seed_blocks,
     dist_step_byte_model,
     init_dist_state,
     make_dist_train_step,
     make_scanned_dist_train_step,
+    make_tiered_train_step,
     run_scanned_dist_epoch,
 )
 from .multihost import Mesh, mesh_axis_sizes, resolve_mesh_axes
@@ -36,22 +55,35 @@ from .sharding import (
 
 __all__ = [
     "DistNeighborSampler",
+    "HostColdStore",
     "Mesh",
     "Routing",
     "ShardedFeature",
     "ShardedGraph",
+    "TieredShardedFeature",
+    "TieredTrainPipeline",
     "bounded_remote_cap",
     "build_routing",
+    "build_sorted_edge_view",
+    "cold_gather_host",
+    "cold_mask",
+    "compact_cold_requests",
+    "dist_edge_exists",
+    "dist_node_subgraph",
     "dist_sample_multi_hop",
     "dist_seed_blocks",
     "dist_step_byte_model",
     "exchange_byte_model",
     "exchange_gather",
+    "exchange_gather_hot",
     "exchange_gather_xy",
     "exchange_one_hop",
     "init_dist_state",
     "make_dist_train_step",
     "make_scanned_dist_train_step",
+    "make_tiered_train_step",
+    "merge_cold",
+    "route_cold_requests",
     "mesh_axis_sizes",
     "multihost",
     "put_sharded",
@@ -59,6 +91,8 @@ __all__ = [
     "run_scanned_dist_epoch",
     "shard_bounds",
     "shard_feature",
+    "shard_feature_tiered",
+    "shard_feature_tiered_from_store",
     "shard_graph",
     "shard_graph_blocks",
 ]

@@ -21,9 +21,15 @@ requests (two with ``exchange_load_factor``, which samples the
 locally owned ids apart), and every key derivation one launch of the
 hash kernel.  No stage reads a device value on the host.
 
+Seed edges (:meth:`DistNeighborSampler.sample_from_edges`) sample the
+endpoints and the negatives, the strict ones checked against the CSR of
+the shard that owns their source (:func:`dist_edge_exists`, one round
+trip a trial); :meth:`DistNeighborSampler.subgraph` fetches each node's
+row from its owner and keeps the edges inside the node set
+(:func:`dist_node_subgraph`).
+
 Left for later slices (ROADMAP queue A item 7): the 2-D mesh and
-``HierarchicalRouting``, ``collective="ring"``, the routing autotuner,
-``sample_from_edges``, ``subgraph`` and ``dist_edge_exists``.
+``HierarchicalRouting``, ``collective="ring"`` and the routing autotuner.
 """
 from __future__ import annotations
 
@@ -35,24 +41,26 @@ import torch
 from .. import random as trandom
 from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
-from ..ops.neighbor_sample import sample_neighbors
+from ..ops.neighbor_sample import _row_offsets_and_degrees, sample_neighbors
 from ..ops.unique import (
     dense_induce,
     dense_induce_final,
     dense_induce_init,
     dense_map_fits,
+    relabel_by_reference,
     unique_first_occurrence,
 )
-from ..sampler.base import SamplerOutput
+from ..sampler.base import NegativeSampling, SamplerOutput
 from ..sampler.neighbor_sampler import hop_widths, max_sampled_nodes
 from ..typing import PADDING_ID
 from .multihost import Mesh, mesh_axis_sizes, resolve_mesh_axes
 from .sharding import check_on_mesh
 
 __all__ = [
-    "DistNeighborSampler", "Routing", "bounded_remote_cap", "build_routing",
-    "dist_sample_multi_hop", "exchange_byte_model", "exchange_one_hop",
-    "mesh_axis_sizes", "resolve_mesh_axes",
+    "DistNeighborSampler", "Routing", "bounded_remote_cap",
+    "build_routing", "build_sorted_edge_view", "dist_edge_exists",
+    "dist_node_subgraph", "dist_sample_multi_hop", "exchange_byte_model",
+    "exchange_one_hop", "mesh_axis_sizes", "resolve_mesh_axes",
 ]
 
 # Host-boundary instrumentation: the per-shard stages stay span-free.
@@ -362,6 +370,154 @@ def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
                                     device=x.device)])
 
 
+def build_sorted_edge_view(indptr: torch.Tensor, indices: torch.Tensor):
+    """One shard's ``(row, dst)`` pairs sorted lexicographically, for the
+    binary search of :func:`_pair_exists`: ``(rows_s, dsts_s)``, int32,
+    the padding past the shard's edge count sorted last as
+    ``2**31 - 1``."""
+    max_e = indices.shape[0]
+    c = indptr.shape[0] - 1
+    dev = indices.device
+    pos = torch.arange(max_e, dtype=torch.int32, device=dev)
+    row = _i32(torch.searchsorted(_i32(indptr), pos, right=True)) - 1
+    valid = pos < indptr[c].to(torch.int32)
+    big = 2**31 - 1
+    row = torch.where(valid, row, big)
+    dst = torch.where(valid, _i32(indices), big)
+    # Two stable passes, minor key first: glt_tpu's lexsort((dst, row)).
+    order = torch.sort(dst, stable=True).indices
+    order = order[torch.sort(row[order], stable=True).indices]
+    return row[order], dst[order]
+
+
+def _pair_exists(rows_s: torch.Tensor, dsts_s: torch.Tensor,
+                 r: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Lexicographic lower bound of ``(r, d)`` over the sorted view, 32
+    branchless halvings as ``glt_tpu``'s; True where it hits."""
+    e = rows_s.shape[0]
+    last = e - 1
+    lo = torch.zeros_like(r)
+    hi = torch.full_like(r, e)
+    for _ in range(32):
+        cond = lo < hi
+        mid = lo + (hi - lo) // 2
+        mc = mid.clamp(0, last).long()
+        mr, md = rows_s[mc], dsts_s[mc]
+        less = (mr < r) | ((mr == r) & (md < d))
+        lo = torch.where(cond & less, mid + 1, lo)
+        hi = torch.where(cond & ~less, mid, hi)
+    lc = lo.clamp(0, last).long()
+    return (lo < e) & (rows_s[lc] == r) & (dsts_s[lc] == d)
+
+
+def dist_edge_exists(
+    rows_s: Sequence[torch.Tensor],
+    dsts_s: Sequence[torch.Tensor],
+    src: Sequence[torch.Tensor],
+    dst: Sequence[torch.Tensor],
+    nodes_per_shard: int,
+    num_shards: int,
+    route: str = "auto",
+    fused: Optional[bool] = None,
+) -> List[torch.Tensor]:
+    """Whether each ``(src, dst)`` pair is an edge, across shards: every
+    pair goes to the shard owning ``src`` (ids and dst payload in one
+    collective with ``fused``), which looks it up in its sorted view
+    (:func:`build_sorted_edge_view`), and the verdicts come back.
+    Returns, per shard, ``[B]`` bool (False at padding)."""
+    S, c = num_shards, nodes_per_shard
+    src, dst = _shards(src, S), _shards(dst, S)
+    b = src[0].shape[0]
+    plans, dst_b = [], []
+    for s in range(S):
+        plans.append(_bucket_by_owner(src[s], _owner(src[s], c), S, b, route))
+        dst_b.append(_bucket_payload(plans[-1], dst[s], S, b))
+    if _use_fused(fused):
+        req = _all_to_all([torch.stack([p.buckets, d], -1)
+                           for p, d in zip(plans, dst_b)])
+        req = [(r[:, 0], r[:, 1]) for r in req]
+    else:
+        req = list(zip(_all_to_all([p.buckets for p in plans]),
+                       _all_to_all(dst_b)))
+    verdicts = []
+    for s, (req_s, req_d) in enumerate(req):
+        local = req_s - s * c
+        ok = (req_s >= 0) & (local >= 0) & (local < c)
+        ex = _pair_exists(rows_s[s], dsts_s[s],
+                          _i32(torch.where(ok, local, 0)),
+                          _i32(torch.where(ok, req_d, 0)))
+        verdicts.append(_i32(ex & ok))
+    resp = _all_to_all(verdicts)
+    return [torch.where(p.valid, resp[s][p.slot.long()] > 0, False)
+            for s, p in enumerate(plans)]
+
+
+def dist_node_subgraph(
+    indptr: Sequence[torch.Tensor],
+    indices: Sequence[torch.Tensor],
+    edge_ids: Sequence[torch.Tensor],
+    nodes: Sequence[torch.Tensor],
+    max_degree: int,
+    nodes_per_shard: int,
+    num_shards: int,
+    route: str = "auto",
+    fused: Optional[bool] = None,
+):
+    """The subgraph induced by every shard's node set, across shards:
+    each node's CSR row (capped at ``max_degree``) comes back from its
+    owner in one round trip, and the edges whose destination lies in
+    the set are kept, relabelled to positions in it.
+
+    Args:
+      nodes: per shard, ``[B]`` unique global node ids (-1 padded).
+
+    Returns, per shard, ``(rows, cols, eids, mask)`` of ``[B *
+    max_degree]``: local indices into ``nodes``, as
+    :class:`~glt_tpu_torch.ops.subgraph.SubGraphOutput`.
+    """
+    S, c, D = num_shards, nodes_per_shard, int(max_degree)
+    indptr, indices = _shards(indptr, S), _shards(indices, S)
+    edge_ids, nodes = _shards(edge_ids, S), _shards(nodes, S)
+    b = nodes[0].shape[0]
+    plans = [build_routing(n, c, S, route=route) for n in nodes]
+    requests = _all_to_all([p.buckets for p in plans])
+    rows_out = []
+    for s in range(S):
+        req = requests[s]
+        local = torch.where(req >= 0, req - s * c, -1)
+        local = _i32(torch.where((local >= 0) & (local < c), local, -1))
+        start, deg = _row_offsets_and_degrees(indptr[s], local)
+        offs = torch.arange(D, dtype=torch.int32, device=req.device)[None, :]
+        in_row = (offs < deg[:, None]) & (local >= 0)[:, None]
+        flat = (_i32(start)[:, None] + torch.where(in_row, offs, 0)).long()
+        flat = flat.clamp(0, max(indices[s].shape[0] - 1, 0))
+        nbrs = torch.where(in_row, _i32(indices[s][flat]), PADDING_ID)
+        eids = torch.where(in_row, _i32(edge_ids[s][flat]), PADDING_ID)
+        rows_out.append((nbrs, eids))
+    if _use_fused(fused):
+        resp = _all_to_all([torch.cat([n, e], -1) for n, e in rows_out])
+        resp = [(r[:, :D], r[:, D:]) for r in resp]
+    else:
+        resp = list(zip(_all_to_all([n for n, _ in rows_out]),
+                        _all_to_all([e for _, e in rows_out])))
+    out = []
+    for s, p in enumerate(plans):
+        sel = p.valid[:, None]
+        slot = p.slot.long()
+        nbrs = torch.where(sel, resp[s][0][slot], PADDING_ID)
+        eids = torch.where(sel, resp[s][1][slot], PADDING_ID)
+        local_dst = relabel_by_reference(nodes[s], nbrs.reshape(-1)
+                                         ).reshape(b, D)
+        keep = (nbrs >= 0) & (local_dst >= 0)
+        local_src = torch.arange(b, dtype=torch.int32,
+                                 device=nbrs.device)[:, None].expand(b, D)
+        out.append((torch.where(keep, local_src, PADDING_ID).reshape(-1),
+                    torch.where(keep, local_dst, PADDING_ID).reshape(-1),
+                    torch.where(keep, eids, PADDING_ID).reshape(-1),
+                    keep.reshape(-1)))
+    return out
+
+
 class _ShardState:
     """One shard's inducer state across the hops."""
 
@@ -531,6 +687,8 @@ def _stack_outputs(outs: Sequence[SamplerOutput]) -> SamplerOutput:
     """Per-shard outputs as one output whose fields lead with the shard
     axis (``glt_tpu``'s ``shard_map`` result)."""
     def stack(name):
+        if getattr(outs[0], name) is None:
+            return None
         return torch.stack([getattr(o, name) for o in outs])
 
     meta = outs[0].metadata
@@ -575,6 +733,7 @@ class DistNeighborSampler:
                  batch_size: int = 512,
                  frontier_cap: Optional[int] = None,
                  collective: str = "all_to_all",
+                 valid_per_shard: Optional[np.ndarray] = None,
                  seed: int = 0,
                  last_hop_dedup: bool = True,
                  exchange_load_factor: Optional[float] = None,
@@ -593,6 +752,8 @@ class DistNeighborSampler:
         check_on_mesh(mesh, indptr=g.indptr, indices=g.indices,
                       edge_ids=g.edge_ids)
         self.collective = collective
+        self.valid_per_shard = valid_per_shard
+        self._sorted_view = None
         self.last_hop_dedup = bool(last_hop_dedup)
         self.exchange_load_factor = exchange_load_factor
         self.fused = fused
@@ -650,3 +811,204 @@ class DistNeighborSampler:
             out = _stack_outputs(self._sample_local(seeds, key))
         _M_DIST_BATCHES.inc()
         return out
+
+
+    # -- seed edges (cf. glt_tpu's DistNeighborSampler.sample_from_edges) -
+    def _valid_per_shard(self) -> torch.Tensor:
+        """Valid-node count of every shard, for uniform negative draws."""
+        dev = self.mesh.device
+        if self.valid_per_shard is not None:
+            return torch.as_tensor(np.asarray(self.valid_per_shard,
+                                              np.int32), device=dev)
+        g = self.g
+        counts = np.clip(g.num_nodes - np.arange(g.num_shards)
+                         * g.nodes_per_shard, 0, g.nodes_per_shard)
+        return torch.from_numpy(counts.astype(np.int32)).to(dev)
+
+    def _sorted_edge_view(self):
+        """Every shard's sorted ``(row, dst)`` view for the strict
+        negative checks, built once and kept."""
+        if self._sorted_view is None:
+            views = [build_sorted_edge_view(ip, ix) for ip, ix in
+                     zip(self.g.indptr, self.g.indices)]
+            self._sorted_view = tuple(list(v) for v in zip(*views))
+        return self._sorted_view
+
+    def sample_from_edges(self, src, dst,
+                          neg_sampling: Optional[NegativeSampling] = None,
+                          key: Optional[torch.Tensor] = None,
+                          strict: bool = False,
+                          trials: int = 4) -> SamplerOutput:
+        """Seed-edge sampling of every shard's ``[S, B]`` endpoint ids
+        (-1 padded; host arrays or tensors).
+
+        Negatives are drawn uniformly over the valid ids (a shard, then
+        a row below its valid count; a ``neg_sampling.weight`` is not
+        used, as in ``glt_tpu``).  ``strict=True`` routes each
+        candidate pair to the shard owning its source and redraws the
+        pairs that are edges there (:func:`dist_edge_exists`) over
+        ``trials`` rounds; a slot that never clears keeps its last draw.
+        Returns a :class:`SamplerOutput` whose fields lead with the shard
+        axis; its metadata carries ``edge_label_index`` and
+        ``edge_label`` (binary or no negatives) or ``src_index``,
+        ``dst_pos_index`` and ``dst_neg_index`` (triplet).
+        """
+        if key is None:
+            key = self._next_key()
+        mode = None if neg_sampling is None else neg_sampling.mode
+        amount = (0 if neg_sampling is None
+                  else int(round(neg_sampling.amount)))
+        strict = bool(strict) and mode is not None
+        src = seeds_on_mesh(src, self.mesh)
+        dst = seeds_on_mesh(dst, self.mesh)
+        view = self._sorted_edge_view() if strict else None
+        return _stack_outputs(self._edges_body(
+            mode, amount, list(src), list(dst), key, view, int(trials)))
+
+    def _edges_body(self, mode, amount, src, dst, key, strict_view,
+                    trials):
+        """Every shard's seed-edge batch: shard ``s`` splits ``fold_in(
+        key, s)`` into its negative and its sampling key."""
+        g = self.g
+        S, c = g.num_shards, g.nodes_per_shard
+        q = src[0].shape[0]
+        counts = self._valid_per_shard()
+        ks = [trandom.split(trandom.fold_in(key, s)) for s in range(S)]
+        kneg, ksample = [k[0] for k in ks], [k[1] for k in ks]
+
+        def uniform_ids(k, n):
+            # A shard, then a row below its valid count, drawn over the
+            # whole int31 range before the modulo.
+            k2 = trandom.split(k)
+            sh = trandom.randint(k2[0], (n,), 0, S)
+            u = trandom.randint(k2[1], (n,), 0, 2**31 - 1)
+            return sh * c + u % counts[sh.long()].clamp(min=1)
+
+        def strict_pairs(keys, n, valid, fixed_src=None):
+            rows_s, dsts_s = strict_view
+            dev = valid[0].device
+            best_s = [torch.full((n,), PADDING_ID, dtype=torch.int32,
+                                 device=dev) for _ in range(S)]
+            best_d = [b.clone() for b in best_s]
+            found = [torch.zeros(n, dtype=torch.bool, device=dev)
+                     for _ in range(S)]
+            last = None
+            for t in range(trials):
+                draws = []
+                for s in range(S):
+                    kt = trandom.split(trandom.fold_in(keys[s], t))
+                    a = (fixed_src[s] if fixed_src is not None
+                         else uniform_ids(kt[0], n))
+                    draws.append((a, uniform_ids(kt[1], n)))
+                ex = dist_edge_exists(
+                    rows_s, dsts_s,
+                    [torch.where(v, a, PADDING_ID)
+                     for v, (a, _) in zip(valid, draws)],
+                    [d for _, d in draws], c, S, route=self.route,
+                    fused=self.fused)
+                for s, (a, d) in enumerate(draws):
+                    take = valid[s] & ~found[s] & ~ex[s]
+                    best_s[s] = torch.where(take, a, best_s[s])
+                    best_d[s] = torch.where(take, d, best_d[s])
+                    found[s] = found[s] | take
+                last = draws
+            # Slots that never cleared keep their last draw.
+            for s, (a, d) in enumerate(last):
+                pad = valid[s] & ~found[s]
+                best_s[s] = torch.where(pad, a, best_s[s])
+                best_d[s] = torch.where(pad, d, best_d[s])
+            return best_s, best_d
+
+        rep = [(x >= 0).repeat_interleave(amount) for x in src]
+        neg_src = neg_dst = None
+        if mode == "binary":
+            if strict_view is not None:
+                neg_src, neg_dst = strict_pairs(kneg, q * amount, rep)
+            else:
+                kk = [trandom.split(k) for k in kneg]
+                neg_src = [uniform_ids(k[0], q * amount) for k in kk]
+                neg_dst = [uniform_ids(k[1], q * amount) for k in kk]
+            neg_src = [torch.where(r, x, PADDING_ID)
+                       for r, x in zip(rep, neg_src)]
+            neg_dst = [torch.where(r, x, PADDING_ID)
+                       for r, x in zip(rep, neg_dst)]
+            seeds = [torch.cat([a, b, x, y]) for a, b, x, y in
+                     zip(src, dst, neg_src, neg_dst)]
+        elif mode == "triplet":
+            if strict_view is not None:
+                _, neg_dst = strict_pairs(
+                    kneg, q * amount, rep,
+                    fixed_src=[x.repeat_interleave(amount) for x in src])
+            else:
+                neg_dst = [uniform_ids(k, q * amount) for k in kneg]
+            neg_dst = [torch.where(r, x, PADDING_ID)
+                       for r, x in zip(rep, neg_dst)]
+            seeds = [torch.cat([a, b, y]) for a, b, y in
+                     zip(src, dst, neg_dst)]
+        else:
+            seeds = [torch.cat([a, b]) for a, b in zip(src, dst)]
+
+        outs = dist_sample_multi_hop(
+            g.indptr, g.indices, g.edge_ids, [_i32(x) for x in seeds],
+            ksample, self.num_neighbors, c, S, self.frontier_cap,
+            self.collective, last_hop_dedup=self.last_hop_dedup,
+            exchange_load_factor=self.exchange_load_factor,
+            route=self.route, fused=self.fused)
+        for s, out in enumerate(outs):
+            # Seed ids first occur in the hop-0 prefix: relabel against
+            # it alone (a leaf block may repeat them).
+            ref = out.node[: seeds[s].shape[0]]
+            meta = dict(out.metadata or {})
+            if mode == "binary":
+                meta["edge_label_index"] = torch.stack([
+                    relabel_by_reference(ref, torch.cat([src[s],
+                                                         neg_src[s]])),
+                    relabel_by_reference(ref, torch.cat([dst[s],
+                                                         neg_dst[s]]))])
+                pos = _i32(torch.where(src[s] >= 0, 1, PADDING_ID))
+                meta["edge_label"] = torch.cat([pos, torch.zeros(
+                    q * amount, dtype=torch.int32, device=pos.device)])
+            elif mode == "triplet":
+                meta["src_index"] = relabel_by_reference(ref, src[s])
+                meta["dst_pos_index"] = relabel_by_reference(ref, dst[s])
+                meta["dst_neg_index"] = relabel_by_reference(
+                    ref, neg_dst[s]).reshape(q, amount)
+            else:
+                meta["edge_label_index"] = torch.stack([
+                    relabel_by_reference(ref, src[s]),
+                    relabel_by_reference(ref, dst[s])])
+            out.metadata = meta
+        return outs
+
+    # -- induced subgraphs (cf. glt_tpu's DistNeighborSampler.subgraph) ---
+    def subgraph(self, seeds_per_shard, max_degree: int = 64,
+                 key: Optional[torch.Tensor] = None) -> SamplerOutput:
+        """Hop expansion, then the subgraph induced by each shard's node
+        set (:func:`dist_node_subgraph`): every member's row, capped at
+        ``max_degree``, from its owner shard, filtered to the set.
+        Fields lead with the shard axis; ``metadata['mapping']`` is
+        ``arange(batch_size)``."""
+        if key is None:
+            key = self._next_key()
+        g = self.g
+        S = g.num_shards
+        seeds = seeds_on_mesh(seeds_per_shard, self.mesh)
+        # Exact dedup: the induced extract relabels against a unique set.
+        base = dist_sample_multi_hop(
+            g.indptr, g.indices, g.edge_ids, list(seeds),
+            [trandom.fold_in(key, s) for s in range(S)], self.num_neighbors,
+            g.nodes_per_shard, S, self.frontier_cap, self.collective,
+            last_hop_dedup=True, route=self.route, fused=self.fused)
+        sub = dist_node_subgraph(g.indptr, g.indices, g.edge_ids,
+                                 [b.node for b in base], max_degree,
+                                 g.nodes_per_shard, S, route=self.route,
+                                 fused=self.fused)
+        mapping = torch.arange(self.batch_size, dtype=torch.int32,
+                               device=self.mesh.device)
+        return _stack_outputs([
+            SamplerOutput(node=b.node, row=r, col=c_, edge=e,
+                          batch=seeds[s], node_mask=b.node_mask,
+                          edge_mask=m,
+                          num_sampled_nodes=b.num_sampled_nodes,
+                          metadata={"mapping": mapping})
+            for s, (b, (r, c_, e, m)) in enumerate(zip(base, sub))])

@@ -1,6 +1,5 @@
 """The distributed training step: sample, gather and update over a mesh
-of shards (cf. ``glt_tpu/parallel/dist_train.py``, the serial step
-without tiers).
+of shards (cf. ``glt_tpu/parallel/dist_train.py``).
 
 Per step every shard samples its own seed batch through the all-to-all
 exchange (:func:`~glt_tpu_torch.parallel.dist_sampler.dist_sample_multi_hop`),
@@ -23,12 +22,23 @@ slot with no real seed on the host, and on the card the block is one
 CUDA graph per real-slot pattern, the counterpart of ``glt_tpu``'s one
 ``shard_map`` program over a ``lax.scan``.
 
-Left for later slices (ROADMAP queue A item 7): the tiered step and its
-pipeline; the hetero steps.
+The tiered path trains a graph whose features outgrow the card
+(:func:`make_tiered_train_step`, :class:`TieredTrainPipeline`): each
+shard keeps its hottest rows on the device and the rest in host memory
+(:class:`~glt_tpu_torch.parallel.dist_feature.TieredShardedFeature`).
+A batch runs in two stages, sample + cold routing, then train, and a
+staging thread gathers batch ``k``'s cold rows on the host and copies
+them to the card while batch ``k - 1`` trains.  On the card each stage
+is one CUDA graph a step.
+
+Left for a later slice (ROADMAP queue A item 7): the hetero steps.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import concurrent.futures
+import os
+import threading
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,16 +47,24 @@ from .. import random as trandom
 from ..models.train import (OptimizerFactory, TrainState, _backward_and_step,
                             _check_model, _ScannedBlocks, create_train_state,
                             seed_cross_entropy)
+from ..obs import compilewatch as _compilewatch
 from ..obs import metrics as _metrics
 from ..ops.unique import unique_first_occurrence
+from ..sampler.base import SamplerOutput
 from ..sampler.neighbor_sampler import hop_widths, max_sampled_nodes
 from ..typing import PADDING_ID
-from .dist_feature import (_dedup_scatter_back, exchange_gather,
-                           exchange_gather_xy)
-from .dist_sampler import (_LATER, dist_sample_multi_hop,
-                           exchange_byte_model, seeds_on_mesh)
-from .multihost import Mesh, mesh_axis_sizes, resolve_mesh_axes
-from .sharding import ShardedFeature, ShardedGraph, check_on_mesh
+from ..utils.graphs import CapturedProgram
+from .dist_feature import (HostColdStore, TieredShardedFeature,
+                           _dedup_scatter_back, compact_cold_requests,
+                           exchange_gather, exchange_gather_hot,
+                           exchange_gather_xy, route_cold_requests)
+from .dist_sampler import (_LATER, DistNeighborSampler,
+                           dist_sample_multi_hop, exchange_byte_model,
+                           seeds_on_mesh)
+from .multihost import (Mesh, local_shard_range, mesh_axis_sizes,
+                        resolve_mesh_axes)
+from .sharding import (ShardedFeature, ShardedGraph, check_on_mesh,
+                       torch_dtype)
 
 
 def dist_step_byte_model(nodes_per_shard, num_shards, num_neighbors,
@@ -218,11 +236,11 @@ def _mesh_loss(model, g: ShardedGraph, f: ShardedFeature,
     return torch.stack(losses).mean(), torch.stack(accs).mean()
 
 
-def _check_step_args(g: ShardedGraph, f: ShardedFeature,
-                     labels: torch.Tensor, mesh: Mesh, axis_name,
-                     hier_load_factor):
+def _check_step_args(g: ShardedGraph, f, labels: torch.Tensor, mesh: Mesh,
+                     axis_name, hier_load_factor):
     """The mesh and its axes, checked as the steps need them: a 1-D mesh
-    of as many shards as the graph, every array on the mesh's device."""
+    of as many shards as the graph, every array on the mesh's device
+    (of a tiered feature, its hot tier)."""
     axis_name = resolve_mesh_axes(mesh, axis_name)
     mesh_shape = mesh_axis_sizes(mesh, axis_name)
     if hier_load_factor is not None:
@@ -232,8 +250,14 @@ def _check_step_args(g: ShardedGraph, f: ShardedFeature,
         raise ValueError(f"a graph of {g.num_shards} shards on a mesh of "
                          f"{mesh.size}")
     check_on_mesh(mesh, indptr=g.indptr, indices=g.indices,
-                  edge_ids=g.edge_ids, rows=f.rows, labels=labels)
+                  edge_ids=g.edge_ids, rows=_device_rows(f), labels=labels)
     return axis_name, mesh_shape
+
+
+def _device_rows(f) -> torch.Tensor:
+    """The device rows of a :class:`ShardedFeature` or the hot tier of a
+    :class:`TieredShardedFeature`."""
+    return f.hot if isinstance(f, TieredShardedFeature) else f.rows
 
 
 def make_dist_train_step(
@@ -445,20 +469,465 @@ def run_scanned_dist_epoch(step, state: TrainState, train_idx,
     return state, host[:n][:n_real], host[n:][:n_real]
 
 
+class _Graphed:
+    """``fn(*inputs)`` (device tensors in, a tuple of tensors out) as one
+    CUDA graph per pattern of input shapes on the card: the first call
+    at a pattern, or after the storage ``held()`` names moved, runs
+    eagerly (it creates Adam's state); the next captures, under the
+    compilewatch label ``label``; every later call copies its inputs
+    into the graph's and replays it.  Returned tensors are the caller's
+    own (a replay rewrites the graph's outputs).  On the CPU every call
+    runs eagerly."""
+
+    def __init__(self, fn: Callable, label: str,
+                 held: Callable[[], tuple] = tuple):
+        self.fn = fn
+        self.label = label
+        self.held = held
+        self._programs = {}  # pattern -> (CapturedProgram, storage)
+        self._warm = {}      # pattern -> storage of its eager call
+
+    def _storage(self) -> tuple:
+        return tuple(t.data_ptr() for t in self.held())
+
+    def __call__(self, *inputs) -> tuple:
+        if not inputs[0].is_cuda:
+            return self.fn(*inputs)
+        pattern = tuple((tuple(t.shape), t.dtype) for t in inputs)
+        now = self._storage()
+        entry = self._programs.get(pattern)
+        if entry is not None and entry[1] == now:
+            outs = entry[0](*inputs)
+        elif self._warm.get(pattern) == now:
+            with _compilewatch.label(self.label):
+                prog = CapturedProgram(self.fn, [t.clone() for t in inputs],
+                                       warmup=0)
+            self._programs[pattern] = (prog, now)
+            outs = prog.replay()
+        else:
+            self._programs.pop(pattern, None)
+            outs = self.fn(*inputs)
+            self._warm[pattern] = self._storage()
+            return outs
+        return tuple(t.clone() for t in outs)
+
+
+def _state_tensors(state: TrainState) -> tuple:
+    """The tensors a captured train step reads and writes in place."""
+    return tuple(state.model.parameters()) + tuple(
+        t for st in state.optimizer.state.values() for t in st.values()
+        if isinstance(t, torch.Tensor))
+
+
+def make_tiered_train_step(
+    g: ShardedGraph,
+    f: TieredShardedFeature,
+    labels: torch.Tensor,          # [S, nodes_per_shard] int labels
+    mesh: Mesh,
+    batch_size: int,
+    axis_name: Optional[str] = None,
+    dedup_gather: bool = False,
+    route: str = "auto",
+    fused: Optional[bool] = None,
+    fused_frontier: bool = False,
+    hier_load_factor: Optional[float] = None,
+):
+    """The train half of the tiered two-stage pipeline.
+
+    Returns ``train(state, out, staged, key) -> (state, loss, acc)``:
+    ``out`` is the sample stage's :class:`SamplerOutput` (fields lead
+    with the shard axis) and ``staged = (rows [S, cold_cap, d], slots
+    [S, cold_cap])`` the compact cold staging of every serving shard
+    (:func:`route_cold_requests`, :func:`compact_cold_requests`, a cold
+    store's gather).  Hot rows ride the exchange; the staged cold rows
+    are scattered into its response leg.  Features and labels share one
+    plan and one payload collective when the graph's and the feature's
+    id spaces agree (:func:`exchange_gather_xy` with ``hot_per_shard``),
+    else the hot gather (:func:`exchange_gather_hot`) and a label
+    exchange.  ``dedup_gather`` must match the pipeline's: the staged
+    slots index the (possibly deduped) request layout.  Shard ``s``
+    drops out under ``fold_in(key, s)``; the update always runs, as in
+    ``glt_tpu``.  ``fused_frontier`` serves the hot rows through kernel
+    B3.
+
+    On the card the step is one CUDA graph per input shape (captured
+    on the second call, under the compilewatch label
+    ``tiered_train_step``; see :class:`_Graphed`).
+    """
+    _check_step_args(g, f, labels, mesh, axis_name, hier_load_factor)
+    S = g.num_shards
+    c, h = f.nodes_per_shard, f.hot_per_shard
+    fuse_xy = f.nodes_per_shard == g.nodes_per_shard and f.num_shards == S
+    cur = {}
+
+    def body(node, row, col, edge_mask, node_mask, rows, slots, key):
+        model, opt = cur["state"].model, cur["state"].optimizer
+        if fuse_xy:
+            xy = exchange_gather_xy(node, f.hot, labels, c, f.num_shards,
+                                    hot_per_shard=h, staged_rows=rows,
+                                    staged_slots=slots, dedup=dedup_gather,
+                                    route=route, fused=fused,
+                                    fused_frontier=fused_frontier)
+        else:
+            x = exchange_gather_hot(node, f.hot, c, h, f.num_shards,
+                                    staged_rows=rows, staged_slots=slots,
+                                    dedup=dedup_gather, route=route,
+                                    fused_frontier=fused_frontier)
+            y = exchange_gather(node, [labels[s][:, None].to(torch.int32)
+                                       for s in range(S)],
+                                g.nodes_per_shard, S, dedup=dedup_gather,
+                                route=route)
+            xy = [(x[s], y[s][:, 0]) for s in range(S)]
+        losses, accs = [], []
+        for s, (x, y) in enumerate(xy):
+            y = torch.where(node[s] >= 0, y, PADDING_ID)
+            logits = model(x, torch.stack([row[s], col[s]]), edge_mask[s],
+                           dropout_key=trandom.fold_in(key, s))
+            loss_s, acc_s = seed_cross_entropy(logits, y, batch_size,
+                                               node_mask[s])
+            losses.append(loss_s)
+            accs.append(acc_s.to(torch.float32))
+        loss = torch.stack(losses).mean()
+        _backward_and_step(opt, loss)
+        return loss.detach(), torch.stack(accs).mean()
+
+    graphed = _Graphed(body, "tiered_train_step",
+                       lambda: _state_tensors(cur["state"]))
+
+    def train(state: TrainState, out: SamplerOutput, staged,
+              key: torch.Tensor):
+        _check_model(state, mesh.device)
+        rows, slots = staged
+        cur["state"] = state
+        try:
+            loss, acc = graphed(out.node, out.row, out.col, out.edge_mask,
+                                out.node_mask, rows, slots, key)
+        finally:
+            cur.clear()
+        return TrainState(state.model, state.optimizer, state.step + 1), \
+            loss, acc
+
+    return train
+
+
+class _ColdStagePipeline:
+    """The core of the two-stage (sample -> host cold gather -> train)
+    pipeline: the staging thread and gather pool, the lazily reduced
+    drop counters, the double-buffered epoch loop and shutdown.  A
+    subclass provides ``_sample_and_stage(seeds, key) -> (out, future)``
+    and ``_train_staged(state, out, staged, key)``.
+
+    Batch ``k``'s cold gather runs on the staging thread while the main
+    thread trains batch ``k - 1``, so a step takes about ``max(device,
+    host gather)`` rather than their sum.  A thread carries the overlap,
+    so it holds on the CPU as on the card.
+    """
+
+    def _init_pools(self, stage_threads: Optional[int], name: str) -> None:
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix=f"{name}-stage")
+        # Gather workers: (shard, row chunk) work items; numpy fancy
+        # indexing releases the GIL, so the chunks use the host's cores.
+        self.stage_threads = (max(1, os.cpu_count() or 1)
+                              if stage_threads is None
+                              else max(1, int(stage_threads)))
+        self._gather_pool = (concurrent.futures.ThreadPoolExecutor(
+            max_workers=self.stage_threads,
+            thread_name_prefix=f"{name}-gather")
+            if self.stage_threads > 1 else None)
+        self._pending_dropped = []   # unreduced per-batch device counts
+        self.dropped_total = 0       # host sum over all staged batches
+        self._drop_lock = threading.Lock()  # staging thread vs caller
+
+    def _record_dropped(self, dropped: torch.Tensor) -> None:
+        # Kept on the device and reduced in flush_dropped: no host sync a
+        # batch on the main thread.
+        with self._drop_lock:
+            self._pending_dropped.append(dropped)
+
+    def _maybe_flush_on_stage_thread(self) -> None:
+        # The periodic reduction rides the staging thread, which waits
+        # for the device anyway.
+        if len(self._pending_dropped) >= 64:
+            self.flush_dropped()
+
+    def flush_dropped(self) -> int:
+        """Reduce the pending per-batch drop counters into
+        ``dropped_total`` (cold requests past ``cold_cap``, served as
+        zero rows: raise ``cold_cap`` if it is ever nonzero)."""
+        with self._drop_lock:
+            pending, self._pending_dropped = self._pending_dropped, []
+        total = int(torch.stack(pending).sum()) if pending else 0
+        with self._drop_lock:
+            self.dropped_total += total
+        return self.dropped_total
+
+    def run_epoch(self, state: TrainState, seed_batches, key: torch.Tensor,
+                  start_batch: int = 0, on_batch=None, supervisor=None):
+        """One epoch; ``seed_batches``: iterable of ``[S, B]`` seeds.
+
+        Returns ``(state, losses, accs)``, lists of device scalars (no
+        sync).  Batch ``i`` samples under ``fold_in(fold_in(key, i), 1)``
+        and trains under ``fold_in(fold_in(key, i + 1), 2)``, as
+        ``glt_tpu``'s pipeline: a pure function of its position, so
+        ``start_batch=k`` (skip the first ``k`` batches of the same
+        schedule) resumes the same stream.  ``on_batch(state, i)`` fires
+        after batch ``i`` trained, its device work finished.  Check
+        :meth:`flush_dropped` after the epoch.  ``supervisor`` needs
+        ``distributed/supervisor.py``, which is not ported (ROADMAP
+        queue A item 8): anything but None raises.
+        """
+        if supervisor is not None:
+            raise NotImplementedError(
+                "run_epoch(supervisor=...) needs distributed/supervisor.py,"
+                " which is not ported yet (ROADMAP queue A item 8)")
+        losses, accs = [], []
+        pending = None  # (idx, out, staged future)
+        n = 0
+
+        def train(pend, k):
+            nonlocal state
+            i, out, fut = pend
+            state, loss, acc = self._train_staged(state, out, fut.result(),
+                                                  k)
+            losses.append(loss)
+            accs.append(acc)
+            if on_batch is not None:
+                if loss.is_cuda:
+                    torch.cuda.synchronize(loss.device)
+                on_batch(state, i)
+
+        for i, seeds in enumerate(seed_batches):
+            if i < start_batch:
+                continue
+            kb = trandom.fold_in(key, i)
+            out, fut = self._sample_and_stage(seeds, trandom.fold_in(kb, 1))
+            if pending is not None:
+                train(pending, trandom.fold_in(kb, 2))
+            pending = (i, out, fut)
+            n = i + 1
+        if pending is not None:
+            train(pending, trandom.fold_in(trandom.fold_in(key, n), 2))
+        # The epoch boundary of a tier-aware cold store (DiskColdStore
+        # publishes its glt.store.* gauges here).
+        pub = getattr(getattr(self, "cold_store", None),
+                      "publish_epoch_stats", None)
+        if pub is not None:
+            pub()
+        return state, losses, accs
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=False)
+        if self._gather_pool is not None:
+            self._gather_pool.shutdown(wait=False)
+        closer = getattr(getattr(self, "cold_store", None), "close", None)
+        if closer is not None:
+            closer()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class TieredTrainPipeline(_ColdStagePipeline):
+    """The homogeneous two-stage pipeline over a
+    :class:`~glt_tpu_torch.parallel.dist_feature.TieredShardedFeature`
+    (see :class:`_ColdStagePipeline`).
+
+    Stage 1 samples every shard's batch (``sampler``) and routes its
+    node list's cold requests, compacted to ``cold_cap`` slots a serving
+    shard (default twice the node capacity; past it a request trains on
+    a zero row and counts in ``flush_dropped``).  The staging thread
+    gathers those rows from ``cold_store`` (a :class:`HostColdStore` over
+    ``f.cold`` by default, or a
+    :class:`~glt_tpu_torch.store.stager.DiskColdStore`, which a feature
+    from ``shard_feature_tiered_from_store`` must get) through a
+    two-deep ring of host buffers, while ``train_step`` (from
+    :func:`make_tiered_train_step`, the same ``dedup_gather``) trains
+    the previous batch.  ``max_cold_rows`` is the largest cold count a
+    serving shard saw, to size ``cold_cap`` by.
+
+    On the card stage 1 is one CUDA graph a step (label
+    ``tiered_stage``), and no host sync sits on the main thread: an
+    event after the route lets a side stream copy the cold ids to pinned
+    memory; the staging thread waits for that copy alone, gathers into a
+    pinned ring slot (first waiting for that slot's previous
+    host->device copy) and copies the rows to the card on a copy
+    stream; the main stream waits for that copy's event before the
+    train step, and the copy into a ring slot waits for the train that
+    last read it.  The train step copies the staged rows into its
+    graph's input on the main stream.
+    """
+
+    def __init__(self, sampler: DistNeighborSampler, train_step,
+                 f: TieredShardedFeature, mesh: Mesh,
+                 axis_name: Optional[str] = None,
+                 cold_store: Optional[HostColdStore] = None,
+                 cold_cap: Optional[int] = None,
+                 stage_threads: Optional[int] = None,
+                 dedup_gather: bool = False,
+                 route: str = "auto",
+                 hier_load_factor: Optional[float] = None):
+        if hier_load_factor is not None:
+            raise NotImplementedError(f"hier_load_factor: the hierarchical "
+                                      f"routing {_LATER}")
+        self.sampler = sampler
+        self.train_step = train_step
+        self.f = f
+        self.mesh = mesh
+        self.axis_name = resolve_mesh_axes(mesh, axis_name)
+        self.cold_cap = (2 * sampler.node_capacity if cold_cap is None
+                         else int(cold_cap))
+        self._local = local_shard_range(mesh, self.axis_name)
+        if (cold_store is None and f.cold.shape[1] == 0
+                and f.nodes_per_shard > f.hot_per_shard):
+            # A zero-row placeholder (shard_feature_tiered_from_store):
+            # a defaulted HostColdStore would serve zero rows for every
+            # cold request.
+            raise ValueError(
+                "TieredShardedFeature has an empty host cold tier but "
+                f"{f.nodes_per_shard - f.hot_per_shard} cold rows per "
+                "shard — pass the DiskColdStore backing it as cold_store=")
+        self.cold_store = cold_store or HostColdStore(
+            f, shard_ids=self._local)
+        self._init_pools(stage_threads, "glt-cold")
+        self.last_dropped = None     # [S] device counts, latest batch
+        self.max_cold_rows = 0
+        self.dedup_gather = bool(dedup_gather)
+        self.route = route
+        self._stage_prog = _Graphed(self._stage_body, "tiered_stage")
+        dev = mesh.device
+        self._cuda = dev.type == "cuda"
+        shape = (len(self._local), self.cold_cap, self.cold_store.dim)
+        self._flip = 0
+        if self._cuda:
+            dt = torch_dtype(self.cold_store.dtype)
+            self._ids_host = [torch.empty(
+                (len(self._local), self.cold_cap), dtype=torch.int32,
+                pin_memory=True) for _ in range(2)]
+            self._rows_host = [torch.empty(shape, dtype=dt, pin_memory=True)
+                               for _ in range(2)]
+            self._rows_dev = [torch.empty(shape, dtype=dt, device=dev)
+                              for _ in range(2)]
+            self._h2d_done = [None, None]   # the ring slot's last H2D copy
+            self._consumed = [None, None]   # the train that last read it
+            self._fetch_stream = torch.cuda.Stream(dev)
+            self._copy_stream = torch.cuda.Stream(dev)
+
+    def _stage_body(self, seeds: torch.Tensor, key: torch.Tensor) -> tuple:
+        """Stage 1: sample, then route and compact the cold requests."""
+        f = self.f
+        out = self.sampler.sample_from_nodes(seeds, key=key)
+        req = route_cold_requests(list(out.node), f.nodes_per_shard,
+                                  f.hot_per_shard, f.num_shards,
+                                  dedup=self.dedup_gather, route=self.route)
+        comp = [compact_cold_requests(r, self.cold_cap) for r in req]
+        slots, ids, dropped = (torch.stack(t) for t in zip(*comp))
+        meta = out.metadata or {}
+        return (out.node, out.row, out.col, out.edge, out.batch,
+                out.node_mask, out.edge_mask, out.num_sampled_nodes,
+                out.num_sampled_edges, slots, ids, dropped) + tuple(
+                    meta[k] for k in sorted(meta))
+
+    def _sample_and_stage(self, seeds, key: torch.Tensor):
+        seeds = seeds_on_mesh(seeds, self.mesh)
+        res = self._stage_prog(seeds, key)
+        meta = self.sampler.exchange_load_factor is not None
+        out = SamplerOutput(
+            node=res[0], row=res[1], col=res[2], edge=res[3], batch=res[4],
+            node_mask=res[5], edge_mask=res[6], num_sampled_nodes=res[7],
+            num_sampled_edges=res[8],
+            metadata={"exchange_dropped": res[12]} if meta else None)
+        slots, ids, dropped = res[9:12]
+        self.last_dropped = dropped
+        self._record_dropped(dropped)
+        return out, self._stage_cold_async(ids, slots)
+
+    def _stage_cold_async(self, ids: torch.Tensor, slots: torch.Tensor):
+        """Submit the host gather of ``ids`` (``[S, cold_cap]`` local
+        cold ids, -1 padded); the future gives ``(rows, slots, copied,
+        ring slot)``."""
+        flip = self._flip
+        self._flip ^= 1
+        local = ids[self._local.start:self._local.stop]
+        if self._cuda:
+            routed = torch.cuda.Event()
+            routed.record()
+            with torch.cuda.stream(self._fetch_stream):
+                self._fetch_stream.wait_event(routed)
+                self._ids_host[flip].copy_(local, non_blocking=True)
+                local.record_stream(self._fetch_stream)
+                fetched = torch.cuda.Event()
+                fetched.record(self._fetch_stream)
+
+        def work():
+            if self._cuda:
+                fetched.synchronize()
+                req = self._ids_host[flip].numpy()
+                if self._h2d_done[flip] is not None:
+                    self._h2d_done[flip].synchronize()
+                staged = self._rows_host[flip].numpy()
+            else:
+                req = local.numpy()
+                # A fresh buffer a batch: torch.from_numpy aliases it.
+                staged = np.empty((len(self._local), self.cold_cap,
+                                   self.cold_store.dim),
+                                  self.cold_store.dtype)
+            self.max_cold_rows = max(self.max_cold_rows,
+                                     int((req >= 0).sum(axis=1).max()))
+            futs = []
+            for j, s in enumerate(self._local):
+                futs += self.cold_store.serve_into(
+                    staged[j], s, req[j], pool=self._gather_pool)
+            for fu in futs:
+                fu.result()
+            self._maybe_flush_on_stage_thread()
+            if not self._cuda:
+                return torch.from_numpy(staged), slots, None, flip
+            with torch.cuda.device(self.mesh.device), torch.cuda.stream(
+                    self._copy_stream):
+                if self._consumed[flip] is not None:
+                    self._copy_stream.wait_event(self._consumed[flip])
+                self._rows_dev[flip].copy_(self._rows_host[flip],
+                                           non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self._copy_stream)
+            self._h2d_done[flip] = copied
+            return self._rows_dev[flip], slots, copied, flip
+        return self._pool.submit(work)
+
+    def _train_staged(self, state: TrainState, out: SamplerOutput, staged,
+                      key: torch.Tensor):
+        rows, slots, copied, flip = staged
+        if copied is not None:
+            torch.cuda.current_stream(rows.device).wait_event(copied)
+        res = self.train_step(state, out, (rows, slots), key)
+        if copied is not None:
+            consumed = torch.cuda.Event()
+            consumed.record()
+            self._consumed[flip] = consumed
+        return res
+
+
 def init_dist_state(model: torch.nn.Module, tx: OptimizerFactory,
-                    g: ShardedGraph, f: ShardedFeature,
+                    g: ShardedGraph, f,
                     num_neighbors: Sequence[int], batch_size: int,
                     frontier_cap: Optional[int] = None) -> TrainState:
     """State at step 0 for ``model`` (built and placed on the mesh's
     device by the caller; the parameters are shared by every shard):
     one forward over zero inputs of the step's static shapes checks the
     model against the feature width, then the optimizer ``tx`` is
-    built over the parameters."""
+    built over the parameters.  ``f`` is a :class:`ShardedFeature` or a
+    :class:`~glt_tpu_torch.parallel.dist_feature.TieredShardedFeature`
+    (shapes from its hot tier)."""
     cap = max_sampled_nodes(batch_size, list(num_neighbors), frontier_cap)
     widths = hop_widths(batch_size, list(num_neighbors), frontier_cap)
     ecap = sum(w * fo for w, fo in zip(widths, num_neighbors))
-    dev = f.rows.device
-    x = torch.zeros((cap, f.rows.shape[-1]), dtype=f.rows.dtype, device=dev)
+    rows = _device_rows(f)
+    dev = rows.device
+    x = torch.zeros((cap, rows.shape[-1]), dtype=rows.dtype, device=dev)
     ei = torch.full((2, ecap), PADDING_ID, dtype=torch.int32, device=dev)
     with torch.no_grad():
         model(x, ei, torch.zeros(ecap, dtype=torch.bool, device=dev))

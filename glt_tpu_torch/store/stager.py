@@ -1,6 +1,6 @@
 """Bounded-DRAM staging cache over a
-:class:`~glt_tpu_torch.store.disk.DiskFeatureStore` (cf.
-``glt_tpu/store/stager.py``).
+:class:`~glt_tpu_torch.store.disk.DiskFeatureStore`, and the disk-backed
+cold tier of the distributed tiered path (cf. ``glt_tpu/store/stager.py``).
 
 ``DramStager`` is the middle of the three-tier read path:
 
@@ -320,8 +320,8 @@ class DramStager:
 
     def publish_epoch_stats(self, namespace: str = "glt.store") -> dict:
         """Epoch-boundary ``glt.store.*`` publication of
-        :meth:`epoch_stats` (``glt_tpu`` publishes from its
-        ``DiskColdStore``, which is not ported yet)."""
+        :meth:`epoch_stats` (a :class:`DiskColdStore` publishes its
+        stager's after each epoch of the tiered pipeline)."""
         return publish_store_stats(self.epoch_stats(), namespace)
 
     def close(self) -> None:
@@ -344,3 +344,76 @@ def publish_store_stats(stats: dict, namespace: str = "glt.store") -> dict:
             _metrics.gauge(f"{namespace}.{k}",
                            f"glt_tpu.store tier metric {k}").set(float(v))
     return stats
+
+
+class DiskColdStore:
+    """Disk-backed drop-in for :class:`~glt_tpu_torch.parallel.
+    dist_feature.HostColdStore`: the same ``dim`` / ``dtype`` / ``serve``
+    / ``serve_into``, so :class:`~glt_tpu_torch.parallel.dist_train.
+    TieredTrainPipeline` runs unchanged on top (pass it as
+    ``cold_store=``).
+
+    The store holds the WHOLE shard-major feature matrix (shard ``s``,
+    local row ``r`` at row ``s * nodes_per_shard + r``, the
+    :class:`~glt_tpu_torch.parallel.dist_feature.TieredShardedFeature`
+    id layout), so one file serves the hot-prefix loads and the cold
+    tier.  With ``dram_budget_bytes`` (or an explicit ``stager``) cold
+    reads go through a :class:`DramStager`; without, every cold row is
+    read from the mmap.  Rows come out at the store's storage width
+    (int8 or bf16 codes for a compressed store), as ``serve`` does in
+    ``glt_tpu``.
+    """
+
+    def __init__(self, store: DiskFeatureStore, nodes_per_shard: int,
+                 hot_per_shard: int, shard_ids=None,
+                 dram_budget_bytes: Optional[int] = None,
+                 stager: Optional[DramStager] = None,
+                 stage_threads: int = 1):
+        self.store = store
+        self.nodes_per_shard = int(nodes_per_shard)
+        self.hot_per_shard = int(hot_per_shard)
+        num_shards = store.num_rows // self.nodes_per_shard
+        self.shard_ids = (tuple(range(num_shards)) if shard_ids is None
+                          else tuple(shard_ids))
+        self.dim = store.dim
+        self.dtype = store.dtype
+        if stager is None and dram_budget_bytes is not None:
+            stager = DramStager(store, dram_budget_bytes,
+                                stage_threads=stage_threads)
+        self.stager = stager
+
+    def serve(self, shard: int, cold_req: np.ndarray) -> np.ndarray:
+        """``HostColdStore.serve`` from disk or DRAM."""
+        cold_req = np.asarray(cold_req)
+        out = np.zeros((cold_req.shape[0], self.dim), self.dtype)
+        self.serve_into(out, shard, cold_req)
+        return out
+
+    def serve_into(self, out: np.ndarray, shard: int, cold_req: np.ndarray,
+                   pool=None, row_chunk: int = 16384) -> list:
+        """Gather one shard's cold rows into ``out``: the
+        ``HostColdStore.serve_into`` contract served from disk or DRAM."""
+        if shard not in self.shard_ids:
+            raise KeyError(
+                f"shard {shard} is not local to this host "
+                f"(local: {self.shard_ids})")
+        cold_req = np.asarray(cold_req)
+        base = shard * self.nodes_per_shard + self.hot_per_shard
+        req = np.where(cold_req >= 0, cold_req.astype(np.int64) + base, -1)
+        if self.stager is not None:
+            return self.stager.gather_into(out, req, pool=pool,
+                                           row_chunk=row_chunk)
+        return self.store.gather_into(out, req, pool=pool,
+                                      row_chunk=row_chunk)
+
+    def publish_epoch_stats(self, namespace: str = "glt.store") -> dict:
+        """Epoch-boundary ``glt.store.*`` publication; the tiered
+        pipeline calls it after each ``run_epoch``."""
+        if self.stager is None:
+            return publish_store_stats(
+                {"bytes_from_disk": self.store.bytes_read}, namespace)
+        return self.stager.publish_epoch_stats(namespace)
+
+    def close(self) -> None:
+        if self.stager is not None:
+            self.stager.close()

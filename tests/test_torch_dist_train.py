@@ -12,7 +12,8 @@ backward of the mean of the shard losses, ``glt_tpu`` the mean of the
 shard gradients; optax and torch place Adam's bias correction
 differently).  A fully padded batch leaves either package's state as it
 was; the byte models agree; the example twin trains on the CPU with its
-loss falling as ``tests/test_dist_dataset.py`` requires of glt_tpu.
+loss falling as ``tests/test_dist_dataset.py`` requires of glt_tpu, at
+its default ``--hot-ratio`` 0.25 (the tiered pipeline) and at 1.0.
 """
 import copy
 
@@ -35,6 +36,7 @@ from glt_tpu_torch.examples import dist_train_papers100m as twin
 from glt_tpu_torch.models import GraphSAGE, adam, params_from_flax
 from glt_tpu_torch.parallel import (
     Mesh,
+    TieredShardedFeature,
     dist_step_byte_model,
     init_dist_state,
     make_dist_train_step,
@@ -119,9 +121,16 @@ def test_load_translate_split_seeds_equal(parts, s):
 
 
 def test_load_refuses_what_is_not_ported(parts):
+    """``mesh=`` still raises naming its queue item; ``hot_ratio`` below
+    1 loads the tiered feature with glt_tpu's ``hot_per_shard``."""
     roots, labels = parts
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        DistDataset.load(roots[2], hot_ratio=0.5, device="cpu")
+    jd, td = _load_both(roots[2], labels, hot_ratio=0.5)
+    assert isinstance(td.feature, TieredShardedFeature)
+    assert td.feature.hot_per_shard == jd.feature.hot_per_shard == round(
+        0.5 * td.feature.nodes_per_shard)
+    np.testing.assert_array_equal(np.asarray(jd.feature.hot),
+                                  td.feature.hot.numpy())
+    np.testing.assert_array_equal(jd.feature.cold, td.feature.cold)
     with pytest.raises(NotImplementedError, match="queue A item 7"):
         DistDataset.load(roots[2], mesh=Mesh(["cpu"] * 2), device="cpu")
 
@@ -287,13 +296,20 @@ def test_partition_to_mesh_train_loss_drops(parts):
     assert losses[-1] < losses[0] * 0.6, (losses[0], losses[-1])
 
 
-def test_example_twin_trains_on_cpu(tmp_path):
-    """The papers100M twin at a tiny scale on the CPU: partition,
-    load, three epochs, every loss finite and the last epoch's mean
-    below 0.6 of the first's."""
-    state, history = twin.main([
-        "--device", "cpu", "--devices", "4", "--scale", "2e-5",
-        "--epochs", "3", "--part-dir", str(tmp_path / "parts")])
+@pytest.mark.parametrize("hot_ratio", [None, "1.0"])
+def test_example_twin_trains_on_cpu(tmp_path, hot_ratio):
+    """The papers100M twin at a tiny scale on the CPU: partition, load,
+    three epochs, every loss finite and the last epoch's mean below 0.6
+    of the first's; at its default ``--hot-ratio`` (0.25, the JAX
+    example's) through the tiered pipeline, at 1.0 through the
+    distributed step."""
+    argv = ["--device", "cpu", "--devices", "4", "--scale", "2e-5",
+            "--epochs", "3", "--part-dir", str(tmp_path / "parts")]
+    if hot_ratio is not None:
+        argv += ["--hot-ratio", hot_ratio]
+    assert twin.parse_args(argv).hot_ratio == (
+        0.25 if hot_ratio is None else 1.0)
+    state, history = twin.main(argv)
     flat = np.concatenate(history)
     assert np.isfinite(flat).all()
     assert history[-1].mean() < 0.6 * history[0].mean()

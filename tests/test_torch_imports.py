@@ -34,6 +34,14 @@ names = sorted(m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+# The host-tiered and edge-sampling slice's entry points.
+from glt_tpu_torch.parallel import (  # noqa: E402,F401
+    DistNeighborSampler, HostColdStore, TieredShardedFeature,
+    TieredTrainPipeline, dist_edge_exists, dist_node_subgraph,
+    make_tiered_train_step, shard_feature_tiered_from_store)
+from glt_tpu_torch.store import DiskColdStore  # noqa: E402,F401
+assert hasattr(DistNeighborSampler, "sample_from_edges")
+assert hasattr(DistNeighborSampler, "subgraph")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print(" ".join(names))
@@ -85,6 +93,14 @@ DIST_MODULES = (
     "glt_tpu_torch.examples.partition_dataset",
     "glt_tpu_torch.examples.dist_train_papers100m")
 
+# The host-tiered and edge-sampling slice's modules (the probe also
+# imports their entry points under the refusing finder).
+TIERED_MODULES = (
+    "glt_tpu_torch.store.stager", "glt_tpu_torch.parallel.dist_feature",
+    "glt_tpu_torch.parallel.dist_train", "glt_tpu_torch.parallel.dist_sampler",
+    "glt_tpu_torch.distributed.dist_dataset",
+    "glt_tpu_torch.examples.dist_train_papers100m")
+
 # The scanned-steps slice's example twins.
 TWIN_MODULES = (
     "glt_tpu_torch.examples.train_sage_products",
@@ -110,3 +126,5 @@ def test_port_imports_no_jax():
                                                    - walked)
     assert set(DIST_MODULES) <= walked, sorted(set(DIST_MODULES) - walked)
     assert set(TWIN_MODULES) <= walked, sorted(set(TWIN_MODULES) - walked)
+    assert set(TIERED_MODULES) <= walked, sorted(set(TIERED_MODULES)
+                                                 - walked)

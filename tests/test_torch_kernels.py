@@ -1055,6 +1055,114 @@ def test_dist_sample_on_card_equals_cpu(cuda_device, capped):
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
 
 
+def _tiered_pair(dev, ratio=0.25):
+    """``_dist_pair``'s partition loaded tiered on ``dev`` and the CPU."""
+    import tempfile
+
+    from glt_tpu_torch.distributed import DistDataset
+    from glt_tpu_torch.partition import RandomPartitioner
+
+    rng = np.random.default_rng(5)
+    n = 600
+    indptr, indices, _, _ = _graph(seed=4, n=n)
+    src, dst = csr_to_coo(indptr, indices)
+    feat = rng.standard_normal((n, 12)).astype(np.float32)
+    labels = rng.integers(0, 5, n).astype(np.int32)
+    with tempfile.TemporaryDirectory() as root:
+        RandomPartitioner(root, 4, n, np.stack([src, dst]),
+                          node_feat=feat, seed=1).partition()
+        return (DistDataset.load(root, hot_ratio=ratio, labels=labels,
+                                 device=dev),
+                DistDataset.load(root, hot_ratio=ratio, labels=labels,
+                                 device="cpu"))
+
+
+@pytest.mark.cuda
+def test_tiered_pipeline_on_card_equals_cpu(cuda_device):
+    """TieredTrainPipeline on cuda:0 shards (stage and train each one
+    CUDA graph from the second batch on, B3 serving the hot rows, the
+    cold rows staged through pinned memory and a copy stream) trains 5
+    batches to the CPU's losses within 1e-5 from the same weights, with
+    the same drops at a small cold_cap; B1 8 and B3 4 times in the eager
+    batch and in each capture, none in a replay."""
+    from glt_tpu_torch.obs import compilewatch
+    from glt_tpu_torch.parallel import (DistNeighborSampler, Mesh,
+                                        TieredTrainPipeline,
+                                        init_dist_state,
+                                        make_tiered_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gds, cds = _tiered_pair(cuda_device)
+    batches = list(cds.split_seeds(np.arange(600), 16, shuffle=True,
+                                   seed=2)[:5])
+    torch.manual_seed(0)
+    model = GraphSAGE(12, 32, 5, num_layers=2, dropout_rate=0.0)
+    res = {}
+    for ds, dev in ((gds, cuda_device), (cds, torch.device("cpu"))):
+        m = GraphSAGE(12, 32, 5, num_layers=2, dropout_rate=0.0).to(dev)
+        m.load_state_dict(model.state_dict())
+        state = init_dist_state(m, adam(1e-3), ds.graph, ds.feature, [5, 4],
+                                16)
+        mesh = Mesh([dev] * 4)
+        sampler = DistNeighborSampler(ds.graph, mesh, num_neighbors=[5, 4],
+                                      batch_size=16)
+        train = make_tiered_train_step(ds.graph, ds.feature, ds.labels, mesh,
+                                       16, fused_frontier=dev.type == "cuda")
+        for cap in (None, 7):
+            pipe = TieredTrainPipeline(sampler, train, ds.feature, mesh,
+                                       cold_cap=cap, stage_threads=2)
+            b1 = sample_cuda.sample_neighbors_cuda.launches
+            b3 = fused_frontier_cuda.launches
+            caps = (compilewatch.counts("tiered_stage"),
+                    compilewatch.counts("tiered_train_step"))
+            state, losses, _ = pipe.run_epoch(
+                state, batches, trandom.PRNGKey(3, device=dev))
+            res[dev.type, cap] = (torch.stack(losses).cpu(),
+                                  pipe.flush_dropped())
+            if dev.type == "cuda":
+                assert sample_cuda.sample_neighbors_cuda.launches == \
+                    b1 + 2 * 4 * 2
+                assert fused_frontier_cuda.launches == b3 + 2 * 4
+                assert (compilewatch.counts("tiered_stage"),
+                        compilewatch.counts("tiered_train_step")) == (
+                            caps[0] + 1, caps[1] + 1)
+            pipe.close()
+    for cap in (None, 7):
+        torch.testing.assert_close(res["cuda", cap][0], res["cpu", cap][0],
+                                   rtol=1e-5, atol=1e-6)
+        assert res["cuda", cap][1] == res["cpu", cap][1]
+    assert res["cpu", None][1] == 0 and res["cpu", 7][1] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [False, True])
+def test_dist_edges_and_subgraph_on_card_equal_cpu(cuda_device, strict):
+    """DistNeighborSampler.sample_from_edges (binary x1) and subgraph on
+    cuda:0 shards equal the CPU's bit for bit."""
+    from glt_tpu_torch.parallel import DistNeighborSampler, Mesh
+
+    gds, cds = _dist_pair(cuda_device)
+    kw = dict(num_neighbors=[5, 4], batch_size=16, seed=3)
+    gs = DistNeighborSampler(gds.graph, Mesh([cuda_device] * 4), **kw)
+    cs = DistNeighborSampler(cds.graph, Mesh(["cpu"] * 4), **kw)
+    rng = np.random.default_rng(4)
+    src = rng.integers(0, 600, (4, 16)).astype(np.int32)
+    dst = rng.integers(0, 600, (4, 16)).astype(np.int32)
+    src[:, -2:] = -1
+    neg = NegativeSampling("binary", 1)
+    outs = [s.sample_from_edges(src, dst, neg, strict=strict,
+                                key=trandom.PRNGKey(5, device=d))
+            for s, d in ((gs, cuda_device), (cs, "cpu"))]
+    outs += [s.subgraph(src, max_degree=32, key=trandom.PRNGKey(6, device=d))
+             for s, d in ((gs, cuda_device), (cs, "cpu"))]
+    for got, want in (outs[:2], outs[2:]):
+        for f in ("node", "row", "col", "edge", "batch", "node_mask",
+                  "edge_mask", "num_sampled_nodes"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        for k, v in want.metadata.items():
+            assert torch.equal(got.metadata[k].cpu(), v), k
+
+
 @pytest.mark.cuda
 def test_dist_step_loss_on_card_equals_cpu(cuda_device):
     """One make_dist_train_step step (B3 serving the feature requests) on
