@@ -214,8 +214,34 @@ Phases (the first failure exits non-zero and prints no result line):
    Then on the same mesh ``sample_from_edges`` (binary x1, strict and
    not) and ``subgraph`` equal to the CPU's, no strict negative an edge,
    the induced edges CSR edges;
-14. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-13) and the ok line.
+14. the distributed path whole: phase 9's synthetic IGBH (built on the
+   host) on DW_SHARDS shards of the card, the rgat_igbh twin's
+   ``--distributed`` settings (batch 64 a shard, fanout (4, 4), frontier
+   cap 512, R-GAT 32 x 2, GAT, dropout 0, Adam 5e-3): two batches of
+   ``DistHeteroNeighborSampler`` equal to the CPU's; with the launch
+   counts set to 0 just before and read just after, DW_STEPS steps of
+   ``make_hetero_dist_train_step`` (eager, captured, replays: B1 24 in
+   the eager step and in the capture, none in a replay, one capture);
+   step 0's loss within F32_LOSS_RTOL of the CPU's; eager and replayed
+   steps in turns from one state, the first pair profiled on one batch
+   (their losses within F32_LOSS_RTOL; B1 24 by name in the replay);
+   3 replayed steps under the sync debug mode (no sync); peak memory.
+   Then the tiered leg: paper rows at DW_TIER_RATIO a shard on the card,
+   ``HeteroTieredTrainPipeline`` and a full-HBM pipeline from one state
+   for DW_TIERED_STEPS batches (losses within TIERED_DRIFT_RTOL, no
+   drops, one capture of the stage and of the train step, B1 24 in the
+   eager batch and in the stage's capture), 3 replayed batches profiled
+   (2 graph launches a step), and one warm step's parts alone for the
+   overlap.  Then phase 11's partition on a 2 x 2 mesh: a batch's
+   sampled ids and gathered rows (B3 serving) ``torch.equal`` between
+   ``route='hier'`` and ``'flat'``; per route 3 scanned blocks (eager,
+   captured, replayed; B1 8 and B3 4 a slot eager), their first losses
+   within F32_LOSS_RTOL, the byte model's ICI and DCN bytes; the hetero
+   step on a 2 x 2 mesh, its hier batch ``==`` the flat one and the
+   losses within F32_LOSS_RTOL; a ``collective='ring'`` batch ``==`` the
+   CPU's;
+15. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-14) and the ok line.
 
 Details go to ``build/results/chip_smoke.json`` (phase 10's trace to
 ``build/results/phase10_trace.json``).  Imports torch, numpy and
@@ -340,6 +366,15 @@ TWIN_PRODUCTS_SCALE, TWIN_EPOCHS = 0.05, 2
 TIERED_RATIO, TIERED_STEPS, TIERED_SMALL_CAP = 0.25, 24, 2048
 DISK_SCALE, DISK_STEPS, TIERED_DRIFT_RTOL = 0.0018, 6, 8.574e-04
 SUB_MAX_DEGREE, SUB_CHECK_EDGES = 32, 2000
+# The distributed path whole: the rgat_igbh twin's --distributed settings
+# (batch 64 a shard, fanout (4, 4), frontier cap 512, R-GAT 32 x 2, GAT,
+# dropout 0, Adam 5e-3) on DW_SHARDS shards of phase 9's synthetic IGBH;
+# DW_STEPS steps (eager, captured, replays); the tiered leg at
+# DW_TIER_RATIO of each shard's papers on the card for DW_TIERED_STEPS
+# batches; B1 DW_B1_PER_STEP times a step (6 a shard's sample).
+DW_SHARDS, DW_BS, DW_FANOUT, DW_CAP, DW_LR = 4, 64, (4, 4), 512, 5e-3
+DW_STEPS, DW_TIERED_STEPS, DW_TIER_RATIO = 12, 8, 0.25
+DW_BATCHES, DW_B1_PER_STEP = 24, 24
 DEVICE = "cuda"
 
 
@@ -4466,6 +4501,602 @@ def log_twins(rep: dict, card: str) -> None:
             f"captures {r['captures']}, launches {r['launches']}")
 
 
+# -- phase 14: the distributed path whole ------------------------------------
+def counts_zero(ops, trandom) -> None:
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+    trandom.threefry2x32.calls = 0
+
+
+def counts_read(ops) -> dict:
+    return {k: fn.launches for k, fn in kernel_wrappers(ops).items()}
+
+
+def add_launches(*parts) -> dict:
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def same_hetero(torch, a, b, what: str, fields=("node", "row", "col", "edge",
+                                                 "node_mask", "edge_mask",
+                                                 "num_sampled_nodes")):
+    """Two hetero outputs (fields lead with the shard axis) equal."""
+    for f in fields:
+        da, db = getattr(a, f), getattr(b, f)
+        need(set(da) == set(db), f"{what}: {f} keys differ")
+        for k in da:
+            need(torch.equal(da[k].cpu(), db[k].cpu()),
+                 f"{what}: {f}[{k}] differs")
+
+
+def watch_syncs(torch, run) -> list:
+    """The host syncs ``run()`` makes on the main thread under the sync
+    debug mode, each by its innermost frames."""
+    import threading
+    import traceback
+    import warnings
+
+    found, main, inside = [], threading.main_thread(), [False]
+
+    def on_warning(message, category, filename, lineno, *rest):
+        if (inside[0] and threading.current_thread() is main
+                and "synchroniz" in str(message)):
+            frames = [fr for fr in traceback.extract_stack()[:-1]
+                      if not fr.filename.endswith("warnings.py")]
+            found.append(" < ".join(
+                f"{os.path.basename(fr.filename)}:{fr.lineno} {fr.name}"
+                for fr in frames[-4:][::-1]))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside[0] = True
+            run()
+            inside[0] = False
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return found
+
+
+def hetero_dist_setup(torch, dev):
+    """Phase 9's synthetic IGBH (host build) sharded on the card and on
+    the CPU (DW_SHARDS shards each), the per-shard seed batches and the
+    model maker of the rgat_igbh twin."""
+    import argparse
+
+    from glt_tpu_torch.examples import rgat_igbh
+    from glt_tpu_torch.examples.datasets import synthetic_igbh
+    from glt_tpu_torch.parallel import shard_feature, shard_hetero_graph
+
+    t0 = time.perf_counter()
+    ds, train_idx, classes = synthetic_igbh(scale=HETERO["rgat"]["scale"],
+                                            device="cpu")
+    topos = {et: g.topo for et, g in ds.graph.items()}
+    host = {t: ds.get_node_feature(t).hot_rows.numpy()
+            for t in ds.get_node_types()}
+    labels = np.asarray(ds.get_node_label("paper"))
+    S = DW_SHARDS
+    side = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        sh = shard_hetero_graph(topos, S, device=d)
+        per = sh[("paper", "cites", "paper")].nodes_per_shard
+        side[name] = {
+            "sharded": sh, "per": per,
+            "feats": {t: shard_feature(x, S, device=d)
+                      for t, x in host.items()},
+            "labels": torch.from_numpy(np.pad(
+                labels, (0, S * per - labels.size),
+                constant_values=-1).reshape(S, per)).to(d)}
+    per = side["cpu"]["per"]
+    owned = [train_idx[(train_idx // per) == s] for s in range(S)]
+    rngs = [np.random.default_rng(s) for s in range(S)]
+    batches = [np.stack([rngs[s].choice(owned[s], DW_BS, replace=False)
+                         for s in range(S)]).astype(np.int32)
+               for _ in range(DW_BATCHES)]
+
+    def make(d=dev):
+        return rgat_igbh.make_model(ds, classes, argparse.Namespace(
+            bf16=False, device=str(d)))
+
+    rep = {"build_s": time.perf_counter() - t0,
+           "nodes": {t: int(x.shape[0]) for t, x in host.items()},
+           "feature_bytes": int(sum(x.nbytes for x in host.values())),
+           "edges": {"__".join(et): int(t.indices.shape[0])
+                     for et, t in topos.items()},
+           "nodes_per_shard": per}
+    return rep, side, host, batches, make
+
+
+def hetero_sampler(side, mesh, **kw):
+    from glt_tpu_torch.parallel import DistHeteroNeighborSampler
+
+    return DistHeteroNeighborSampler(side["sharded"], mesh, list(DW_FANOUT),
+                                     "paper", batch_size=DW_BS,
+                                     frontier_cap=DW_CAP, seed=0, **kw)
+
+
+def run_hetero_dist(torch, ops, trandom, dev, setup) -> dict:
+    """Phase 14's hetero distributed step (see the module docstring)."""
+    from glt_tpu_torch.models import adam
+    from glt_tpu_torch.obs import compilewatch
+    from glt_tpu_torch.parallel import (Mesh, init_hetero_dist_state,
+                                        make_hetero_dist_train_step)
+
+    rep, side, host, batches, make = setup
+    cpu = torch.device("cpu")
+    S = DW_SHARDS
+    mesh, cmesh = Mesh([dev] * S), Mesh([cpu] * S)
+    card, cside = side["card"], side["cpu"]
+    gs, cs = hetero_sampler(card, mesh), hetero_sampler(cside, cmesh)
+    rep["node_capacity"] = gs.node_capacity
+    per_sample = b1_per_sample(gs)
+    need(per_sample * S == DW_B1_PER_STEP, f"{per_sample} B1 launches a "
+                                           f"shard's sample")
+    # Batches against the CPU's at the same seeds and key.
+    for i in range(2):
+        same_hetero(torch, gs.sample_from_nodes(
+            batches[i], key=trandom.PRNGKey(i, device=dev)),
+            cs.sample_from_nodes(batches[i], key=trandom.PRNGKey(
+                i, device=cpu)), f"hetero batch {i}, card vs CPU")
+
+    init = make()
+    state = init_hetero_dist_state(init, adam(DW_LR), gs, card["feats"])
+    cstate = init_hetero_dist_state(make(cpu), adam(DW_LR), cs,
+                                    cside["feats"])
+    cstate.model.load_state_dict(state.model.state_dict())
+    step = make_hetero_dist_train_step(gs, card["feats"], card["labels"],
+                                       mesh, DW_BS)
+
+    # The main path: counts set to 0 just before, read just after.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero(ops, trandom)
+    caps0 = compilewatch.counts("hetero_dist_step")
+    losses, step_ms, b1 = [], [], []
+    for i in range(DW_STEPS):
+        before = ops.sample_neighbors_cuda.launches
+        t0 = time.perf_counter()
+        state, loss, _ = step(state, batches[i], trandom.PRNGKey(
+            i, device=dev))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        b1.append(ops.sample_neighbors_cuda.launches - before)
+        losses.append(loss)
+    launches = counts_read(ops)
+    rep["plain_hash_calls"] = trandom.threefry2x32.calls
+    rep["captures"] = compilewatch.counts("hetero_dist_step") - caps0
+    rep["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().numpy()
+    rep.update(losses=losses.tolist(), step_ms=step_ms, b1_per_step=b1,
+               launches=launches)
+    need(np.isfinite(losses).all(), "a hetero distributed loss is not "
+                                    "finite")
+    need(rep["plain_hash_calls"] == 0,
+         "the hetero distributed step ran the plain threefry on the card")
+    need(rep["captures"] == 1, f"{rep['captures']} captures of the hetero "
+                               f"distributed step, not 1")
+    need(b1[:2] == [DW_B1_PER_STEP] * 2 and not any(b1[2:]),
+         f"B1 launches a step {b1}: not {DW_B1_PER_STEP} in the eager step "
+         f"and the capture and none in a replay")
+    need(launches["threefry_hash_cuda"] > 0, "the hetero distributed step "
+                                             "never launched the hash kernel")
+
+    # Step 0's loss on the CPU from the same weights and key.
+    _, closs, _ = make_hetero_dist_train_step(
+        cs, cside["feats"], cside["labels"], cmesh, DW_BS)(
+        cstate, batches[0], trandom.PRNGKey(0, device=cpu))
+    rep["card_loss"], rep["cpu_loss"] = float(losses[0]), float(closs)
+    rep["cpu_loss_rel_err"] = abs(rep["card_loss"] - rep["cpu_loss"]) / max(
+        abs(rep["cpu_loss"]), 1e-30)
+    need(rep["cpu_loss_rel_err"] <= F32_LOSS_RTOL,
+         f"step 0's hetero loss on the card {rep['card_loss']} vs CPU "
+         f"{rep['cpu_loss']}")
+
+    # Eager and replayed steps in turns from one state (the eager one a
+    # fresh step's first call), the first pair profiled on one batch.
+    twin = copy_state(state, make, adam(DW_LR))
+    turns = {"eager": [], "replayed": []}
+    pair = {}
+    for j, route in enumerate(("replayed", "eager", "eager", "replayed",
+                               "replayed", "eager")):
+        i = DW_STEPS + (j // 2 if j < 2 else j)
+        key = trandom.PRNGKey(1000 + i, device=dev)
+        run = step if route == "replayed" else make_hetero_dist_train_step(
+            gs, card["feats"], card["labels"], mesh, DW_BS)
+        ctx = (profile_window(torch) if j < 2
+               else contextlib.nullcontext())
+        with ctx as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if route == "replayed":
+                state, loss, _ = run(state, batches[i], key)
+            else:
+                twin, loss, _ = run(twin, batches[i], key)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        if j < 2:
+            p = device_profile(torch, prof, 1, ms)
+            p["b1_kernels"] = b1_kernels(torch, prof)
+            rep[f"{route}_profile"] = p
+            pair[route] = float(loss)
+        else:
+            turns[route].append(ms)
+    rep["turn_ms"] = turns
+    rep["replay_vs_eager_rel"] = abs(pair["replayed"] - pair["eager"]) / max(
+        abs(pair["eager"]), 1e-30)
+    need(rep["replay_vs_eager_rel"] <= F32_LOSS_RTOL,
+         f"replayed step's loss {pair['replayed']} vs eager {pair['eager']}")
+    need(rep["replayed_profile"]["b1_kernels"] == DW_B1_PER_STEP,
+         f"B1 ran {rep['replayed_profile']['b1_kernels']} times in a "
+         f"replayed step, not {DW_B1_PER_STEP}")
+    rep["step_ms_median"] = statistics.median(step_ms[3:])
+    rep["subgraphs_per_s"] = S * DW_BS / rep["step_ms_median"] * 1e3
+
+    # Three replayed steps under the sync debug mode (their keys made
+    # before: a key from a host int is a copy to the card).
+    keys = [trandom.PRNGKey(i, device=dev)
+            for i in range(DW_STEPS + 6, DW_STEPS + 9)]
+
+    def three():
+        nonlocal state
+        for i, k in zip(range(DW_STEPS + 6, DW_STEPS + 9), keys):
+            state, _, _ = step(state, batches[i], k)
+    rep["syncs"] = watch_syncs(torch, three)
+    need(not rep["syncs"], f"{len(rep['syncs'])} host syncs in replayed "
+                           f"hetero steps: {rep['syncs'][:3]}")
+    rep["state"] = state
+    return rep
+
+
+def run_hetero_tiered(torch, ops, trandom, dev, setup, state0) -> dict:
+    """Phase 14's hetero tiered pipeline (see the module docstring)."""
+    from glt_tpu_torch.models import adam
+    from glt_tpu_torch.obs import compilewatch
+    from glt_tpu_torch.parallel import (HeteroTieredTrainPipeline, Mesh,
+                                        make_hetero_tiered_train_step,
+                                        shard_feature_tiered)
+
+    _, side, host, batches, make = setup
+    S = DW_SHARDS
+    mesh = Mesh([dev] * S)
+    card = side["card"]
+    samp = hetero_sampler(card, mesh)
+    feats = dict(card["feats"])
+    feats["paper"] = shard_feature_tiered(host["paper"], S, DW_TIER_RATIO,
+                                          device=dev)
+    pf = feats["paper"]
+    rep = {"hot_per_shard": pf.hot_per_shard,
+           "nodes_per_shard": pf.nodes_per_shard,
+           "host_bytes": int(pf.cold.nbytes)}
+    pipes = {
+        "tiered": HeteroTieredTrainPipeline(samp, make_hetero_tiered_train_step(
+            samp, feats, card["labels"], mesh, DW_BS), feats, mesh),
+        "full": HeteroTieredTrainPipeline(samp, make_hetero_tiered_train_step(
+            samp, card["feats"], card["labels"], mesh, DW_BS),
+            card["feats"], mesh)}
+    run_batches = batches[:DW_TIERED_STEPS]
+    key = trandom.PRNGKey(400, device=dev)
+    try:
+        losses = {}
+        for name, pipe in pipes.items():
+            st = copy_state(state0, make, adam(DW_LR))
+            stamps = []
+            train_step = pipe.train_step
+
+            def stamped(*args, _t=train_step):
+                stamps.append(time.perf_counter())
+                return _t(*args)
+
+            pipe.train_step = stamped
+            torch.cuda.synchronize()
+            counts_zero(ops, trandom)
+            caps0 = [compilewatch.counts(k) for k in (
+                "hetero_tiered_stage", "hetero_tiered_train_step")]
+            st, ls, _ = pipe.run_epoch(st, run_batches, key)
+            torch.cuda.synchronize()
+            pipe.train_step = train_step
+            rep[f"{name}_launches"] = counts_read(ops)
+            rep[f"{name}_captures"] = [compilewatch.counts(k) - c for k, c in
+                                       zip(("hetero_tiered_stage",
+                                            "hetero_tiered_train_step"),
+                                           caps0)]
+            need(trandom.threefry2x32.calls == 0, f"{name}: the plain "
+                                                  f"threefry on the card")
+            losses[name] = torch.stack(ls).double().cpu().numpy()
+            gaps = np.diff(np.asarray(stamps)) * 1e3
+            rep[f"{name}_step_ms"] = gaps.tolist()
+            rep[f"{name}_state"] = st
+        rep["losses"] = {k: v.tolist() for k, v in losses.items()}
+        rel = np.abs(losses["tiered"] - losses["full"]) / np.maximum(
+            np.abs(losses["full"]), 1e-30)
+        rep["tiered_vs_full_rel"] = rel.tolist()
+        need(np.isfinite(losses["tiered"]).all()
+             and rel.max() <= TIERED_DRIFT_RTOL,
+             f"tiered losses {losses['tiered']} vs full-HBM "
+             f"{losses['full']}")
+        pipe = pipes["tiered"]
+        rep["dropped"] = pipe.flush_dropped()
+        rep["max_cold_rows"] = dict(pipe.max_cold_rows)
+        rep["cold_cap"] = dict(pipe.cold_cap)
+        rep["h2d_bytes"] = S * pipe.cold_cap["paper"] * pf.dim * 4
+        need(rep["dropped"] == 0, f"{rep['dropped']} cold requests past the "
+                                  f"default caps {pipe.cold_cap}")
+        need(rep["tiered_captures"] == [1, 1],
+             f"captures of the hetero stage and train step: "
+             f"{rep['tiered_captures']}, not 1 each")
+        need(rep["tiered_launches"]["sample_neighbors_cuda"]
+             == 2 * DW_B1_PER_STEP,
+             f"B1 ran {rep['tiered_launches']['sample_neighbors_cuda']} "
+             f"times: not {DW_B1_PER_STEP} in the eager batch and in the "
+             f"stage's capture")
+        gaps = rep["tiered_step_ms"]
+        rep["step_ms_median"] = float(np.median(gaps[2:]))
+        rep["subgraphs_per_s"] = S * DW_BS / rep["step_ms_median"] * 1e3
+
+        # Three replayed batches profiled: two graph launches a step.
+        st = rep.pop("tiered_state")
+        rep.pop("full_state")
+        more = batches[DW_STEPS + 9: DW_STEPS + 12]
+        with profile_window(torch) as prof:
+            t0 = time.perf_counter()
+            st, _, _ = pipe.run_epoch(st, more, trandom.PRNGKey(
+                401, device=dev))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+        p = device_profile(torch, prof, 3, wall)
+        p["b1_kernels"] = b1_kernels(torch, prof) / 3
+        p["graph_launches"] = sum(
+            n for name, n in runtime_calls(torch, prof).items()
+            if "GraphLaunch" in name) / 3
+        rep["profile"] = p
+        need(p["graph_launches"] == 2, f"{p['graph_launches']} graph "
+                                       f"launches a replayed tiered step")
+        need(p["b1_kernels"] == DW_B1_PER_STEP, f"B1 ran {p['b1_kernels']} "
+                                               f"times a replayed step")
+
+        # One warm step's parts, each alone: the stage graph and the
+        # train graph (device), the host side of the staging (id fetch,
+        # gather, H2D copy).
+        seeds = more[0]
+        from glt_tpu_torch.parallel.dist_sampler import seeds_on_mesh
+        sd = seeds_on_mesh(seeds, mesh)
+        k1 = trandom.PRNGKey(402, device=dev)
+        res = pipe._stage_prog(sd, k1)
+        n = len(res) - 3
+        slots, ids = {"paper": res[n]}, {"paper": res[n + 1]}
+        split = {"sample_route_ms": cuda_ms(
+            torch, lambda: pipe._stage_prog(sd, k1), reps=5, rounds=3)}
+
+        def host_stage():
+            staged, copied, _ = pipe._stage_cold_async(ids, slots).result()
+            if copied is not None:
+                copied.synchronize()
+            return staged
+
+        split["host_stage_ms"] = host_ms(torch, host_stage)
+        out, fut = pipe._sample_and_stage(seeds, k1)
+        staged, copied, _ = fut.result()
+        if copied is not None:
+            copied.synchronize()
+        split["train_ms"] = host_ms(torch, lambda: pipe.train_step(
+            st, out, staged, k1))
+        device = split["sample_route_ms"] + split["train_ms"]
+        stage = split["host_stage_ms"]
+        split["overlap"] = (device + stage - rep["step_ms_median"]) / max(
+            min(device, stage), 1e-9)
+        rep["split"] = split
+        return rep
+    finally:
+        for p in pipes.values():
+            p.close()
+
+
+def run_mesh2d(torch, ops, trandom, dev, keep, hsetup) -> dict:
+    """Phase 14's 2 x 2 mesh (see the module docstring): phase 11's
+    partition, the scanned step under both routes, the hetero step on
+    the mesh, and the ring."""
+    import types
+
+    from glt_tpu_torch.examples import dist_train_papers100m as twin
+    from glt_tpu_torch.models import adam
+    from glt_tpu_torch.obs import compilewatch
+    from glt_tpu_torch.parallel import (DistNeighborSampler, Mesh,
+                                        global_mesh_2d,
+                                        init_hetero_dist_state,
+                                        make_hetero_dist_train_step,
+                                        make_scanned_dist_train_step)
+
+    cpu = torch.device("cpu")
+    S, G, hops = DIST_SHARDS, GROUP, len(DIST_FANOUT)
+    dc, batches = keep["ds_cpu"], keep["batches"]
+    g, f = dc.graph, dc.feature
+    ds = types.SimpleNamespace(
+        graph=g._replace(indptr=g.indptr.to(dev), indices=g.indices.to(dev),
+                         edge_ids=g.edge_ids.to(dev)),
+        feature=f._replace(rows=f.rows.to(dev)), labels=dc.labels.to(dev))
+    mesh2 = global_mesh_2d([dev] * S, num_hosts=2)
+    m2 = dict(mesh_shape=(2, 2), axis_name=("host", "chip"))
+    rep = {"mesh": mesh2.shape}
+
+    # Sampled ids and gathered rows, route against route.
+    key = trandom.PRNGKey(500, device=dev)
+    hier = dist_batch(torch, ds, batches[0], key, route="hier",
+                      fused_frontier=True, **m2)
+    same_batches(torch, hier, dist_batch(torch, ds, batches[0], key,
+                                         route="flat", fused_frontier=True,
+                                         **m2), "2 x 2 mesh: hier vs flat")
+
+    # One scanned block a route (eager), its capture and a replay.
+    lo = DIST_STEPS + 4
+    blocks = [batches[lo + i * G: lo + (i + 1) * G] for i in range(3)]
+    need(all(b.shape[0] == G for b in blocks), "too few seed batches for "
+                                               "the 2 x 2 mesh's blocks")
+    st0 = twin.make_state(ds, DIST_FANOUT, DIST_BS, DIST_CLASSES, dev)
+
+    def make_model():
+        return twin.make_state(ds, DIST_FANOUT, DIST_BS, DIST_CLASSES,
+                               dev).model
+
+    first = {}
+    rep["launches"] = {k: 0 for k in kernel_wrappers(ops)}
+    for route in ("hier", "flat"):
+        step = make_scanned_dist_train_step(
+            ds.graph, ds.feature, ds.labels, mesh2, DIST_FANOUT, DIST_BS,
+            fused_frontier=True, route=route)
+        st = copy_state(st0, make_model, adam(LR))
+        torch.cuda.synchronize()
+        counts_zero(ops, trandom)
+        caps0 = compilewatch.counts("scanned_dist_step")
+        ms, eager = [], None
+        for i, blk in enumerate(blocks):
+            t0 = time.perf_counter()
+            st, ls, _ = step(st, blk, trandom.fold_in(key, i))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                first[route] = ls.double().cpu().numpy()
+                eager = counts_read(ops)
+        launches = counts_read(ops)
+        need(trandom.threefry2x32.calls == 0, f"{route}: the plain threefry "
+                                              f"on the card")
+        need(compilewatch.counts("scanned_dist_step") - caps0 == 1,
+             f"{route}: not one capture of the scanned step")
+        need(eager["sample_neighbors_cuda"] == S * hops * G
+             and eager["fused_frontier_cuda"] == S * G,
+             f"{route}: B1 {eager['sample_neighbors_cuda']}, B3 "
+             f"{eager['fused_frontier_cuda']} in an eager block of {G}")
+        need(launches["sample_neighbors_cuda"]
+             == 2 * eager["sample_neighbors_cuda"],
+             f"{route}: B1 launched in a replay")
+        rep[route] = {"block_ms": ms, "step_ms": ms[2] / G,
+                      "eager_step_ms": ms[0] / G,
+                      "collective_bytes": step.collective_bytes,
+                      "eager_launches": eager}
+        rep["launches"] = add_launches(rep["launches"], launches)
+    rel = np.abs(first["hier"] - first["flat"]) / np.maximum(
+        np.abs(first["flat"]), 1e-30)
+    rep["hier_vs_flat_rel"] = rel.tolist()
+    need(rel.max() <= F32_LOSS_RTOL, f"2 x 2 mesh scanned losses hier "
+                                     f"{first['hier']} vs flat "
+                                     f"{first['flat']}")
+
+    # The hetero step on the 2 x 2 mesh: hier batches == flat, losses.
+    _, side, _, hb, make = hsetup
+    hm = global_mesh_2d([dev] * DW_SHARDS, num_hosts=2)
+    outs, losses = {}, {}
+    counts_zero(ops, trandom)
+    for route in ("hier", "flat"):
+        samp = hetero_sampler(side["card"], hm, route=route)
+        outs[route] = samp.sample_from_nodes(hb[0], key=key)
+        st = init_hetero_dist_state(make(), adam(DW_LR), samp,
+                                    side["card"]["feats"])
+        step = make_hetero_dist_train_step(
+            samp, side["card"]["feats"], side["card"]["labels"], hm, DW_BS,
+            route=route)
+        _, loss, _ = step(st, hb[0], key)
+        losses[route] = float(loss)
+    rep["launches"] = add_launches(rep["launches"], counts_read(ops))
+    same_hetero(torch, outs["hier"], outs["flat"], "hetero 2 x 2: hier vs "
+                                                   "flat")
+    rep["hetero_losses"] = losses
+    rep["hetero_rel"] = abs(losses["hier"] - losses["flat"]) / max(
+        abs(losses["flat"]), 1e-30)
+    need(rep["hetero_rel"] <= F32_LOSS_RTOL, f"hetero 2 x 2 losses {losses}")
+
+    # collective='ring' against the CPU's ring.
+    counts_zero(ops, trandom)
+    kw = dict(num_neighbors=DIST_FANOUT, batch_size=DIST_BS,
+              collective="ring")
+    got = DistNeighborSampler(ds.graph, Mesh([dev] * S), **kw
+                              ).sample_from_nodes(batches[1], key=key)
+    rep["launches"] = add_launches(rep["launches"], counts_read(ops))
+    want = DistNeighborSampler(dc.graph, Mesh([cpu] * S), **kw
+                               ).sample_from_nodes(
+        batches[1], key=trandom.PRNGKey(500, device=cpu))
+    for fld in ("node", "row", "col", "edge", "node_mask", "edge_mask",
+                "num_sampled_nodes", "num_sampled_edges"):
+        need(torch.equal(getattr(got, fld).cpu(), getattr(want, fld)),
+             f"ring batch on the card vs CPU: {fld} differs")
+    rep["ring_b1"] = rep["launches"]["sample_neighbors_cuda"]
+    return rep
+
+
+def run_dist_whole(torch, ops, trandom, dev, keep: dict) -> dict:
+    """Phase 14 (see the module docstring)."""
+    rep = {}
+    t0 = time.perf_counter()
+    setup = hetero_dist_setup(torch, dev)
+    rep["hetero"] = het = run_hetero_dist(torch, ops, trandom, dev, setup)
+    state = het.pop("state")
+    rep["tiered"] = run_hetero_tiered(torch, ops, trandom, dev, setup,
+                                      state)
+    rep["mesh2d"] = run_mesh2d(torch, ops, trandom, dev, keep, setup)
+    ti = rep["tiered"]
+    rep["launches"] = add_launches(het["launches"], ti["tiered_launches"],
+                                   ti["full_launches"],
+                                   rep["mesh2d"]["launches"])
+    rep["seconds"] = time.perf_counter() - t0
+    return rep
+
+
+def log_dist_whole(rep: dict, card: str) -> None:
+    """Phase 14's lines (each number measured on ``card``)."""
+    h, ti, m = rep["hetero"], rep["tiered"], rep["mesh2d"]
+    log(f"dist whole: [{card}] IGBH x{HETERO['rgat']['scale']} built in "
+        f"{h['build_s']:.1f} s ({h['nodes']}, {h['feature_bytes']} B of "
+        f"features) on {DW_SHARDS} shards of {h['nodes_per_shard']} papers")
+    p, e = h["replayed_profile"], h["eager_profile"]
+    log(f"  hetero step: batches == CPU; {DW_STEPS} steps, losses "
+        f"{h['losses'][0]:.4f} -> {h['losses'][-1]:.4f}, B1 a step "
+        f"{h['b1_per_step']}, captures {h['captures']}; step 0 card vs CPU "
+        f"{h['card_loss']:.6f} vs {h['cpu_loss']:.6f} (rel "
+        f"{h['cpu_loss_rel_err']:.2e}); replayed step median "
+        f"{h['step_ms_median']:.2f} ms ({h['subgraphs_per_s']:.1f} "
+        f"subgraphs/s); in turns replayed " + ", ".join(
+            f"{x:.2f}" for x in h["turn_ms"]["replayed"]) + " ms, eager "
+        + ", ".join(f"{x:.2f}" for x in h["turn_ms"]["eager"])
+        + f" ms; peak memory {h['max_memory_allocated'] / 2**30:.2f} GiB; "
+        f"syncs in 3 replayed steps {len(h['syncs'])}")
+    for name, q in (("replayed", p), ("eager", e)):
+        log(f"  profiled {name} hetero step: wall {q['wall_ms']:.2f} ms, "
+            f"{q['kernels']:.0f} kernels {q['kernels_ms']:.3f} ms "
+            f"({q['kernel_share']:.1%}), B1 {q['b1_kernels']}, "
+            f"{q['launch_calls']:.0f} host launch calls, {q['copies']:.0f} "
+            f"copies, {q['memsets']:.0f} memsets")
+    sp, tp = ti["split"], ti["profile"]
+    log(f"  hetero tiered: papers {ti['hot_per_shard']} of "
+        f"{ti['nodes_per_shard']} a shard on the card "
+        f"({ti['host_bytes']} B in host memory); {DW_TIERED_STEPS} batches, "
+        f"losses vs full-HBM rel max {max(ti['tiered_vs_full_rel']):.2e}; "
+        f"drops {ti['dropped']}, cold caps {ti['cold_cap']}, max cold rows "
+        f"{ti['max_cold_rows']}, H2D {ti['h2d_bytes']} B a step; step "
+        f"median {ti['step_ms_median']:.2f} ms "
+        f"({ti['subgraphs_per_s']:.1f} subgraphs/s); parts alone: "
+        f"sample+route {sp['sample_route_ms']:.3f} ms, train "
+        f"{sp['train_ms']:.3f} ms, host stage {sp['host_stage_ms']:.3f} ms, "
+        f"overlap {sp['overlap']:.2f}; replayed step {tp['graph_launches']} "
+        f"graph launches, {tp['kernels']:.0f} kernels "
+        f"{tp['kernels_ms']:.3f} ms ({tp['kernel_share']:.1%}), wall "
+        f"{tp['wall_ms']:.2f} ms")
+    for route in ("hier", "flat"):
+        r = m[route]
+        log(f"  2 x 2 mesh {route}: scanned blocks " + ", ".join(
+            f"{x:.1f}" for x in r["block_ms"]) + f" ms (eager, capture, "
+            f"replay): step {r['step_ms']:.2f} ms replayed, "
+            f"{r['eager_step_ms']:.2f} ms eager; bytes a step ici "
+            f"{r['collective_bytes']['ici']} dcn "
+            f"{r['collective_bytes']['dcn']}; eager block launches "
+            f"{r['eager_launches']}")
+    log(f"  2 x 2 mesh: batches hier == flat; scanned losses rel max "
+        f"{max(m['hier_vs_flat_rel']):.2e}; hetero hier == flat batches, "
+        f"losses {m['hetero_losses']} (rel {m['hetero_rel']:.2e}); ring "
+        f"batch == CPU's; launches {rep['launches']} "
+        f"({rep['seconds']:.1f} s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -4843,6 +5474,12 @@ def main() -> int:
             ti["seconds"] = time.perf_counter() - t0
             log_tiered(ti, dd, smi[0])
             log(f"  phase 13: {ti['seconds']:.1f} s")
+
+            # 14. the distributed path whole
+            report["dist_whole"] = dw = run_dist_whole(torch, ops, trandom,
+                                                       dev, keep)
+            log_dist_whole(dw, smi[0])
+            log(f"  phase 14: {dw['seconds']:.1f} s")
         finally:
             keep.clear()
             shutil.rmtree(part_dir, ignore_errors=True)
@@ -4852,7 +5489,7 @@ def main() -> int:
 
     launches = {k: sum(p["launches"].get(k, 0)
                        for p in (sl, tr, st, report["digits"], lk, het, co,
-                                 dd, tw, ti))
+                                 dd, tw, ti, dw))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",

@@ -17,7 +17,10 @@ shard serves the requests that landed on it through kernel B3 on the
 card (:func:`~glt_tpu_torch.ops.fused_frontier.fused_frontier`): the
 request list repeats hub rows across the requesting shards, and B3
 reads each distinct row once.  Without it the serve is a plain masked
-index.
+index.  On a 2-D mesh every exchange here takes the hierarchical route
+of :mod:`.dist_sampler` when ``route`` resolves 'hier' (``mesh_shape=``):
+only the host-deduped ids cross hosts, and the rows come back in the
+flat slot order, the same rows as the flat route's.
 
 **Host tiering** (:class:`TieredShardedFeature`): when the feature
 matrix outgrows the card, each shard keeps a hotness-ordered prefix of
@@ -42,8 +45,10 @@ import torch
 from ..ops.fused_frontier import fused_frontier as _fused_frontier
 from ..ops.unique import unique_first_occurrence
 from ..utils.device import DeviceLike, resolve_device
-from .dist_sampler import (Routing, _all_to_all, _shards, _use_fused,
-                           build_routing)
+from .dist_sampler import (HierarchicalRouting, Routing, _all_to_all, _axes,
+                           _shards, _topology_choice, _use_fused,
+                           build_hier_routing, build_routing, hier_requests,
+                           hier_response)
 from .sharding import torch_dtype
 
 
@@ -79,26 +84,40 @@ def _request_rows(rows: torch.Tensor, local: torch.Tensor, ok: torch.Tensor,
     return torch.where(ok[:, None], rows[idx], 0)
 
 
-def _exchange_ids(routing: Sequence[Routing]) -> List[torch.Tensor]:
-    """The id request all-to-all of every exchange: row q of shard s's
-    result holds the ids shard q wants from s."""
-    return _all_to_all([r.buckets for r in routing])
-
-
 def _resolve_plan(ids, nodes_per_shard: int, num_shards: int, routing,
-                  route: str):
+                  route: str, mesh_shape=None, hier_load_factor=None):
     """Shared prologue of every feature exchange: each shard's routing
-    plan (built here unless the caller passes shared ones) and the
-    id-request leg.  Returns ``(routing, requests)``, per shard."""
+    plan (built here unless the caller passes shared ones: a flat
+    :class:`Routing`, or a :class:`HierarchicalRouting` on a 2-D mesh
+    when the topology resolves 'hier') and the id-request leg(s).
+
+    Returns ``(routing, flat_plans, requests)``, per shard: ``requests``
+    are the ids the shard serves (``[S * b]`` flat, ``[H * hier_cap]``
+    hier, where only the host-deduped ids cross hosts), and the flat
+    plans read the answers back (the hier response retraces its legs
+    into the flat bucket order)."""
     if routing is None:
-        routing = [build_routing(i, nodes_per_shard, num_shards,
-                                 route=route) for i in ids]
-    return routing, _exchange_ids(routing)
+        if _topology_choice(route, _axes(None, mesh_shape),
+                            mesh_shape) == "hier":
+            routing = build_hier_routing(
+                ids, nodes_per_shard, mesh_shape[0], mesh_shape[1],
+                hier_load_factor=hier_load_factor, route=route)
+        else:
+            routing = [build_routing(i, nodes_per_shard, num_shards,
+                                     route=route) for i in ids]
+    if isinstance(routing[0], HierarchicalRouting):
+        return routing, [r.base for r in routing], hier_requests(routing)
+    return routing, routing, _all_to_all([r.buckets for r in routing])
 
 
-def _return_payload(payload: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def _return_payload(routing, payload: Sequence[torch.Tensor]
+                    ) -> List[torch.Tensor]:
     """Response leg of every feature exchange: each request slot's
-    ``[w]`` payload back to its requester, in flat bucket order."""
+    ``[w]`` payload back to its requester, in flat bucket order (the
+    hier legs in reverse; dropped and padding slots come back as zero
+    rows, as the flat route's masked serve gives)."""
+    if isinstance(routing[0], HierarchicalRouting):
+        return hier_response(routing, payload, 0)
     return _all_to_all(payload)
 
 
@@ -128,6 +147,8 @@ def exchange_gather(
     routing: Optional[Sequence[Routing]] = None,
     route: str = "auto",
     fused_frontier: bool = False,
+    mesh_shape: Optional[tuple] = None,
+    hier_load_factor: Optional[float] = None,
 ) -> List[torch.Tensor]:
     """Feature rows for every shard's global ``ids``, across shards.
 
@@ -138,9 +159,15 @@ def exchange_gather(
       dedup: route each shard's UNIQUE ids through the exchange and
         expand the rows back to every position; the result is the
         same bit for bit.
-      routing: per shard, a pre-built plan for ``ids`` (ignored under
-        ``dedup``, whose plan is over the unique list).
+      routing: per shard, a pre-built plan for ``ids`` (flat or
+        hierarchical; ignored under ``dedup``, whose plan is over the
+        unique list).
       fused_frontier: serve through kernel B3 (see :func:`_request_rows`).
+      mesh_shape: ``(H, C)`` of a 2-D mesh: the hierarchical route when
+        ``route`` resolves 'hier' (see
+        :func:`~glt_tpu_torch.parallel.dist_sampler._topology_choice`);
+        the rows are the same.  ``hier_load_factor``: its cross-host
+        bound (:func:`~glt_tpu_torch.parallel.dist_sampler.hier_request_cap`).
 
     Returns, per shard, ``[B, d]`` rows in input order.
     """
@@ -149,17 +176,20 @@ def exchange_gather(
     if dedup:
         un = [unique_first_occurrence(i) for i in ids]
         urows = exchange_gather([u.uniques for u in un], rows, c, S,
-                                route=route, fused_frontier=fused_frontier)
+                                route=route, fused_frontier=fused_frontier,
+                                mesh_shape=mesh_shape,
+                                hier_load_factor=hier_load_factor)
         return [_dedup_scatter_back(r, u.inverse)
                 for r, u in zip(urows, un)]
     b = ids[0].shape[0]
-    routing, requests = _resolve_plan(ids, c, S, routing, route)
+    routing, flat, requests = _resolve_plan(ids, c, S, routing, route,
+                                            mesh_shape, hier_load_factor)
     got = []
     for s in range(S):
         local, ok = _served_ids(requests[s], s, c)
         got.append(_request_rows(rows[s], local, ok, fused_frontier))
-    resp = _return_payload(got)
-    return [_read_slots(resp[s], routing[s], b, S) for s in range(S)]
+    resp = _return_payload(routing, got)
+    return [_read_slots(resp[s], flat[s], b, S) for s in range(S)]
 
 
 class TieredShardedFeature(NamedTuple):
@@ -277,6 +307,8 @@ def exchange_gather_hot(
     routing: Optional[Sequence[Routing]] = None,
     route: str = "auto",
     fused_frontier: bool = False,
+    mesh_shape: Optional[tuple] = None,
+    hier_load_factor: Optional[float] = None,
 ) -> List[torch.Tensor]:
     """The tiered gather: :func:`exchange_gather`'s round trip, where
     the serving shard answers hot requests (``local < hot_per_shard``)
@@ -290,9 +322,11 @@ def exchange_gather_hot(
     Without either, cold rows come back as zeros (:func:`merge_cold`
     fills them).  ``dedup`` routes unique ids only; the staged rows
     must then come from a :func:`route_cold_requests` made with the
-    same flag.  ``fused_frontier`` serves the hot rows through kernel
-    B3 (bit for bit the masked index).  Returns, per shard, ``[B, d]``
-    rows in input order.
+    same flag, and on a 2-D mesh with the same ``route``, ``mesh_shape``
+    and ``hier_load_factor`` (the slots index the request layout, which
+    follows the topology).  ``fused_frontier`` serves the hot rows
+    through kernel B3 (bit for bit the masked index).  Returns, per
+    shard, ``[B, d]`` rows in input order.
     """
     S, c, h = num_shards, nodes_per_shard, int(hot_per_shard)
     ids, hot_rows = _shards(ids, S), _shards(hot_rows, S)
@@ -302,10 +336,12 @@ def exchange_gather_hot(
             [u.uniques for u in un], hot_rows, c, h, S,
             staged_resp=staged_resp, staged_rows=staged_rows,
             staged_slots=staged_slots, route=route,
-            fused_frontier=fused_frontier)
+            fused_frontier=fused_frontier, mesh_shape=mesh_shape,
+            hier_load_factor=hier_load_factor)
         return [_dedup_scatter_back(r, u.inverse) for r, u in zip(urows, un)]
     b = ids[0].shape[0]
-    routing, requests = _resolve_plan(ids, c, S, routing, route)
+    routing, flat, requests = _resolve_plan(ids, c, S, routing, route,
+                                            mesh_shape, hier_load_factor)
     got = []
     for s in range(S):
         local, ok = _served_ids(requests[s], s, c)
@@ -316,8 +352,8 @@ def exchange_gather_hot(
         elif staged_resp is not None:
             g = torch.where(ok[:, None], g, staged_resp[s].to(g.dtype))
         got.append(g)
-    resp = _return_payload(got)
-    return [_read_slots(resp[s], routing[s], b, S) for s in range(S)]
+    resp = _return_payload(routing, got)
+    return [_read_slots(resp[s], flat[s], b, S) for s in range(S)]
 
 
 def exchange_gather_xy(
@@ -334,6 +370,8 @@ def exchange_gather_xy(
     route: str = "auto",
     fused: Optional[bool] = None,
     fused_frontier: bool = False,
+    mesh_shape: Optional[tuple] = None,
+    hier_load_factor: Optional[float] = None,
 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Feature AND label gather of every shard's frontier in one
     exchange: one routing plan, one id all-to-all and one payload
@@ -356,6 +394,9 @@ def exchange_gather_xy(
         the labels ride a second one.  The single payload also needs an
         f32 feature block (the bitcast target); other dtypes take two.
       fused_frontier: serve the feature rows through kernel B3.
+      mesh_shape / hier_load_factor: the 2-D mesh's hierarchical route
+        (see :func:`exchange_gather`); the rows and labels ride its legs
+        as one payload.
 
     Returns, per shard, ``(x [B, d], y [B] int32)`` in input order (zeros
     at invalid slots).
@@ -369,7 +410,9 @@ def exchange_gather_xy(
                                  c, S, hot_per_shard=hot_per_shard,
                                  staged_rows=staged_rows,
                                  staged_slots=staged_slots, route=route,
-                                 fused=fused, fused_frontier=fused_frontier)
+                                 fused=fused, fused_frontier=fused_frontier,
+                                 mesh_shape=mesh_shape,
+                                 hier_load_factor=hier_load_factor)
         return [(_dedup_scatter_back(ux, u.inverse),
                  _dedup_scatter_back_1d(uy, u.inverse))
                 for (ux, uy), u in zip(uxy, un)]
@@ -377,7 +420,8 @@ def exchange_gather_xy(
     b = ids[0].shape[0]
     d = rows[0].shape[-1]
     h = c if hot_per_shard is None else int(hot_per_shard)
-    routing, requests = _resolve_plan(ids, c, S, routing, route)
+    routing, flat, requests = _resolve_plan(ids, c, S, routing, route,
+                                            mesh_shape, hier_load_factor)
     gotx, goty = [], []
     for s in range(S):
         local, ok = _served_ids(requests[s], s, c)
@@ -390,17 +434,17 @@ def exchange_gather_xy(
         goty.append(torch.where(ok, lab[idx], 0))
 
     if _use_fused(fused) and rows[0].dtype == torch.float32:
-        resp = _return_payload([
+        resp = _return_payload(routing, [
             torch.cat([x, y.view(torch.float32)[:, None]], -1)
             for x, y in zip(gotx, goty)])
         respx = [r[:, :d] for r in resp]
         respy = [r[:, d].view(torch.int32) for r in resp]
     else:
-        respx = _return_payload(gotx)
-        respy = [r[:, 0] for r in _return_payload([y[:, None]
-                                                   for y in goty])]
-    return [(_read_slots(respx[s], routing[s], b, S),
-             _read_slots(respy[s], routing[s], b, S)) for s in range(S)]
+        respx = _return_payload(routing, gotx)
+        respy = [r[:, 0] for r in _return_payload(
+            routing, [y[:, None] for y in goty])]
+    return [(_read_slots(respx[s], flat[s], b, S),
+             _read_slots(respy[s], flat[s], b, S)) for s in range(S)]
 
 
 def compact_cold_requests(cold_req: torch.Tensor, cold_cap: int):
@@ -434,18 +478,24 @@ def route_cold_requests(
     dedup: bool = False,
     routing: Optional[Sequence[Routing]] = None,
     route: str = "auto",
+    mesh_shape: Optional[tuple] = None,
+    hier_load_factor: Optional[float] = None,
 ) -> List[torch.Tensor]:
     """Every serving shard's cold request slots: the same bucketing and
     id exchange as :func:`exchange_gather_hot`, and for shard ``s`` the
     local cold row (``0 .. c - h``) of each incoming request slot, or
-    -1 for hot, foreign and padding slots (``[S * b]``).  Pass the same
-    ``dedup`` as the paired gather, so both see one request layout."""
+    -1 for hot, foreign and padding slots: ``[S * b]`` on the flat
+    route, ``[H * hier_cap]`` on the hierarchical one.  Pass the same
+    ``dedup`` (and on a 2-D mesh ``route``, ``mesh_shape`` and
+    ``hier_load_factor``) as the paired gather, so both see one request
+    layout."""
     S, c, h = num_shards, nodes_per_shard, int(hot_per_shard)
     ids = _shards(ids, S)
     if dedup:
         ids = [unique_first_occurrence(i).uniques for i in ids]
         routing = None   # a shared plan is over the un-deduped list
-    _, requests = _resolve_plan(ids, c, S, routing, route)
+    _, _, requests = _resolve_plan(ids, c, S, routing, route, mesh_shape,
+                                   hier_load_factor)
     out = []
     for s in range(S):
         req = requests[s]

@@ -28,8 +28,20 @@ trip a trial); :meth:`DistNeighborSampler.subgraph` fetches each node's
 row from its owner and keeps the edges inside the node set
 (:func:`dist_node_subgraph`).
 
-Left for later slices (ROADMAP queue A item 7): the 2-D mesh and
-``HierarchicalRouting``, ``collective="ring"`` and the routing autotuner.
+On a 2-D ``(host, chip)`` mesh (:func:`~glt_tpu_torch.parallel.
+multihost.global_mesh_2d`) draws are keyed per (key, id), so a route
+that serves a duplicated id once gives the same neighbors as one that
+serves every copy, and the hierarchical route
+(:func:`build_hier_routing`) can dedup within a host before the
+cross-host leg: each chip's buckets go to the chip of its host that
+shares the owner's chip index (the per-host leg, a transposition along
+``chip``), that chip keeps each host's ids once per owner host, the
+unique ids cross hosts (a transposition along ``host``), and the answers
+retrace both legs into the flat bucket order.  ``collective="ring"``
+(:func:`exchange_one_hop_ring`) passes the request matrices around the
+shards in S - 1 rotations of a list, each shard serving its row of the
+matrix it holds, as ``glt_tpu``'s ``ppermute`` ring does.  The routing
+autotuner is ROADMAP queue A item 4.
 """
 from __future__ import annotations
 
@@ -57,10 +69,12 @@ from .multihost import Mesh, mesh_axis_sizes, resolve_mesh_axes
 from .sharding import check_on_mesh
 
 __all__ = [
-    "DistNeighborSampler", "Routing", "bounded_remote_cap",
-    "build_routing", "build_sorted_edge_view", "dist_edge_exists",
-    "dist_node_subgraph", "dist_sample_multi_hop", "exchange_byte_model",
-    "exchange_one_hop", "mesh_axis_sizes", "resolve_mesh_axes",
+    "DistNeighborSampler", "HierGeom", "HierarchicalRouting", "Routing",
+    "bounded_remote_cap", "build_hier_routing", "build_routing",
+    "build_sorted_edge_view", "dist_edge_exists", "dist_node_subgraph",
+    "dist_sample_multi_hop", "exchange_byte_model", "exchange_one_hop",
+    "exchange_one_hop_ring", "hier_request_cap", "hier_requests",
+    "hier_response", "mesh_axis_sizes", "resolve_mesh_axes",
 ]
 
 # Host-boundary instrumentation: the per-shard stages stay span-free.
@@ -69,8 +83,6 @@ _M_DIST_BATCHES = _metrics.counter(
 _M_DIST_SAMPLE_MS = _metrics.histogram(
     "glt.dist.sample_dispatch_ms",
     "dist sampler dispatch wall per batch")
-
-_LATER = "is left for a later slice (ROADMAP queue A item 7)"
 
 
 def bounded_remote_cap(width: int, load_factor: float,
@@ -98,18 +110,53 @@ class Routing(NamedTuple):
 _ONEPASS_MAX_SHARDS = 16
 
 
+_ROUTES = ("auto", "sort", "onepass", "flat", "hier")
+
+
 def _route_choice(b: int, num_shards: int, cap: int, route: str) -> str:
     """The bucketing implementation: an explicit ``route`` ('sort' |
     'onepass'), else the shard-count heuristic (the autotuner is ROADMAP
-    queue A item 4)."""
+    queue A item 4).  The topology tokens 'flat' and 'hier' pick no
+    bucketing (:func:`_topology_choice` reads them)."""
     del b, cap
+    if route not in _ROUTES:
+        raise ValueError(f"route must be one of {'|'.join(_ROUTES)}, got "
+                         f"{route!r}")
     if route in ("sort", "onepass"):
         return route
-    if route != "auto":
-        raise ValueError(f"route must be auto|sort|onepass, got {route!r}"
-                         + (f"; the {route!r} topology {_LATER}"
-                            if route in ("flat", "hier") else ""))
     return "onepass" if num_shards <= _ONEPASS_MAX_SHARDS else "sort"
+
+
+def _topology_choice(route: str, axis_name, mesh_shape=None) -> str:
+    """The routing topology, 'flat' or 'hier': a 1-D mesh (a str axis)
+    is always flat; else an explicit 'flat' | 'hier' ``route``; else,
+    with the ``(H, C)`` shape known, 'hier' when both axes exceed 1
+    (``glt_tpu``'s rules without its env override and autotuned
+    table)."""
+    if isinstance(axis_name, str) or len(tuple(axis_name)) < 2:
+        return "flat"
+    if route in ("flat", "hier"):
+        return route
+    if mesh_shape is None:
+        return "flat"
+    h, c = int(mesh_shape[0]), int(mesh_shape[1])
+    return "hier" if h > 1 and c > 1 else "flat"
+
+
+def _axes(axis_name, mesh_shape):
+    """The mesh axes an exchange runs over: ``axis_name`` when given,
+    else the 2-D ``("host", "chip")`` pair when ``mesh_shape`` is, else
+    the 1-D ``"shard"``."""
+    if axis_name is not None:
+        return axis_name
+    return ("host", "chip") if mesh_shape is not None else "shard"
+
+
+def _key_by(axes) -> str:
+    """How the served draws are keyed: per (key, slot) on a 1-D mesh,
+    per (key, id) on a 2-D one, where the flat and hierarchical routes
+    must draw alike."""
+    return "slot" if isinstance(axes, str) else "id"
 
 
 def _use_fused(fused: Optional[bool]) -> bool:
@@ -236,16 +283,25 @@ def exchange_byte_model(topology: str, num_hosts: int, chips_per_host: int,
                         hier_cap: Optional[int] = None,
                         elem_bytes: int = 4):
     """Per-device ``(ici_bytes, dcn_bytes)`` of one request+response round
-    trip, from static plan shapes: on the flat route each device sends
+    trip, from static plan shapes.  Flat on ``[H, C]``: each device sends
     ``cap`` ids (and ``payload_elems`` response elements per slot) to
-    every peer, ``C - 1`` of them within a host and ``(H - 1) * C``
-    across hosts."""
-    del hier_cap
-    if topology != "flat":
-        raise NotImplementedError(f"the {topology!r} topology {_LATER}")
+    every peer, ``C - 1`` of them within a host (ICI) and ``(H - 1) * C``
+    across hosts (DCN).  Hier: the per-host legs move the whole ``[H, C,
+    cap]`` bucket block but the own column; only ``(H - 1) * hier_cap``
+    slots cross hosts."""
     h, c = int(num_hosts), int(chips_per_host)
     per_slot = (1 + int(payload_elems)) * int(elem_bytes)
-    return int((c - 1) * cap * per_slot), int((h - 1) * c * cap * per_slot)
+    if topology == "flat":
+        ici = (c - 1) * cap * per_slot
+        dcn = (h - 1) * c * cap * per_slot
+    elif topology == "hier":
+        hc = c * cap if hier_cap is None else int(hier_cap)
+        ici = (c - 1) * h * cap * per_slot
+        dcn = (h - 1) * hc * per_slot
+    else:
+        raise ValueError(f"topology must be 'flat' or 'hier', "
+                         f"got {topology!r}")
+    return int(ici), int(dcn)
 
 
 def _all_to_all(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -270,6 +326,178 @@ def _shards(x, num_shards: int) -> list:
     return out
 
 
+# -- hierarchical (per-host, then cross-host) routing ----------------------
+#
+# On a (host, chip) mesh of shape (H, C), shard s = h * C + c:
+#
+#   per-chip owner buckets [S*cap] viewed [H, C, cap]
+#     -> per-host leg (along chip): chip c of host h gets, from every chip
+#        q of its host, the buckets for the owners (oh, c)  [H, C*cap]
+#     -> each row oh deduped: host h's unique wants from owner (oh, c)
+#     -> cross-host leg (along host) of the unique ids alone [H*hier_cap]
+#     -> the owner serves each unique id once
+#     -> back across hosts, expanded through ``inv`` (which never moved),
+#        back along chip, landing in the flat bucket order [S*cap]
+#
+# so the flat epilogue reads the answers.  With every shard in one
+# process a leg is one transposition of the stacked blocks.
+
+class HierGeom(NamedTuple):
+    """Static geometry of a hierarchical plan."""
+    num_hosts: int
+    chips_per_host: int
+    host_axis: str
+    chip_axis: str
+    cap: int        # per-owner bucket capacity of the flat base plan
+    hier_cap: int   # per-dest-host unique-request capacity (cross-host leg)
+
+
+class HierarchicalRouting(NamedTuple):
+    """One shard's two-level plan for a frontier on a 2-D mesh (see
+    :func:`build_hier_routing`): the flat :class:`Routing` (whose
+    ``slot``/``valid`` read the answers back) and the per-host dedup the
+    cross-host legs ride on.  Built once per hop frontier and shared by
+    every exchange over it."""
+    base: Routing
+    uniq: torch.Tensor          # [H, hier_cap] host-unique ids, -1 padded
+    inv: torch.Tensor           # [H, C*cap] index into uniq's row, -1 = none
+    hier_dropped: torch.Tensor  # [] int32: unique ids beyond hier_cap
+    geom: HierGeom
+
+
+def hier_request_cap(cap: int, chips_per_host: int, nodes_per_shard: int,
+                     hier_load_factor: Optional[float] = None) -> int:
+    """Width of the cross-host leg a destination host: the unique ids one
+    device forwards to each host.  Lossless: ``min(C * cap,
+    nodes_per_shard)`` (a row's uniques all live on one shard); with
+    ``hier_load_factor`` (α) at most ``ceil(α * C * cap)``, the overflow
+    dropped and counted."""
+    lossless = min(int(chips_per_host) * int(cap),
+                   max(1, int(nodes_per_shard)))
+    if hier_load_factor is None:
+        return lossless
+    bounded = max(1, int(np.ceil(float(hier_load_factor)
+                                 * chips_per_host * cap)))
+    return min(lossless, bounded)
+
+
+def _grid_all_to_all(blocks: Sequence[torch.Tensor], grid, axis: str
+                     ) -> List[torch.Tensor]:
+    """An all-to-all along one axis of the ``(H, C)`` grid, every shard's
+    block at once.  ``axis="chip"`` (``lax.all_to_all(x, chip, 1, 1)``
+    of ``[H, C, ...]`` blocks): shard ``(h, c)`` gets ``[:, q]`` = shard
+    ``(h, q)``'s ``[:, c]``.  ``axis="host"`` (``lax.all_to_all(x, host,
+    0, 0)`` of ``[H, ...]`` blocks): shard ``(h, c)`` gets ``[qh]`` =
+    shard ``(qh, c)``'s ``[h]``."""
+    h, c = int(grid[0]), int(grid[1])
+    shape = tuple(blocks[0].shape)
+    x = torch.stack(list(blocks)).reshape((h, c) + shape)
+    if axis == "chip":
+        y = x.permute(0, 3, 2, 1, *range(4, x.dim()))
+    elif axis == "host":
+        y = x.permute(2, 1, 0, *range(3, x.dim()))
+    else:
+        raise ValueError(f"axis must be 'host' or 'chip', got {axis!r}")
+    return list(y.contiguous().reshape((h * c,) + shape).unbind(0))
+
+
+def build_hier_routing(
+    ids: Sequence[torch.Tensor],
+    nodes_per_shard: int,
+    num_hosts: int,
+    chips_per_host: int,
+    host_axis: str = "host",
+    chip_axis: str = "chip",
+    cap: Optional[int] = None,
+    hier_load_factor: Optional[float] = None,
+    route: str = "auto",
+    base: Optional[Sequence[Routing]] = None,
+) -> List[HierarchicalRouting]:
+    """Every shard's two-level plan for its frontier ``ids`` (``[B]``
+    global ids, -1 padded, shard ``s = h * C + c``).  Runs the per-host
+    request leg and the dedup (part of the plan, shared by every exchange
+    over the frontier); the cross-host legs run per exchange.
+
+    ``cap``: per-owner bucket capacity, ``None`` -> ``B``;
+    ``hier_load_factor``: the cross-host bound (:func:`hier_request_cap`);
+    ``base``: pre-built flat plans over ``ids`` with this ``cap``.
+    """
+    h, c = int(num_hosts), int(chips_per_host)
+    S = h * c
+    ids = _shards(ids, S)
+    cap = ids[0].shape[0] if cap is None else int(cap)
+    if base is None:
+        base = [_bucket_by_owner(i, _owner(i, nodes_per_shard), S, cap,
+                                 route) for i in ids]
+    slabs = _grid_all_to_all([p.buckets.reshape(h, c, cap) for p in base],
+                             (h, c), "chip")
+    hc = hier_request_cap(cap, c, nodes_per_shard, hier_load_factor)
+    geom = HierGeom(num_hosts=h, chips_per_host=c, host_axis=host_axis,
+                    chip_axis=chip_axis, cap=cap, hier_cap=hc)
+    out = []
+    for plan, slab in zip(base, slabs):
+        rows = [unique_first_occurrence(r) for r in slab.reshape(h, c * cap)]
+        inv = torch.stack([u.inverse for u in rows])
+        over = torch.stack([u.count for u in rows]) - hc
+        out.append(HierarchicalRouting(
+            base=plan, uniq=torch.stack([u.uniques[:hc] for u in rows]),
+            inv=torch.where((inv >= 0) & (inv < hc), inv, -1),
+            hier_dropped=over.clamp(min=0).sum(dtype=torch.int32),
+            geom=geom))
+    return out
+
+
+def hier_requests(hr: Sequence[HierarchicalRouting]) -> List[torch.Tensor]:
+    """The cross-host request leg: per shard, the ``[H * hier_cap]``
+    host-unique ids addressed to it (row ``qh`` from host ``qh``'s chip
+    of its own chip index)."""
+    g = hr[0].geom
+    moved = _grid_all_to_all([p.uniq for p in hr],
+                             (g.num_hosts, g.chips_per_host), "host")
+    return [m.reshape(g.num_hosts * g.hier_cap) for m in moved]
+
+
+def hier_response(hr: Sequence[HierarchicalRouting],
+                  payload: Sequence[torch.Tensor], fill
+                  ) -> List[torch.Tensor]:
+    """The request legs retraced: per shard, its ``[H * hier_cap, W]``
+    answers to the requests that landed on it -> ``[S * cap, W]`` in the
+    flat bucket order of each requester.  Back across hosts, each row
+    expanded through ``inv`` (duplicates copy the one answer, dropped and
+    padding slots get ``fill``), back along the chips."""
+    g = hr[0].geom
+    grid = (g.num_hosts, g.chips_per_host)
+    w = payload[0].shape[-1]
+    resp = _grid_all_to_all([p.reshape(g.num_hosts, g.hier_cap, w)
+                             for p in payload], grid, "host")
+    rows = torch.arange(g.num_hosts, device=resp[0].device)[:, None]
+    full = []
+    for p, r in zip(hr, resp):
+        got = r[rows, p.inv.clamp(0, g.hier_cap - 1).long()]
+        got = torch.where((p.inv >= 0)[..., None], got,
+                          torch.full((), fill, dtype=got.dtype,
+                                     device=got.device))
+        full.append(got.reshape(g.num_hosts, g.chips_per_host, g.cap, w))
+    back = _grid_all_to_all(full, grid, "chip")
+    return [x.reshape(g.num_hosts * g.chips_per_host * g.cap, w)
+            for x in back]
+
+
+def _served_local(req: torch.Tensor, shard: int, nodes_per_shard: int
+                  ) -> torch.Tensor:
+    """The local rows of the requests that landed on ``shard`` (-1 for
+    padding and foreign ids)."""
+    lid = torch.where(req >= 0, req - shard * nodes_per_shard, -1)
+    return torch.where((lid >= 0) & (lid < nodes_per_shard), lid, -1)
+
+
+def _hier_geometry(mesh_shape, axes):
+    if mesh_shape is None:
+        raise ValueError("the hierarchical route needs the mesh's (H, C) "
+                         "shape (mesh_shape=)")
+    return int(mesh_shape[0]), int(mesh_shape[1]), axes[0], axes[1]
+
+
 def exchange_one_hop(
     seeds: Sequence[torch.Tensor],
     indptr: Sequence[torch.Tensor],
@@ -282,7 +510,10 @@ def exchange_one_hop(
     remote_cap: Optional[int] = None,
     route: str = "auto",
     fused: Optional[bool] = None,
-    routing: Optional[Sequence[Routing]] = None,
+    routing: Optional[Sequence] = None,
+    mesh_shape: Optional[tuple] = None,
+    hier_load_factor: Optional[float] = None,
+    axis_name=None,
 ):
     """One distributed sampling hop over every shard.
 
@@ -298,52 +529,87 @@ def exchange_one_hop(
         ``remote_cap`` slots; ids past an owner's cap are dropped
         (padding) and counted.
       route / fused: the bucketing implementation and whether neighbors
-        and edge ids ride one response collective.
-      routing: per shard, a pre-built plan for ``seeds``; honoured only
+        and edge ids ride one response collective; ``route`` also takes
+        the topology tokens 'flat' and 'hier' (see :func:`_topology_choice`).
+      routing: per shard, a pre-built plan for ``seeds``
+        (:class:`Routing`, or :class:`HierarchicalRouting`, which takes
+        the hierarchical route whatever ``route`` says); honoured only
         when ``remote_cap`` is None (the capped path buckets the remote
         subset, another plan).
+      mesh_shape: ``(H, C)`` of a 2-D mesh; the hierarchical route needs
+        it.  ``hier_load_factor``: the cross-host bound (see
+        :func:`hier_request_cap`), None = lossless.
+      axis_name: the mesh's axes, a str (1-D) or the 2-D pair; None
+        derives them from ``mesh_shape``.  On a 2-D mesh the draws are
+        keyed per (key, id), on a 1-D one per (key, slot).
 
     Returns, per shard, ``(nbrs, eids, mask, dropped)``: the first three
     ``[B, fanout]`` in seed order, ``dropped`` an int32 scalar (0 when
-    ``remote_cap`` is None).
+    ``remote_cap`` is None and the cross-host leg is lossless).
     """
     S, c = num_shards, nodes_per_shard
     seeds = _shards(seeds, S)
     indptr, indices = _shards(indptr, S), _shards(indices, S)
     edge_ids, keys = _shards(edge_ids, S), _shards(keys, S)
+    axes = _axes(axis_name, mesh_shape)
+    key_by = _key_by(axes)
     b = seeds[0].shape[0]
-    plans, local = [], []
-    for s in range(S):
-        owner = _owner(seeds[s], c)
-        if remote_cap is None:
-            plans.append(routing[s] if routing is not None else
-                         _bucket_by_owner(seeds[s], owner, S, b, route))
-            local.append(None)
-        else:
+    hier = (isinstance(routing[0], HierarchicalRouting)
+            if routing is not None
+            else _topology_choice(route, axes, mesh_shape) == "hier")
+    local = [None] * S
+    if remote_cap is None:
+        cap = b
+        plans = list(routing) if routing is not None else None
+        if hier and (plans is None
+                     or not isinstance(plans[0], HierarchicalRouting)):
+            h, cc, ha, ca = _hier_geometry(mesh_shape, axes)
+            plans = build_hier_routing(seeds, c, h, cc, ha, ca, cap=b,
+                                       hier_load_factor=hier_load_factor,
+                                       route=route, base=plans)
+        elif plans is None:
+            plans = [_bucket_by_owner(x, _owner(x, c), S, b, route)
+                     for x in seeds]
+    else:
+        cap = int(remote_cap)
+        remote = []
+        for s in range(S):
             # Locally owned seeds: sampled here, no exchange.
+            owner = _owner(seeds[s], c)
             is_local = owner == s
             lout = sample_neighbors(
                 indptr[s], indices[s],
                 torch.where(is_local, seeds[s] - s * c, -1), fanout,
-                keys[s], edge_ids=edge_ids[s], key_by="slot")
-            local.append((is_local, lout.nbrs, lout.eids))
-            plans.append(_bucket_by_owner(
-                torch.where(is_local, PADDING_ID, seeds[s]), owner, S,
-                int(remote_cap), route))
+                keys[s], edge_ids=edge_ids[s], key_by=key_by)
+            local[s] = (is_local, lout.nbrs, lout.eids)
+            remote.append(torch.where(is_local, PADDING_ID, seeds[s]))
+        if hier:
+            h, cc, ha, ca = _hier_geometry(mesh_shape, axes)
+            plans = build_hier_routing(remote, c, h, cc, ha, ca, cap=cap,
+                                       hier_load_factor=hier_load_factor,
+                                       route=route)
+        else:
+            plans = [_bucket_by_owner(r, _owner(r, c), S, cap, route)
+                     for r in remote]
+    flat = [p.base for p in plans] if hier else plans
 
-    # Request exchange: row q of shard s's requests = what shard q wants.
-    requests = _all_to_all([p.buckets for p in plans])
-    served = []
-    for s in range(S):
-        req = requests[s]
-        lid = torch.where(req >= 0, req - s * c, -1)
-        lid = torch.where((lid >= 0) & (lid < c), lid, -1)
-        served.append(sample_neighbors(
-            indptr[s], indices[s], lid, fanout, trandom.fold_in(keys[s], 1),
-            edge_ids=edge_ids[s], key_by="slot"))
+    # Request exchange.  Flat: row q of shard s's requests = what shard q
+    # wants from s.  Hier: row qh = host qh's unique wants from s.
+    requests = (hier_requests(plans) if hier
+                else _all_to_all([p.buckets for p in plans]))
+    served = [sample_neighbors(
+        indptr[s], indices[s], _served_local(requests[s], s, c), fanout,
+        trandom.fold_in(keys[s], 1), edge_ids=edge_ids[s], key_by=key_by)
+        for s in range(S)]
 
     # Response exchange, then the stitch: each seed's answer from its slot.
-    if _use_fused(fused):
+    if hier:
+        # The hierarchical legs always carry neighbors and edge ids as
+        # one payload; ``fused`` shapes the flat route's collective.
+        resp = hier_response(plans, [torch.cat([o.nbrs, o.eids], -1)
+                                     for o in served], PADDING_ID)
+        resp = [(r[:, :fanout], r[:, fanout:]) for r in resp]
+    elif _use_fused(fused):
         resp = _all_to_all([torch.cat([o.nbrs, o.eids], -1)
                             for o in served])
         resp = [(r[:, :fanout], r[:, fanout:]) for r in resp]
@@ -352,11 +618,108 @@ def exchange_one_hop(
                         _all_to_all([o.eids for o in served])))
     out = []
     for s in range(S):
-        p = plans[s]
+        p = flat[s]
         sel = p.valid[:, None]
         slot = p.slot.long()
         nbrs = torch.where(sel, resp[s][0][slot], PADDING_ID)
         eids = torch.where(sel, resp[s][1][slot], PADDING_ID)
+        if local[s] is not None:
+            is_local, lnbrs, leids = local[s]
+            nbrs = torch.where(is_local[:, None], lnbrs, nbrs)
+            eids = torch.where(is_local[:, None], leids, eids)
+        dropped = (p.dropped + plans[s].hier_dropped if hier
+                   else p.dropped)
+        out.append((nbrs, eids, nbrs >= 0, dropped))
+    return out
+
+
+def exchange_one_hop_ring(
+    seeds: Sequence[torch.Tensor],
+    indptr: Sequence[torch.Tensor],
+    indices: Sequence[torch.Tensor],
+    edge_ids: Sequence[torch.Tensor],
+    nodes_per_shard: int,
+    num_shards: int,
+    fanout: int,
+    keys: Sequence[torch.Tensor],
+    remote_cap: Optional[int] = None,
+    route: str = "auto",
+    fused: Optional[bool] = None,
+    routing: Optional[Sequence[Routing]] = None,
+    mesh_shape: Optional[tuple] = None,
+    hier_load_factor: Optional[float] = None,
+    axis_name=None,
+):
+    """:func:`exchange_one_hop` with the request matrices passed around
+    a ring (``glt_tpu``'s ``ppermute`` pipeline): after ``k`` rotations
+    shard ``i`` holds the ``[S, cap]`` matrix of shard ``i - k`` and
+    answers its row ``i`` under ``fold_in(key_i, k)``; one more rotation
+    brings every matrix home with every row answered.  Here a rotation
+    moves the list of per-shard matrices by one place.  ``remote_cap``
+    bounds the matrices as in :func:`exchange_one_hop` (locally owned
+    seeds are sampled under ``fold_in(key, S)`` and never travel).  The
+    ring is flat by construction: ``mesh_shape`` and
+    ``hier_load_factor`` are accepted and unused, ``fused`` changes
+    nothing in one process; on a 2-D mesh the ring runs over the flat
+    shard order and the draws are keyed per id.  Returns what
+    :func:`exchange_one_hop` does.
+    """
+    del fused, mesh_shape, hier_load_factor
+    S, c = num_shards, nodes_per_shard
+    seeds = _shards(seeds, S)
+    indptr, indices = _shards(indptr, S), _shards(indices, S)
+    edge_ids, keys = _shards(edge_ids, S), _shards(keys, S)
+    key_by = _key_by(_axes(axis_name, None))
+    b = seeds[0].shape[0]
+
+    def serve(s, ids, k):
+        return sample_neighbors(indptr[s], indices[s],
+                                _served_local(ids, s, c), fanout,
+                                trandom.fold_in(keys[s], k),
+                                edge_ids=edge_ids[s], key_by=key_by)
+
+    local = [None] * S
+    if remote_cap is None:
+        cap = b
+        plans = (list(routing) if routing is not None else
+                 [_bucket_by_owner(x, _owner(x, c), S, b, route)
+                  for x in seeds])
+    else:
+        cap = int(remote_cap)
+        plans = []
+        for s in range(S):
+            is_local = _owner(seeds[s], c) == s
+            lout = serve(s, torch.where(is_local, seeds[s], PADDING_ID), S)
+            local[s] = (is_local, lout.nbrs, lout.eids)
+            remote = torch.where(is_local, PADDING_ID, seeds[s])
+            plans.append(_bucket_by_owner(remote, _owner(remote, c), S, cap,
+                                          route))
+
+    def rotate(xs):
+        # ppermute i -> i + 1: shard j now holds what shard j - 1 held.
+        return xs[-1:] + xs[:-1]
+
+    def answer(reqs, ans, k):
+        for i in range(S):
+            o = serve(i, reqs[i][i], k)
+            ans[i][i] = torch.cat([o.nbrs, o.eids], -1)
+
+    reqs = [p.buckets.reshape(S, cap) for p in plans]
+    ans = [torch.full((S, cap, 2 * fanout), PADDING_ID, dtype=torch.int32,
+                      device=r.device) for r in reqs]
+    answer(reqs, ans, 0)
+    for k in range(1, S):
+        reqs, ans = rotate(reqs), rotate(ans)
+        answer(reqs, ans, k)
+    if S > 1:
+        ans = rotate(ans)
+    out = []
+    for s in range(S):
+        p = plans[s]
+        resp = ans[s].reshape(S * cap, 2 * fanout)[p.slot.long()]
+        sel = p.valid[:, None]
+        nbrs = torch.where(sel, resp[:, :fanout], PADDING_ID)
+        eids = torch.where(sel, resp[:, fanout:], PADDING_ID)
         if local[s] is not None:
             is_local, lnbrs, leids = local[s]
             nbrs = torch.where(is_local[:, None], lnbrs, nbrs)
@@ -556,23 +919,37 @@ def dist_sample_multi_hop(
     exchange_load_factor: Optional[float] = None,
     route: str = "auto",
     fused: Optional[bool] = None,
+    mesh_shape: Optional[tuple] = None,
+    hier_load_factor: Optional[float] = None,
+    axis_name=None,
 ) -> List[SamplerOutput]:
     """Multi-hop sampling of every shard's seed batch; returns one
     :class:`SamplerOutput` per shard.
 
     The structure of the single-device sampler (frontier, cumulative
     first-occurrence dedup, relabelled COO) with :func:`exchange_one_hop`
-    as the one-hop primitive; ``keys`` holds each shard's key, split
-    per hop.  ``dedup``: 'dense' keeps a per-shard ``[N_global]`` id map,
-    'sort' a growing unique buffer, 'auto' dense up to a ~1 GB map.
+    (or :func:`exchange_one_hop_ring`, ``collective='ring'``) as the
+    one-hop primitive; ``keys`` holds each shard's key, split per hop.
+    ``dedup``: 'dense' keeps a per-shard ``[N_global]`` id map, 'sort' a
+    growing unique buffer, 'auto' dense up to a ~1 GB map.
     ``exchange_load_factor`` (α) bounds each hop's per-owner buckets at
     ``ceil(α * width / num_shards)`` remote ids (locally owned ids skip
-    the exchange); the dropped requests are summed per shard in
+    the exchange); the dropped requests (and, with ``hier_load_factor``,
+    the cross-host overflow) are summed per shard in
     ``metadata['exchange_dropped']``.  On the uncapped path each hop's
-    plan is built once by :func:`build_routing` and threaded in.
+    plan is built once, by :func:`build_routing` or, when the topology
+    resolves 'hier' on a 2-D mesh (``axis_name``/``mesh_shape``; see
+    :func:`_topology_choice`), by :func:`build_hier_routing`, and
+    threaded in.
     """
-    if collective != "all_to_all":
-        raise NotImplementedError(f"collective={collective!r} {_LATER}")
+    if collective not in ("all_to_all", "ring"):
+        raise ValueError(f"collective must be 'all_to_all' or 'ring', got "
+                         f"{collective!r}")
+    exchange = (exchange_one_hop if collective == "all_to_all"
+                else exchange_one_hop_ring)
+    axes = _axes(axis_name, mesh_shape)
+    topo = ("flat" if collective != "all_to_all"
+            else _topology_choice(route, axes, mesh_shape))
     S, c = num_shards, nodes_per_shard
     indptr, indices = _shards(indptr, S), _shards(indices, S)
     edge_ids, seeds = _shards(edge_ids, S), _shards(seeds, S)
@@ -597,13 +974,21 @@ def dist_sample_multi_hop(
         remote_cap = (None if exchange_load_factor is None
                       else bounded_remote_cap(w, exchange_load_factor, S))
         frontiers = [x.frontier for x in st]
-        hop_routing = (None if remote_cap is not None else
-                       [build_routing(fr, c, S, route=route)
-                        for fr in frontiers])
-        hop = exchange_one_hop(frontiers, indptr, indices, edge_ids, c, S,
-                               f, [k[i] for k in hop_keys],
-                               remote_cap=remote_cap, route=route,
-                               fused=fused, routing=hop_routing)
+        if remote_cap is not None:
+            hop_routing = None
+        elif topo == "hier":
+            h, cc, ha, ca = _hier_geometry(mesh_shape, axes)
+            hop_routing = build_hier_routing(
+                frontiers, c, h, cc, ha, ca,
+                hier_load_factor=hier_load_factor, route=route)
+        else:
+            hop_routing = [build_routing(fr, c, S, route=route)
+                           for fr in frontiers]
+        hop = exchange(frontiers, indptr, indices, edge_ids, c, S, f,
+                       [k[i] for k in hop_keys], remote_cap=remote_cap,
+                       route=route, fused=fused, routing=hop_routing,
+                       mesh_shape=mesh_shape,
+                       hier_load_factor=hier_load_factor, axis_name=axes)
         for s, x in enumerate(st):
             nbrs, eids, mask, dropped = hop[s]
             dev = nbrs.device
@@ -679,6 +1064,7 @@ def dist_sample_multi_hop(
                 [n[0]] + [n[j + 1] - n[j] for j in range(len(fanouts))]),
             num_sampled_edges=torch.stack(x.edges_per_hop),
             metadata=(None if exchange_load_factor is None
+                      and hier_load_factor is None
                       else {"exchange_dropped": dropped_total[s]})))
     return outs
 
@@ -721,10 +1107,15 @@ class DistNeighborSampler:
 
     The multi-hop structure is the single-device
     :class:`~glt_tpu_torch.sampler.NeighborSampler`'s; only the one-hop
-    primitive is the all-to-all exchange.  :meth:`sample_from_nodes`
-    returns a :class:`SamplerOutput` whose fields lead with the shard
-    axis: each shard's batch is its own ego-subgraph, ready for
-    data-parallel training.
+    primitive is the all-to-all exchange (``collective='ring'``: the
+    ring of :func:`exchange_one_hop_ring`).  On a 2-D mesh
+    :meth:`sample_from_nodes` takes the hierarchical route where
+    :func:`_topology_choice` resolves it (``route='flat'`` forces the
+    flat one; the batches are equal), and ``hier_load_factor`` bounds its
+    cross-host leg, the drops in ``metadata['exchange_dropped']``.
+    :meth:`sample_from_nodes` returns a :class:`SamplerOutput` whose
+    fields lead with the shard axis: each shard's batch is its own
+    ego-subgraph, ready for data-parallel training.
     """
 
     def __init__(self, sharded_graph, mesh: Mesh,
@@ -740,11 +1131,9 @@ class DistNeighborSampler:
                  route: str = "auto",
                  fused: Optional[bool] = None,
                  hier_load_factor: Optional[float] = None):
-        if collective != "all_to_all":
-            raise NotImplementedError(f"collective={collective!r} {_LATER}")
-        if hier_load_factor is not None:
-            raise NotImplementedError(f"hier_load_factor: the hierarchical "
-                                      f"routing {_LATER}")
+        if collective not in ("all_to_all", "ring"):
+            raise ValueError(f"collective must be 'all_to_all' or 'ring', "
+                             f"got {collective!r}")
         g = sharded_graph
         if g.num_shards != mesh.size:
             raise ValueError(f"a graph of {g.num_shards} shards on a mesh "
@@ -757,6 +1146,7 @@ class DistNeighborSampler:
         self.last_hop_dedup = bool(last_hop_dedup)
         self.exchange_load_factor = exchange_load_factor
         self.fused = fused
+        self.hier_load_factor = hier_load_factor
         self.g = g
         self.mesh = mesh
         self.axis_name = resolve_mesh_axes(mesh, axis_name)
@@ -770,9 +1160,12 @@ class DistNeighborSampler:
                                   frontier_cap)
         # 'auto' resolves once, at the widest frontier, to the
         # shard-count heuristic (glt_tpu's autotuner pins the same
-        # choice off the TPU).
-        self.route = _route_choice(max(self._widths), g.num_shards,
-                                   max(self._widths), route)
+        # choice off the TPU); on a 2-D mesh the topology resolves per
+        # call from the mesh's shape (_topology_choice), so a resolved
+        # bucketing keeps 'hier' there.
+        resolved = _route_choice(max(self._widths), g.num_shards,
+                                 max(self._widths), route)
+        self.route = resolved if route == "auto" else route
         self.node_capacity = max_sampled_nodes(self.batch_size,
                                                self.num_neighbors,
                                                frontier_cap)
@@ -794,7 +1187,9 @@ class DistNeighborSampler:
             self.frontier_cap, self.collective,
             last_hop_dedup=self.last_hop_dedup,
             exchange_load_factor=self.exchange_load_factor,
-            route=self.route, fused=self.fused)
+            route=self.route, fused=self.fused, mesh_shape=self.mesh_shape,
+            hier_load_factor=self.hier_load_factor,
+            axis_name=self.axis_name)
 
     def sample_from_nodes(self, seeds_per_shard,
                           key: Optional[torch.Tensor] = None
@@ -953,7 +1348,7 @@ class DistNeighborSampler:
             ksample, self.num_neighbors, c, S, self.frontier_cap,
             self.collective, last_hop_dedup=self.last_hop_dedup,
             exchange_load_factor=self.exchange_load_factor,
-            route=self.route, fused=self.fused)
+            route=self.route, fused=self.fused, axis_name=self.axis_name)
         for s, out in enumerate(outs):
             # Seed ids first occur in the hop-0 prefix: relabel against
             # it alone (a leaf block may repeat them).
@@ -998,7 +1393,8 @@ class DistNeighborSampler:
             g.indptr, g.indices, g.edge_ids, list(seeds),
             [trandom.fold_in(key, s) for s in range(S)], self.num_neighbors,
             g.nodes_per_shard, S, self.frontier_cap, self.collective,
-            last_hop_dedup=True, route=self.route, fused=self.fused)
+            last_hop_dedup=True, route=self.route, fused=self.fused,
+            axis_name=self.axis_name)
         sub = dist_node_subgraph(g.indptr, g.indices, g.edge_ids,
                                  [b.node for b in base], max_degree,
                                  g.nodes_per_shard, S, route=self.route,

@@ -31,7 +31,12 @@ staging thread gathers batch ``k``'s cold rows on the host and copies
 them to the card while batch ``k - 1`` trains.  On the card each stage
 is one CUDA graph a step.
 
-Left for a later slice (ROADMAP queue A item 7): the hetero steps.
+Heterogeneous graphs train the same way (:func:`make_hetero_dist_train_step`,
+one CUDA graph a step on the card; :func:`make_hetero_tiered_train_step`
+and :class:`HeteroTieredTrainPipeline` with some node types tiered).  On
+a 2-D ``(host, chip)`` mesh every step takes the route its ``route``
+resolves to, flat or hierarchical, with the same batches either way;
+``step.collective_bytes`` splits the static bytes by fabric.
 """
 from __future__ import annotations
 
@@ -46,11 +51,11 @@ import torch
 from .. import random as trandom
 from ..models.train import (OptimizerFactory, TrainState, _backward_and_step,
                             _check_model, _ScannedBlocks, create_train_state,
-                            seed_cross_entropy)
+                            hetero_init_shapes, seed_cross_entropy)
 from ..obs import compilewatch as _compilewatch
 from ..obs import metrics as _metrics
 from ..ops.unique import unique_first_occurrence
-from ..sampler.base import SamplerOutput
+from ..sampler.base import HeteroSamplerOutput, SamplerOutput
 from ..sampler.neighbor_sampler import hop_widths, max_sampled_nodes
 from ..typing import PADDING_ID
 from ..utils.graphs import CapturedProgram
@@ -58,9 +63,9 @@ from .dist_feature import (HostColdStore, TieredShardedFeature,
                            _dedup_scatter_back, compact_cold_requests,
                            exchange_gather, exchange_gather_hot,
                            exchange_gather_xy, route_cold_requests)
-from .dist_sampler import (_LATER, DistNeighborSampler,
+from .dist_sampler import (DistNeighborSampler, _topology_choice,
                            dist_sample_multi_hop, exchange_byte_model,
-                           seeds_on_mesh)
+                           hier_request_cap, seeds_on_mesh)
 from .multihost import (Mesh, local_shard_range, mesh_axis_sizes,
                         resolve_mesh_axes)
 from .sharding import (ShardedFeature, ShardedGraph, check_on_mesh,
@@ -74,29 +79,29 @@ def dist_step_byte_model(nodes_per_shard, num_shards, num_neighbors,
     """Static per-device collective bytes of ONE distributed train step:
     :func:`~glt_tpu_torch.parallel.dist_sampler.exchange_byte_model` of
     each sampling hop (id request + fanout neighbor/edge-id payload)
-    plus the feature+label exchange over the node capacity.  Returns
-    ``{"ici": bytes, "dcn": bytes, "topology": "flat"}``; a 1-D mesh
-    puts every byte under ICI (within a host).  The
-    ``glt.dist.collective_bytes{axis=}`` counters add these per step.
-    ``nodes_per_shard``, ``route``, ``mesh_shape`` and
-    ``hier_load_factor`` size the 2-D mesh's hierarchical legs, which
-    are not ported."""
-    del nodes_per_shard, route, mesh_shape
-    if not isinstance(axis_name, str) or hier_load_factor is not None:
-        raise NotImplementedError(f"the 2-D mesh's byte model {_LATER}")
-    h, c = 1, int(num_shards)
+    plus the feature+label exchange over the node capacity, split by
+    fabric.  Returns ``{"ici": bytes, "dcn": bytes, "topology": 'flat' |
+    'hier'}``; a 1-D mesh puts every byte under ICI (within a host).  The
+    ``glt.dist.collective_bytes{axis=}`` counters add these per step."""
+    topo = _topology_choice(route, axis_name, mesh_shape)
+    if isinstance(axis_name, str) or mesh_shape is None:
+        h, c = 1, int(num_shards)
+    else:
+        h, c = int(mesh_shape[0]), int(mesh_shape[1])
     widths = hop_widths(batch_size, list(num_neighbors), frontier_cap)
     node_cap = max_sampled_nodes(batch_size, list(num_neighbors),
                                  frontier_cap)
     ici = dcn = 0
     for w, fo in zip(widths, num_neighbors):
-        i, d = exchange_byte_model("flat", h, c, w, 2 * fo,
+        hc = hier_request_cap(w, c, nodes_per_shard, hier_load_factor)
+        i, d = exchange_byte_model(topo, h, c, w, 2 * fo, hier_cap=hc,
                                    elem_bytes=elem_bytes)
         ici += i
         dcn += d
-    i, d = exchange_byte_model("flat", h, c, node_cap, feature_dim + 1,
-                               elem_bytes=elem_bytes)
-    return {"ici": ici + i, "dcn": dcn + d, "topology": "flat"}
+    hc = hier_request_cap(node_cap, c, nodes_per_shard, hier_load_factor)
+    i, d = exchange_byte_model(topo, h, c, node_cap, feature_dim + 1,
+                               hier_cap=hc, elem_bytes=elem_bytes)
+    return {"ici": ici + i, "dcn": dcn + d, "topology": topo}
 
 
 def _byte_counters(byte_model):
@@ -115,20 +120,24 @@ def _byte_counters(byte_model):
 
 
 def _gather_xy_local(node, rows, labels_blk, f, g, dedup_gather, route,
-                     fused, fuse_xy, fused_frontier=False
+                     fused, fuse_xy, fused_frontier=False, mesh_shape=None,
+                     hier_load_factor=None
                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Every shard's feature+label gather for its sampled node list: one
     routing plan and one payload collective when the id spaces agree
     (``fuse_xy``), else a feature and a label exchange, over one unique
     pass with ``dedup_gather``.  ``fused_frontier`` serves the FEATURE
-    rows through kernel B3 (a label column is 1-wide).  Returns, per
-    shard, ``(x, y)`` with ``y = -1`` at padding."""
+    rows through kernel B3 (a label column is 1-wide);
+    ``mesh_shape``/``hier_load_factor`` pick the 2-D mesh's
+    hierarchical route (the same rows).  Returns, per shard, ``(x, y)``
+    with ``y = -1`` at padding."""
     S = g.num_shards
+    hkw = dict(mesh_shape=mesh_shape, hier_load_factor=hier_load_factor)
     if fuse_xy:
         xy = exchange_gather_xy(node, rows, labels_blk, f.nodes_per_shard,
                                 f.num_shards, dedup=dedup_gather,
                                 route=route, fused=fused,
-                                fused_frontier=fused_frontier)
+                                fused_frontier=fused_frontier, **hkw)
     else:
         lab = [labels_blk[s][:, None].to(torch.int32) for s in range(S)]
         if dedup_gather:
@@ -137,17 +146,18 @@ def _gather_xy_local(node, rows, labels_blk, f, g, dedup_gather, route,
             uniq = [u.uniques for u in un]
             ux = exchange_gather(uniq, rows, f.nodes_per_shard,
                                  f.num_shards, route=route,
-                                 fused_frontier=fused_frontier)
+                                 fused_frontier=fused_frontier, **hkw)
             uy = exchange_gather(uniq, lab, g.nodes_per_shard, S,
-                                 route=route)
+                                 route=route, **hkw)
             xy = [(_dedup_scatter_back(ux[s], un[s].inverse),
                    _dedup_scatter_back(uy[s], un[s].inverse)[:, 0])
                   for s in range(S)]
         else:
             x = exchange_gather(node, rows, f.nodes_per_shard, f.num_shards,
-                                route=route, fused_frontier=fused_frontier)
+                                route=route, fused_frontier=fused_frontier,
+                                **hkw)
             y = exchange_gather(node, lab, g.nodes_per_shard, S,
-                                route=route)
+                                route=route, **hkw)
             xy = [(x[s], y[s][:, 0]) for s in range(S)]
     return [(x, torch.where(n >= 0, y, PADDING_ID))
             for (x, y), n in zip(xy, node)]
@@ -193,11 +203,14 @@ def sample_and_gather(g: ShardedGraph, f: ShardedFeature,
                       exchange_load_factor: Optional[float] = None,
                       dedup_gather: bool = False, route: str = "auto",
                       fused: Optional[bool] = None,
-                      fused_frontier: bool = False):
+                      fused_frontier: bool = False,
+                      axis_name=None, mesh_shape: Optional[tuple] = None,
+                      hier_load_factor: Optional[float] = None):
     """The data half of one distributed step: shard ``s`` samples its
     row of ``seeds`` (``[S, B]`` on the mesh's device) with ``fold_in(
     key, s)``, then every shard gathers its node list's features and
-    labels.  Returns ``(keys, outs, xy)``, per shard: the key, the
+    labels (on a 2-D mesh both over the route ``route`` resolves to).
+    Returns ``(keys, outs, xy)``, per shard: the key, the
     :class:`~glt_tpu_torch.sampler.base.SamplerOutput` and ``(x, y)``."""
     S = g.num_shards
     keys = [trandom.fold_in(key, s) for s in range(S)]
@@ -205,14 +218,15 @@ def sample_and_gather(g: ShardedGraph, f: ShardedFeature,
         g.indptr, g.indices, g.edge_ids, seeds, keys, num_neighbors,
         g.nodes_per_shard, S, frontier_cap, last_hop_dedup=last_hop_dedup,
         exchange_load_factor=exchange_load_factor, route=route,
-        fused=fused)
+        fused=fused, mesh_shape=mesh_shape,
+        hier_load_factor=hier_load_factor, axis_name=axis_name)
     # Features and labels share one exchange when their id spaces agree
     # (always, for shard_graph/shard_feature over one node set).
     fuse_xy = (f.nodes_per_shard == g.nodes_per_shard
                and f.num_shards == S)
     xy = _gather_xy_local([o.node for o in outs], f.rows, labels, f, g,
                           dedup_gather, route, fused, fuse_xy,
-                          fused_frontier)
+                          fused_frontier, mesh_shape, hier_load_factor)
     return keys, outs, xy
 
 
@@ -237,15 +251,13 @@ def _mesh_loss(model, g: ShardedGraph, f: ShardedFeature,
 
 
 def _check_step_args(g: ShardedGraph, f, labels: torch.Tensor, mesh: Mesh,
-                     axis_name, hier_load_factor):
-    """The mesh and its axes, checked as the steps need them: a 1-D mesh
-    of as many shards as the graph, every array on the mesh's device
-    (of a tiered feature, its hot tier)."""
+                     axis_name):
+    """The mesh and its axes, checked as the steps need them: a mesh of
+    as many shards as the graph, every array on the mesh's device (of a
+    tiered feature, its hot tier).  Returns ``(axis_name, mesh_shape)``:
+    the resolved axes and, on a 2-D mesh, its ``(H, C)``."""
     axis_name = resolve_mesh_axes(mesh, axis_name)
     mesh_shape = mesh_axis_sizes(mesh, axis_name)
-    if hier_load_factor is not None:
-        raise NotImplementedError(f"hier_load_factor: the hierarchical "
-                                  f"routing {_LATER}")
     if g.num_shards != mesh.size:
         raise ValueError(f"a graph of {g.num_shards} shards on a mesh of "
                          f"{mesh.size}")
@@ -294,21 +306,26 @@ def make_dist_train_step(
     ``route`` / ``fused`` pick the bucketing and the fused collectives;
     features and labels ride one plan and one payload collective.
     ``fused_frontier`` serves each shard's feature requests through
-    kernel B3.  The step carries its static byte model as
-    ``step.collective_bytes`` and adds it to the
-    ``glt.dist.collective_bytes{axis=}`` counters per call.
+    kernel B3.  On a 2-D mesh (``axis_name=None`` takes the mesh's
+    ``("host", "chip")`` pair) both hops and the gather take the
+    hierarchical route where ``route`` resolves 'hier' (the same batch
+    as 'flat'); ``hier_load_factor`` bounds its cross-host leg.  The
+    step carries its static byte model as ``step.collective_bytes`` and
+    adds it to the ``glt.dist.collective_bytes{axis=}`` counters per
+    call.
     """
-    axis_name, mesh_shape = _check_step_args(g, f, labels, mesh, axis_name,
-                                             hier_load_factor)
+    axis_name, mesh_shape = _check_step_args(g, f, labels, mesh, axis_name)
     dev = mesh.device
     byte_model = dist_step_byte_model(
         g.nodes_per_shard, g.num_shards, num_neighbors, batch_size,
-        frontier_cap, f.rows.shape[-1], axis_name, mesh_shape, route=route)
+        frontier_cap, f.rows.shape[-1], axis_name, mesh_shape, route=route,
+        hier_load_factor=hier_load_factor)
     record_bytes = _byte_counters(byte_model)
     skw = dict(frontier_cap=frontier_cap, last_hop_dedup=last_hop_dedup,
                exchange_load_factor=exchange_load_factor,
                dedup_gather=dedup_gather, route=route, fused=fused,
-               fused_frontier=fused_frontier)
+               fused_frontier=fused_frontier, axis_name=axis_name,
+               mesh_shape=mesh_shape, hier_load_factor=hier_load_factor)
 
     def step(state: TrainState, seeds, key: torch.Tensor):
         record_bytes()
@@ -369,18 +386,19 @@ def make_scanned_dist_train_step(
     ``scanned_dist_step``.  The byte counters add ``G`` steps a call on
     the host, outside the graph.  On the CPU every call runs eagerly.
     """
-    axis_name, mesh_shape = _check_step_args(g, f, labels, mesh, axis_name,
-                                             hier_load_factor)
+    axis_name, mesh_shape = _check_step_args(g, f, labels, mesh, axis_name)
     dev = mesh.device
     S = g.num_shards
     byte_model = dist_step_byte_model(
         g.nodes_per_shard, S, num_neighbors, batch_size, frontier_cap,
-        f.rows.shape[-1], axis_name, mesh_shape, route=route)
+        f.rows.shape[-1], axis_name, mesh_shape, route=route,
+        hier_load_factor=hier_load_factor)
     record_bytes = _byte_counters(byte_model)
     skw = dict(frontier_cap=frontier_cap, last_hop_dedup=last_hop_dedup,
                exchange_load_factor=exchange_load_factor,
                dedup_gather=dedup_gather, route=route, fused=fused,
-               fused_frontier=fused_frontier)
+               fused_frontier=fused_frontier, axis_name=axis_name,
+               mesh_shape=mesh_shape, hier_load_factor=hier_load_factor)
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
 
     def block(model, opt, blocks, key, real):
@@ -554,7 +572,8 @@ def make_tiered_train_step(
     on the second call, under the compilewatch label
     ``tiered_train_step``; see :class:`_Graphed`).
     """
-    _check_step_args(g, f, labels, mesh, axis_name, hier_load_factor)
+    _, mesh_shape = _check_step_args(g, f, labels, mesh, axis_name)
+    hkw = dict(mesh_shape=mesh_shape, hier_load_factor=hier_load_factor)
     S = g.num_shards
     c, h = f.nodes_per_shard, f.hot_per_shard
     fuse_xy = f.nodes_per_shard == g.nodes_per_shard and f.num_shards == S
@@ -567,16 +586,16 @@ def make_tiered_train_step(
                                     hot_per_shard=h, staged_rows=rows,
                                     staged_slots=slots, dedup=dedup_gather,
                                     route=route, fused=fused,
-                                    fused_frontier=fused_frontier)
+                                    fused_frontier=fused_frontier, **hkw)
         else:
             x = exchange_gather_hot(node, f.hot, c, h, f.num_shards,
                                     staged_rows=rows, staged_slots=slots,
                                     dedup=dedup_gather, route=route,
-                                    fused_frontier=fused_frontier)
+                                    fused_frontier=fused_frontier, **hkw)
             y = exchange_gather(node, [labels[s][:, None].to(torch.int32)
                                        for s in range(S)],
                                 g.nodes_per_shard, S, dedup=dedup_gather,
-                                route=route)
+                                route=route, **hkw)
             xy = [(x[s], y[s][:, 0]) for s in range(S)]
         losses, accs = [], []
         for s, (x, y) in enumerate(xy):
@@ -770,14 +789,13 @@ class TieredTrainPipeline(_ColdStagePipeline):
                  dedup_gather: bool = False,
                  route: str = "auto",
                  hier_load_factor: Optional[float] = None):
-        if hier_load_factor is not None:
-            raise NotImplementedError(f"hier_load_factor: the hierarchical "
-                                      f"routing {_LATER}")
         self.sampler = sampler
         self.train_step = train_step
         self.f = f
         self.mesh = mesh
         self.axis_name = resolve_mesh_axes(mesh, axis_name)
+        self.mesh_shape = mesh_axis_sizes(mesh, self.axis_name)
+        self.hier_load_factor = hier_load_factor
         self.cold_cap = (2 * sampler.node_capacity if cold_cap is None
                          else int(cold_cap))
         self._local = local_shard_range(mesh, self.axis_name)
@@ -822,7 +840,9 @@ class TieredTrainPipeline(_ColdStagePipeline):
         out = self.sampler.sample_from_nodes(seeds, key=key)
         req = route_cold_requests(list(out.node), f.nodes_per_shard,
                                   f.hot_per_shard, f.num_shards,
-                                  dedup=self.dedup_gather, route=self.route)
+                                  dedup=self.dedup_gather, route=self.route,
+                                  mesh_shape=self.mesh_shape,
+                                  hier_load_factor=self.hier_load_factor)
         comp = [compact_cold_requests(r, self.cold_cap) for r in req]
         slots, ids, dropped = (torch.stack(t) for t in zip(*comp))
         meta = out.metadata or {}
@@ -931,4 +951,452 @@ def init_dist_state(model: torch.nn.Module, tx: OptimizerFactory,
     ei = torch.full((2, ecap), PADDING_ID, dtype=torch.int32, device=dev)
     with torch.no_grad():
         model(x, ei, torch.zeros(ecap, dtype=torch.bool, device=dev))
+    return create_train_state(model, tx)
+
+
+# -- heterogeneous graphs across shards --------------------------------------
+def _hetero_xy(nodes, rows, meta, labels, tgt, fuse_xy, fused, staged, hkw):
+    """Every shard's per-type features and target labels for its sampled
+    node lists (``nodes``: type -> per-shard lists; ``rows``: type ->
+    ``[S, n, d]`` device rows, a tiered type's hot tier; ``meta``: type
+    -> ``(nodes_per_shard, rows served from the device, shards)``;
+    ``staged``: tiered type -> compact cold staging).  The target type's
+    rows and labels ride one exchange when their id spaces agree
+    (``fuse_xy``); a tiered type scatters its staged cold rows into its
+    exchange's response.  Returns per shard ``(x dict, y)``, ``y = -1``
+    at padding."""
+    S = len(nodes[tgt])
+    xs = [{} for _ in range(S)]
+    ys = None
+    for t in rows:
+        c, h, n_sh = meta[t]
+        srows, sslots = staged.get(t, (None, None))
+        if t == tgt and fuse_xy:
+            got = exchange_gather_xy(nodes[t], rows[t], labels, c, n_sh,
+                                     hot_per_shard=h, staged_rows=srows,
+                                     staged_slots=sslots, fused=fused,
+                                     **hkw)
+            ys = [y for _, y in got]
+            got = [x for x, _ in got]
+        elif srows is not None:
+            got = exchange_gather_hot(nodes[t], rows[t], c, h, n_sh,
+                                      staged_rows=srows, staged_slots=sslots,
+                                      **hkw)
+        else:
+            got = exchange_gather(nodes[t], rows[t], c, n_sh, **hkw)
+        for s in range(S):
+            xs[s][t] = got[s]
+    if ys is None:
+        ys = [y[:, 0] for y in exchange_gather(
+            nodes[tgt], [labels[s][:, None].to(torch.int32)
+                         for s in range(S)], int(labels.shape[1]), S,
+            **hkw)]
+    return [(x, torch.where(n >= 0, y, PADDING_ID))
+            for x, y, n in zip(xs, ys, nodes[tgt])]
+
+
+def _hetero_loss(model, outs, xy, keys, tgt, batch_size):
+    """The mean over the shards of the seed loss and accuracy of each
+    shard's forward (``outs``: per-shard hetero outputs, ``keys``: each
+    shard's dropout key)."""
+    losses, accs = [], []
+    for out, (x, y), k in zip(outs, xy, keys):
+        edge_index = {et: torch.stack([out.row[et], out.col[et]])
+                      for et in out.row}
+        logits = model(x, edge_index, out.edge_mask, dropout_key=k)
+        loss, acc = seed_cross_entropy(logits, y, batch_size,
+                                       out.node_mask[tgt])
+        losses.append(loss)
+        accs.append(acc.to(torch.float32))
+    return torch.stack(losses).mean(), torch.stack(accs).mean()
+
+
+def _hetero_meta(sampler, feats, labels, mesh: Mesh, axis_name):
+    """The checks and static facts both hetero steps need: the mesh's
+    axes and shape, each type's ``(nodes_per_shard, device rows,
+    shards)`` and whether the target's rows and labels share one id
+    space."""
+    axis_name = resolve_mesh_axes(mesh, axis_name)
+    mesh_shape = mesh_axis_sizes(mesh, axis_name)
+    S = sampler.num_shards
+    if S != mesh.size:
+        raise ValueError(f"a sampler of {S} shards on a mesh of {mesh.size}")
+    check_on_mesh(mesh, labels=labels, **{
+        f"rows of {t}": _device_rows(f) for t, f in feats.items()})
+    meta = {t: (f.nodes_per_shard,
+                (f.hot_per_shard if isinstance(f, TieredShardedFeature)
+                 else f.nodes_per_shard), f.num_shards)
+            for t, f in feats.items()}
+    tgt = sampler.input_type
+    fuse_xy = meta[tgt][0] == int(labels.shape[1]) and meta[tgt][2] == S
+    return mesh_shape, meta, fuse_xy
+
+
+def make_hetero_dist_train_step(
+    sampler,                      # DistHeteroNeighborSampler
+    feats,                        # Dict[NodeType, ShardedFeature]
+    labels: torch.Tensor,         # [S, c_target] target-type labels
+    mesh: Mesh,
+    batch_size: int,
+    axis_name: Optional[str] = None,
+    route: str = "auto",
+    fused: Optional[bool] = None,
+    hier_load_factor: Optional[float] = None,
+):
+    """The hetero counterpart of :func:`make_dist_train_step` (cf.
+    ``glt_tpu``'s, the reference's igbh distributed R-GAT): the hetero
+    multi-hop exchange sampling
+    (:class:`~glt_tpu_torch.parallel.dist_hetero_sampler.DistHeteroNeighborSampler`),
+    each node type's feature exchange, R-GAT forward and backward of the
+    shards' mean loss, one optimizer step.
+
+    Returns ``step(state, seeds [S, B], key) -> (state, loss, acc)``:
+    ``seeds`` a host array (-1 padded); shard ``s`` splits ``fold_in(key,
+    s)`` into its dropout key and its sample key.  The model's edge
+    types are the sampler's reversed output keys and its
+    ``target_type`` the sampler's ``input_type``.  The target type's
+    rows and labels ride one exchange
+    (:func:`~glt_tpu_torch.parallel.dist_feature.exchange_gather_xy`)
+    when their id spaces agree.  A fully padded batch leaves the
+    parameters and Adam's state as they were, decided on the device;
+    the host counter advances by the real batches.  ``route``,
+    ``fused`` and ``hier_load_factor`` mean what they mean for
+    :func:`make_dist_train_step` (on a 2-D mesh both the sample and
+    the gathers take the route ``route`` resolves).
+
+    On the card the step is one CUDA graph (captured on the second call
+    under the compilewatch label ``hetero_dist_step``; see
+    :class:`_Graphed`); on the CPU it runs eagerly.
+    """
+    mesh_shape, meta, fuse_xy = _hetero_meta(sampler, feats, labels, mesh,
+                                             axis_name)
+    tgt = sampler.input_type
+    S = sampler.num_shards
+    rows = {t: f.rows for t, f in feats.items()}
+    hkw = dict(route=route, mesh_shape=mesh_shape,
+               hier_load_factor=hier_load_factor)
+    cur = {}
+
+    def body(seeds, key):
+        model, opt = cur["state"].model, cur["state"].optimizer
+        keys = [trandom.split(trandom.fold_in(key, s)) for s in range(S)]
+        outs = sampler.local_sample(list(seeds), [k[1] for k in keys])
+        xy = _hetero_xy({t: [o.node[t] for o in outs] for t in outs[0].node},
+                        rows, meta, labels, tgt, fuse_xy, fused, {}, hkw)
+        loss, acc = _hetero_loss(model, outs, xy, [k[0] for k in keys], tgt,
+                                 batch_size)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        _masked_step(opt, (seeds >= 0).any())
+        return loss.detach(), acc
+
+    graphed = _Graphed(body, "hetero_dist_step",
+                       lambda: _state_tensors(cur["state"]))
+
+    def step(state: TrainState, seeds, key: torch.Tensor):
+        _check_model(state, mesh.device)
+        host = _host_seeds(seeds)
+        cur["state"] = state
+        try:
+            loss, acc = graphed(seeds_on_mesh(host, mesh), key)
+        finally:
+            cur.clear()
+        real = bool((host >= 0).any())
+        return (TrainState(state.model, state.optimizer,
+                           state.step + int(real)), loss, acc)
+
+    return step
+
+
+def make_hetero_tiered_train_step(
+    sampler,                      # DistHeteroNeighborSampler
+    feats,                        # Dict[NodeType, Sharded|TieredSharded]
+    labels: torch.Tensor,         # [S, c_target] target-type labels
+    mesh: Mesh,
+    batch_size: int,
+    axis_name: Optional[str] = None,
+    route: str = "auto",
+    fused: Optional[bool] = None,
+    hier_load_factor: Optional[float] = None,
+):
+    """The hetero counterpart of :func:`make_tiered_train_step`: node
+    types whose feature is a :class:`TieredShardedFeature` gather their
+    hot tier over the exchange and take their staged cold rows, the
+    others the plain exchange; the sample happens outside (see
+    :class:`HeteroTieredTrainPipeline`).
+
+    Returns ``train(state, out, staged, key) -> (state, loss, acc)``:
+    ``out`` the sampler's output (fields lead with the shard axis),
+    ``staged`` a dict ``{node type: (rows [S, cold_cap, d], slots [S,
+    cold_cap])}`` of the tiered types only; shard ``s`` drops out under
+    ``fold_in(key, s)``, and the update always runs, as in ``glt_tpu``.
+    On the card the step is one CUDA graph per pattern of input shapes,
+    every type's staged buffers among them (label
+    ``hetero_tiered_train_step``; see :class:`_Graphed`).
+    """
+    mesh_shape, meta, fuse_xy = _hetero_meta(sampler, feats, labels, mesh,
+                                             axis_name)
+    tgt = sampler.input_type
+    S = sampler.num_shards
+    rows = {t: _device_rows(f) for t, f in feats.items()}
+    tiered = sorted(t for t, f in feats.items()
+                    if isinstance(f, TieredShardedFeature))
+    hkw = dict(route=route, mesh_shape=mesh_shape,
+               hier_load_factor=hier_load_factor)
+    cur = {}
+
+    def body(*ins):
+        model, opt = cur["state"].model, cur["state"].optimizer
+        types, ets = cur["types"], cur["ets"]
+        it = iter(ins)
+        node = {t: next(it) for t in types}
+        mask = next(it)
+        coo = {et: (next(it), next(it), next(it)) for et in ets}
+        staged = {t: (next(it), next(it)) for t in tiered}
+        key = next(it)
+        outs = [HeteroSamplerOutput(
+            node={t: node[t][s] for t in types},
+            row={et: coo[et][0][s] for et in ets},
+            col={et: coo[et][1][s] for et in ets}, edge={},
+            node_mask={tgt: mask[s]},
+            edge_mask={et: coo[et][2][s] for et in ets}) for s in range(S)]
+        xy = _hetero_xy({t: list(node[t]) for t in types}, rows, meta,
+                        labels, tgt, fuse_xy, fused, staged, hkw)
+        loss, acc = _hetero_loss(model, outs, xy,
+                                 [trandom.fold_in(key, s) for s in range(S)],
+                                 tgt, batch_size)
+        _backward_and_step(opt, loss)
+        return loss.detach(), acc
+
+    graphed = _Graphed(body, "hetero_tiered_train_step",
+                       lambda: _state_tensors(cur["state"]))
+
+    def train(state: TrainState, out: HeteroSamplerOutput, staged,
+              key: torch.Tensor):
+        _check_model(state, mesh.device)
+        types, ets = sorted(out.node), sorted(out.row)
+        ins = ([out.node[t] for t in types] + [out.node_mask[tgt]]
+               + [x for et in ets for x in (out.row[et], out.col[et],
+                                            out.edge_mask[et])]
+               + [x for t in tiered for x in staged[t]] + [key])
+        cur.update(state=state, types=types, ets=ets)
+        try:
+            loss, acc = graphed(*ins)
+        finally:
+            cur.clear()
+        return TrainState(state.model, state.optimizer, state.step + 1), \
+            loss, acc
+
+    return train
+
+
+def _flatten_hetero(out: HeteroSamplerOutput):
+    """A hetero output's tensors in a fixed order, and the spec that
+    :func:`_unflatten_hetero` rebuilds it from."""
+    spec, flat = [], []
+    for name in ("node", "row", "col", "edge", "batch", "node_mask",
+                 "edge_mask", "num_sampled_nodes", "num_sampled_edges",
+                 "metadata"):
+        d = getattr(out, name)
+        keys = None if d is None else sorted(d)
+        spec.append((name, keys))
+        flat += [] if d is None else [d[k] for k in keys]
+    return flat, (tuple(spec), out.input_type)
+
+
+def _unflatten_hetero(flat, spec) -> HeteroSamplerOutput:
+    fields, input_type = spec
+    it = iter(flat)
+    kw = {name: None if keys is None else {k: next(it) for k in keys}
+          for name, keys in fields}
+    return HeteroSamplerOutput(input_type=input_type, **kw)
+
+
+class HeteroTieredTrainPipeline(_ColdStagePipeline):
+    """The hetero two-stage pipeline (cf. ``glt_tpu``'s; see
+    :class:`_ColdStagePipeline`): sample, then per tiered node type route
+    and compact its cold requests (``cold_caps[t]`` slots a serving
+    shard, by default twice the sampler's capacity of the type), gather
+    them from the type's :class:`HostColdStore` on the staging thread
+    while the previous batch trains (``train_step`` from
+    :func:`make_hetero_tiered_train_step`).  ``max_cold_rows[t]`` is the
+    largest cold count a serving shard saw, ``last_dropped[t]`` the
+    latest batch's ``[S]`` drops, and :meth:`flush_dropped` their sum
+    over the types and batches.
+
+    On the card the stage is one CUDA graph a step (label
+    ``hetero_tiered_stage``) and the main thread never syncs, as in
+    :class:`TieredTrainPipeline`: the cold ids of every type go to
+    pinned memory on a side stream after one event, the staging thread
+    gathers each type into its pinned two-slot ring and copies the slot
+    to the card on a copy stream, and the train step waits on that
+    copy's event.
+    """
+
+    def __init__(self, sampler, train_step, feats, mesh: Mesh,
+                 axis_name: Optional[str] = None, cold_caps=None,
+                 stage_threads: Optional[int] = None, route: str = "auto",
+                 hier_load_factor: Optional[float] = None):
+        self.sampler = sampler
+        self.train_step = train_step
+        self.mesh = mesh
+        self.axis_name = resolve_mesh_axes(mesh, axis_name)
+        self.mesh_shape = mesh_axis_sizes(mesh, self.axis_name)
+        self.route = route
+        self.hier_load_factor = hier_load_factor
+        self.tiered = {t: f for t, f in feats.items()
+                       if isinstance(f, TieredShardedFeature)}
+        self.types = sorted(self.tiered)
+        cap_by_type = sampler.node_capacity
+        self.cold_cap = {
+            t: (2 * max(cap_by_type.get(t, 1), 1)
+                if not cold_caps or t not in cold_caps
+                else int(cold_caps[t])) for t in self.types}
+        self._local = local_shard_range(mesh, self.axis_name)
+        self.stores = {t: HostColdStore(f, shard_ids=self._local)
+                       for t, f in self.tiered.items()}
+        self._init_pools(stage_threads, "glt-hcold")
+        self.max_cold_rows = {t: 0 for t in self.types}
+        self.last_dropped = None
+        self._spec = None
+        self._stage_prog = _Graphed(self._stage_body, "hetero_tiered_stage")
+        dev = mesh.device
+        self._cuda = dev.type == "cuda"
+        self._flip = 0
+        if self._cuda:
+            n = len(self._local)
+            shape = {t: (n, self.cold_cap[t], self.stores[t].dim)
+                     for t in self.types}
+            dt = {t: torch_dtype(self.stores[t].dtype) for t in self.types}
+            self._ids_host = {t: [torch.empty(
+                (n, self.cold_cap[t]), dtype=torch.int32, pin_memory=True)
+                for _ in range(2)] for t in self.types}
+            self._rows_host = {t: [torch.empty(shape[t], dtype=dt[t],
+                                               pin_memory=True)
+                                   for _ in range(2)] for t in self.types}
+            self._rows_dev = {t: [torch.empty(shape[t], dtype=dt[t],
+                                              device=dev)
+                                  for _ in range(2)] for t in self.types}
+            self._h2d_done = [None, None]   # the ring slot's last H2D copy
+            self._consumed = [None, None]   # the train that last read it
+            self._fetch_stream = torch.cuda.Stream(dev)
+            self._copy_stream = torch.cuda.Stream(dev)
+
+    def _stage_body(self, seeds: torch.Tensor, key: torch.Tensor) -> tuple:
+        """Stage 1: sample, then route and compact every tiered type's
+        cold requests."""
+        out = self.sampler.sample_from_nodes(seeds, key=key)
+        flat, self._spec = _flatten_hetero(out)
+        for t in self.types:
+            f = self.tiered[t]
+            req = route_cold_requests(
+                list(out.node[t]), f.nodes_per_shard, f.hot_per_shard,
+                f.num_shards, route=self.route, mesh_shape=self.mesh_shape,
+                hier_load_factor=self.hier_load_factor)
+            comp = [compact_cold_requests(r, self.cold_cap[t]) for r in req]
+            flat += [torch.stack(x) for x in zip(*comp)]
+        return tuple(flat)
+
+    def _sample_and_stage(self, seeds, key: torch.Tensor):
+        res = self._stage_prog(seeds_on_mesh(seeds, self.mesh), key)
+        n = len(res) - 3 * len(self.types)
+        out = _unflatten_hetero(res[:n], self._spec)
+        slots, ids, dropped = {}, {}, {}
+        for i, t in enumerate(self.types):
+            slots[t], ids[t], dropped[t] = res[n + 3 * i: n + 3 * i + 3]
+        self.last_dropped = dropped
+        if dropped:
+            self._record_dropped(torch.stack(list(dropped.values())).sum(0))
+        return out, self._stage_cold_async(ids, slots)
+
+    def _stage_cold_async(self, ids: dict, slots: dict):
+        """Submit the host gather of every tiered type's ``ids``; the
+        future gives ``(staged, copied, ring slot)``, ``staged`` the
+        train step's ``{type: (rows, slots)}``."""
+        flip = self._flip
+        self._flip ^= 1
+        lo, hi = self._local.start, self._local.stop
+        local = {t: ids[t][lo:hi] for t in self.types}
+        if self._cuda:
+            routed = torch.cuda.Event()
+            routed.record()
+            with torch.cuda.stream(self._fetch_stream):
+                self._fetch_stream.wait_event(routed)
+                for t in self.types:
+                    self._ids_host[t][flip].copy_(local[t], non_blocking=True)
+                    local[t].record_stream(self._fetch_stream)
+                fetched = torch.cuda.Event()
+                fetched.record(self._fetch_stream)
+
+        def work():
+            if self._cuda:
+                fetched.synchronize()
+                if self._h2d_done[flip] is not None:
+                    self._h2d_done[flip].synchronize()
+            arrs, futs = {}, []
+            for t in self.types:
+                st = self.stores[t]
+                if self._cuda:
+                    req = self._ids_host[t][flip].numpy()
+                    arr = self._rows_host[t][flip].numpy()
+                else:
+                    req = local[t].numpy()
+                    # A fresh buffer a batch: torch.from_numpy aliases it.
+                    arr = np.empty((len(self._local), self.cold_cap[t],
+                                    st.dim), st.dtype)
+                self.max_cold_rows[t] = max(
+                    self.max_cold_rows[t], int((req >= 0).sum(axis=1).max()))
+                for j, s in enumerate(self._local):
+                    futs += st.serve_into(arr[j], s, req[j],
+                                          pool=self._gather_pool)
+                arrs[t] = arr
+            for fu in futs:
+                fu.result()
+            self._maybe_flush_on_stage_thread()
+            if not self._cuda:
+                return ({t: (torch.from_numpy(arrs[t]), slots[t])
+                         for t in self.types}, None, flip)
+            with torch.cuda.device(self.mesh.device), torch.cuda.stream(
+                    self._copy_stream):
+                if self._consumed[flip] is not None:
+                    self._copy_stream.wait_event(self._consumed[flip])
+                for t in self.types:
+                    self._rows_dev[t][flip].copy_(self._rows_host[t][flip],
+                                                  non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self._copy_stream)
+            self._h2d_done[flip] = copied
+            return ({t: (self._rows_dev[t][flip], slots[t])
+                     for t in self.types}, copied, flip)
+        return self._pool.submit(work)
+
+    def _train_staged(self, state: TrainState, out, staged,
+                      key: torch.Tensor):
+        staged, copied, flip = staged
+        if copied is not None:
+            torch.cuda.current_stream(self.mesh.device).wait_event(copied)
+        res = self.train_step(state, out, staged, key)
+        if copied is not None:
+            consumed = torch.cuda.Event()
+            consumed.record()
+            self._consumed[flip] = consumed
+        return res
+
+
+def init_hetero_dist_state(model: torch.nn.Module, tx: OptimizerFactory,
+                           sampler, feats) -> TrainState:
+    """State at step 0 for a hetero model (built and placed on the
+    mesh's device by the caller; its parameters are shared by every
+    shard) whose per-type input widths (``model.in_features``) must
+    match ``feats`` (``node type -> ShardedFeature |
+    TieredShardedFeature``, widths of the hot tier); the sampler's
+    static shapes (:func:`~glt_tpu_torch.models.hetero_init_shapes`)
+    are checked against them, then ``tx`` is built over the
+    parameters."""
+    x, _, _ = hetero_init_shapes(sampler, feats, _device_rows)
+    widths = {t: int(v.shape[-1]) for t, v in x.items()}
+    if widths != dict(model.in_features):
+        raise ValueError(f"the model takes per-type widths "
+                         f"{dict(model.in_features)}, the features have "
+                         f"{widths}")
     return create_train_state(model, tx)

@@ -86,6 +86,18 @@ def _node_mask(buf: torch.Tensor, count: torch.Tensor, fast) -> torch.Tensor:
     return (idx < interior.clamp(max=leaf_off)) | leaf_region
 
 
+def drive_steps(steps, one_hop):
+    """Run a :meth:`HeteroNeighborSampler._sample_steps` generator,
+    answering each request with ``one_hop(edge type, frontier, fanout,
+    key)``; returns the generator's result."""
+    try:
+        req = next(steps)
+        while True:
+            req = steps.send(one_hop(*req))
+    except StopIteration as done:
+        return done.value
+
+
 def _cat_or_empty(parts: List[torch.Tensor], dtype, fill, device
                   ) -> torch.Tensor:
     if parts:
@@ -179,7 +191,27 @@ class HeteroNeighborSampler:
                      ) -> HeteroSamplerOutput:
         """One multi-hop sample.  ``seeds_dict``: node type -> padded
         ``[w]`` int32 seed tensor (the hop-0 frontiers) on the graphs'
-        device."""
+        device; each hop request of :meth:`_sample_steps` answered by
+        :func:`~glt_tpu_torch.ops.sample_neighbors` on ``graph_arrays``."""
+        def one_hop(et, frontier, fanout, hop_key):
+            indptr, indices, edge_ids = graph_arrays[et]
+            return sample_neighbors(indptr, indices, frontier, fanout,
+                                    hop_key, edge_ids=edge_ids)
+
+        return drive_steps(
+            self._sample_steps(widths, cap, seeds_dict, key), one_hop)
+
+    def _sample_steps(self, widths, cap, seeds_dict, key):
+        """The multi-hop body as a generator: it yields each one-hop
+        request ``(edge type, frontier [w], fanout, key)`` and takes its
+        :class:`~glt_tpu_torch.ops.neighbor_sample.NeighborOutput` back
+        (``send``); its return value is the
+        :class:`~glt_tpu_torch.sampler.base.HeteroSamplerOutput`.  The
+        requests' order and shapes are static, the same for every seed
+        batch, so the distributed sampler runs one generator a shard in
+        lockstep and answers each round with one exchange over all
+        shards (``glt_tpu``'s ``one_hop=`` override under
+        ``shard_map``)."""
         node_types = sorted(cap.keys())
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
@@ -249,10 +281,8 @@ class HeteroNeighborSampler:
                 w = widths[hop][et[0]]
                 if f <= 0 or w <= 0 or frontier[et[0]] is None:
                     continue
-                indptr, indices, edge_ids = graph_arrays[et]
-                out = sample_neighbors(indptr, indices, frontier[et[0]], f,
-                                       keys[hop * n_et + ei_idx],
-                                       edge_ids=edge_ids)
+                out = yield (et, frontier[et[0]], f,
+                             keys[hop * n_et + ei_idx])
                 src_local = frontier_start[et[0]] + torch.arange(w, **i32)
                 src_local = torch.where(frontier[et[0]] >= 0, src_local,
                                         PADDING_ID)

@@ -328,8 +328,14 @@ def test_exchange_gather_xy(s, dedup, fused):
 
 
 def test_mesh_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        Mesh(["cpu"] * 4, ("host", "chip"))
+    """A 2-D (host, chip) mesh builds; distinct devices still raise,
+    naming the step of the queue item they wait for."""
+    mesh2 = Mesh([["cpu"] * 2] * 2, ("host", "chip"))
+    assert mesh2.size == 4 and mesh2.shape == {"host": 2, "chip": 2}
+    with pytest.raises(NotImplementedError, match="queue A item 7, step 5"):
+        Mesh(["cpu", "cpu:0"])
+    with pytest.raises(NotImplementedError, match="queue A item 7, step 5"):
+        Mesh([["cpu", "cpu:0"]] * 2, ("host", "chip"))
     with pytest.raises(ValueError):
         Mesh([])
     mesh = Mesh(["cpu"] * 3)

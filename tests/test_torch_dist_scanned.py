@@ -239,11 +239,11 @@ def test_run_scanned_dist_epoch_trims_and_resumes(setup):
 
 
 def test_scanned_step_refuses_what_is_not_ported(setup):
-    """The hierarchical routing raises naming its queue item, as the
-    eager step's does; a block of the wrong shape or on the device
-    raises before any work."""
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        _tstep(setup, hier_load_factor=2.0)
+    """``hier_load_factor`` is taken (on this 1-D mesh the route is flat
+    and the byte model glt_tpu's); a block of the wrong shape or on the
+    device raises before any work."""
+    assert _tstep(setup, hier_load_factor=2.0).collective_bytes == \
+        _jstep(setup, hier_load_factor=2.0).collective_bytes
     step = _tstep(setup)
     key = trandom.PRNGKey(0, device="cpu")
     with pytest.raises(ValueError, match=r"\[G, 4, 4\]"):

@@ -398,6 +398,8 @@ def test_twins_loader_route_and_refusals():
                            "0", "--scale", "0.2", "--hidden", "16",
                            "--no-last-hop-dedup"])
     assert np.isfinite(epochs[0][0]).all() and epochs[0][0].shape == (5,)
-    for flag in (["--distributed", "2"], ["--use-real"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trgat.main(["--device", "cpu"] + flag)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trgat.main(["--device", "cpu", "--use-real"])
+    _, epochs = trgat.main(["--device", "cpu", "--distributed", "2",
+                            "--epochs", "1", "--scale", "0.2"])
+    assert np.isfinite(epochs[0][0]).all() and epochs[0][0].shape == (1,)

@@ -40,6 +40,11 @@ from glt_tpu_torch.parallel import (  # noqa: E402,F401
     TieredTrainPipeline, dist_edge_exists, dist_node_subgraph,
     make_tiered_train_step, shard_feature_tiered_from_store)
 from glt_tpu_torch.store import DiskColdStore  # noqa: E402,F401
+# The distributed-whole slice's entry points.
+from glt_tpu_torch.parallel import (  # noqa: E402,F401
+    DistHeteroNeighborSampler, HeteroTieredTrainPipeline,
+    global_mesh_2d, init_hetero_dist_state, make_hetero_dist_train_step,
+    make_hetero_tiered_train_step, shard_hetero_graph)
 assert hasattr(DistNeighborSampler, "sample_from_edges")
 assert hasattr(DistNeighborSampler, "subgraph")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -101,6 +106,13 @@ TIERED_MODULES = (
     "glt_tpu_torch.distributed.dist_dataset",
     "glt_tpu_torch.examples.dist_train_papers100m")
 
+# The distributed-whole slice's modules: hetero graphs across shards,
+# the 2-D mesh's hierarchical route and the ring.
+DIST_WHOLE_MODULES = (
+    "glt_tpu_torch.parallel.dist_hetero_sampler",
+    "glt_tpu_torch.parallel.multihost", "glt_tpu_torch.parallel.dist_sampler",
+    "glt_tpu_torch.examples.rgat_igbh")
+
 # The scanned-steps slice's example twins.
 TWIN_MODULES = (
     "glt_tpu_torch.examples.train_sage_products",
@@ -128,3 +140,5 @@ def test_port_imports_no_jax():
     assert set(TWIN_MODULES) <= walked, sorted(set(TWIN_MODULES) - walked)
     assert set(TIERED_MODULES) <= walked, sorted(set(TIERED_MODULES)
                                                  - walked)
+    assert set(DIST_WHOLE_MODULES) <= walked, sorted(
+        set(DIST_WHOLE_MODULES) - walked)

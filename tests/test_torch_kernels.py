@@ -1363,3 +1363,125 @@ def test_replayed_dist_block_matches_eager(cuda_device):
     assert a.step == b.step == 9
     for pa, pb in zip(a.model.parameters(), b.model.parameters()):
         torch.testing.assert_close(pa, pb, rtol=1e-5, atol=1e-5)
+
+
+def _hetero_dist_pair(dev, shards=4, mesh_rows=1):
+    """Synthetic IGBH at scale 0.5 sharded on ``dev`` and on the CPU,
+    with a mesh of ``mesh_rows`` hosts on each."""
+    from glt_tpu_torch.examples.datasets import synthetic_igbh
+    from glt_tpu_torch.parallel import global_mesh_2d, shard_hetero_graph
+
+    ds, train_idx, classes = synthetic_igbh(scale=0.5, device="cpu")
+    topos = {et: g.topo for et, g in ds.graph.items()}
+    out = []
+    for d in (dev, "cpu"):
+        out.append((shard_hetero_graph(topos, shards, device=d),
+                    global_mesh_2d([d] * shards, num_hosts=mesh_rows)))
+    return ds, train_idx, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,alpha", [("auto", None), ("hier", None),
+                                         ("flat", 2.0)])
+def test_hetero_dist_sample_on_card_equals_cpu(cuda_device, route, alpha):
+    """A 4-shard DistHeteroNeighborSampler batch on cuda:0 (a 1 x 4 or,
+    for the hier and flat routes, a 2 x 2 mesh; B1 once per (hop, edge
+    type) a shard, twice capped) equals the CPU's bit for bit."""
+    from glt_tpu_torch.parallel import DistHeteroNeighborSampler
+
+    ds, train_idx, pairs = _hetero_dist_pair(
+        cuda_device, mesh_rows=1 if route == "auto" else 2)
+    kw = dict(batch_size=16, frontier_cap=64, seed=3, route=route,
+              exchange_load_factor=alpha)
+    (gsh, gmesh), (csh, cmesh) = pairs
+    gs = DistHeteroNeighborSampler(gsh, gmesh, [4, 4], "paper", **kw)
+    cs = DistHeteroNeighborSampler(csh, cmesh, [4, 4], "paper", **kw)
+    per = csh[("paper", "cites", "paper")].nodes_per_shard
+    seeds = np.stack([np.arange(s * per, s * per + 16) for s in range(4)])
+    b1 = sample_cuda.sample_neighbors_cuda.launches
+    got = gs.sample_from_nodes(seeds)
+    assert sample_cuda.sample_neighbors_cuda.launches == b1 + 4 * 6 * (
+        2 if alpha else 1)
+    want = cs.sample_from_nodes(seeds)
+    for f in ("node", "row", "col", "edge", "node_mask", "edge_mask",
+              "num_sampled_nodes"):
+        for k, v in getattr(want, f).items():
+            assert torch.equal(getattr(got, f)[k].cpu(), v), (f, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"route": "hier"}, {"route": "flat"},
+                                {"collective": "ring"},
+                                {"route": "hier", "hier_load_factor": 0.5}])
+def test_2d_mesh_sample_on_card_equals_cpu(cuda_device, kw):
+    """DistNeighborSampler on a 2 x 2 mesh of cuda:0 shards (the
+    hierarchical route, the flat one, the ring, a bounded cross-host leg)
+    equals the CPU's bit for bit."""
+    from glt_tpu_torch.parallel import DistNeighborSampler, global_mesh_2d
+
+    gds, cds = _dist_pair(cuda_device)
+    args = dict(num_neighbors=[5, 4], batch_size=16, seed=3, **kw)
+    gs = DistNeighborSampler(gds.graph, global_mesh_2d([cuda_device] * 4,
+                                                       num_hosts=2), **args)
+    cs = DistNeighborSampler(cds.graph, global_mesh_2d(["cpu"] * 4,
+                                                       num_hosts=2), **args)
+    seeds = cds.split_seeds(np.arange(600), 16, shuffle=True, seed=2)[0]
+    got, want = gs.sample_from_nodes(seeds), cs.sample_from_nodes(seeds)
+    for f in ("node", "row", "col", "edge", "node_mask", "edge_mask",
+              "num_sampled_nodes", "num_sampled_edges"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    if want.metadata is not None:
+        assert torch.equal(got.metadata["exchange_dropped"].cpu(),
+                           want.metadata["exchange_dropped"])
+
+
+@pytest.mark.cuda
+def test_hetero_dist_step_replays_and_matches_cpu(cuda_device):
+    """The hetero distributed step on 4 cuda:0 shards: eager, captured,
+    replayed (B1 24 a step eager and in the capture, none in a replay);
+    its losses within 1e-5 of the CPU's from the same weights."""
+    from glt_tpu_torch.models import RGAT, adam
+    from glt_tpu_torch.parallel import (DistHeteroNeighborSampler,
+                                        init_hetero_dist_state,
+                                        make_hetero_dist_train_step,
+                                        shard_feature)
+    from glt_tpu_torch.typing import reverse_edge_type
+
+    ds, train_idx, pairs = _hetero_dist_pair(cuda_device)
+    per = pairs[1][0][("paper", "cites", "paper")].nodes_per_shard
+    labels = np.asarray(ds.get_node_label("paper"))
+    lab = np.pad(labels, (0, 4 * per - labels.size),
+                 constant_values=-1).reshape(4, per)
+    widths = {t: ds.get_node_feature(t).shape[1]
+              for t in ds.get_node_types()}
+    torch.manual_seed(0)
+    base = RGAT([reverse_edge_type(et) for et in ds.get_edge_types()],
+                widths, 16, 8, "paper", num_layers=2, conv="gat",
+                dropout_rate=0.0)
+    losses = {}
+    for dev, (sh, mesh) in zip((cuda_device, "cpu"), pairs):
+        feats = {t: shard_feature(ds.get_node_feature(t).hot_rows.numpy(),
+                                  4, device=dev)
+                 for t in ds.get_node_types()}
+        samp = DistHeteroNeighborSampler(sh, mesh, [4, 4], "paper",
+                                         batch_size=16, frontier_cap=64)
+        model = RGAT([reverse_edge_type(et) for et in ds.get_edge_types()],
+                     widths, 16, 8, "paper", num_layers=2, conv="gat",
+                     dropout_rate=0.0)
+        model.load_state_dict(base.state_dict())
+        st = init_hetero_dist_state(model.to(dev), adam(1e-3), samp, feats)
+        step = make_hetero_dist_train_step(
+            samp, feats, torch.from_numpy(lab).to(dev), mesh, 16)
+        out = []
+        for it in range(4):
+            seeds = np.stack([np.arange(s * per + 16 * it,
+                                        s * per + 16 * it + 16)
+                              for s in range(4)])
+            b1 = sample_cuda.sample_neighbors_cuda.launches
+            st, loss, _ = step(st, seeds, trandom.PRNGKey(it, device=dev))
+            if dev != "cpu":
+                assert sample_cuda.sample_neighbors_cuda.launches - b1 == (
+                    24 if it < 2 else 0), it
+            out.append(float(loss))
+        losses[str(dev)] = out
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
