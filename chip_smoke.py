@@ -240,8 +240,27 @@ Phases (the first failure exits non-zero and prints no result line):
    step on a 2 x 2 mesh, its hier batch ``==`` the flat one and the
    losses within F32_LOSS_RTOL; a ``collective='ring'`` batch ``==`` the
    CPU's;
-15. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-14) and the ok line.
+15. training across processes: fleets of processes that share
+   ``cuda:0``, their exchanges over gloo through pinned host memory,
+   each spawned as ``python3 chip_smoke.py --fleet-worker MODE WORK``
+   with the rendezvous env ``multihost.initialize`` reads (a timeout a
+   worker; a failed or late worker fails the phase and its siblings are
+   killed).  FLEET_PROCS processes x 2 shards run phase 11's partition
+   through the twin's functions (``fleet_mesh``, ``load(mesh=)``,
+   ``make_state``, ``train``, B3 serving) over the first FLEET_SEEDS
+   training ids, at hot ratio 1.0 and TIERED_RATIO (the tiered
+   pipeline): each process loads its two partitions only; step 0's
+   batches ``==`` the single-process 4-shard run's, shard by shard; the
+   losses identical across the processes and within F32_LOSS_RTOL of
+   that run's; with the counts set to 0 just before each leg and read
+   just after, B1 2 x 2 and B3 2 a step in every worker, the plain
+   threefry never; the step time, the gloo collectives, bytes and host
+   syncs a step, the peak memory a process, the drops.  Then 4
+   processes x 1 shard on the 2 x 2 mesh: a batch's ids and rows
+   ``==`` between ``route='hier'`` and ``'flat'``, two steps a route
+   within F32_LOSS_RTOL, B1 and B3 in every worker;
+16. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-15, the workers' included) and the ok line.
 
 Details go to ``build/results/chip_smoke.json`` (phase 10's trace to
 ``build/results/phase10_trace.json``).  Imports torch, numpy and
@@ -256,6 +275,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import gc
+import hashlib
 import json
 import os
 import re
@@ -375,6 +395,13 @@ SUB_MAX_DEGREE, SUB_CHECK_EDGES = 32, 2000
 DW_SHARDS, DW_BS, DW_FANOUT, DW_CAP, DW_LR = 4, 64, (4, 4), 512, 5e-3
 DW_STEPS, DW_TIERED_STEPS, DW_TIER_RATIO = 12, 8, 0.25
 DW_BATCHES, DW_B1_PER_STEP = 24, 24
+# Training across processes: phase 11's partition trained by fleets of
+# processes that share the card over gloo (FLEET_PROCS x 2 shards through
+# the twin's functions, then 4 x 1 on the 2 x 2 mesh); the first
+# FLEET_SEEDS of the twin's training ids cut an epoch to a few steps;
+# each worker has FLEET_TIMEOUT_S.
+FLEET_PROCS, FLEET_SEEDS, FLEET_TIMEOUT_S = 2, 3072, 300
+FLEET_TIMED = 5                   # warm steps timed a leg, after the main path
 DEVICE = "cuda"
 
 
@@ -5097,6 +5124,467 @@ def log_dist_whole(rep: dict, card: str) -> None:
         f"({rep['seconds']:.1f} s)")
 
 
+
+# -- phase 15: training across processes --------------------------------------
+FLEET_FIELDS = ("node", "row", "col", "edge", "node_mask", "edge_mask",
+                "num_sampled_nodes", "num_sampled_edges")
+
+
+def fleet_counts_zero(ops, trandom) -> None:
+    """The launch counts, the plain-threefry count and the transport's
+    counters set to 0."""
+    from glt_tpu_torch.parallel import multihost
+
+    counts_zero(ops, trandom)
+    multihost.reset_transport_stats()
+
+
+def fleet_counts(torch, ops, trandom) -> dict:
+    """What the run since :func:`fleet_counts_zero` launched and moved."""
+    from glt_tpu_torch.parallel import multihost
+
+    torch.cuda.synchronize()
+    return {"launches": counts_read(ops),
+            "plain_hash_calls": trandom.threefry2x32.calls,
+            "transport": multihost.transport_stats()}
+
+
+def batch_arrays(out, xy) -> dict:
+    """One shard's sampled batch and gathered ``(x, y)`` as host arrays
+    (``x`` as its sha256)."""
+    x, y = xy
+    arrs = {f: getattr(out, f).cpu().numpy() for f in FLEET_FIELDS}
+    arrs["x_sha256"] = np.frombuffer(hashlib.sha256(
+        x.cpu().numpy().tobytes()).digest(), np.uint8)
+    arrs["y"] = y.cpu().numpy()
+    return arrs
+
+
+def shard_arrays(out, j: int) -> dict:
+    """Row ``j`` of a sampler output whose fields lead with the shard
+    axis, as host arrays."""
+    return {f: getattr(out, f)[j].cpu().numpy() for f in FLEET_FIELDS}
+
+
+def twin_train(torch, twin, ds, mesh, state, cut) -> dict:
+    """The twin's ``train`` over the ``cut`` seeds for one epoch (B3
+    serving), its printed lines captured: losses, the epoch's seconds
+    (process 0's line), the cold drops (tiered) and the wall."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state, history = twin.train(ds, mesh, state, cut, DIST_FANOUT,
+                                    DIST_BS, 1, fused_frontier=True)
+    torch.cuda.synchronize()
+    text = buf.getvalue()
+    rep = {"losses": np.asarray(history[0]).tolist(),
+           "train_s": time.perf_counter() - t0, "printed": text}
+    m = re.search(r"time=([0-9.]+)s", text)
+    rep["epoch_s"] = float(m.group(1)) if m else None
+    m = re.search(r"cold rows past cold_cap: (\d+)", text)
+    rep["dropped"] = int(m.group(1)) if m else None
+    return rep
+
+
+def timed_steps(torch, twin, ds, mesh, batches, tiered: bool) -> list:
+    """Warm step times in ms after the main path: FLEET_TIMED steps of
+    ``make_dist_train_step`` one by one, or, ``tiered``, one epoch of
+    ``TieredTrainPipeline`` over FLEET_TIMED batches, its wall over the
+    batches (the pipeline overlaps a batch's staging with the previous
+    one's training)."""
+    from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.parallel import (DistNeighborSampler,
+                                        TieredTrainPipeline,
+                                        make_dist_train_step,
+                                        make_tiered_train_step)
+
+    state = twin.make_state(ds, DIST_FANOUT, DIST_BS, DIST_CLASSES,
+                            mesh.device)
+    key = trandom.PRNGKey(100, device=mesh.device)
+    seeds = [batches[b % batches.shape[0]] for b in range(FLEET_TIMED)]
+    if tiered:
+        pipe = TieredTrainPipeline(
+            DistNeighborSampler(ds.graph, mesh, num_neighbors=DIST_FANOUT,
+                                batch_size=DIST_BS),
+            make_tiered_train_step(ds.graph, ds.feature, ds.labels, mesh,
+                                   DIST_BS, fused_frontier=True),
+            ds.feature, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run_epoch(state, seeds, key)
+        torch.cuda.synchronize()
+        pipe.close()
+        return [(time.perf_counter() - t0) * 1e3 / FLEET_TIMED]
+    step = make_dist_train_step(ds.graph, ds.feature, ds.labels, mesh,
+                                DIST_FANOUT, DIST_BS, fused_frontier=True)
+    ms = []
+    for b, sd in enumerate(seeds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, _ = step(state, sd, trandom.fold_in(key, b))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def fleet_worker(mode: str, work: str) -> int:
+    """``--fleet-worker MODE WORK``: one process of a phase-15 fleet on
+    ``cuda:0`` (the rendezvous from MASTER_ADDR, MASTER_PORT,
+    GLT_NUM_PROCESSES and GLT_PROCESS_ID).  ``twin``: phase 11's
+    partition through the twin's functions at hot ratio 1.0 and
+    TIERED_RATIO; ``mesh2d``: the 2 x 2 mesh, a batch a route and two
+    steps a route.  Writes ``fleet_<mode>_<rank>.json`` (and the
+    step-0 batches, ``.npz``) into WORK."""
+    import torch
+
+    from glt_tpu_torch import ops
+    from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.examples import dist_train_papers100m as twin
+    from glt_tpu_torch.ops import cuda_lib
+    from glt_tpu_torch.parallel import (DistNeighborSampler,
+                                        make_dist_train_step, multihost)
+    from glt_tpu_torch.parallel.dist_sampler import seeds_on_mesh
+    from glt_tpu_torch.parallel.dist_train import sample_and_gather
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    count_plain_hashes(trandom)
+    cuda_lib.library()
+    multihost.initialize()
+    rank = multihost.process_index()
+    cfg = json.load(open(os.path.join(work, "fleet.json")))
+    labels = np.load(os.path.join(work, "labels.npy"))
+    cut = np.load(os.path.join(work, "cut.npy"))
+    dev = torch.device(DEVICE)
+    key = trandom.PRNGKey(0, device=dev)
+    rep = {"rank": rank, "setup_s": time.perf_counter() - t_start}
+    arrays = {}
+
+    if mode == "twin":
+        mesh = twin.fleet_mesh(DIST_SHARDS, DEVICE)
+        rep["local"] = [mesh.local.start, mesh.local.stop]
+        for leg, ratio in (("whole", 1.0), ("tiered", TIERED_RATIO)):
+            t0 = time.perf_counter()
+            ds = twin.load(cfg["part_dir"], labels, ratio, DEVICE,
+                           mesh=mesh)
+            load_s = time.perf_counter() - t0
+            batches = ds.split_seeds(cut, DIST_BS, shuffle=True,
+                                     rng=np.random.default_rng(0))
+            if leg == "whole":
+                _, outs, xy = sample_and_gather(
+                    ds.graph, ds.feature, ds.labels,
+                    seeds_on_mesh(batches[0], mesh), trandom.fold_in(key, 0),
+                    DIST_FANOUT, fused_frontier=True)
+                got = [batch_arrays(o, b) for o, b in zip(outs, xy)]
+            else:
+                out = DistNeighborSampler(
+                    ds.graph, mesh, num_neighbors=DIST_FANOUT,
+                    batch_size=DIST_BS).sample_from_nodes(
+                        batches[0], key=trandom.fold_in(
+                            trandom.fold_in(key, 0), 1))
+                got = [shard_arrays(out, j) for j in range(len(mesh.local))]
+            for s, arrs in zip(mesh.local, got):
+                for f, a in arrs.items():
+                    arrays[f"{leg}_{s}_{f}"] = a
+            state = twin.make_state(ds, DIST_FANOUT, DIST_BS, DIST_CLASSES,
+                                    DEVICE)
+            torch.cuda.reset_peak_memory_stats()
+            fleet_counts_zero(ops, trandom)
+            run = twin_train(torch, twin, ds, mesh, state, cut)
+            run.update(fleet_counts(torch, ops, trandom), load_s=load_s,
+                       steps=len(run["losses"]),
+                       max_memory_allocated=torch.cuda.max_memory_allocated())
+            run["step_ms"] = timed_steps(torch, twin, ds, mesh, batches,
+                                         leg == "tiered")
+            rep[leg] = run
+            del ds, state
+            torch.cuda.empty_cache()
+    else:
+        mesh = multihost.global_mesh_2d([DEVICE], num_hosts=2)
+        rep["local"] = [mesh.local.start, mesh.local.stop]
+        ds = twin.load(cfg["part_dir"], labels, 1.0, DEVICE, mesh=mesh)
+        batches = ds.split_seeds(cut, DIST_BS, shuffle=True,
+                                 rng=np.random.default_rng(0))
+        seeds = seeds_on_mesh(batches[0], mesh)
+        kw = dict(fused_frontier=True, axis_name=("host", "chip"),
+                  mesh_shape=(2, 2))
+        got = {}
+        for route in ("flat", "hier"):
+            _, outs, xy = sample_and_gather(
+                ds.graph, ds.feature, ds.labels, seeds,
+                trandom.fold_in(key, 0), DIST_FANOUT, route=route, **kw)
+            got[route] = [batch_arrays(o, b) for o, b in zip(outs, xy)]
+        rep["hier_equals_flat"] = all(
+            np.array_equal(a[f], b[f]) for a, b in zip(got["flat"],
+                                                       got["hier"])
+            for f in a)
+        fleet_counts_zero(ops, trandom)
+        for route in ("flat", "hier"):
+            state = twin.make_state(ds, DIST_FANOUT, DIST_BS, DIST_CLASSES,
+                                    DEVICE)
+            step = make_dist_train_step(ds.graph, ds.feature, ds.labels,
+                                        mesh, DIST_FANOUT, DIST_BS,
+                                        route=route, fused_frontier=True)
+            losses, ms = [], []
+            for b in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss, _ = step(state, batches[b],
+                                      trandom.fold_in(key, b))
+                losses.append(float(loss))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            rep[route] = {"losses": losses, "step_ms": ms,
+                          "collective_bytes": step.collective_bytes}
+        rep.update(fleet_counts(torch, ops, trandom))
+    rep["seconds"] = time.perf_counter() - t_start
+    if arrays:
+        np.savez(os.path.join(work, f"fleet_{mode}_{rank}.npz"), **arrays)
+    with open(os.path.join(work, f"fleet_{mode}_{rank}.json"), "w") as fh:
+        json.dump(rep, fh)
+    multihost.barrier(f"fleet-{mode}-done")
+    multihost.shutdown()
+    return 0
+
+
+def spawn_fleet(mode: str, nproc: int, work: str) -> list:
+    """``nproc`` fleet workers on the card; each has FLEET_TIMEOUT_S and
+    a failed or late one fails the phase (its siblings are killed).
+    Returns their reports by rank."""
+    import socket
+
+    script = os.path.abspath(__file__)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               GLT_NUM_PROCESSES=str(nproc))
+    procs = [subprocess.Popen(
+        [sys.executable, script, "--fleet-worker", mode, work],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(script), env=dict(env, GLT_PROCESS_ID=str(r)))
+        for r in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=FLEET_TIMEOUT_S))
+            except subprocess.TimeoutExpired:
+                outs.append(("", f"timed out after {FLEET_TIMEOUT_S} s"))
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+                q.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        need(p.returncode == 0, f"fleet {mode}: worker {r} failed "
+                                f"({p.returncode}): {err[-3000:]}")
+    return [json.load(open(os.path.join(work, f"fleet_{mode}_{r}.json")))
+            for r in range(nproc)]
+
+
+def same_across(reps, get, what: str) -> None:
+    """Every process reports the same value."""
+    vals = [get(r) for r in reps]
+    need(all(v == vals[0] for v in vals), f"{what} differ across the "
+                                          f"processes: {vals}")
+
+
+def rel_err(a, b) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+
+
+def run_fleets(torch, ops, trandom, dev, keep: dict, part_dir: str) -> dict:
+    """Phase 15 (see the module docstring)."""
+    from glt_tpu_torch.examples import dist_train_papers100m as twin
+    from glt_tpu_torch.parallel import (DistNeighborSampler, Mesh,
+                                        TieredShardedFeature)
+    from glt_tpu_torch.parallel.dist_feature import _hot_rows
+
+    rep = {}
+    t_start = time.perf_counter()
+    papers = keep["papers"]
+    work = os.path.join(WORK_DIR, "fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cut = papers.train_idx[:FLEET_SEEDS]
+    np.save(os.path.join(work, "labels.npy"), papers.labels)
+    np.save(os.path.join(work, "cut.npy"), cut)
+    with open(os.path.join(work, "fleet.json"), "w") as fh:
+        json.dump({"part_dir": os.path.abspath(part_dir)}, fh)
+
+    # The single-process 4-shard runs of the same seeds and keys (phase
+    # 13 freed phase 11's load on the card; its tiered load is the whole
+    # load's rows split, as phase 13 checks).
+    t0 = time.perf_counter()
+    ds = keep.get("ds") or twin.load(part_dir, papers.labels, 1.0, dev)
+    rows = ds.feature.rows
+    h = _hot_rows(rows.shape[1], TIERED_RATIO)
+    ds_t = ds._replace(feature=TieredShardedFeature(
+        hot=rows[:, :h].contiguous(), cold=rows[:, h:].cpu().numpy(),
+        nodes_per_shard=rows.shape[1], hot_per_shard=h,
+        num_shards=DIST_SHARDS))
+    rep["ref_load_s"] = time.perf_counter() - t0
+    mesh = Mesh([dev] * DIST_SHARDS)
+    key = trandom.PRNGKey(0, device=dev)
+    batches = ds.split_seeds(cut, DIST_BS, shuffle=True,
+                             rng=np.random.default_rng(0))
+    ref = {"whole": [batch_arrays(o, (x, y)) for o, x, y in dist_batch(
+        torch, ds, batches[0], trandom.fold_in(key, 0),
+        fused_frontier=True)]}
+    out = DistNeighborSampler(ds.graph, mesh, num_neighbors=DIST_FANOUT,
+                              batch_size=DIST_BS).sample_from_nodes(
+        batches[0], key=trandom.fold_in(trandom.fold_in(key, 0), 1))
+    ref["tiered"] = [shard_arrays(out, s) for s in range(DIST_SHARDS)]
+    ref_runs = {}
+    for leg, d in (("whole", ds), ("tiered", ds_t)):
+        state = twin.make_state(d, DIST_FANOUT, DIST_BS, DIST_CLASSES, dev)
+        ref_runs[leg] = twin_train(torch, twin, d, mesh, state, cut)
+        ref_runs[leg]["step_ms"] = timed_steps(torch, twin, d, mesh, batches,
+                                               leg == "tiered")
+    del ds, ds_t, rows
+    torch.cuda.empty_cache()
+    rep["reference"] = {k: {f: v[f] for f in ("losses", "epoch_s",
+                                              "dropped", "step_ms")}
+                        for k, v in ref_runs.items()}
+    rep["setup_s"] = time.perf_counter() - t_start
+
+    # FLEET_PROCS processes x 2 shards through the twin's functions.
+    t0 = time.perf_counter()
+    reps = spawn_fleet("twin", FLEET_PROCS, work)
+    rep["twin_wall_s"] = time.perf_counter() - t0
+    per = DIST_SHARDS // FLEET_PROCS
+    hops = len(DIST_FANOUT)
+    launches = {k: 0 for k in kernel_wrappers(ops)}
+    for leg in ("whole", "tiered"):
+        same_across(reps, lambda r: r[leg]["losses"], f"{leg} losses")
+        losses = reps[0][leg]["losses"]
+        want = ref_runs[leg]["losses"]
+        need(len(losses) == len(want) > 0 and np.isfinite(losses).all(),
+             f"{leg}: fleet losses {losses} vs the single process's {want}")
+        rel = rel_err(losses, want)
+        need(rel <= F32_LOSS_RTOL, f"{leg}: fleet losses {losses} vs the "
+                                   f"single process's {want} (rel {rel:.2e})")
+        steps = len(losses)
+        for r in reps:
+            lk = r[leg]["launches"]
+            need(lk["sample_neighbors_cuda"] == per * hops * steps,
+                 f"{leg}: worker {r['rank']} launched B1 "
+                 f"{lk['sample_neighbors_cuda']} times in {steps} steps, "
+                 f"not {per * hops} a step")
+            need(lk["fused_frontier_cuda"] == per * steps,
+                 f"{leg}: worker {r['rank']} launched B3 "
+                 f"{lk['fused_frontier_cuda']} times in {steps} steps, not "
+                 f"{per} a step")
+            need(lk["threefry_hash_cuda"] > 0,
+                 f"{leg}: worker {r['rank']} never launched the hash kernel")
+            need(r[leg]["plain_hash_calls"] == 0,
+                 f"{leg}: worker {r['rank']} ran the plain threefry")
+            for k, v in lk.items():
+                launches[k] += v
+        rep[leg] = {
+            "losses": losses, "rel_err": rel, "steps": steps,
+            "epoch_s": reps[0][leg]["epoch_s"],
+            "step_ms": [r[leg]["step_ms"] for r in reps],
+            "step_ms_median": statistics.median(reps[0][leg]["step_ms"]),
+            "ref_step_ms": ref_runs[leg]["step_ms"],
+            "ref_step_ms_median": statistics.median(
+                ref_runs[leg]["step_ms"]),
+            "dropped": reps[0][leg]["dropped"],
+            "ref_dropped": ref_runs[leg]["dropped"],
+            "load_s": [r[leg]["load_s"] for r in reps],
+            "max_memory_allocated": [r[leg]["max_memory_allocated"]
+                                     for r in reps],
+            "per_step": {k: [r[leg]["transport"][k] / steps for r in reps]
+                         for k in reps[0][leg]["transport"]}}
+    # Step 0's batches, shard by shard, == the single process's.
+    checked = 0
+    for r in reps:
+        arrs = np.load(os.path.join(work, f"fleet_twin_{r['rank']}.npz"))
+        for s in range(*r["local"]):
+            for leg in ("whole", "tiered"):
+                for f, want in ref[leg][s].items():
+                    need(np.array_equal(arrs[f"{leg}_{s}_{f}"], want),
+                         f"{leg}: step 0's shard {s} {f} differs from the "
+                         f"single process's")
+                    checked += 1
+    need(checked > 0, "no batch checked")
+    rep["arrays_checked"] = checked
+    rep["twin_setup_s"] = [r["setup_s"] for r in reps]
+
+    # 4 processes x 1 shard on the 2 x 2 mesh.
+    t0 = time.perf_counter()
+    m2 = spawn_fleet("mesh2d", 4, work)
+    rep["mesh2d_wall_s"] = time.perf_counter() - t0
+    for r in m2:
+        need(r["hier_equals_flat"], f"2 x 2 fleet: worker {r['rank']}'s "
+                                    f"hier batch differs from flat's")
+        for k in ("sample_neighbors_cuda", "fused_frontier_cuda",
+                  "threefry_hash_cuda"):
+            need(r["launches"][k] > 0, f"2 x 2 fleet: worker {r['rank']} "
+                                       f"never launched {k}")
+        need(r["plain_hash_calls"] == 0, f"2 x 2 fleet: worker "
+                                         f"{r['rank']} ran the plain "
+                                         f"threefry")
+        for k, v in r["launches"].items():
+            launches[k] += v
+    for route in ("flat", "hier"):
+        same_across(m2, lambda r: r[route]["losses"], f"2 x 2 {route} losses")
+    rel = rel_err(m2[0]["hier"]["losses"], m2[0]["flat"]["losses"])
+    need(rel <= F32_LOSS_RTOL, f"2 x 2 fleet: hier losses "
+                               f"{m2[0]['hier']['losses']} vs flat "
+                               f"{m2[0]['flat']['losses']}")
+    rep["mesh2d"] = {
+        "losses": {k: m2[0][k]["losses"] for k in ("flat", "hier")},
+        "rel_err": rel,
+        "step_ms": {k: m2[0][k]["step_ms"] for k in ("flat", "hier")},
+        "collective_bytes": {k: m2[0][k]["collective_bytes"]
+                             for k in ("flat", "hier")},
+        "transport": [r["transport"] for r in m2],
+        "setup_s": [r["setup_s"] for r in m2]}
+    rep["launches"] = launches
+    rep["seconds"] = time.perf_counter() - t_start
+    shutil.rmtree(work, ignore_errors=True)
+    return rep
+
+
+def log_fleets(rep: dict, card: str) -> None:
+    """Phase 15's lines (each number measured on ``card``)."""
+    log(f"fleets: [{card}] {FLEET_PROCS} processes x "
+        f"{DIST_SHARDS // FLEET_PROCS} shards on one card over gloo, "
+        f"{FLEET_SEEDS} training ids; batches == the single process's "
+        f"({rep['arrays_checked']} arrays)")
+    for leg in ("whole", "tiered"):
+        r = rep[leg]
+        ps = r["per_step"]
+        log(f"  {leg}: {r['steps']} steps, losses {r['losses'][0]:.5f} -> "
+            f"{r['losses'][-1]:.5f} (rel {r['rel_err']:.2e} vs one "
+            f"process); warm step {r['step_ms_median']:.2f} ms (one "
+            f"process {r['ref_step_ms_median']:.2f} ms, eager; the main "
+            f"path's epoch {r['epoch_s']:.2f} s); a step a process: "
+            f"{ps['collectives'][0]:.1f} gloo collectives, "
+            f"{ps['gloo_bytes'][0]:.0f} B sent, {ps['d2h_bytes'][0]:.0f} B "
+            f"D2H, {ps['h2d_bytes'][0]:.0f} B H2D, {ps['host_syncs'][0]:.1f} "
+            f"host syncs; peak " + ", ".join(
+                f"{m / 2**30:.2f}" for m in r["max_memory_allocated"])
+            + f" GiB; drops {r['dropped']} (one process "
+            f"{r['ref_dropped']}); load s " + ", ".join(
+                f"{x:.1f}" for x in r["load_s"]))
+    m = rep["mesh2d"]
+    log(f"  2 x 2 (4 processes x 1 shard): hier batch == flat; losses flat "
+        f"{m['losses']['flat']} hier {m['losses']['hier']} (rel "
+        f"{m['rel_err']:.2e}); step ms flat " + ", ".join(
+            f"{x:.1f}" for x in m["step_ms"]["flat"]) + ", hier " + ", ".join(
+            f"{x:.1f}" for x in m["step_ms"]["hier"])
+        + f"; gloo bytes process 0 {m['transport'][0]['gloo_bytes']}")
+    log(f"  launches {rep['launches']}; walls: reference "
+        f"{rep['setup_s']:.1f} s, twin fleet {rep['twin_wall_s']:.1f} s, "
+        f"2 x 2 fleet {rep['mesh2d_wall_s']:.1f} s")
+
 def main() -> int:
     try:
         import torch
@@ -5480,6 +5968,12 @@ def main() -> int:
                                                        dev, keep)
             log_dist_whole(dw, smi[0])
             log(f"  phase 14: {dw['seconds']:.1f} s")
+
+            # 15. training across processes
+            report["fleets"] = fl = run_fleets(torch, ops, trandom, dev,
+                                               keep, part_dir)
+            log_fleets(fl, smi[0])
+            log(f"  phase 15: {fl['seconds']:.1f} s")
         finally:
             keep.clear()
             shutil.rmtree(part_dir, ignore_errors=True)
@@ -5489,7 +5983,7 @@ def main() -> int:
 
     launches = {k: sum(p["launches"].get(k, 0)
                        for p in (sl, tr, st, report["digits"], lk, het, co,
-                                 dd, tw, ti, dw))
+                                 dd, tw, ti, dw, fl))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
@@ -5616,6 +6110,8 @@ def profiler_settle_check(windows: int) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ckpt-worker"]:
         sys.exit(ckpt_worker(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        sys.exit(fleet_worker(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--profiler-settle-check"]:
         sys.exit(profiler_settle_check(int(sys.argv[2])))
     sys.exit(main())

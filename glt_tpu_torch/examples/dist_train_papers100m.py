@@ -1,7 +1,7 @@
 """Partition -> load -> distributed train on a papers100M-shaped graph.
 
-The port's twin of ``examples/dist_train_papers100m.py``, single process
-with every shard on one device:
+The port's twin of ``examples/dist_train_papers100m.py``, in one process
+with every shard on one device, or across processes:
 
   1. offline: the FrequencyPartitioner, fed by each rank's
      ``NeighborSampler.sample_prob`` (computed on ``--device``), writes
@@ -26,8 +26,25 @@ label.  Weights come from numpy seed 0.
     python -m glt_tpu_torch.examples.dist_train_papers100m --device cpu \\
         --devices 4 --scale 2e-5
 
-The multi-host run (``GLT_NUM_PROCESSES``) and the real ogbn-papers100M
-files wait for later slices (ROADMAP queue A items 7 and 6).
+With ``GLT_NUM_PROCESSES`` above 1 the run spans processes, as the JAX
+example's: every process joins the gloo group
+(``multihost.initialize``: ``MASTER_ADDR``, ``MASTER_PORT``,
+``GLT_NUM_PROCESSES``, ``GLT_PROCESS_ID``), process 0 partitions and
+writes ``_DONE`` while the others wait for it (600 s), ``--devices`` is
+the global shard count, split evenly over the processes with every
+local shard on ``--device``, each process loads only its own partitions
+(``DistDataset.load(mesh=)``), all of them train one mesh, and process
+0 prints the summary.  ``--part-dir`` must be on a filesystem every
+process sees.  Two processes can share one card (gloo carries their
+exchanges through host memory)::
+
+    export MASTER_ADDR=localhost MASTER_PORT=29500 GLT_NUM_PROCESSES=2
+    for r in 0 1; do GLT_PROCESS_ID=$r python -m \\
+        glt_tpu_torch.examples.dist_train_papers100m --device cpu \\
+        --devices 4 --scale 2e-5 --part-dir /tmp/parts & done; wait
+
+The real ogbn-papers100M files wait for a later slice (ROADMAP queue A
+item 6).
 """
 from __future__ import annotations
 
@@ -47,7 +64,8 @@ from ..distributed import DistDataset
 from ..models import GraphSAGE, TrainState, adam
 from ..parallel import (DistNeighborSampler, Mesh, TieredShardedFeature,
                         TieredTrainPipeline, init_dist_state,
-                        make_dist_train_step, make_tiered_train_step)
+                        make_dist_train_step, make_tiered_train_step,
+                        multihost)
 from ..partition import FrequencyPartitioner
 from ..sampler import NeighborSampler
 from .train_sage_digits import init_params
@@ -136,13 +154,41 @@ def partition(papers: Papers, part_dir: str, devices: int, probs) -> float:
 
 
 def load(part_dir: str, labels: np.ndarray, hot_ratio: float,
-         device) -> DistDataset:
+         device, mesh: Optional[Mesh] = None) -> DistDataset:
     """``DistDataset.load`` with the saved hotness (the in-degree when
-    the directory has none)."""
+    the directory has none); with a ``mesh`` that spans processes, this
+    process's partitions only."""
     hot_file = os.path.join(part_dir, "hotness.npy")
     hotness = np.load(hot_file) if os.path.exists(hot_file) else None
     return DistDataset.load(part_dir, hot_ratio=hot_ratio, labels=labels,
-                            hotness=hotness, device=device)
+                            hotness=hotness, device=device, mesh=mesh)
+
+
+def wait_for_partition(done_file: str, part_dir: str,
+                       timeout_s: float = 600.0) -> None:
+    """A process other than 0 waits for process 0's ``_DONE``."""
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(done_file):
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"partitioning never finished: {part_dir} — on a "
+                f"multi-host run, --part-dir must be on a filesystem "
+                f"shared by every host")
+        time.sleep(0.5)
+
+
+def fleet_mesh(devices: int, device) -> Mesh:
+    """The mesh of ``devices`` shards over every process: an even share
+    of them a process, each on ``device``."""
+    nproc = multihost.process_count()
+    if devices % nproc:
+        raise SystemExit(f"--devices {devices} does not split evenly over "
+                         f"{nproc} processes")
+    mesh = multihost.global_mesh([device] * (devices // nproc))
+    if mesh.size != devices:
+        raise SystemExit(f"--devices {devices} != global device count "
+                         f"{mesh.size}")
+    return mesh
 
 
 def make_state(ds: DistDataset, fanout: Sequence[int], batch_size: int,
@@ -166,8 +212,10 @@ def train(ds: DistDataset, mesh: Mesh, state: TrainState,
     tiered feature trains through ``TieredTrainPipeline.run_epoch``,
     a whole one through the distributed step, batch ``b`` under
     ``fold_in(PRNGKey(e), b)``.  Returns the state and each epoch's
-    losses (host numpy)."""
+    losses (host numpy).  On a mesh that spans processes every process
+    calls this; process 0 prints."""
     tiered = isinstance(ds.feature, TieredShardedFeature)
+    main_proc = multihost.process_index() == 0
     if tiered:
         sampler = DistNeighborSampler(ds.graph, mesh,
                                       num_neighbors=fanout,
@@ -199,26 +247,43 @@ def train(ds: DistDataset, mesh: Mesh, state: TrainState,
         losses = torch.stack(losses).cpu().numpy()
         dt = time.perf_counter() - t0
         history.append(losses)
-        print(f"epoch {epoch}: loss={float(np.mean(losses)):.4f} "
-              f"acc={float(torch.stack(accs).mean()):.3f} time={dt:.2f}s "
-              f"subgraphs/s={len(losses) * mesh.size / dt:.1f}")
+        if main_proc:
+            print(f"epoch {epoch}: loss={float(np.mean(losses)):.6f} "
+                  f"acc={float(torch.stack(accs).mean()):.3f} "
+                  f"time={dt:.2f}s "
+                  f"subgraphs/s={len(losses) * mesh.size / dt:.1f}")
     if tiered:
-        dropped = pipe.flush_dropped()
+        dropped = int(multihost.agree_sum(np.array([pipe.flush_dropped()]))
+                      [0])
+        most = multihost.agree_max(pipe.max_cold_rows)
         pipe.close()
-        print(f"cold rows past cold_cap: {dropped}; most cold rows a "
-              f"shard served: {pipe.max_cold_rows} of {pipe.cold_cap}")
+        if main_proc:
+            print(f"cold rows past cold_cap: {dropped}; most cold rows a "
+                  f"shard served: {most} of {pipe.cold_cap}")
     return state, history
 
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
+    fleet = int(os.environ.get("GLT_NUM_PROCESSES", "1")) > 1
+    if fleet:
+        multihost.initialize()
+    main_proc = multihost.process_index() == 0
     papers = synthetic_papers(args.scale, args.devices, args.batch_size,
                               args.dim, args.classes)
     part_dir = args.part_dir or os.path.join(
         tempfile.gettempdir(), f"glt_torch_papers_parts_{papers.n}_"
                                f"{args.devices}")
     done_file = os.path.join(part_dir, "_DONE")
-    if not os.path.exists(done_file):
+    # A partition dir without the sentinel (the standalone partitioner's)
+    # is adopted, not redone.
+    if (main_proc and not os.path.exists(done_file)
+            and os.path.exists(os.path.join(part_dir, "META.json"))):
+        with open(done_file, "w") as fh:
+            fh.write("ok")
+    if not main_proc:
+        wait_for_partition(done_file, part_dir)
+    elif not os.path.exists(done_file):
         probs = rank_probs(papers_graph(papers, args.device),
                            papers.train_idx, args.devices, args.fanout,
                            args.batch_size)
@@ -229,24 +294,32 @@ def main(argv: Optional[Sequence[str]] = None):
         print(f"partitioned {papers.n} nodes / {papers.edge_index.shape[1]} "
               f"edges into {args.devices} parts in {secs:.1f}s -> "
               f"{part_dir}")
-    ds = load(part_dir, papers.labels, args.hot_ratio, args.device)
+    if fleet:
+        mesh = fleet_mesh(args.devices, args.device)
+        ds = load(part_dir, papers.labels, args.hot_ratio, args.device,
+                  mesh=mesh)
+    else:
+        mesh = Mesh([args.device] * args.devices)
+        ds = load(part_dir, papers.labels, args.hot_ratio, args.device)
     hot = (f"{ds.feature.hot_per_shard}/{ds.feature.nodes_per_shard}"
            if isinstance(ds.feature, TieredShardedFeature)
            else "all (no host tier)")
-    print(f"loaded: {ds.graph.num_shards} shards x "
-          f"{ds.relabel.nodes_per_shard} nodes on {args.device}, hot "
-          f"rows a shard: {hot}")
-    mesh = Mesh([args.device] * args.devices)
+    if main_proc:
+        print(f"loaded: {ds.graph.num_shards} shards x "
+              f"{ds.relabel.nodes_per_shard} nodes on {args.device}"
+              f"{' over processes' if mesh.spans else ''}, hot rows a "
+              f"shard: {hot}")
     state = make_state(ds, args.fanout, args.batch_size, args.classes,
                        args.device)
     t0 = time.perf_counter()
     state, history = train(ds, mesh, state, papers.train_idx, args.fanout,
                            args.batch_size, args.epochs)
     steps = sum(len(h) for h in history)
-    print(json.dumps({"metric": "papers100m_loader_throughput",
-                      "value": round(steps * args.devices
-                                     / (time.perf_counter() - t0), 2),
-                      "unit": "subgraphs/s", "devices": args.devices}))
+    if main_proc:
+        print(json.dumps({"metric": "papers100m_loader_throughput",
+                          "value": round(steps * args.devices
+                                         / (time.perf_counter() - t0), 2),
+                          "unit": "subgraphs/s", "devices": args.devices}))
     return state, history
 
 

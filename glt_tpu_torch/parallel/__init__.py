@@ -1,13 +1,14 @@
 """The distributed data plane over a mesh of shards (cf.
 ``glt_tpu/parallel``): sharded graph and features, the all-to-all
 sampler (nodes, seed edges, induced subgraphs), the feature exchange
-and its host tier, and the distributed train steps, with the
-shards of one :class:`~glt_tpu_torch.parallel.multihost.Mesh` in this
-process, on a 1-D mesh or a 2-D ``(host, chip)`` one with the
-hierarchical route; heterogeneous graphs across shards
+and its host tier, and the distributed train steps, over the shards
+of a :class:`~glt_tpu_torch.parallel.multihost.Mesh`, a 1-D mesh or a
+2-D ``(host, chip)`` one with the hierarchical route; heterogeneous
+graphs across shards
 (:class:`DistHeteroNeighborSampler`, the hetero distributed and tiered
-steps).  See :mod:`.multihost` for what waits for multihost on
-``torch.distributed``."""
+steps).  A mesh may span processes (:mod:`.multihost`: ``initialize``,
+``global_mesh``, ``global_mesh_2d`` and the per-process feeding
+helpers), every exchange then crossing them over gloo."""
 from . import multihost
 from .dist_feature import (
     HostColdStore,
@@ -54,7 +55,8 @@ from .dist_train import (
     make_tiered_train_step,
     run_scanned_dist_epoch,
 )
-from .multihost import Mesh, global_mesh_2d, mesh_axis_sizes, resolve_mesh_axes
+from .multihost import (Mesh, global_mesh, global_mesh_2d, mesh_axis_sizes,
+                        resolve_mesh_axes)
 from .sharding import (
     ShardedFeature,
     ShardedGraph,
@@ -95,6 +97,7 @@ __all__ = [
     "exchange_gather_xy",
     "exchange_one_hop",
     "exchange_one_hop_ring",
+    "global_mesh",
     "global_mesh_2d",
     "hier_request_cap",
     "init_dist_state",

@@ -11,8 +11,9 @@ trip: the int32 label column is reinterpreted (``Tensor.view``, not a
 cast) as one more f32 payload column, so every label value comes back
 bit for bit.
 
-Like :mod:`.dist_sampler`, the functions take per-shard sequences and
-run each stage for every shard in turn.  With ``fused_frontier`` a
+Like :mod:`.dist_sampler`, the functions take per-shard sequences (on
+a mesh that spans processes, this process's shards) and run each stage
+for every shard in turn.  With ``fused_frontier`` a
 shard serves the requests that landed on it through kernel B3 on the
 card (:func:`~glt_tpu_torch.ops.fused_frontier.fused_frontier`): the
 request list repeats hub rows across the requesting shards, and B3
@@ -46,7 +47,7 @@ from ..ops.fused_frontier import fused_frontier as _fused_frontier
 from ..ops.unique import unique_first_occurrence
 from ..utils.device import DeviceLike, resolve_device
 from .dist_sampler import (HierarchicalRouting, Routing, _all_to_all, _axes,
-                           _shards, _topology_choice, _use_fused,
+                           _ids, _shards, _topology_choice, _use_fused,
                            build_hier_routing, build_routing, hier_requests,
                            hier_response)
 from .sharding import torch_dtype
@@ -107,18 +108,19 @@ def _resolve_plan(ids, nodes_per_shard: int, num_shards: int, routing,
                                      route=route) for i in ids]
     if isinstance(routing[0], HierarchicalRouting):
         return routing, [r.base for r in routing], hier_requests(routing)
-    return routing, routing, _all_to_all([r.buckets for r in routing])
+    return routing, routing, _all_to_all([r.buckets for r in routing],
+                                         num_shards)
 
 
-def _return_payload(routing, payload: Sequence[torch.Tensor]
-                    ) -> List[torch.Tensor]:
+def _return_payload(routing, payload: Sequence[torch.Tensor],
+                    num_shards: int) -> List[torch.Tensor]:
     """Response leg of every feature exchange: each request slot's
     ``[w]`` payload back to its requester, in flat bucket order (the
     hier legs in reverse; dropped and padding slots come back as zero
     rows, as the flat route's masked serve gives)."""
     if isinstance(routing[0], HierarchicalRouting):
         return hier_response(routing, payload, 0)
-    return _all_to_all(payload)
+    return _all_to_all(payload, num_shards)
 
 
 def _served_ids(requests: torch.Tensor, shard: int, nodes_per_shard: int
@@ -185,11 +187,11 @@ def exchange_gather(
     routing, flat, requests = _resolve_plan(ids, c, S, routing, route,
                                             mesh_shape, hier_load_factor)
     got = []
-    for s in range(S):
-        local, ok = _served_ids(requests[s], s, c)
-        got.append(_request_rows(rows[s], local, ok, fused_frontier))
-    resp = _return_payload(routing, got)
-    return [_read_slots(resp[s], flat[s], b, S) for s in range(S)]
+    for j, s in enumerate(_ids(S, ids)):
+        local, ok = _served_ids(requests[j], s, c)
+        got.append(_request_rows(rows[j], local, ok, fused_frontier))
+    resp = _return_payload(routing, got, S)
+    return [_read_slots(r, p, b, S) for r, p in zip(resp, flat)]
 
 
 class TieredShardedFeature(NamedTuple):
@@ -343,17 +345,17 @@ def exchange_gather_hot(
     routing, flat, requests = _resolve_plan(ids, c, S, routing, route,
                                             mesh_shape, hier_load_factor)
     got = []
-    for s in range(S):
-        local, ok = _served_ids(requests[s], s, c)
+    for j, s in enumerate(_ids(S, ids)):
+        local, ok = _served_ids(requests[j], s, c)
         ok = ok & (local < h)
-        g = _request_rows(hot_rows[s], local, ok, fused_frontier)
+        g = _request_rows(hot_rows[j], local, ok, fused_frontier)
         if staged_rows is not None:
-            g = _scatter_staged(g, staged_rows[s], staged_slots[s])
+            g = _scatter_staged(g, staged_rows[j], staged_slots[j])
         elif staged_resp is not None:
-            g = torch.where(ok[:, None], g, staged_resp[s].to(g.dtype))
+            g = torch.where(ok[:, None], g, staged_resp[j].to(g.dtype))
         got.append(g)
-    resp = _return_payload(routing, got)
-    return [_read_slots(resp[s], flat[s], b, S) for s in range(S)]
+    resp = _return_payload(routing, got, S)
+    return [_read_slots(r, p, b, S) for r, p in zip(resp, flat)]
 
 
 def exchange_gather_xy(
@@ -423,28 +425,28 @@ def exchange_gather_xy(
     routing, flat, requests = _resolve_plan(ids, c, S, routing, route,
                                             mesh_shape, hier_load_factor)
     gotx, goty = [], []
-    for s in range(S):
-        local, ok = _served_ids(requests[s], s, c)
-        x = _request_rows(rows[s], local, ok & (local < h), fused_frontier)
+    for j, s in enumerate(_ids(S, ids)):
+        local, ok = _served_ids(requests[j], s, c)
+        x = _request_rows(rows[j], local, ok & (local < h), fused_frontier)
         if staged_rows is not None:
-            x = _scatter_staged(x, staged_rows[s], staged_slots[s])
+            x = _scatter_staged(x, staged_rows[j], staged_slots[j])
         gotx.append(x)
-        lab = labels_col[s].to(torch.int32)
+        lab = labels_col[j].to(torch.int32)
         idx = torch.where(ok, local, 0).clamp(0, lab.shape[0] - 1).long()
         goty.append(torch.where(ok, lab[idx], 0))
 
     if _use_fused(fused) and rows[0].dtype == torch.float32:
         resp = _return_payload(routing, [
             torch.cat([x, y.view(torch.float32)[:, None]], -1)
-            for x, y in zip(gotx, goty)])
+            for x, y in zip(gotx, goty)], S)
         respx = [r[:, :d] for r in resp]
         respy = [r[:, d].view(torch.int32) for r in resp]
     else:
-        respx = _return_payload(routing, gotx)
+        respx = _return_payload(routing, gotx, S)
         respy = [r[:, 0] for r in _return_payload(
-            routing, [y[:, None] for y in goty])]
-    return [(_read_slots(respx[s], flat[s], b, S),
-             _read_slots(respy[s], flat[s], b, S)) for s in range(S)]
+            routing, [y[:, None] for y in goty], S)]
+    return [(_read_slots(rx, p, b, S), _read_slots(ry, p, b, S))
+            for rx, ry, p in zip(respx, respy, flat)]
 
 
 def compact_cold_requests(cold_req: torch.Tensor, cold_cap: int):
@@ -497,8 +499,8 @@ def route_cold_requests(
     _, _, requests = _resolve_plan(ids, c, S, routing, route, mesh_shape,
                                    hier_load_factor)
     out = []
-    for s in range(S):
-        req = requests[s]
+    for j, s in enumerate(_ids(S, ids)):
+        req = requests[j]
         local = req - s * c
         is_cold = (req >= 0) & (local >= h) & (local < c)
         out.append(torch.where(is_cold, local - h, -1))
@@ -506,17 +508,20 @@ def route_cold_requests(
 
 
 class HostColdStore:
-    """Cold rows of the shards one host owns (all shards by default).
+    """Cold rows of the shards one process owns (all shards by default).
 
-    A process of a multi-host run would build ``HostColdStore(f,
-    shard_ids=<its shards>)`` and serve only those; a shard's staged
-    rows depend on its own block alone.
+    A process of a spanning mesh builds ``HostColdStore(f,
+    shard_ids=<its shards>)`` and serves only those; a shard's staged
+    rows depend on its own block alone.  ``f.cold`` holds every shard's
+    block, or only those of ``shard_ids`` in order (a spanning load).
     """
 
     def __init__(self, f: TieredShardedFeature, shard_ids=None):
         self.shard_ids = (tuple(range(f.num_shards)) if shard_ids is None
                           else tuple(shard_ids))
-        self._blocks = {s: np.asarray(f.cold[s]) for s in self.shard_ids}
+        held = f.cold.shape[0] != f.num_shards
+        self._blocks = {s: np.asarray(f.cold[j if held else s])
+                        for j, s in enumerate(self.shard_ids)}
         self.dim = f.cold.shape[-1]
         self.dtype = f.cold.dtype
 

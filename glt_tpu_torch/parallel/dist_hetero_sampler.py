@@ -11,7 +11,10 @@ type, over the same mesh.  ``glt_tpu`` runs that body per shard under
 (:meth:`~glt_tpu_torch.sampler.HeteroNeighborSampler._sample_steps`), one
 per shard, driven in lockstep: every round each shard yields the same
 ``(edge type, fanout)`` request over its own frontier, and one exchange
-over all shards answers the round.  On the card each round is one launch
+over all shards answers the round.  On a mesh that spans processes
+each process drives its own shards' generators, and each round's
+exchange crosses processes (every process yields the same rounds in
+the same order).  On the card each round is one launch
 of kernel B1 per shard for the served requests (two with
 ``exchange_load_factor``, which samples the locally owned ids apart).
 """
@@ -214,8 +217,8 @@ class DistHeteroNeighborSampler:
             route=self.route, fused=self.fused, mesh_shape=self.mesh_shape,
             hier_load_factor=self.hier_load_factor, axis_name=self.axis_name)
         if self.exchange_load_factor is not None:
-            for s, o in enumerate(outs):
-                dropped[s].append(o[3])
+            for j, o in enumerate(outs):
+                dropped[j].append(o[3])
         return [NeighborOutput(nbrs=n, eids=e, mask=m) for n, e, m, _ in outs]
 
     def local_sample(self, seeds: Sequence[torch.Tensor],
@@ -231,10 +234,10 @@ class DistHeteroNeighborSampler:
         S = self.num_shards
         seeds, keys = _shards(seeds, S), _shards(keys, S)
         p = self._planner
-        dropped = [[] for _ in range(S)]
+        dropped = [[] for _ in seeds]
         steps = [p._sample_steps(self._widths, self._capacity,
-                                 {self.input_type: seeds[s].to(torch.int32)},
-                                 keys[s]) for s in range(S)]
+                                 {self.input_type: x.to(torch.int32)}, k)
+                 for x, k in zip(seeds, keys)]
         outs = _lockstep(steps, lambda et, fr, fo, ks: self._one_hop(
             et, fr, fo, ks, dropped))
         for out, d in zip(outs, dropped):
@@ -254,5 +257,4 @@ class DistHeteroNeighborSampler:
             key = self._next_key()
         seeds = seeds_on_mesh(seeds_per_shard, self.mesh)
         return _stack_hetero(self.local_sample(
-            list(seeds), [trandom.fold_in(key, s)
-                          for s in range(self.num_shards)]))
+            list(seeds), [trandom.fold_in(key, s) for s in self.mesh.local]))

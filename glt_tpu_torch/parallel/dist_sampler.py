@@ -14,8 +14,12 @@ The multi-hop loop and the inducer are those of the single-device
 sampler.  ``glt_tpu`` runs the shard bodies under ``shard_map`` in one
 XLA program.  Here the functions take per-shard sequences (one tensor
 per shard) and run each stage for every shard in turn; the collectives
-sit between the stages in :func:`_all_to_all`, the one place a mesh of
-several GPUs will swap in ``torch.distributed.all_to_all_single``.  On
+sit between the stages in :func:`_all_to_all`, :func:`_grid_all_to_all`
+and the ring's rotation.  On a mesh that spans processes
+(:func:`~glt_tpu_torch.parallel.multihost.global_mesh`) the sequences
+hold this process's shards only, keys and owners keep the global shard
+index, and those three cross processes over gloo
+(:class:`~glt_tpu_torch.parallel.multihost.Fleet`).  On
 the card each hop is one launch of kernel B1 per shard for the served
 requests (two with ``exchange_load_factor``, which samples the
 locally owned ids apart), and every key derivation one launch of the
@@ -65,7 +69,8 @@ from ..ops.unique import (
 from ..sampler.base import NegativeSampling, SamplerOutput
 from ..sampler.neighbor_sampler import hop_widths, max_sampled_nodes
 from ..typing import PADDING_ID
-from .multihost import Mesh, mesh_axis_sizes, resolve_mesh_axes
+from .multihost import (Mesh, fleet_for, local_ids, local_rows,
+                        mesh_axis_sizes, resolve_mesh_axes)
 from .sharding import check_on_mesh
 
 __all__ = [
@@ -304,26 +309,41 @@ def exchange_byte_model(topology: str, num_hosts: int, chips_per_host: int,
     return int(ici), int(dcn)
 
 
-def _all_to_all(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def _all_to_all(blocks: Sequence[torch.Tensor],
+                num_shards: Optional[int] = None) -> List[torch.Tensor]:
     """The mesh's all-to-all: shard ``r`` sends row ``q`` of its ``[S *
     c, ...]`` block to shard ``q``, where it lands as row ``r``
     (``lax.all_to_all(x.reshape(S, c), axis, 0, 0)``).  With every
     shard on one device this is one ``[S_src, S_dst, c] -> [S_dst,
-    S_src, c]`` transpose."""
-    s = len(blocks)
+    S_src, c]`` transpose.  With fewer blocks than ``num_shards`` (this
+    process's shards of a spanning mesh) the rows for other processes
+    ride one ``all_to_all_single`` (:meth:`~glt_tpu_torch.parallel.
+    multihost.Fleet.exchange`)."""
+    s = len(blocks) if num_shards is None else int(num_shards)
     rest = tuple(blocks[0].shape[1:])
     c = blocks[0].shape[0] // s
-    moved = torch.stack([b.reshape((s, c) + rest) for b in blocks]
-                        ).transpose(0, 1).contiguous()
-    return [moved[q].reshape((s * c,) + rest) for q in range(s)]
+    if len(blocks) == s:
+        moved = torch.stack([b.reshape((s, c) + rest) for b in blocks]
+                            ).transpose(0, 1).contiguous()
+        return [moved[q].reshape((s * c,) + rest) for q in range(s)]
+    lo = local_ids(s, len(blocks)).start
+    split = [b.reshape((s, c) + rest) for b in blocks]
+    got = fleet_for(s).exchange(range(s), lambda r, q: split[r - lo][q])
+    return [torch.stack(got[q]).reshape((s * c,) + rest) for q in sorted(got)]
 
 
 def _shards(x, num_shards: int) -> list:
-    """A per-shard sequence from a list or an ``[S, ...]`` tensor."""
+    """A per-shard sequence from a list or an ``[S, ...]`` tensor: one
+    block a shard, or this process's shards' blocks of a spanning mesh
+    (:func:`~glt_tpu_torch.parallel.multihost.local_ids`)."""
     out = list(x)
-    if len(out) != num_shards:
-        raise ValueError(f"{len(out)} shard blocks for {num_shards} shards")
+    local_ids(num_shards, len(out))
     return out
+
+
+def _ids(num_shards: int, blocks) -> range:
+    """The global shard ids of a per-shard sequence's blocks, in order."""
+    return local_ids(num_shards, len(blocks))
 
 
 # -- hierarchical (per-host, then cross-host) routing ----------------------
@@ -391,14 +411,47 @@ def _grid_all_to_all(blocks: Sequence[torch.Tensor], grid, axis: str
     shard ``(qh, c)``'s ``[h]``."""
     h, c = int(grid[0]), int(grid[1])
     shape = tuple(blocks[0].shape)
+    if axis not in ("chip", "host"):
+        raise ValueError(f"axis must be 'host' or 'chip', got {axis!r}")
+    if len(blocks) != h * c:
+        return _grid_all_to_all_fleet(blocks, h, c, axis)
     x = torch.stack(list(blocks)).reshape((h, c) + shape)
     if axis == "chip":
         y = x.permute(0, 3, 2, 1, *range(4, x.dim()))
-    elif axis == "host":
-        y = x.permute(2, 1, 0, *range(3, x.dim()))
     else:
-        raise ValueError(f"axis must be 'host' or 'chip', got {axis!r}")
+        y = x.permute(2, 1, 0, *range(3, x.dim()))
     return list(y.contiguous().reshape((h * c,) + shape).unbind(0))
+
+
+def _grid_all_to_all_fleet(blocks, h: int, c: int, axis: str
+                           ) -> List[torch.Tensor]:
+    """:func:`_grid_all_to_all` over this process's shards of a spanning
+    mesh: each host row (``chip``) or chip column (``host``) holding a
+    local shard is one exchange over that row's or column's process
+    group, in ascending order on every process."""
+    local = _ids(h * c, blocks)
+    fleet = fleet_for(h * c)
+    rows, cols = fleet.groups(h, c)
+    out = {}
+    if axis == "chip":
+        # Shard (r, cc) gets [:, q] = shard (r, q)'s [:, cc].
+        for r, pg in enumerate(rows):
+            members = range(r * c, (r + 1) * c)
+            if not any(s in local for s in members):
+                continue
+            got = fleet.exchange(members, lambda src, dst: blocks[
+                src - local.start][:, dst % c], pg)
+            out.update({q: torch.stack(v, 1) for q, v in got.items()})
+    else:
+        # Shard (r, cc) gets [qh] = shard (qh, cc)'s [r].
+        for cc, pg in enumerate(cols):
+            members = range(cc, h * c, c)
+            if not any(s in local for s in members):
+                continue
+            got = fleet.exchange(members, lambda src, dst: blocks[
+                src - local.start][dst // c], pg)
+            out.update({q: torch.stack(v, 0) for q, v in got.items()})
+    return [out[q] for q in local]
 
 
 def build_hier_routing(
@@ -554,10 +607,11 @@ def exchange_one_hop(
     axes = _axes(axis_name, mesh_shape)
     key_by = _key_by(axes)
     b = seeds[0].shape[0]
+    ids = _ids(S, seeds)
     hier = (isinstance(routing[0], HierarchicalRouting)
             if routing is not None
             else _topology_choice(route, axes, mesh_shape) == "hier")
-    local = [None] * S
+    local = [None] * len(ids)
     if remote_cap is None:
         cap = b
         plans = list(routing) if routing is not None else None
@@ -573,16 +627,16 @@ def exchange_one_hop(
     else:
         cap = int(remote_cap)
         remote = []
-        for s in range(S):
+        for j, s in enumerate(ids):
             # Locally owned seeds: sampled here, no exchange.
-            owner = _owner(seeds[s], c)
+            owner = _owner(seeds[j], c)
             is_local = owner == s
             lout = sample_neighbors(
-                indptr[s], indices[s],
-                torch.where(is_local, seeds[s] - s * c, -1), fanout,
-                keys[s], edge_ids=edge_ids[s], key_by=key_by)
-            local[s] = (is_local, lout.nbrs, lout.eids)
-            remote.append(torch.where(is_local, PADDING_ID, seeds[s]))
+                indptr[j], indices[j],
+                torch.where(is_local, seeds[j] - s * c, -1), fanout,
+                keys[j], edge_ids=edge_ids[j], key_by=key_by)
+            local[j] = (is_local, lout.nbrs, lout.eids)
+            remote.append(torch.where(is_local, PADDING_ID, seeds[j]))
         if hier:
             h, cc, ha, ca = _hier_geometry(mesh_shape, axes)
             plans = build_hier_routing(remote, c, h, cc, ha, ca, cap=cap,
@@ -596,11 +650,11 @@ def exchange_one_hop(
     # Request exchange.  Flat: row q of shard s's requests = what shard q
     # wants from s.  Hier: row qh = host qh's unique wants from s.
     requests = (hier_requests(plans) if hier
-                else _all_to_all([p.buckets for p in plans]))
+                else _all_to_all([p.buckets for p in plans], S))
     served = [sample_neighbors(
-        indptr[s], indices[s], _served_local(requests[s], s, c), fanout,
-        trandom.fold_in(keys[s], 1), edge_ids=edge_ids[s], key_by=key_by)
-        for s in range(S)]
+        indptr[j], indices[j], _served_local(requests[j], s, c), fanout,
+        trandom.fold_in(keys[j], 1), edge_ids=edge_ids[j], key_by=key_by)
+        for j, s in enumerate(ids)]
 
     # Response exchange, then the stitch: each seed's answer from its slot.
     if hier:
@@ -611,13 +665,13 @@ def exchange_one_hop(
         resp = [(r[:, :fanout], r[:, fanout:]) for r in resp]
     elif _use_fused(fused):
         resp = _all_to_all([torch.cat([o.nbrs, o.eids], -1)
-                            for o in served])
+                            for o in served], S)
         resp = [(r[:, :fanout], r[:, fanout:]) for r in resp]
     else:
-        resp = list(zip(_all_to_all([o.nbrs for o in served]),
-                        _all_to_all([o.eids for o in served])))
+        resp = list(zip(_all_to_all([o.nbrs for o in served], S),
+                        _all_to_all([o.eids for o in served], S)))
     out = []
-    for s in range(S):
+    for s in range(len(ids)):
         p = flat[s]
         sel = p.valid[:, None]
         slot = p.slot.long()
@@ -671,14 +725,17 @@ def exchange_one_hop_ring(
     edge_ids, keys = _shards(edge_ids, S), _shards(keys, S)
     key_by = _key_by(_axes(axis_name, None))
     b = seeds[0].shape[0]
+    shard_ids = _ids(S, seeds)
+    spans = len(shard_ids) != S
 
-    def serve(s, ids, k):
-        return sample_neighbors(indptr[s], indices[s],
-                                _served_local(ids, s, c), fanout,
-                                trandom.fold_in(keys[s], k),
-                                edge_ids=edge_ids[s], key_by=key_by)
+    def serve(j, ids, k):
+        # Block j of this process is global shard shard_ids[j].
+        return sample_neighbors(indptr[j], indices[j],
+                                _served_local(ids, shard_ids[j], c), fanout,
+                                trandom.fold_in(keys[j], k),
+                                edge_ids=edge_ids[j], key_by=key_by)
 
-    local = [None] * S
+    local = [None] * len(shard_ids)
     if remote_cap is None:
         cap = b
         plans = (list(routing) if routing is not None else
@@ -687,22 +744,24 @@ def exchange_one_hop_ring(
     else:
         cap = int(remote_cap)
         plans = []
-        for s in range(S):
-            is_local = _owner(seeds[s], c) == s
-            lout = serve(s, torch.where(is_local, seeds[s], PADDING_ID), S)
-            local[s] = (is_local, lout.nbrs, lout.eids)
-            remote = torch.where(is_local, PADDING_ID, seeds[s])
+        for j, s in enumerate(shard_ids):
+            is_local = _owner(seeds[j], c) == s
+            lout = serve(j, torch.where(is_local, seeds[j], PADDING_ID), S)
+            local[j] = (is_local, lout.nbrs, lout.eids)
+            remote = torch.where(is_local, PADDING_ID, seeds[j])
             plans.append(_bucket_by_owner(remote, _owner(remote, c), S, cap,
                                           route))
 
     def rotate(xs):
         # ppermute i -> i + 1: shard j now holds what shard j - 1 held.
+        if spans:
+            return fleet_for(S).rotate(xs)
         return xs[-1:] + xs[:-1]
 
     def answer(reqs, ans, k):
-        for i in range(S):
-            o = serve(i, reqs[i][i], k)
-            ans[i][i] = torch.cat([o.nbrs, o.eids], -1)
+        for j, i in enumerate(shard_ids):
+            o = serve(j, reqs[j][i], k)
+            ans[j][i] = torch.cat([o.nbrs, o.eids], -1)
 
     reqs = [p.buckets.reshape(S, cap) for p in plans]
     ans = [torch.full((S, cap, 2 * fanout), PADDING_ID, dtype=torch.int32,
@@ -714,7 +773,7 @@ def exchange_one_hop_ring(
     if S > 1:
         ans = rotate(ans)
     out = []
-    for s in range(S):
+    for s in range(len(shard_ids)):
         p = plans[s]
         resp = ans[s].reshape(S * cap, 2 * fanout)[p.slot.long()]
         sel = p.valid[:, None]
@@ -791,26 +850,27 @@ def dist_edge_exists(
     S, c = num_shards, nodes_per_shard
     src, dst = _shards(src, S), _shards(dst, S)
     b = src[0].shape[0]
+    ids = _ids(S, src)
     plans, dst_b = [], []
-    for s in range(S):
-        plans.append(_bucket_by_owner(src[s], _owner(src[s], c), S, b, route))
-        dst_b.append(_bucket_payload(plans[-1], dst[s], S, b))
+    for j in range(len(ids)):
+        plans.append(_bucket_by_owner(src[j], _owner(src[j], c), S, b, route))
+        dst_b.append(_bucket_payload(plans[-1], dst[j], S, b))
     if _use_fused(fused):
         req = _all_to_all([torch.stack([p.buckets, d], -1)
-                           for p, d in zip(plans, dst_b)])
+                           for p, d in zip(plans, dst_b)], S)
         req = [(r[:, 0], r[:, 1]) for r in req]
     else:
-        req = list(zip(_all_to_all([p.buckets for p in plans]),
-                       _all_to_all(dst_b)))
+        req = list(zip(_all_to_all([p.buckets for p in plans], S),
+                       _all_to_all(dst_b, S)))
     verdicts = []
-    for s, (req_s, req_d) in enumerate(req):
+    for j, (s, (req_s, req_d)) in enumerate(zip(ids, req)):
         local = req_s - s * c
         ok = (req_s >= 0) & (local >= 0) & (local < c)
-        ex = _pair_exists(rows_s[s], dsts_s[s],
+        ex = _pair_exists(rows_s[j], dsts_s[j],
                           _i32(torch.where(ok, local, 0)),
                           _i32(torch.where(ok, req_d, 0)))
         verdicts.append(_i32(ex & ok))
-    resp = _all_to_all(verdicts)
+    resp = _all_to_all(verdicts, S)
     return [torch.where(p.valid, resp[s][p.slot.long()] > 0, False)
             for s, p in enumerate(plans)]
 
@@ -842,27 +902,28 @@ def dist_node_subgraph(
     indptr, indices = _shards(indptr, S), _shards(indices, S)
     edge_ids, nodes = _shards(edge_ids, S), _shards(nodes, S)
     b = nodes[0].shape[0]
+    ids = _ids(S, nodes)
     plans = [build_routing(n, c, S, route=route) for n in nodes]
-    requests = _all_to_all([p.buckets for p in plans])
+    requests = _all_to_all([p.buckets for p in plans], S)
     rows_out = []
-    for s in range(S):
-        req = requests[s]
+    for j, s in enumerate(ids):
+        req = requests[j]
         local = torch.where(req >= 0, req - s * c, -1)
         local = _i32(torch.where((local >= 0) & (local < c), local, -1))
-        start, deg = _row_offsets_and_degrees(indptr[s], local)
+        start, deg = _row_offsets_and_degrees(indptr[j], local)
         offs = torch.arange(D, dtype=torch.int32, device=req.device)[None, :]
         in_row = (offs < deg[:, None]) & (local >= 0)[:, None]
         flat = (_i32(start)[:, None] + torch.where(in_row, offs, 0)).long()
-        flat = flat.clamp(0, max(indices[s].shape[0] - 1, 0))
-        nbrs = torch.where(in_row, _i32(indices[s][flat]), PADDING_ID)
-        eids = torch.where(in_row, _i32(edge_ids[s][flat]), PADDING_ID)
+        flat = flat.clamp(0, max(indices[j].shape[0] - 1, 0))
+        nbrs = torch.where(in_row, _i32(indices[j][flat]), PADDING_ID)
+        eids = torch.where(in_row, _i32(edge_ids[j][flat]), PADDING_ID)
         rows_out.append((nbrs, eids))
     if _use_fused(fused):
-        resp = _all_to_all([torch.cat([n, e], -1) for n, e in rows_out])
+        resp = _all_to_all([torch.cat([n, e], -1) for n, e in rows_out], S)
         resp = [(r[:, :D], r[:, D:]) for r in resp]
     else:
-        resp = list(zip(_all_to_all([n for n, _ in rows_out]),
-                        _all_to_all([e for _, e in rows_out])))
+        resp = list(zip(_all_to_all([n for n, _ in rows_out], S),
+                        _all_to_all([e for _, e in rows_out], S)))
     out = []
     for s, p in enumerate(plans):
         sel = p.valid[:, None]
@@ -961,12 +1022,12 @@ def dist_sample_multi_hop(
     if dedup == "auto":
         dedup = "dense" if dense_map_fits(num_global) else "sort"
     dense = dedup == "dense"
-    st = [_ShardState(_i32(seeds[s]), num_global, cap, dense, widths[0])
-          for s in range(S)]
+    st = [_ShardState(_i32(x), num_global, cap, dense, widths[0])
+          for x in seeds]
     hop_keys = [trandom.split(k, len(fanouts)) for k in _shards(keys, S)]
     leaf_off = cap - widths[-1] * fanouts[-1]
-    dropped_total = [torch.zeros((), dtype=torch.int32,
-                                 device=seeds[s].device) for s in range(S)]
+    dropped_total = [torch.zeros((), dtype=torch.int32, device=x.device)
+                     for x in seeds]
 
     for i, f in enumerate(fanouts):
         w = widths[i]
@@ -1092,7 +1153,10 @@ def _stack_outputs(outs: Sequence[SamplerOutput]) -> SamplerOutput:
 def seeds_on_mesh(seeds, mesh: Mesh) -> torch.Tensor:
     """``[S, B]`` host seeds (numpy or a tensor) as an int32 tensor on the
     mesh's device.  A host array goes through pinned memory, so the
-    copy does not wait for the device."""
+    copy does not wait for the device.  On a mesh that spans processes
+    every shard's rows or this process's (``[S_local, B]``) may come in;
+    this process's go out."""
+    seeds = local_rows(seeds, mesh)
     if isinstance(seeds, torch.Tensor):
         return seeds.to(device=mesh.device, dtype=torch.int32)
     host = torch.from_numpy(np.ascontiguousarray(seeds, dtype=np.int32))
@@ -1182,7 +1246,7 @@ class DistNeighborSampler:
         g = self.g
         return dist_sample_multi_hop(
             g.indptr, g.indices, g.edge_ids, seeds,
-            [trandom.fold_in(key, s) for s in range(g.num_shards)],
+            [trandom.fold_in(key, s) for s in self.mesh.local],
             self.num_neighbors, g.nodes_per_shard, g.num_shards,
             self.frontier_cap, self.collective,
             last_hop_dedup=self.last_hop_dedup,
@@ -1268,7 +1332,8 @@ class DistNeighborSampler:
         S, c = g.num_shards, g.nodes_per_shard
         q = src[0].shape[0]
         counts = self._valid_per_shard()
-        ks = [trandom.split(trandom.fold_in(key, s)) for s in range(S)]
+        local = self.mesh.local
+        ks = [trandom.split(trandom.fold_in(key, s)) for s in local]
         kneg, ksample = [k[0] for k in ks], [k[1] for k in ks]
 
         def uniform_ids(k, n):
@@ -1283,14 +1348,14 @@ class DistNeighborSampler:
             rows_s, dsts_s = strict_view
             dev = valid[0].device
             best_s = [torch.full((n,), PADDING_ID, dtype=torch.int32,
-                                 device=dev) for _ in range(S)]
+                                 device=dev) for _ in local]
             best_d = [b.clone() for b in best_s]
             found = [torch.zeros(n, dtype=torch.bool, device=dev)
-                     for _ in range(S)]
+                     for _ in local]
             last = None
             for t in range(trials):
                 draws = []
-                for s in range(S):
+                for s in range(len(local)):
                     kt = trandom.split(trandom.fold_in(keys[s], t))
                     a = (fixed_src[s] if fixed_src is not None
                          else uniform_ids(kt[0], n))
@@ -1391,7 +1456,8 @@ class DistNeighborSampler:
         # Exact dedup: the induced extract relabels against a unique set.
         base = dist_sample_multi_hop(
             g.indptr, g.indices, g.edge_ids, list(seeds),
-            [trandom.fold_in(key, s) for s in range(S)], self.num_neighbors,
+            [trandom.fold_in(key, s) for s in self.mesh.local],
+            self.num_neighbors,
             g.nodes_per_shard, S, self.frontier_cap, self.collective,
             last_hop_dedup=True, route=self.route, fused=self.fused,
             axis_name=self.axis_name)

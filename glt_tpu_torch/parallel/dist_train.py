@@ -37,6 +37,16 @@ and :class:`HeteroTieredTrainPipeline` with some node types tiered).  On
 a 2-D ``(host, chip)`` mesh every step takes the route its ``route``
 resolves to, flat or hierarchical, with the same batches either way;
 ``step.collective_bytes`` splits the static bytes by fabric.
+
+On a mesh that spans processes
+(:func:`~glt_tpu_torch.parallel.multihost.global_mesh`) each process
+runs its own shards: it takes the backward of its shards' losses over
+S, all-reduces the gradients in one flat buffer (``glt_tpu``'s
+``pmean``) and steps, so every process holds the same parameters and
+optimizer state; the loss and accuracy are all-reduced too, and a fully
+padded batch is decided over every process's seeds.  A gloo collective
+is host work, so no spanning step is a CUDA graph: every step, stage
+and scanned slot runs eagerly on the card.
 """
 from __future__ import annotations
 
@@ -66,8 +76,9 @@ from .dist_feature import (HostColdStore, TieredShardedFeature,
 from .dist_sampler import (DistNeighborSampler, _topology_choice,
                            dist_sample_multi_hop, exchange_byte_model,
                            hier_request_cap, seeds_on_mesh)
-from .multihost import (Mesh, local_shard_range, mesh_axis_sizes,
-                        resolve_mesh_axes)
+from .dist_sampler import _ids
+from .multihost import (Fleet, Mesh, local_rows, local_shard_range,
+                        mesh_axis_sizes, resolve_mesh_axes)
 from .sharding import (ShardedFeature, ShardedGraph, check_on_mesh,
                        torch_dtype)
 
@@ -119,6 +130,68 @@ def _byte_counters(byte_model):
     return record
 
 
+def _fleet(mesh: Mesh) -> Optional[Fleet]:
+    """The fleet of a mesh that spans processes, else None."""
+    return mesh.fleet if mesh.spans else None
+
+
+def _shard_mean(values: Sequence[torch.Tensor], num_shards: int,
+                fleet: Optional[Fleet]) -> torch.Tensor:
+    """The mean over the mesh's shards of per-shard scalars: in one
+    process of all of them; across processes this process's share (its
+    shards' sum over S), which :func:`_reduce` completes."""
+    if fleet is None:
+        return torch.stack(values).mean()
+    return torch.stack(values).sum() / num_shards
+
+
+def _reduce(x: torch.Tensor, fleet: Optional[Fleet]) -> torch.Tensor:
+    """The all-reduce of a :func:`_shard_mean` share (detached)."""
+    return x if fleet is None else fleet.all_reduce(x.detach())
+
+
+def _all_reduce_grads(opt: torch.optim.Optimizer, fleet: Fleet) -> None:
+    """Sum every parameter's gradient over the processes: one flat
+    buffer a dtype, staged through host memory (a missing gradient is
+    zeros, so every process sends the same layout)."""
+    params = [p for grp in opt.param_groups for p in grp["params"]]
+    for dt in sorted({p.dtype for p in params}, key=str):
+        ps = [p for p in params if p.dtype == dt]
+        flat = fleet.all_reduce(torch.cat([
+            (p.grad if p.grad is not None else torch.zeros_like(p))
+            .reshape(-1) for p in ps]))
+        off = 0
+        for p in ps:
+            p.grad = flat[off: off + p.numel()].view_as(p)
+            off += p.numel()
+
+
+def _update(opt: torch.optim.Optimizer, loss: torch.Tensor,
+            fleet: Optional[Fleet], real: Optional[torch.Tensor] = None
+            ) -> None:
+    """Backward and one optimizer step (kept where the device bool
+    ``real`` holds, when given); across processes the gradients are
+    all-reduced between the two."""
+    if fleet is None and real is None:
+        _backward_and_step(opt, loss)
+        return
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    if fleet is not None:
+        _all_reduce_grads(opt, fleet)
+    if real is None:
+        opt.step()
+    else:
+        _masked_step(opt, real)
+
+
+def _global_real(host: np.ndarray, mesh: Mesh) -> bool:
+    """Whether any process's seeds of this batch hold a real id."""
+    real = bool((host >= 0).any())
+    fleet = _fleet(mesh)
+    return real if fleet is None else bool(fleet.any_host(np.array(real)))
+
+
 def _gather_xy_local(node, rows, labels_blk, f, g, dedup_gather, route,
                      fused, fuse_xy, fused_frontier=False, mesh_shape=None,
                      hier_load_factor=None
@@ -132,6 +205,7 @@ def _gather_xy_local(node, rows, labels_blk, f, g, dedup_gather, route,
     hierarchical route (the same rows).  Returns, per shard, ``(x, y)``
     with ``y = -1`` at padding."""
     S = g.num_shards
+    n = len(node)
     hkw = dict(mesh_shape=mesh_shape, hier_load_factor=hier_load_factor)
     if fuse_xy:
         xy = exchange_gather_xy(node, rows, labels_blk, f.nodes_per_shard,
@@ -139,7 +213,7 @@ def _gather_xy_local(node, rows, labels_blk, f, g, dedup_gather, route,
                                 route=route, fused=fused,
                                 fused_frontier=fused_frontier, **hkw)
     else:
-        lab = [labels_blk[s][:, None].to(torch.int32) for s in range(S)]
+        lab = [labels_blk[s][:, None].to(torch.int32) for s in range(n)]
         if dedup_gather:
             # ONE unique pass feeds both exchanges.
             un = [unique_first_occurrence(n) for n in node]
@@ -151,16 +225,16 @@ def _gather_xy_local(node, rows, labels_blk, f, g, dedup_gather, route,
                                  route=route, **hkw)
             xy = [(_dedup_scatter_back(ux[s], un[s].inverse),
                    _dedup_scatter_back(uy[s], un[s].inverse)[:, 0])
-                  for s in range(S)]
+                  for s in range(n)]
         else:
             x = exchange_gather(node, rows, f.nodes_per_shard, f.num_shards,
                                 route=route, fused_frontier=fused_frontier,
                                 **hkw)
             y = exchange_gather(node, lab, g.nodes_per_shard, S,
                                 route=route, **hkw)
-            xy = [(x[s], y[s][:, 0]) for s in range(S)]
-    return [(x, torch.where(n >= 0, y, PADDING_ID))
-            for (x, y), n in zip(xy, node)]
+            xy = [(x[s], y[s][:, 0]) for s in range(n)]
+    return [(x, torch.where(i >= 0, y, PADDING_ID))
+            for (x, y), i in zip(xy, node)]
 
 
 def _masked_step(opt: torch.optim.Optimizer, real: torch.Tensor) -> None:
@@ -211,9 +285,11 @@ def sample_and_gather(g: ShardedGraph, f: ShardedFeature,
     key, s)``, then every shard gathers its node list's features and
     labels (on a 2-D mesh both over the route ``route`` resolves to).
     Returns ``(keys, outs, xy)``, per shard: the key, the
-    :class:`~glt_tpu_torch.sampler.base.SamplerOutput` and ``(x, y)``."""
+    :class:`~glt_tpu_torch.sampler.base.SamplerOutput` and ``(x, y)``.
+    On a mesh that spans processes ``seeds`` holds this process's rows,
+    and so do the results."""
     S = g.num_shards
-    keys = [trandom.fold_in(key, s) for s in range(S)]
+    keys = [trandom.fold_in(key, s) for s in _ids(S, seeds)]
     outs = dist_sample_multi_hop(
         g.indptr, g.indices, g.edge_ids, seeds, keys, num_neighbors,
         g.nodes_per_shard, S, frontier_cap, last_hop_dedup=last_hop_dedup,
@@ -232,11 +308,13 @@ def sample_and_gather(g: ShardedGraph, f: ShardedFeature,
 
 def _mesh_loss(model, g: ShardedGraph, f: ShardedFeature,
                labels: torch.Tensor, seeds: torch.Tensor, key: torch.Tensor,
-               num_neighbors: Sequence[int], batch_size: int, skw: dict):
+               num_neighbors: Sequence[int], batch_size: int, skw: dict,
+               fleet: Optional[Fleet] = None):
     """One batch of every shard (``seeds [S, B]`` on the mesh's device):
     sample and gather (:func:`sample_and_gather`, the knobs in ``skw``),
     each shard's forward with its own key as the dropout key, and the
-    means over the shards of the seed losses and accuracies."""
+    means over the shards of the seed losses and accuracies (across
+    processes this process's shares, :func:`_shard_mean`)."""
     keys, outs, xy = sample_and_gather(g, f, labels, seeds, key,
                                        num_neighbors, **skw)
     losses, accs = [], []
@@ -247,7 +325,8 @@ def _mesh_loss(model, g: ShardedGraph, f: ShardedFeature,
                                            out.node_mask)
         losses.append(loss_s)
         accs.append(acc_s.to(torch.float32))
-    return torch.stack(losses).mean(), torch.stack(accs).mean()
+    return (_shard_mean(losses, g.num_shards, fleet),
+            _shard_mean(accs, g.num_shards, fleet))
 
 
 def _check_step_args(g: ShardedGraph, f, labels: torch.Tensor, mesh: Mesh,
@@ -312,10 +391,13 @@ def make_dist_train_step(
     as 'flat'); ``hier_load_factor`` bounds its cross-host leg.  The
     step carries its static byte model as ``step.collective_bytes`` and
     adds it to the ``glt.dist.collective_bytes{axis=}`` counters per
-    call.
+    call.  On a mesh that spans processes ``seeds`` may hold every
+    shard's rows or this process's, and the step runs as the module
+    docstring says.
     """
     axis_name, mesh_shape = _check_step_args(g, f, labels, mesh, axis_name)
     dev = mesh.device
+    fleet = _fleet(mesh)
     byte_model = dist_step_byte_model(
         g.nodes_per_shard, g.num_shards, num_neighbors, batch_size,
         frontier_cap, f.rows.shape[-1], axis_name, mesh_shape, route=route,
@@ -330,17 +412,18 @@ def make_dist_train_step(
     def step(state: TrainState, seeds, key: torch.Tensor):
         record_bytes()
         _check_model(state, dev)
-        host = _host_seeds(seeds)
+        host = local_rows(_host_seeds(seeds), mesh)
         seeds_dev = seeds_on_mesh(host, mesh)
         model, opt = state.model, state.optimizer
         loss, acc = _mesh_loss(model, g, f, labels, seeds_dev, key,
-                               num_neighbors, batch_size, skw)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        _masked_step(opt, (seeds_dev >= 0).any())
-        real = bool((host >= 0).any())
+                               num_neighbors, batch_size, skw, fleet)
+        real = _global_real(host, mesh)
+        if fleet is None:
+            _update(opt, loss, None, (seeds_dev >= 0).any())
+        else:
+            _update(opt, loss, fleet, torch.tensor(real, device=dev))
         return (TrainState(model, opt, state.step + int(real)),
-                loss.detach(), acc)
+                _reduce(loss, fleet).detach(), _reduce(acc, fleet))
 
     step.collective_bytes = byte_model
     return step
@@ -385,10 +468,14 @@ def make_scanned_dist_train_step(
     replays it; captures count under the compilewatch label
     ``scanned_dist_step``.  The byte counters add ``G`` steps a call on
     the host, outside the graph.  On the CPU every call runs eagerly.
+    On a mesh that spans processes ``seeds_blk`` holds every shard's
+    rows or this process's (``[G, S_local, B]``), a slot is real when
+    any process's seeds are, and every slot runs eagerly.
     """
     axis_name, mesh_shape = _check_step_args(g, f, labels, mesh, axis_name)
     dev = mesh.device
     S = g.num_shards
+    fleet = _fleet(mesh)
     byte_model = dist_step_byte_model(
         g.nodes_per_shard, S, num_neighbors, batch_size, frontier_cap,
         f.rows.shape[-1], axis_name, mesh_shape, route=route,
@@ -411,21 +498,32 @@ def make_scanned_dist_train_step(
                 accs.append(zero_f)
                 continue
             loss, acc = _mesh_loss(model, g, f, labels, seeds[i], keys[i],
-                                   num_neighbors, batch_size, skw)
-            _backward_and_step(opt, loss)
-            losses.append(loss.detach())
-            accs.append(acc)
+                                   num_neighbors, batch_size, skw, fleet)
+            _update(opt, loss, fleet)
+            losses.append(_reduce(loss, fleet).detach())
+            accs.append(_reduce(acc, fleet))
         return torch.stack(losses), torch.stack(accs)
 
     blocks = _ScannedBlocks(dev, block, None, "scanned_dist_step")
+    n_local = len(mesh.local)
 
     def step(state: TrainState, seeds_blk, key: torch.Tensor):
         blk = _host_seeds(seeds_blk)
-        if blk.ndim != 3 or blk.shape[1:] != (S, batch_size):
-            raise ValueError(f"expected [G, {S}, {batch_size}] seeds, got "
-                             f"{tuple(blk.shape)}")
+        if fleet is not None and blk.ndim == 3 and blk.shape[1] == S:
+            blk = blk[:, mesh.local.start: mesh.local.stop]
+        if blk.ndim != 3 or blk.shape[1:] != (n_local, batch_size):
+            raise ValueError(f"expected [G, {n_local}, {batch_size}] seeds, "
+                             f"got {tuple(blk.shape)}")
         record_bytes(int(blk.shape[0]))
-        return blocks(state, blk, key)
+        if fleet is None:
+            return blocks(state, blk, key)
+        _check_model(state, dev)
+        real = tuple(bool(r) for r in fleet.any_host(
+            (blk.reshape(blk.shape[0], -1) >= 0).any(axis=1)))
+        losses, accs = block(state.model, state.optimizer,
+                             (torch.from_numpy(blk).to(dev),), key, real)
+        return (TrainState(state.model, state.optimizer,
+                           state.step + sum(real)), losses, accs)
 
     step.collective_bytes = byte_model
     return step
@@ -494,14 +592,16 @@ class _Graphed:
     eagerly (it creates Adam's state); the next captures, under the
     compilewatch label ``label``; every later call copies its inputs
     into the graph's and replays it.  Returned tensors are the caller's
-    own (a replay rewrites the graph's outputs).  On the CPU every call
-    runs eagerly."""
+    own (a replay rewrites the graph's outputs).  On the CPU, and with
+    ``eager`` (a mesh that spans processes: its collectives are host
+    work), every call runs eagerly."""
 
     def __init__(self, fn: Callable, label: str,
-                 held: Callable[[], tuple] = tuple):
+                 held: Callable[[], tuple] = tuple, eager: bool = False):
         self.fn = fn
         self.label = label
         self.held = held
+        self.eager = eager
         self._programs = {}  # pattern -> (CapturedProgram, storage)
         self._warm = {}      # pattern -> storage of its eager call
 
@@ -509,7 +609,7 @@ class _Graphed:
         return tuple(t.data_ptr() for t in self.held())
 
     def __call__(self, *inputs) -> tuple:
-        if not inputs[0].is_cuda:
+        if self.eager or not inputs[0].is_cuda:
             return self.fn(*inputs)
         pattern = tuple((tuple(t.shape), t.dtype) for t in inputs)
         now = self._storage()
@@ -570,13 +670,16 @@ def make_tiered_train_step(
 
     On the card the step is one CUDA graph per input shape (captured
     on the second call, under the compilewatch label
-    ``tiered_train_step``; see :class:`_Graphed`).
+    ``tiered_train_step``; see :class:`_Graphed`); on a mesh that spans
+    processes it runs eagerly, over this process's shards.
     """
     _, mesh_shape = _check_step_args(g, f, labels, mesh, axis_name)
     hkw = dict(mesh_shape=mesh_shape, hier_load_factor=hier_load_factor)
     S = g.num_shards
     c, h = f.nodes_per_shard, f.hot_per_shard
     fuse_xy = f.nodes_per_shard == g.nodes_per_shard and f.num_shards == S
+    fleet = _fleet(mesh)
+    local = mesh.local
     cur = {}
 
     def body(node, row, col, edge_mask, node_mask, rows, slots, key):
@@ -592,26 +695,28 @@ def make_tiered_train_step(
                                     staged_rows=rows, staged_slots=slots,
                                     dedup=dedup_gather, route=route,
                                     fused_frontier=fused_frontier, **hkw)
-            y = exchange_gather(node, [labels[s][:, None].to(torch.int32)
-                                       for s in range(S)],
+            y = exchange_gather(node, [lab[:, None].to(torch.int32)
+                                       for lab in labels],
                                 g.nodes_per_shard, S, dedup=dedup_gather,
                                 route=route, **hkw)
-            xy = [(x[s], y[s][:, 0]) for s in range(S)]
+            xy = [(a, b[:, 0]) for a, b in zip(x, y)]
         losses, accs = [], []
-        for s, (x, y) in enumerate(xy):
-            y = torch.where(node[s] >= 0, y, PADDING_ID)
-            logits = model(x, torch.stack([row[s], col[s]]), edge_mask[s],
-                           dropout_key=trandom.fold_in(key, s))
+        for j, (x, y) in enumerate(xy):
+            y = torch.where(node[j] >= 0, y, PADDING_ID)
+            logits = model(x, torch.stack([row[j], col[j]]), edge_mask[j],
+                           dropout_key=trandom.fold_in(key, local[j]))
             loss_s, acc_s = seed_cross_entropy(logits, y, batch_size,
-                                               node_mask[s])
+                                               node_mask[j])
             losses.append(loss_s)
             accs.append(acc_s.to(torch.float32))
-        loss = torch.stack(losses).mean()
-        _backward_and_step(opt, loss)
-        return loss.detach(), torch.stack(accs).mean()
+        loss = _shard_mean(losses, S, fleet)
+        _update(opt, loss, fleet)
+        return (_reduce(loss, fleet).detach(),
+                _reduce(_shard_mean(accs, S, fleet), fleet))
 
     graphed = _Graphed(body, "tiered_train_step",
-                       lambda: _state_tensors(cur["state"]))
+                       lambda: _state_tensors(cur["state"]),
+                       eager=fleet is not None)
 
     def train(state: TrainState, out: SamplerOutput, staged,
               key: torch.Tensor):
@@ -777,7 +882,10 @@ class TieredTrainPipeline(_ColdStagePipeline):
     stream; the main stream waits for that copy's event before the
     train step, and the copy into a ring slot waits for the train that
     last read it.  The train step copies the staged rows into its
-    graph's input on the main stream.
+    graph's input on the main stream.  On a mesh that spans processes
+    each process samples, stages and trains its own shards (the cold
+    rows of its shards only; ``flush_dropped`` and ``max_cold_rows``
+    count them), and the stage runs eagerly.
     """
 
     def __init__(self, sampler: DistNeighborSampler, train_step,
@@ -815,7 +923,8 @@ class TieredTrainPipeline(_ColdStagePipeline):
         self.max_cold_rows = 0
         self.dedup_gather = bool(dedup_gather)
         self.route = route
-        self._stage_prog = _Graphed(self._stage_body, "tiered_stage")
+        self._stage_prog = _Graphed(self._stage_body, "tiered_stage",
+                                    eager=mesh.spans)
         dev = mesh.device
         self._cuda = dev.type == "cuda"
         shape = (len(self._local), self.cold_cap, self.cold_store.dim)
@@ -871,7 +980,7 @@ class TieredTrainPipeline(_ColdStagePipeline):
         ring slot)``."""
         flip = self._flip
         self._flip ^= 1
-        local = ids[self._local.start:self._local.stop]
+        local = ids    # this process's shards' rows
         if self._cuda:
             routed = torch.cuda.Event()
             routed.record()
@@ -955,7 +1064,8 @@ def init_dist_state(model: torch.nn.Module, tx: OptimizerFactory,
 
 
 # -- heterogeneous graphs across shards --------------------------------------
-def _hetero_xy(nodes, rows, meta, labels, tgt, fuse_xy, fused, staged, hkw):
+def _hetero_xy(nodes, rows, meta, labels, tgt, fuse_xy, fused, staged, hkw,
+               num_shards):
     """Every shard's per-type features and target labels for its sampled
     node lists (``nodes``: type -> per-shard lists; ``rows``: type ->
     ``[S, n, d]`` device rows, a tiered type's hot tier; ``meta``: type
@@ -963,8 +1073,9 @@ def _hetero_xy(nodes, rows, meta, labels, tgt, fuse_xy, fused, staged, hkw):
     ``staged``: tiered type -> compact cold staging).  The target type's
     rows and labels ride one exchange when their id spaces agree
     (``fuse_xy``); a tiered type scatters its staged cold rows into its
-    exchange's response.  Returns per shard ``(x dict, y)``, ``y = -1``
-    at padding."""
+    exchange's response.  ``num_shards``: the mesh's S (the lists hold
+    this process's shards).  Returns per shard ``(x dict, y)``, ``y =
+    -1`` at padding."""
     S = len(nodes[tgt])
     xs = [{} for _ in range(S)]
     ys = None
@@ -989,16 +1100,18 @@ def _hetero_xy(nodes, rows, meta, labels, tgt, fuse_xy, fused, staged, hkw):
     if ys is None:
         ys = [y[:, 0] for y in exchange_gather(
             nodes[tgt], [labels[s][:, None].to(torch.int32)
-                         for s in range(S)], int(labels.shape[1]), S,
-            **hkw)]
+                         for s in range(S)], int(labels.shape[1]),
+            num_shards, **hkw)]
     return [(x, torch.where(n >= 0, y, PADDING_ID))
             for x, y, n in zip(xs, ys, nodes[tgt])]
 
 
-def _hetero_loss(model, outs, xy, keys, tgt, batch_size):
+def _hetero_loss(model, outs, xy, keys, tgt, batch_size, num_shards,
+                 fleet=None):
     """The mean over the shards of the seed loss and accuracy of each
     shard's forward (``outs``: per-shard hetero outputs, ``keys``: each
-    shard's dropout key)."""
+    shard's dropout key; across processes this process's shares,
+    :func:`_shard_mean`)."""
     losses, accs = [], []
     for out, (x, y), k in zip(outs, xy, keys):
         edge_index = {et: torch.stack([out.row[et], out.col[et]])
@@ -1008,7 +1121,8 @@ def _hetero_loss(model, outs, xy, keys, tgt, batch_size):
                                        out.node_mask[tgt])
         losses.append(loss)
         accs.append(acc.to(torch.float32))
-    return torch.stack(losses).mean(), torch.stack(accs).mean()
+    return (_shard_mean(losses, num_shards, fleet),
+            _shard_mean(accs, num_shards, fleet))
 
 
 def _hetero_meta(sampler, feats, labels, mesh: Mesh, axis_name):
@@ -1066,7 +1180,8 @@ def make_hetero_dist_train_step(
 
     On the card the step is one CUDA graph (captured on the second call
     under the compilewatch label ``hetero_dist_step``; see
-    :class:`_Graphed`); on the CPU it runs eagerly.
+    :class:`_Graphed`); on the CPU, and on a mesh that spans processes,
+    it runs eagerly.
     """
     mesh_shape, meta, fuse_xy = _hetero_meta(sampler, feats, labels, mesh,
                                              axis_name)
@@ -1075,33 +1190,36 @@ def make_hetero_dist_train_step(
     rows = {t: f.rows for t, f in feats.items()}
     hkw = dict(route=route, mesh_shape=mesh_shape,
                hier_load_factor=hier_load_factor)
+    fleet = _fleet(mesh)
     cur = {}
 
     def body(seeds, key):
         model, opt = cur["state"].model, cur["state"].optimizer
-        keys = [trandom.split(trandom.fold_in(key, s)) for s in range(S)]
+        keys = [trandom.split(trandom.fold_in(key, s)) for s in mesh.local]
         outs = sampler.local_sample(list(seeds), [k[1] for k in keys])
         xy = _hetero_xy({t: [o.node[t] for o in outs] for t in outs[0].node},
-                        rows, meta, labels, tgt, fuse_xy, fused, {}, hkw)
+                        rows, meta, labels, tgt, fuse_xy, fused, {}, hkw, S)
         loss, acc = _hetero_loss(model, outs, xy, [k[0] for k in keys], tgt,
-                                 batch_size)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        _masked_step(opt, (seeds >= 0).any())
-        return loss.detach(), acc
+                                 batch_size, S, fleet)
+        real = cur["real"] if fleet is not None else (seeds >= 0).any()
+        _update(opt, loss, fleet, real)
+        return _reduce(loss, fleet).detach(), _reduce(acc, fleet)
 
     graphed = _Graphed(body, "hetero_dist_step",
-                       lambda: _state_tensors(cur["state"]))
+                       lambda: _state_tensors(cur["state"]),
+                       eager=fleet is not None)
 
     def step(state: TrainState, seeds, key: torch.Tensor):
         _check_model(state, mesh.device)
-        host = _host_seeds(seeds)
+        host = local_rows(_host_seeds(seeds), mesh)
+        real = _global_real(host, mesh)
         cur["state"] = state
+        if fleet is not None:
+            cur["real"] = torch.tensor(real, device=mesh.device)
         try:
             loss, acc = graphed(seeds_on_mesh(host, mesh), key)
         finally:
             cur.clear()
-        real = bool((host >= 0).any())
         return (TrainState(state.model, state.optimizer,
                            state.step + int(real)), loss, acc)
 
@@ -1132,12 +1250,15 @@ def make_hetero_tiered_train_step(
     ``fold_in(key, s)``, and the update always runs, as in ``glt_tpu``.
     On the card the step is one CUDA graph per pattern of input shapes,
     every type's staged buffers among them (label
-    ``hetero_tiered_train_step``; see :class:`_Graphed`).
+    ``hetero_tiered_train_step``; see :class:`_Graphed`); on a mesh that
+    spans processes it runs eagerly, over this process's shards.
     """
     mesh_shape, meta, fuse_xy = _hetero_meta(sampler, feats, labels, mesh,
                                              axis_name)
     tgt = sampler.input_type
     S = sampler.num_shards
+    fleet = _fleet(mesh)
+    local = mesh.local
     rows = {t: _device_rows(f) for t, f in feats.items()}
     tiered = sorted(t for t, f in feats.items()
                     if isinstance(f, TieredShardedFeature))
@@ -1155,21 +1276,23 @@ def make_hetero_tiered_train_step(
         staged = {t: (next(it), next(it)) for t in tiered}
         key = next(it)
         outs = [HeteroSamplerOutput(
-            node={t: node[t][s] for t in types},
-            row={et: coo[et][0][s] for et in ets},
-            col={et: coo[et][1][s] for et in ets}, edge={},
-            node_mask={tgt: mask[s]},
-            edge_mask={et: coo[et][2][s] for et in ets}) for s in range(S)]
+            node={t: node[t][j] for t in types},
+            row={et: coo[et][0][j] for et in ets},
+            col={et: coo[et][1][j] for et in ets}, edge={},
+            node_mask={tgt: mask[j]},
+            edge_mask={et: coo[et][2][j] for et in ets})
+            for j in range(len(local))]
         xy = _hetero_xy({t: list(node[t]) for t in types}, rows, meta,
-                        labels, tgt, fuse_xy, fused, staged, hkw)
+                        labels, tgt, fuse_xy, fused, staged, hkw, S)
         loss, acc = _hetero_loss(model, outs, xy,
-                                 [trandom.fold_in(key, s) for s in range(S)],
-                                 tgt, batch_size)
-        _backward_and_step(opt, loss)
-        return loss.detach(), acc
+                                 [trandom.fold_in(key, s) for s in local],
+                                 tgt, batch_size, S, fleet)
+        _update(opt, loss, fleet)
+        return _reduce(loss, fleet).detach(), _reduce(acc, fleet)
 
     graphed = _Graphed(body, "hetero_tiered_train_step",
-                       lambda: _state_tensors(cur["state"]))
+                       lambda: _state_tensors(cur["state"]),
+                       eager=fleet is not None)
 
     def train(state: TrainState, out: HeteroSamplerOutput, staged,
               key: torch.Tensor):
@@ -1230,7 +1353,8 @@ class HeteroTieredTrainPipeline(_ColdStagePipeline):
     pinned memory on a side stream after one event, the staging thread
     gathers each type into its pinned two-slot ring and copies the slot
     to the card on a copy stream, and the train step waits on that
-    copy's event.
+    copy's event.  On a mesh that spans processes each process runs its
+    own shards, as :class:`TieredTrainPipeline` does.
     """
 
     def __init__(self, sampler, train_step, feats, mesh: Mesh,
@@ -1259,7 +1383,8 @@ class HeteroTieredTrainPipeline(_ColdStagePipeline):
         self.max_cold_rows = {t: 0 for t in self.types}
         self.last_dropped = None
         self._spec = None
-        self._stage_prog = _Graphed(self._stage_body, "hetero_tiered_stage")
+        self._stage_prog = _Graphed(self._stage_body, "hetero_tiered_stage",
+                                    eager=mesh.spans)
         dev = mesh.device
         self._cuda = dev.type == "cuda"
         self._flip = 0
@@ -1315,8 +1440,7 @@ class HeteroTieredTrainPipeline(_ColdStagePipeline):
         train step's ``{type: (rows, slots)}``."""
         flip = self._flip
         self._flip ^= 1
-        lo, hi = self._local.start, self._local.stop
-        local = {t: ids[t][lo:hi] for t in self.types}
+        local = dict(ids)    # this process's shards' rows
         if self._cuda:
             routed = torch.cuda.Event()
             routed.record()

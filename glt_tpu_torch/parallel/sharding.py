@@ -139,18 +139,25 @@ def shard_feature(feature: np.ndarray, num_shards: int, dtype=None,
                           num_shards=num_shards)
 
 
+def _held(mesh) -> str:
+    """How many of a mesh's shards this process holds, when not all."""
+    n = len(mesh.local)
+    return "" if n == mesh.size else f" ({n} of them in this process)"
+
+
 def put_sharded(sharded, mesh, axis: Optional[str] = None):
     """Place each shard's block (the leading axis of every tensor field)
-    on its mesh device.  The mesh's shards share one device, so this
-    moves each tensor there once."""
+    on its mesh device.  The shards of a process share one device, so
+    this moves each tensor there once.  On a mesh that spans processes
+    the blocks are this process's rows (``[S_local, ...]``)."""
     del axis
     dev = mesh.device
 
     def place(x):
         if isinstance(x, torch.Tensor) and x.dim() >= 1:
-            if x.shape[0] != mesh.size:
+            if x.shape[0] != len(mesh.local):
                 raise ValueError(f"a block of {x.shape[0]} shards on a mesh "
-                                 f"of {mesh.size}")
+                                 f"of {mesh.size}{_held(mesh)}")
             return x.to(dev)
         return x
 
@@ -158,8 +165,12 @@ def put_sharded(sharded, mesh, axis: Optional[str] = None):
 
 
 def check_on_mesh(mesh, **tensors) -> None:
-    """Every tensor must already sit on the mesh's device."""
+    """Every tensor must already sit on the mesh's device; on a mesh
+    that spans processes each holds this process's shards' rows."""
     for name, t in tensors.items():
         if t is not None and not same_device(t.device, mesh.device):
             raise ValueError(f"{name} lives on {t.device}, the mesh on "
                              f"{mesh.device}; place it with put_sharded")
+        if t is not None and mesh.spans and t.shape[0] != len(mesh.local):
+            raise ValueError(f"{name} holds {t.shape[0]} shard blocks, a "
+                             f"mesh of {mesh.size}{_held(mesh)}")

@@ -328,13 +328,13 @@ def test_exchange_gather_xy(s, dedup, fused):
 
 
 def test_mesh_refuses_what_is_not_ported():
-    """A 2-D (host, chip) mesh builds; distinct devices still raise,
-    naming the step of the queue item they wait for."""
+    """A 2-D (host, chip) mesh builds; distinct devices in one process
+    still raise, naming NCCL and the second card they would need."""
     mesh2 = Mesh([["cpu"] * 2] * 2, ("host", "chip"))
     assert mesh2.size == 4 and mesh2.shape == {"host": 2, "chip": 2}
-    with pytest.raises(NotImplementedError, match="queue A item 7, step 5"):
+    with pytest.raises(NotImplementedError, match="NCCL.*second card"):
         Mesh(["cpu", "cpu:0"])
-    with pytest.raises(NotImplementedError, match="queue A item 7, step 5"):
+    with pytest.raises(NotImplementedError, match="NCCL.*second card"):
         Mesh([["cpu", "cpu:0"]] * 2, ("host", "chip"))
     with pytest.raises(ValueError):
         Mesh([])

@@ -121,8 +121,10 @@ def test_load_translate_split_seeds_equal(parts, s):
 
 
 def test_load_refuses_what_is_not_ported(parts):
-    """``mesh=`` still raises naming its queue item; ``hot_ratio`` below
-    1 loads the tiered feature with glt_tpu's ``hot_per_shard``."""
+    """``hot_ratio`` below 1 loads the tiered feature with glt_tpu's
+    ``hot_per_shard``; ``mesh=`` (once refused) loads per process, in
+    one process the plain load's tensors, and a mesh of another shard
+    count is refused as glt_tpu refuses it."""
     roots, labels = parts
     jd, td = _load_both(roots[2], labels, hot_ratio=0.5)
     assert isinstance(td.feature, TieredShardedFeature)
@@ -131,8 +133,15 @@ def test_load_refuses_what_is_not_ported(parts):
     np.testing.assert_array_equal(np.asarray(jd.feature.hot),
                                   td.feature.hot.numpy())
     np.testing.assert_array_equal(jd.feature.cold, td.feature.cold)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        DistDataset.load(roots[2], mesh=Mesh(["cpu"] * 2), device="cpu")
+    md = DistDataset.load(roots[2], hot_ratio=0.5, labels=labels,
+                          mesh=Mesh(["cpu"] * 2))
+    for f in ("indptr", "indices", "edge_ids"):
+        assert torch.equal(getattr(md.graph, f), getattr(td.graph, f)), f
+    assert torch.equal(md.feature.hot, td.feature.hot)
+    np.testing.assert_array_equal(md.feature.cold, td.feature.cold)
+    assert torch.equal(md.labels, td.labels)
+    with pytest.raises(ValueError, match="holds 2 partitions"):
+        DistDataset.load(roots[2], mesh=Mesh(["cpu"] * 4))
 
 
 def _jmesh(s):

@@ -16,11 +16,6 @@ correction placed differently; the hetero step at Adam's eps 1e-3, as
 ``tests/test_torch_hetero_models.py`` explains).  Then ``collective='ring'`` ``==``
 glt_tpu's ring (``tests/test_parallel.py`` ``TestRingExchange``), and
 ``DistNeighborSampler`` on the 2-D mesh ``==`` glt_tpu's.
-
-``test_local_shard_range_error_names_axes_and_devices`` has no twin
-here: a port mesh never spans processes, so the check of a process's
-contiguous shard block waits for multihost on ``torch.distributed``
-(ROADMAP queue A item 7, step 5).
 """
 import jax
 import jax.numpy as jnp

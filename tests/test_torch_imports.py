@@ -45,6 +45,14 @@ from glt_tpu_torch.parallel import (  # noqa: E402,F401
     DistHeteroNeighborSampler, HeteroTieredTrainPipeline,
     global_mesh_2d, init_hetero_dist_state, make_hetero_dist_train_step,
     make_hetero_tiered_train_step, shard_hetero_graph)
+# The multi-process slice's entry points.
+from glt_tpu_torch.distributed.supervisor import (  # noqa: E402,F401
+    BarrierTimeoutError, run_with_deadline)
+from glt_tpu_torch.parallel.multihost import (  # noqa: E402,F401
+    Fleet, agree_max, agree_sum, assemble_global, barrier, feed_seeds,
+    global_mesh, initialize, labels_global, local_shard_range,
+    shard_feature_global, shard_graph_global, shard_hetero_graph_global,
+    shutdown, transport_stats)
 assert hasattr(DistNeighborSampler, "sample_from_edges")
 assert hasattr(DistNeighborSampler, "subgraph")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -113,6 +121,14 @@ DIST_WHOLE_MODULES = (
     "glt_tpu_torch.parallel.multihost", "glt_tpu_torch.parallel.dist_sampler",
     "glt_tpu_torch.examples.rgat_igbh")
 
+# The multi-process slice's modules: the deadline wrapper and the
+# process-spanning mesh.
+MULTIHOST_MODULES = (
+    "glt_tpu_torch.distributed.supervisor",
+    "glt_tpu_torch.parallel.multihost",
+    "glt_tpu_torch.distributed.dist_dataset",
+    "glt_tpu_torch.examples.dist_train_papers100m")
+
 # The scanned-steps slice's example twins.
 TWIN_MODULES = (
     "glt_tpu_torch.examples.train_sage_products",
@@ -138,6 +154,8 @@ def test_port_imports_no_jax():
                                                    - walked)
     assert set(DIST_MODULES) <= walked, sorted(set(DIST_MODULES) - walked)
     assert set(TWIN_MODULES) <= walked, sorted(set(TWIN_MODULES) - walked)
+    assert set(MULTIHOST_MODULES) <= walked, sorted(set(MULTIHOST_MODULES)
+                                                    - walked)
     assert set(TIERED_MODULES) <= walked, sorted(set(TIERED_MODULES)
                                                  - walked)
     assert set(DIST_WHOLE_MODULES) <= walked, sorted(
