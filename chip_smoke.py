@@ -259,8 +259,35 @@ Phases (the first failure exits non-zero and prints no result line):
    processes x 1 shard on the 2 x 2 mesh: a batch's ids and rows
    ``==`` between ``route='hier'`` and ``'flat'``, two steps a route
    within F32_LOSS_RTOL, B1 and B3 in every worker;
-16. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-15, the workers' included) and the ok line.
+16. the sampling service: ``examples/dist_train_sage_with_server.py``'s
+   settings at products scale (``synthetic_products(scale=1.0)``:
+   2,449,029 nodes, 12 out-edges a node, 100-wide f32 features, 47
+   classes; fanout (15, 10, 5), batch 256, GraphSAGE 128 -> 47, Adam
+   1e-3), each process spawned as ``python3 chip_smoke.py
+   --service-worker server|trainer WORK RANK`` (SVC_TIMEOUT_S each; a
+   failed or late one fails the phase).  Leg A: SVC_SERVERS server
+   processes and as many trainers on ``cuda:0`` (``num_workers=0``), each
+   trainer through the twin's ``train`` over its ``train_idx[rank::2]``
+   cut to SVC_BATCHES batches: its seeds exactly once, every batch's
+   edges CSR edges of their ids, ``x`` the feature rows of its node ids
+   and ``y`` their labels, the first SVC_CHECK batches ``==`` an
+   in-process ``NeighborLoader`` on the card (same seeds, ``shuffle=True``,
+   seed 0), the losses finite and falling; B1's three calls of that
+   loader's first batch (the hop shapes [256, 15], [3840, 10] and
+   [38400, 5]) ``==`` the plain version on the same frontiers and keys;
+   a second client on server 0 with trainer 0's seeds, at the same time
+   as trainer 0 (their intervals must overlap), gets batches ``==``
+   trainer 0's: two producers sampling at once on the card; the servers'
+   stage histograms read through ``get_metrics`` before their ``exit``.
+   Leg B: one
+   ``DistNeighborLoader`` in mp mode, SVC_MP_WORKERS workers on the card
+   over ``share_dataset`` (cut to what /dev/shm holds, printed), a ring
+   of two of the largest messages measured (the twin's 64 MiB ring must
+   refuse a larger message), every seed once in each of SVC_MP_EPOCHS
+   epochs.  Every server and worker reports its launch counts: each must
+   have launched B1 and B2, none the plain threefry;
+17. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-16, the spawned processes' included) and the ok line.
 
 Details go to ``build/results/chip_smoke.json`` (phase 10's trace to
 ``build/results/phase10_trace.json``).  Imports torch, numpy and
@@ -402,6 +429,21 @@ DW_BATCHES, DW_B1_PER_STEP = 24, 24
 # each worker has FLEET_TIMEOUT_S.
 FLEET_PROCS, FLEET_SEEDS, FLEET_TIMEOUT_S = 2, 3072, 300
 FLEET_TIMED = 5                   # warm steps timed a leg, after the main path
+# The sampling service: examples/dist_train_sage_with_server.py's settings
+# at products scale (synthetic_products(scale=1.0): 2,449,029 nodes, 12
+# out-edges a node, 100-wide f32 features, 47 classes; fanout (15, 10,
+# 5), batch 256, GraphSAGE 128 -> 47, Adam 1e-3).  Leg A: SVC_SERVERS
+# server and as many trainer processes on the card (num_workers=0), each
+# trainer's train_idx[rank::2] cut to SVC_BATCHES batches, the first
+# SVC_CHECK against an in-process NeighborLoader; leg B: one mp
+# DistNeighborLoader, SVC_MP_WORKERS workers on the card over a shared
+# dataset, SVC_MP_EPOCHS epochs of SVC_MP_BATCHES batches.  Each spawned
+# process has SVC_TIMEOUT_S.
+SVC_SCALE, SVC_SERVERS, SVC_BS, SVC_BATCHES, SVC_CHECK = 1.0, 2, 256, 24, 4
+SVC_MP_WORKERS, SVC_MP_EPOCHS, SVC_MP_BATCHES = 2, 2, 8
+SVC_TIMEOUT_S = 400
+SVC_FIELDS = ("node", "edge_index", "edge_id", "node_mask", "edge_mask",
+              "y")
 DEVICE = "cuda"
 
 
@@ -5585,6 +5627,558 @@ def log_fleets(rep: dict, card: str) -> None:
         f"{rep['setup_s']:.1f} s, twin fleet {rep['twin_wall_s']:.1f} s, "
         f"2 x 2 fleet {rep['mesh2d_wall_s']:.1f} s")
 
+# -- phase 16: the sampling service ------------------------------------------
+def svc_batch_arrays(b) -> dict:
+    """A batch's fields as host arrays, ``x`` as the sha256 of its bytes,
+    its seeds."""
+    arrs = {f: getattr(b, f).cpu().numpy() for f in SVC_FIELDS}
+    arrs["x_sha256"] = np.frombuffer(hashlib.sha256(
+        b.x.cpu().numpy().tobytes()).digest(), np.uint8)
+    arrs["seeds"] = b.batch[:b.batch_size].cpu().numpy()
+    return arrs
+
+
+def svc_report(work: str, name: str, rep: dict) -> None:
+    tmp = os.path.join(work, f".{name}.json.tmp")
+    with open(tmp, "w") as fh:
+        json.dump(rep, fh)
+    os.replace(tmp, os.path.join(work, f"{name}.json"))
+
+
+def svc_attach(handle, work: str):
+    """Leg B's dataset builder, run in each spawned mp worker: the
+    shared dataset attached on the card at its own split ratio (the whole
+    feature table: B2 serves its gathers), the launch counts set to 0,
+    and at the worker's exit its counts, the device bytes the attach
+    took and its peak memory written to ``work``."""
+    import atexit
+
+    import torch
+
+    from glt_tpu_torch import ops
+    from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.data import attach_dataset
+    from glt_tpu_torch.ops import cuda_lib
+
+    count_plain_hashes(trandom)
+    cuda_lib.library()
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    ds = attach_dataset(handle, None, DEVICE)
+    torch.cuda.synchronize()
+    rep = {"pid": os.getpid(), "attach_s": time.perf_counter() - t0,
+           "device_copy_bytes": torch.cuda.memory_allocated() - before}
+    counts_zero(ops, trandom)
+
+    def write():
+        torch.cuda.synchronize()
+        rep.update(launches=counts_read(ops),
+                   plain_hash_calls=trandom.threefry2x32.calls,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        svc_report(work, f"mpworker_{os.getpid()}", rep)
+
+    atexit.register(write)
+    return ds
+
+
+def service_worker(role: str, work: str, rank: str) -> int:
+    """``--service-worker server|trainer WORK RANK``: one process of
+    phase 16's leg A on the card.  A server builds the twin's dataset,
+    writes its address and serves until a client's ``exit``; a trainer
+    waits for the addresses, trains through the twin's ``train`` on its
+    cut seeds and keeps every batch for the parent's checks.  Each
+    writes ``<role>_<rank>.json`` (the trainer its batches to ``.npz``)
+    into WORK."""
+    import torch
+
+    from glt_tpu_torch import ops
+    from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.examples import dist_train_sage_with_server as twin
+    from glt_tpu_torch.ops import cuda_lib
+
+    t_start = time.perf_counter()
+    rank = int(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    count_plain_hashes(trandom)
+    cuda_lib.library()
+    rep = {"role": role, "rank": rank, "pid": os.getpid()}
+    if role == "server":
+        from glt_tpu_torch.distributed import init_server
+
+        ds = twin.build_dataset(SVC_SCALE, DEVICE)
+        torch.cuda.synchronize()
+        rep["build_s"] = time.perf_counter() - t_start
+        counts_zero(ops, trandom)
+        srv = init_server(ds, num_servers=SVC_SERVERS, server_rank=rank,
+                          num_clients=SVC_SERVERS, enable_metrics=True)
+        svc_report(work, f"addr_{rank}", {"addr": list(srv.addr)})
+        srv.wait_for_exit(timeout=SVC_TIMEOUT_S)
+        torch.cuda.synchronize()
+        rep.update(exited_by_op=srv._stop.is_set(),
+                   launches=counts_read(ops),
+                   plain_hash_calls=trandom.threefry2x32.calls,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        srv.shutdown()
+    else:
+        path = os.path.join(work, "service.json")
+        deadline = time.monotonic() + SVC_TIMEOUT_S
+        while not os.path.exists(path):
+            if time.monotonic() > deadline:
+                raise Failed("trainer: the servers never came up")
+            time.sleep(0.05)
+        addr = tuple(json.load(open(path))["addrs"][rank])
+        seeds = np.load(os.path.join(work, f"seeds_{rank}.npy"))
+        kept = []
+
+        def keep(epoch, b, loss):
+            kept.append(b)      # the loader hands out fresh tensors
+
+        torch.cuda.reset_peak_memory_stats()
+        counts_zero(ops, trandom)
+        t0, m0 = time.perf_counter(), time.monotonic()
+        hist = twin.train(rank, SVC_SERVERS, addr, seeds, 1, SVC_BS,
+                          device=DEVICE, on_batch=keep)
+        rep["train_s"] = time.perf_counter() - t0
+        rep["train_mono"] = [m0, time.monotonic()]
+        torch.cuda.synchronize()
+        rep.update(hist, launches=counts_read(ops),
+                   plain_hash_calls=trandom.threefry2x32.calls,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        arrays = {}
+        for i, b in enumerate(kept):
+            for f, a in svc_batch_arrays(b).items():
+                arrays[f"{i}_{f}"] = a
+        np.savez(os.path.join(work, f"trainer_{rank}.npz"), **arrays)
+    rep["seconds"] = time.perf_counter() - t_start
+    svc_report(work, f"{role}_{rank}", rep)
+    return 0
+
+
+def spawn_service(role: str, rank: int, work: str):
+    script = os.path.abspath(__file__)
+    return subprocess.Popen(
+        [sys.executable, script, "--service-worker", role, work, str(rank)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(script))
+
+
+def finish_service(procs: dict) -> None:
+    """Wait for every spawned process (SVC_TIMEOUT_S each); a failed or
+    late one fails the phase, its siblings killed."""
+    try:
+        for name, p in procs.items():
+            try:
+                _, err = p.communicate(timeout=SVC_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate()
+                err = f"timed out after {SVC_TIMEOUT_S} s\n{err}"
+            need(p.returncode == 0, f"service {name} failed "
+                                    f"({p.returncode}): {err[-3000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def prom_histogram(text: str, name: str) -> dict:
+    """Median (``quantile_from_counts`` over the per-bucket counts that
+    the cumulative ``_bucket`` lines give), mean and count of histogram
+    ``name`` from a text exposition."""
+    from glt_tpu_torch.obs.metrics import quantile_from_counts
+
+    les, cum, total, count = [], [], 0.0, 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "_bucket{"):
+            le = re.search(r'le="([^"]+)"', line).group(1)
+            if le != "+Inf":
+                les.append(float(le))
+            cum.append(float(line.rsplit(" ", 1)[1]))
+        elif line.startswith(name + "_sum"):
+            total = float(line.rsplit(" ", 1)[1])
+        elif line.startswith(name + "_count"):
+            count = float(line.rsplit(" ", 1)[1])
+    if not count:
+        return {"count": 0}
+    counts = [c - b for b, c in zip([0.0] + cum[:-1], cum)]
+    return {"median_ms": quantile_from_counts(tuple(les), counts, 0.5),
+            "mean_ms": total / count, "count": count}
+
+
+@contextlib.contextmanager
+def recording_b1(calls: list, limit: int):
+    """Keep the arguments and outputs of the first ``limit`` calls that
+    the homogeneous sampler makes to B1's entry point (one batch's hops,
+    in order)."""
+    from glt_tpu_torch.sampler import neighbor_sampler as ns
+
+    real = ns.sample_neighbors
+
+    def rec(indptr, indices, frontier, fanout, key, **kw):
+        out = real(indptr, indices, frontier, fanout, key, **kw)
+        if len(calls) < limit:
+            calls.append((indptr, indices, frontier.clone(), fanout,
+                          key.clone(), kw, [None if t is None else t.clone()
+                                            for t in out]))
+        return out
+
+    ns.sample_neighbors = rec
+    try:
+        yield
+    finally:
+        ns.sample_neighbors = real
+
+
+def check_b1_calls(torch, ops, calls) -> list:
+    """Each recorded B1 call against the plain version on the same
+    frontier, key and options: every output equal.  Returns a row a
+    call."""
+    torch.cuda.synchronize()
+    rows = []
+    for ip, ix, frontier, f, key, kw, got in calls:
+        frontier = frontier.to(torch.int32).contiguous()
+        want = ops.sample_neighbors_plain(ip, ix, frontier, f, key, **kw)
+        err = 0
+        for g, w in zip(got, want):
+            need((g is None) == (w is None), "B1 edge-id presence differs")
+            if g is None:
+                continue
+            if g.numel():
+                err = max(err, int((g.long() - w.long()).abs().max()))
+            need(torch.equal(g, w), f"B1 differs from its plain version at "
+                                    f"the service's hop [{frontier.shape[0]}"
+                                    f", {f}]")
+        rows.append({"shape": [int(frontier.shape[0]), f],
+                     "max_abs_err": err})
+    return rows
+
+
+def svc_check_batches(indptr, indices, feat, labels, batches) -> int:
+    """Every batch against the CSR and the tables: each valid edge a CSR
+    edge of its id (neighbor ``row``, seed side ``col``), ``x`` the
+    feature rows of its node ids (zero rows on padding), ``y`` their
+    labels.  Returns the edges checked."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(b):
+        node, em = b["node"].astype(np.int64), b["edge_mask"]
+        row, col = b["edge_index"][0][em], b["edge_index"][1][em]
+        u, v = node[col], node[row]
+        e = b["edge_id"][em].astype(np.int64)
+        need(bool((u >= 0).all() and (v >= 0).all()),
+             "a valid edge has a padding end")
+        need(bool(((e >= indptr[u]) & (e < indptr[u + 1])).all()),
+             "an edge id lies outside its source row")
+        need(np.array_equal(indices[e], v), "an edge is not a CSR edge")
+        valid = node >= 0
+        x = np.where(valid[:, None], feat[np.where(valid, node, 0)], 0)
+        need(hashlib.sha256(x.astype(np.float32).tobytes()).digest()
+             == b["x_sha256"].tobytes(), "x differs from the feature rows")
+        y = np.where(valid, labels[np.where(valid, node, 0)], -1)
+        need(np.array_equal(b["y"], y), "y differs from the labels")
+        return int(em.sum())
+
+    with ThreadPoolExecutor(4) as pool:
+        return sum(pool.map(one, batches))
+
+
+def run_service(torch, dev) -> dict:
+    """Phase 16 (see the module docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from glt_tpu_torch import ops
+    from glt_tpu_torch.channel import ShmChannel, serialize
+    from glt_tpu_torch.data import share_dataset
+    from glt_tpu_torch.distributed import (DistNeighborLoader,
+                                           MpSamplingWorkerOptions,
+                                           RemoteServerConnection,
+                                           batch_to_message)
+    from glt_tpu_torch.examples import dist_train_sage_with_server as twin
+    from glt_tpu_torch.examples.datasets import synthetic_products
+    from glt_tpu_torch.loader import NeighborLoader
+
+    rep = {}
+    t_start = time.perf_counter()
+    work = os.path.abspath(os.path.join(WORK_DIR, "service"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    st = os.statvfs("/dev/shm")
+    rep["dev_shm"] = {"total": st.f_blocks * st.f_frsize,
+                      "free": st.f_bavail * st.f_frsize}
+
+    # Leg A: the servers and the trainers start together; the trainers
+    # wait for the addresses.
+    procs = {f"server {r}": spawn_service("server", r, work)
+             for r in range(SVC_SERVERS)}
+    procs.update({f"trainer {r}": spawn_service("trainer", r, work)
+                  for r in range(SVC_SERVERS)})
+    try:
+        t0 = time.perf_counter()
+        ds, train_idx = synthetic_products(scale=SVC_SCALE, device=dev)
+        rep["parent_build_s"] = time.perf_counter() - t0
+        topo = ds.get_graph().topo
+        indptr, indices = topo.indptr.astype(np.int64), topo.indices
+        feat = ds.get_node_feature()._host_full
+        labels = np.asarray(ds.get_node_label())
+        seeds = [twin.trainer_seeds(train_idx, r, SVC_SERVERS, SVC_BS,
+                                    SVC_BATCHES)
+                 for r in range(SVC_SERVERS)]
+        for r, sd in enumerate(seeds):
+            np.save(os.path.join(work, f"seeds_{r}.npy"), sd)
+        deadline = time.monotonic() + SVC_TIMEOUT_S
+        addrs = []
+        for r in range(SVC_SERVERS):
+            path = os.path.join(work, f"addr_{r}.json")
+            while not os.path.exists(path):
+                srv = procs[f"server {r}"]
+                if srv.poll() is not None:
+                    raise Failed(f"server {r} died before serving: "
+                                 f"{srv.communicate()[1][-3000:]}")
+                need(time.monotonic() < deadline, "the servers never came up")
+                time.sleep(0.05)
+            addrs.append(json.load(open(path))["addr"])
+        svc_report(work, "service", {"addrs": addrs})
+        rep["servers_up_s"] = time.perf_counter() - t_start
+
+        # A second client on server 0 with trainer 0's seeds, at the same
+        # time as trainer 0: two producers sampling at once on the card.
+        def second_client():
+            m0 = time.monotonic()
+            ld = twin.make_loader(tuple(addrs[0]), seeds[0], SVC_BS,
+                                  device=DEVICE)
+            try:
+                got = [svc_batch_arrays(b) for b in ld]
+            finally:
+                ld.shutdown()
+            return got, [m0, time.monotonic()]
+
+        pool = ThreadPoolExecutor(1)
+        second = pool.submit(second_client)
+        pool.shutdown(wait=False)
+
+        # What an in-process loader on the card gives for the same seeds
+        # (the servers' producers: shuffle=True, seed 0), and the message
+        # bytes on the wire (seq included); B1's calls of the first batch
+        # are kept to hold against the plain version at these hop shapes.
+        ref, msg_bytes, big, b1_calls = [], [], None, []
+        for r in range(SVC_SERVERS):
+            ld = NeighborLoader(ds, list(FANOUTS), seeds[r],
+                                batch_size=SVC_BS, shuffle=True, seed=0)
+            batches = []
+            with recording_b1(b1_calls, len(FANOUTS)):
+                for i, b in enumerate(ld):
+                    if i == SVC_CHECK:
+                        break
+                    batches.append(svc_batch_arrays(b))
+                    msg = batch_to_message(b)
+                    msg_bytes.append(len(serialize(msg)) + 8)
+                    big = msg if big is None else big
+            ref.append(batches)
+        rep["msg_bytes"] = {"median": int(statistics.median(msg_bytes)),
+                            "max": max(msg_bytes)}
+        rep["b1_hops"] = check_b1_calls(torch, ops, b1_calls)
+        need(len(rep["b1_hops"]) == len(FANOUTS), f"{len(rep['b1_hops'])} "
+                                                  f"B1 calls kept")
+        del b1_calls
+        second_batches, second_mono = second.result(timeout=SVC_TIMEOUT_S)
+        for r in range(SVC_SERVERS):
+            finish_service({f"trainer {r}": procs.pop(f"trainer {r}")})
+        # The servers' stage histograms through the wire, then their exit.
+        rep["server_stages"] = []
+        for a in addrs:
+            conn = RemoteServerConnection(tuple(a), timeout=120)
+            text = conn.request(op="get_metrics")["text"]
+            rep["server_stages"].append({
+                stage: prom_histogram(text, f"glt_server_{stage}_ms")
+                for stage in ("sample", "serialize", "send", "queue_wait")})
+            conn.request(op="exit")
+            conn.close()
+        finish_service(procs)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    servers = [json.load(open(os.path.join(work, f"server_{r}.json")))
+               for r in range(SVC_SERVERS)]
+    trainers = [json.load(open(os.path.join(work, f"trainer_{r}.json")))
+                for r in range(SVC_SERVERS)]
+    edges = 0
+    for r, t in enumerate(trainers):
+        z = np.load(os.path.join(work, f"trainer_{r}.npz"))
+        got = [{f: z[f"{i}_{f}"] for f in SVC_FIELDS + ("x_sha256", "seeds")}
+               for i in range(t["batches"])]
+        need(t["batches"] == len(got) == -(-len(seeds[r]) // SVC_BS),
+             f"trainer {r}: {t['batches']} batches")
+        seen = np.concatenate([b["seeds"] for b in got])
+        need(np.array_equal(np.sort(seen), np.sort(seeds[r])),
+             f"trainer {r}: its seeds did not arrive exactly once")
+        edges += svc_check_batches(indptr, indices, feat, labels, got)
+        for i, want in enumerate(ref[r]):
+            for f, a in want.items():
+                need(np.array_equal(got[i][f], a),
+                     f"trainer {r} batch {i}: {f} differs from the "
+                     f"in-process loader's")
+        if r == 0:
+            need(len(second_batches) == len(got),
+                 f"the second client got {len(second_batches)} batches, "
+                 f"trainer 0 {len(got)}")
+            for i, (a, b) in enumerate(zip(second_batches, got)):
+                for f in a:
+                    need(np.array_equal(a[f], b[f]),
+                         f"batch {i}: {f} of the second client differs "
+                         f"from trainer 0's")
+            rep["second_client"] = {
+                "batches": len(second_batches),
+                "overlap_s": min(second_mono[1], t["train_mono"][1])
+                - max(second_mono[0], t["train_mono"][0])}
+            need(rep["second_client"]["overlap_s"] > 0,
+                 "the second client and trainer 0 did not run at once")
+        losses = t["losses"][0]
+        need(bool(np.isfinite(losses).all()), f"trainer {r}: loss not finite")
+        need(losses[-1] < losses[0], f"trainer {r}: the loss did not fall "
+                                     f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    for s in servers:
+        need(s["exited_by_op"], f"server {s['rank']} did not exit by the op")
+        for k in ("sample_neighbors_cuda", "gather_rows_cuda"):
+            need(s["launches"][k] > 0,
+                 f"server {s['rank']} never launched {k}")
+        need(s["plain_hash_calls"] == 0,
+             f"server {s['rank']}: the plain threefry ran on the card")
+    rep.update(servers=servers, trainers=trainers, edges_checked=edges,
+               leg_a_s=time.perf_counter() - t_start)
+
+    # Leg B: one mp DistNeighborLoader on the card over the shared dataset;
+    # the ring holds two of the largest messages measured above.
+    t_b = time.perf_counter()
+    ring = max(64 << 20, -(-2 * rep["msg_bytes"]["max"] // (1 << 20)) << 20)
+    rep["ring_bytes"] = ring
+    if rep["msg_bytes"]["max"] > 64 << 20:
+        ch = ShmChannel(capacity_bytes=64 << 20)
+        try:
+            with contextlib.suppress(ValueError):
+                ch.send(big)
+                raise Failed("a message larger than the twin's 64 MiB "
+                             "ring did not raise")
+        finally:
+            ch.close()
+    del big
+    share_bytes = (topo.indptr.size + 2 * topo.indices.size) * 4 + \
+        feat.nbytes + labels.nbytes
+    rep["share_bytes"] = share_bytes
+    fits = share_bytes + ring <= 0.9 * rep["dev_shm"]["free"]
+    rep["mp_scale"] = SVC_SCALE if fits else SVC_SCALE * max(
+        0.0, 0.9 * rep["dev_shm"]["free"] - ring) / share_bytes
+    need(rep["mp_scale"] >= 0.01,
+         f"/dev/shm holds {rep['dev_shm']['free']} free bytes: too few for "
+         f"the {ring}-byte ring and a shared dataset")
+    if not fits:
+        log(f"  service leg B: /dev/shm has {rep['dev_shm']['free']} B "
+            f"free, {share_bytes + ring} B wanted; the shared dataset is "
+            f"cut to scale {rep['mp_scale']:.4f}")
+        del ds
+        ds, train_idx = synthetic_products(scale=rep["mp_scale"], device="cpu")
+    t0 = time.perf_counter()
+    handle = share_dataset(ds)
+    rep["share_s"] = time.perf_counter() - t0
+    rep["shared_bytes"] = handle.nbytes()
+    mp_seeds = train_idx[:SVC_MP_BATCHES * SVC_BS]
+    loader = DistNeighborLoader(
+        list(FANOUTS), mp_seeds, batch_size=SVC_BS, shuffle=True,
+        dataset_builder=svc_attach, builder_args=(handle, work),
+        worker_options=MpSamplingWorkerOptions(
+            num_workers=SVC_MP_WORKERS, channel_capacity_bytes=ring,
+            device=DEVICE), device=dev)
+    try:
+        rep["mp_epoch_s"], rep["mp_batches_per_s"] = [], []
+        for _ in range(SVC_MP_EPOCHS):
+            t0 = time.perf_counter()
+            seen, n = [], 0
+            for b in loader:
+                need(b.x.device.type == dev.type,
+                     f"an mp batch is not on {dev}")
+                seen.append(b.batch[:b.batch_size].cpu().numpy())
+                n += 1
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rep["mp_epoch_s"].append(dt)
+            rep["mp_batches_per_s"].append(n / dt)
+            need(np.array_equal(np.sort(np.concatenate(seen)),
+                                np.sort(mp_seeds)),
+                 "mp: the seeds did not arrive exactly once")
+    finally:
+        loader.shutdown()
+        handle.unlink()
+    workers = [json.load(open(os.path.join(work, f)))
+               for f in sorted(os.listdir(work))
+               if f.startswith("mpworker_")]
+    need(len(workers) >= SVC_MP_WORKERS,
+         f"{len(workers)} mp workers reported, {SVC_MP_WORKERS} expected")
+    for w in workers:
+        for k in ("sample_neighbors_cuda", "gather_rows_cuda"):
+            need(w["launches"][k] > 0, f"mp worker {w['pid']} never "
+                                       f"launched {k}")
+        need(w["plain_hash_calls"] == 0,
+             f"mp worker {w['pid']}: the plain threefry ran on the card")
+    rep.update(workers=workers, leg_b_s=time.perf_counter() - t_b)
+    rep["launches"] = add_launches(*[p["launches"] for p in
+                                     servers + trainers + workers])
+    shutil.rmtree(work, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t_start
+    return rep
+
+
+def log_service(rep: dict, card: str) -> None:
+    """Phase 16's lines (each number measured on ``card``)."""
+    shm = rep["dev_shm"]
+    log(f"service: [{card}] {SVC_SERVERS} servers + {SVC_SERVERS} trainers "
+        f"on one card, synthetic_products(scale={SVC_SCALE}), batch "
+        f"{SVC_BS}, fanout {FANOUTS}; seeds once, {rep['edges_checked']} "
+        f"edges against the CSR, x and y equal, the first {SVC_CHECK} "
+        f"batches == the in-process loader's; /dev/shm {shm['free']} of "
+        f"{shm['total']} B free")
+    sc = rep["second_client"]
+    log("  B1 at the service's hops " + ", ".join(
+        str(h["shape"]) for h in rep["b1_hops"]) + " == its plain version; "
+        f"a second client on server 0, {sc['overlap_s']:.2f} s at once "
+        f"with trainer 0: its {sc['batches']} batches == trainer 0's")
+    for t in rep["trainers"]:
+        ls = t["losses"][0]
+        log(f"  trainer {t['rank']}: {t['batches']} batches, losses "
+            f"{ls[0]:.4f} -> {ls[-1]:.4f}; step median "
+            f"{statistics.median(t['step_ms']):.2f} ms, "
+            f"{t['batches'] / t['epoch_s'][0]:.2f} batches/s (epoch "
+            f"{t['epoch_s'][0]:.2f} s); peak "
+            f"{t['max_memory_allocated'] / 2**30:.2f} GiB; launches "
+            f"{t['launches']}")
+    for s, stg in zip(rep["servers"], rep["server_stages"]):
+        log(f"  server {s['rank']}: build {s['build_s']:.1f} s, peak "
+            f"{s['max_memory_allocated'] / 2**30:.2f} GiB, launches "
+            f"{s['launches']}; stage median (mean) ms: " + ", ".join(
+                f"{k} {v['median_ms']:.2f} ({v['mean_ms']:.2f})"
+                for k, v in stg.items() if v.get("count")))
+    mb = rep["msg_bytes"]
+    log(f"  message bytes median {mb['median']}, max {mb['max']}; ring "
+        f"{rep['ring_bytes']} B (the twin's 64 MiB "
+        + ("raised on the largest" if mb["max"] > 64 << 20 else "holds it")
+        + ")")
+    log(f"  mp leg: {SVC_MP_WORKERS} workers on the card, shared "
+        f"{rep['shared_bytes']} B at scale {rep['mp_scale']} in "
+        f"{rep['share_s']:.2f} s; epochs " + ", ".join(
+            f"{x:.2f} s ({y:.2f} batches/s)"
+            for x, y in zip(rep["mp_epoch_s"], rep["mp_batches_per_s"]))
+        + "; per worker: " + "; ".join(
+            f"attach {w['attach_s']:.2f} s, device copy "
+            f"{w['device_copy_bytes']} B, peak "
+            f"{w['max_memory_allocated'] / 2**30:.2f} GiB, launches "
+            f"{w['launches']}" for w in rep["workers"]))
+    log(f"  launches {rep['launches']}; walls: servers up "
+        f"{rep['servers_up_s']:.1f} s, leg A {rep['leg_a_s']:.1f} s, leg B "
+        f"{rep['leg_b_s']:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -5609,6 +6203,7 @@ def main() -> int:
     dev = torch.device(DEVICE)
     os.makedirs(OUT_DIR, exist_ok=True)
     report = {}
+    t_main = time.perf_counter()
     try:
         # 1. device
         kind = torch.cuda.get_device_name(0)
@@ -5977,20 +6572,27 @@ def main() -> int:
         finally:
             keep.clear()
             shutil.rmtree(part_dir, ignore_errors=True)
+
+        # 16. the sampling service
+        report["service"] = sv = run_service(torch, dev)
+        log_service(sv, smi[0])
+        log(f"  phase 16: {sv['seconds']:.1f} s")
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
                        for p in (sl, tr, st, report["digits"], lk, het, co,
-                                 dd, tw, ti, dw, fl))
+                                 dd, tw, ti, dw, fl, sv))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
          "source": "glt_tpu_torch/csrc/sample.cu",
          "replaces": "glt_tpu/ops/sample_pallas.py:162",
          "launches": launches["sample_neighbors_cuda"],
-         "max_abs_err": b1_err, "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+         "max_abs_err": max([b1_err] + [h["max_abs_err"]
+                                        for h in sv["b1_hops"]]),
+         "ms": b1["ms"], "plain_ms": b1["plain_ms"],
          "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
          "library_ms": b1["library_ms"]},
         {"name": "threefry_hash_cuda", "route": "cuda",
@@ -6037,8 +6639,10 @@ def main() -> int:
                                           for n in ("rgat", "hgt")},
                                "dist": dd["kernels"],
                                "tiered": {"B3": ti["b3"]}}
+    report["seconds"] = time.perf_counter() - t_main
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
+    log(f"phases 1-16: {report['seconds']:.1f} s")
     log(report["device"]["nvidia_smi"])
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6112,6 +6716,8 @@ if __name__ == "__main__":
         sys.exit(ckpt_worker(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--fleet-worker"]:
         sys.exit(fleet_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--service-worker"]:
+        sys.exit(service_worker(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--profiler-settle-check"]:
         sys.exit(profiler_settle_check(int(sys.argv[2])))
     sys.exit(main())

@@ -172,9 +172,11 @@ class TrainLoop:
         gives the cadence.  ``extra_components`` (name -> object with
         ``state_dict``/``load_state_dict``, e.g. a loader) ride along
         in every save.
-      supervisor: not ported yet (``distributed/supervisor.py`` comes
-        with the host services, ROADMAP queue A item 8); anything but
-        None raises ``NotImplementedError``.
+      supervisor: optional
+        :class:`~glt_tpu_torch.distributed.supervisor.Supervisor`;
+        checked at every block boundary: a dead peer triggers an
+        emergency checkpoint, a trace flush and a structured
+        :class:`~glt_tpu_torch.distributed.supervisor.SupervisedExit`.
       fault_plan: optional
         :class:`~glt_tpu_torch.testing.faults.FaultPlan`;
         its ``on_train_step`` hook fires after each block (and after any
@@ -186,10 +188,6 @@ class TrainLoop:
                  base_key, checkpointer: Optional[Checkpointer] = None,
                  extra_components: Optional[Mapping[str, Any]] = None,
                  supervisor=None, fault_plan=None):
-        if supervisor is not None:
-            raise NotImplementedError(
-                "TrainLoop(supervisor=...) needs distributed/supervisor.py,"
-                " which is not ported yet (ROADMAP queue A item 8)")
         self.step = step
         self.state = state
         self.train_idx = np.asarray(train_idx)
@@ -200,6 +198,7 @@ class TrainLoop:
         self.base_key = base_key
         self.checkpointer = checkpointer
         self.extra = dict(extra_components or {})
+        self.supervisor = supervisor
         self.fault_plan = fault_plan
         self.global_step = 0          # completed blocks across epochs
         self.epoch = 0
@@ -298,6 +297,8 @@ class TrainLoop:
                         self._components(_rng0, _e, block_idx + 1))
                 if self.fault_plan is not None:
                     self.fault_plan.on_train_step()
+                if self.supervisor is not None:
+                    self._check_supervisor(_rng0, _e, block_idx + 1)
 
             self.state, losses, _accs, _ovf = run_scanned_epoch(
                 self.step, self.state, self.train_idx, self.batch_size,
@@ -307,3 +308,36 @@ class TrainLoop:
             self.epoch += 1
             self.next_block = 0
         return self.state
+
+    def _check_supervisor(self, rng0, epoch: int, next_block: int) -> None:
+        """At a block boundary: on a dead peer, save the cursor of the
+        NEXT block, flush the traces and the flight ring, and raise
+        :class:`~glt_tpu_torch.distributed.supervisor.SupervisedExit`
+        with the reason and the checkpoint's path."""
+        from ..distributed.supervisor import SupervisedExit
+
+        try:
+            self.supervisor.raise_if_dead()
+        except Exception as err:
+            reason = getattr(err, "report", {"reason": "peer_dead",
+                                             "detail": str(err)})
+            path = None
+            if self.checkpointer is not None:
+                path = self.checkpointer.save(
+                    self.global_step,
+                    self._components(rng0, epoch, next_block),
+                    extras={"exit_reason": reason})
+            from ..obs import trace as _trace
+
+            _trace.flush_exports(reason=reason.get("reason"))
+            _flight.record("train.supervised_exit",
+                           reason=reason.get("reason"),
+                           step=self.global_step,
+                           checkpoint_path=path)
+            fpath = _flight.dump_now(
+                "supervised_exit:%s" % reason.get("reason"))
+            if fpath:
+                reason = dict(reason)
+                reason["flight_dump"] = fpath
+            raise SupervisedExit(reason, step=self.global_step,
+                                 checkpoint_path=path) from err

@@ -10,8 +10,10 @@ from .feature_cache import (
 )
 from .graph import Graph
 from .reorder import sort_by_in_degree
+from .shared import DatasetHandle, SharedArray, attach_dataset, share_dataset
 from .topology import CSRTopo
 
-__all__ = ["CSRTopo", "Dataset", "Feature", "FeatureCacheState", "Graph",
+__all__ = ["CSRTopo", "Dataset", "DatasetHandle", "Feature",
+           "FeatureCacheState", "Graph", "SharedArray", "attach_dataset",
            "cache_gather", "cache_init", "cache_insert", "cache_lookup",
-           "cache_stats", "sort_by_in_degree"]
+           "cache_stats", "share_dataset", "sort_by_in_degree"]

@@ -40,10 +40,11 @@ class Graph:
         self._sorted_indices: Optional[torch.Tensor] = None
         self._edge_keys: Optional[torch.Tensor] = None
         host_eids = topo.edge_ids.astype(np.int32, copy=False)
+        # copy=False: int32 arrays (a shared-memory attach) stay views.
         self.indptr = torch.from_numpy(
-            topo.indptr.astype(np.int32)).to(self.device)
+            topo.indptr.astype(np.int32, copy=False)).to(self.device)
         self.indices = torch.from_numpy(
-            topo.indices.astype(np.int32)).to(self.device)
+            topo.indices.astype(np.int32, copy=False)).to(self.device)
         self.edge_ids = torch.from_numpy(
             host_eids.astype(np.int32, copy=True)).to(self.device)
         self._trivial_edge_ids = bool(

@@ -17,10 +17,11 @@ _LAYOUTS = ("COO", "CSR", "CSC")
 
 def coo_to_csr(row: np.ndarray, col: np.ndarray,
                edge_ids: Optional[np.ndarray] = None,
-               num_nodes: Optional[int] = None):
-    """COO -> CSR ``(indptr, indices, edge_ids)``.  Rows are grouped with
-    a stable sort, so ties keep input order; ``edge_ids`` defaults to the
-    input edge positions."""
+               num_nodes: Optional[int] = None, return_perm: bool = False):
+    """COO -> CSR ``(indptr, indices, edge_ids)`` (and with
+    ``return_perm`` the permutation from input edges to CSR order).
+    Rows are grouped with a stable sort, so ties keep input order;
+    ``edge_ids`` defaults to the input edge positions."""
     row = np.asarray(row, dtype=np.int64)
     col = np.asarray(col, dtype=np.int64)
     if row.shape != col.shape or row.ndim != 1:
@@ -35,6 +36,8 @@ def coo_to_csr(row: np.ndarray, col: np.ndarray,
     counts = np.bincount(row, minlength=num_nodes)
     indptr = np.zeros(num_nodes + 1, dtype=np.int64)
     np.cumsum(counts, out=indptr[1:])
+    if return_perm:
+        return indptr, col[perm], edge_ids[perm], perm
     return indptr, col[perm], edge_ids[perm]
 
 
@@ -55,13 +58,16 @@ class CSRTopo:
       layout: 'COO' | 'CSR' | 'CSC' ('CSC' is the CSR of the reverse
         graph and is transposed into out-edge CSR).
       num_nodes: optional node count override.
+      edge_weights: optional ``[E]`` per-edge weights, in input order;
+        stored in CSR order, aligned with ``indices``.
     """
 
     def __init__(self,
                  edge_index: Union[np.ndarray, Tuple[np.ndarray, np.ndarray]],
                  edge_ids: Optional[np.ndarray] = None,
                  layout: str = "COO",
-                 num_nodes: Optional[int] = None):
+                 num_nodes: Optional[int] = None,
+                 edge_weights: Optional[np.ndarray] = None):
         layout = layout.upper()
         if layout not in _LAYOUTS:
             raise ValueError(
@@ -77,18 +83,25 @@ class CSRTopo:
                 row, col = col, row
             if num_nodes is None:
                 num_nodes = indptr.shape[0] - 1
-        self._indptr, self._indices, self._edge_ids = coo_to_csr(
-            row, col, edge_ids, num_nodes)
+        self._indptr, self._indices, self._edge_ids, perm = coo_to_csr(
+            row, col, edge_ids, num_nodes, return_perm=True)
+        self._edge_weights = (None if edge_weights is None
+                              else np.asarray(edge_weights)[perm])
 
     @classmethod
     def from_csr_arrays(cls, indptr: np.ndarray, indices: np.ndarray,
-                        edge_ids: Optional[np.ndarray] = None) -> "CSRTopo":
-        """Adopt finished CSR arrays as they are (no COO round trip)."""
+                        edge_ids: Optional[np.ndarray] = None,
+                        edge_weights: Optional[np.ndarray] = None
+                        ) -> "CSRTopo":
+        """Adopt finished CSR arrays as they are (no COO round trip, no
+        copy: the shared-memory attach path maps them in place)."""
         t = cls.__new__(cls)
         t._indptr = np.asarray(indptr)
         t._indices = np.asarray(indices)
         t._edge_ids = (np.arange(t._indices.shape[0], dtype=np.int64)
                        if edge_ids is None else np.asarray(edge_ids))
+        t._edge_weights = (None if edge_weights is None
+                           else np.asarray(edge_weights))
         return t
 
     @property
@@ -102,6 +115,10 @@ class CSRTopo:
     @property
     def edge_ids(self) -> np.ndarray:
         return self._edge_ids
+
+    @property
+    def edge_weights(self) -> Optional[np.ndarray]:
+        return self._edge_weights
 
     @property
     def num_nodes(self) -> int:

@@ -6,11 +6,13 @@ batch carries, with ``#META.*`` scalar keys.  A heterogeneous message
 is marked ``#HETERO`` and keys its per-type arrays ``field@type`` (an
 edge type's parts joined by ``|``).  numpy has no bfloat16, so bf16
 features travel as their raw 16-bit patterns in a ``uint16`` array (the
-port stores no other 16-bit integer features).
+port stores no other 16-bit integer features); the wire keeps that
+dtype (:mod:`glt_tpu_torch.channel.serialization`), so only a ``uint16``
+``x`` is read as bf16.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +66,58 @@ def _converter(device: DeviceLike):
 def _meta(msg: SampleMessage, conv):
     return {k[len("#META."):]: conv(v) for k, v in msg.items()
             if k.startswith("#META.") and k != _META_BS} or None
+
+
+_TORCH_TO_NP = {torch.float32: np.float32, torch.float64: np.float64,
+                torch.int32: np.int32, torch.int64: np.int64,
+                torch.int16: np.int16, torch.int8: np.int8,
+                torch.uint8: np.uint8, torch.bool: np.bool_,
+                torch.float16: np.float16, torch.bfloat16: np.uint16}
+
+
+def _to_host(named: List[Tuple[str, object]]) -> SampleMessage:
+    """``named`` tensors as host arrays, the device ones through ONE
+    device-to-host copy: their bytes are packed (8-byte aligned) into
+    one flat buffer on the device, copied, and cut into numpy views of
+    their dtypes (bf16 as its uint16 bit patterns)."""
+    out: SampleMessage = {}
+    dev = [(k, v) for k, v in named
+           if isinstance(v, torch.Tensor) and v.device.type != "cpu"]
+    for k, v in named:
+        if not (isinstance(v, torch.Tensor) and v.device.type != "cpu"):
+            out[k] = _host(v)
+    if dev:
+        pieces, spans, off = [], [], 0
+        for k, v in dev:
+            b = v.detach().contiguous().reshape(-1).view(torch.uint8)
+            pad = -b.numel() % 8
+            pieces.append(b)
+            if pad:
+                pieces.append(b.new_zeros(pad))
+            spans.append((k, v, off, b.numel()))
+            off += b.numel() + pad
+        flat = torch.cat(pieces).cpu().numpy()
+        for k, v, o, n in spans:
+            out[k] = flat[o:o + n].view(_TORCH_TO_NP[v.dtype]).reshape(
+                tuple(v.shape))
+    return {k: out[k] for k, _ in named}
+
+
+def batch_to_message(batch: Batch) -> SampleMessage:
+    """Flatten a :class:`Batch` into string-keyed host arrays, the keys
+    of ``glt_tpu``'s ``batch_to_message``, with one device-to-host copy
+    for all its device tensors."""
+    named = [("node", batch.node), ("row", batch.edge_index[0]),
+             ("col", batch.edge_index[1]), ("node_mask", batch.node_mask),
+             ("edge_mask", batch.edge_mask),
+             (_META_BS, np.array(batch.batch_size, np.int64))]
+    for k, v in (("edge", batch.edge_id), ("batch", batch.batch),
+                 ("x", batch.x), ("y", batch.y)):
+        if v is not None:
+            named.append((k, v))
+    for k, v in (batch.metadata or {}).items():
+        named.append((f"#META.{k}", v))
+    return _to_host(named)
 
 
 def hetero_batch_to_message(batch: HeteroBatch) -> SampleMessage:

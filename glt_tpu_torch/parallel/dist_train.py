@@ -797,14 +797,12 @@ class _ColdStagePipeline:
         ``start_batch=k`` (skip the first ``k`` batches of the same
         schedule) resumes the same stream.  ``on_batch(state, i)`` fires
         after batch ``i`` trained, its device work finished.  Check
-        :meth:`flush_dropped` after the epoch.  ``supervisor`` needs
-        ``distributed/supervisor.py``, which is not ported (ROADMAP
-        queue A item 8): anything but None raises.
+        :meth:`flush_dropped` after the epoch.  ``supervisor`` (a
+        :class:`~glt_tpu_torch.distributed.supervisor.Supervisor`) is
+        polled at the same boundary: a dead peer raises its
+        :class:`~glt_tpu_torch.distributed.supervisor.PeerDeadError` out
+        of this loop for the caller's checkpoint-and-exit.
         """
-        if supervisor is not None:
-            raise NotImplementedError(
-                "run_epoch(supervisor=...) needs distributed/supervisor.py,"
-                " which is not ported yet (ROADMAP queue A item 8)")
         losses, accs = [], []
         pending = None  # (idx, out, staged future)
         n = 0
@@ -816,10 +814,13 @@ class _ColdStagePipeline:
                                                   k)
             losses.append(loss)
             accs.append(acc)
-            if on_batch is not None:
+            if on_batch is not None or supervisor is not None:
                 if loss.is_cuda:
                     torch.cuda.synchronize(loss.device)
+            if on_batch is not None:
                 on_batch(state, i)
+            if supervisor is not None:
+                supervisor.raise_if_dead()
 
         for i, seeds in enumerate(seed_batches):
             if i < start_batch:

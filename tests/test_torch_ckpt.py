@@ -541,10 +541,26 @@ def test_extra_components_ride_along(tmp_path):
 
 
 def test_trainloop_refuses_a_supervisor():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TrainLoop(_shared_step(), _fresh_state(), np.arange(SEEDS), BATCH,
-                  GROUP, 1, np.random.default_rng(7),
-                  trandom.PRNGKey(3, device="cpu"), supervisor=object())
+    """A supervisor whose peer is dead makes the loop refuse to go on:
+    it stops at the first block boundary with ``SupervisedExit``."""
+    import threading
+
+    from glt_tpu_torch.distributed.supervisor import (SupervisedExit,
+                                                      Supervisor)
+
+    died = threading.Event()
+    sup = Supervisor(deadline_secs=0.01, poll_interval=0.01,
+                     on_dead=lambda peer, report: died.set())
+    sup.register("server-0")
+    assert died.wait(60)
+    loop = TrainLoop(_shared_step(), _fresh_state(), np.arange(SEEDS), BATCH,
+                     GROUP, 1, np.random.default_rng(7),
+                     trandom.PRNGKey(3, device="cpu"), supervisor=sup)
+    with pytest.raises(SupervisedExit) as err:
+        loop.run()
+    assert err.value.step == 1 and err.value.checkpoint_path is None
+    assert err.value.report["peer"] == "server-0"
+    sup.stop()
 
 
 def test_trainloop_losses_match_jax(uninterrupted):

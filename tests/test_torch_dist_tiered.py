@@ -19,6 +19,7 @@ of the whole table, a ``DiskColdStore`` epoch equals a ``HostColdStore``
 one, a zero-row cold placeholder is refused without a store, and the
 staging thread overlaps the host gather with the training step.
 """
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -42,6 +43,7 @@ from glt_tpu.store import DiskFeatureStore as JaxStore
 from glt_tpu.store import write_feature_store as jax_write
 from glt_tpu_torch import random as trandom
 from glt_tpu_torch.distributed import DistDataset
+from glt_tpu_torch.distributed.supervisor import PeerDeadError, Supervisor
 from glt_tpu_torch.models import GraphSAGE, adam, params_from_flax
 from glt_tpu_torch.obs import metrics
 from glt_tpu_torch.parallel import (
@@ -532,8 +534,19 @@ def test_start_batch_resumes_equal(part):
     assert state_a.step == state_b.step == 4
     for k, v in state_a.model.state_dict().items():
         assert torch.equal(v, state_b.model.state_dict()[k]), k
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        pipe.run_epoch(state_a, [], key, supervisor=object())
+    # A dead peer raises out of the epoch at the first batch boundary.
+    died = threading.Event()
+    sup = Supervisor(deadline_secs=0.01, poll_interval=0.01,
+                     on_dead=lambda peer, report: died.set())
+    sup.register("server-0")
+    assert died.wait(60)
+    pipe = _setup(part, "xy")[3]
+    try:
+        with pytest.raises(PeerDeadError, match="server-0"):
+            pipe.run_epoch(state_a, list(batches[:2]), key, supervisor=sup)
+    finally:
+        pipe.close()
+        sup.stop()
 
 
 def test_disk_cold_store_epoch_equals_host(part, tmp_path):
@@ -593,41 +606,48 @@ def test_zero_row_cold_placeholder_refused_without_store(part, tmp_path):
 def test_cold_gather_overlaps_compute(part, monkeypatch):
     """The staging thread gathers batch k's cold rows while the main
     thread trains batch k - 1: with a host delay d added to each batch's
-    gather AND to each train step, an epoch grows by about n * d, not the
-    2 * n * d of the two run in turn."""
+    gather AND to each train step, the two threads' delays overlap, so
+    an epoch grows by well under the 2 * n * d of the two run in turn.
+
+    Measured on the delays themselves: each sleep's ``perf_counter``
+    interval is recorded on its thread, and the time both threads spend
+    sleeping at once must be more than a quarter of all the time slept
+    (no more than 0.75 of the injected delay may land on the epoch), a
+    reading that other load on the host does not move."""
     _, state, _, pipe, batches, _ = _setup(part, "xy")
     batches = list(batches)
-    n = len(batches)
     key = trandom.PRNGKey(0, device="cpu")
+    delay = 0.05
+    serve_iv, train_iv = [], []
 
-    def epoch():
-        nonlocal state
+    def timed_sleep(into):
         t0 = time.perf_counter()
-        state, _, _ = pipe.run_epoch(state, batches, key)
-        return time.perf_counter() - t0
+        time.sleep(delay)
+        into.append((t0, time.perf_counter()))
 
     try:
-        epoch()
-        base = min(epoch() for _ in range(2))
-        delay = 0.05
+        state, _, _ = pipe.run_epoch(state, batches, key)
         serve_into = pipe.cold_store.serve_into
         train = pipe.train_step
 
         def slow_serve(out, shard, req, **kw):
             if shard == 0:              # once a batch
-                time.sleep(delay)
+                timed_sleep(serve_iv)
             return serve_into(out, shard, req, **kw)
 
         def slow_train(*args):
-            time.sleep(delay)
+            timed_sleep(train_iv)
             return train(*args)
 
         monkeypatch.setattr(pipe.cold_store, "serve_into", slow_serve)
         pipe.train_step = slow_train
-        added = epoch() - base
+        state, _, _ = pipe.run_epoch(state, batches, key)
     finally:
         pipe.close()
-    injected = 2 * n * delay
-    assert added < 0.75 * injected, (
-        f"cold gather not overlapped: {injected:.2f} s injected on two "
-        f"threads, {added:.2f} s landed on the epoch (base {base:.2f} s)")
+    assert len(serve_iv) == len(train_iv) == len(batches)
+    slept = sum(b - a for a, b in serve_iv + train_iv)
+    both = sum(max(0.0, min(b, d) - max(a, c))
+               for a, b in serve_iv for c, d in train_iv)
+    assert both > (1 - 0.75) * slept, (
+        f"cold gather not overlapped: the threads slept {slept:.3f} s, "
+        f"{both:.3f} s of it at the same time")

@@ -48,6 +48,24 @@ from glt_tpu_torch.parallel import (  # noqa: E402,F401
 # The multi-process slice's entry points.
 from glt_tpu_torch.distributed.supervisor import (  # noqa: E402,F401
     BarrierTimeoutError, run_with_deadline)
+# The sampling-service slice's entry points.
+from glt_tpu_torch.channel import (  # noqa: E402,F401
+    ShmChannel, bounded_get, bounded_put, deserialize, serialize)
+from glt_tpu_torch.channel.native import ensure_built  # noqa: E402,F401
+from glt_tpu_torch.data import (  # noqa: E402,F401
+    attach_dataset, share_dataset)
+from glt_tpu_torch.distributed import (  # noqa: E402,F401
+    DistHeteroNeighborLoader, DistLinkNeighborLoader, DistNeighborLoader,
+    DistServer, DistSubGraphLoader, MpSamplingWorkerOptions,
+    RemoteNeighborLoader, RemoteServerConnection, batch_to_message,
+    init_server)
+from glt_tpu_torch.distributed.supervisor import (  # noqa: E402,F401
+    HeartbeatSender, PeerDeadError, SupervisedExit, Supervisor,
+    timed_barrier)
+from glt_tpu_torch.obs.propagate import (  # noqa: E402,F401
+    pack_trailer, split_trailer)
+from glt_tpu_torch.serving.errors import (  # noqa: E402,F401
+    SERVING_CODES, error_from_response)
 from glt_tpu_torch.parallel.multihost import (  # noqa: E402,F401
     Fleet, agree_max, agree_sum, assemble_global, barrier, feed_seeds,
     global_mesh, initialize, labels_global, local_shard_range,
@@ -129,6 +147,25 @@ MULTIHOST_MODULES = (
     "glt_tpu_torch.distributed.dist_dataset",
     "glt_tpu_torch.examples.dist_train_papers100m")
 
+# The sampling-service slice's modules: the channel, trace propagation,
+# shared datasets, the producer, loaders, server, client and supervisor,
+# and the two twins.
+SERVICE_MODULES = (
+    "glt_tpu_torch.channel", "glt_tpu_torch.channel.base",
+    "glt_tpu_torch.channel.native", "glt_tpu_torch.channel.serialization",
+    "glt_tpu_torch.channel.shm_channel", "glt_tpu_torch.obs.propagate",
+    "glt_tpu_torch.data.shared", "glt_tpu_torch.distributed.dist_options",
+    "glt_tpu_torch.distributed.dist_context",
+    "glt_tpu_torch.distributed.dist_sampling_producer",
+    "glt_tpu_torch.distributed.dist_loader",
+    "glt_tpu_torch.distributed.dist_server",
+    "glt_tpu_torch.distributed.dist_client",
+    "glt_tpu_torch.distributed.supervisor",
+    "glt_tpu_torch.distributed.sample_message",
+    "glt_tpu_torch.serving.errors",
+    "glt_tpu_torch.examples.dist_train_sage_with_server",
+    "glt_tpu_torch.examples.feature_mp")
+
 # The scanned-steps slice's example twins.
 TWIN_MODULES = (
     "glt_tpu_torch.examples.train_sage_products",
@@ -158,5 +195,7 @@ def test_port_imports_no_jax():
                                                     - walked)
     assert set(TIERED_MODULES) <= walked, sorted(set(TIERED_MODULES)
                                                  - walked)
+    assert set(SERVICE_MODULES) <= walked, sorted(set(SERVICE_MODULES)
+                                                  - walked)
     assert set(DIST_WHOLE_MODULES) <= walked, sorted(
         set(DIST_WHOLE_MODULES) - walked)
