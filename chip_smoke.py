@@ -187,8 +187,11 @@ Phases (the first failure exits non-zero and prints no result line):
    three scanned epochs (two blocks an epoch, captured in the second
    epoch, replayed in the third) and one loader epoch;
    ``bipartite_sage_unsup`` and ``dist_train_sage`` (8 shards on the
-   card) at their defaults for TWIN_EPOCHS epochs: every loss finite,
-   the bipartite loss falling, the plain threefry never on the card;
+   card) at their defaults for TWIN_EPOCHS epochs, and
+   ``table_dataset_train`` at its defaults (2,000 nodes from table
+   records, fanout (5, 5), batch 128, GraphSAGE 64 -> 6, 3 epochs): every
+   loss finite, the bipartite and table losses falling, B1 and B2
+   launched, the plain threefry never on the card;
 13. features that outgrow the card: phase 11's partition loaded by
    ``DistDataset.load(hot_ratio=0.25)`` (the JAX example's default; a
    quarter of each shard's rows on the card, the rest in host memory;
@@ -286,8 +289,51 @@ Phases (the first failure exits non-zero and prints no result line):
    refuse a larger message), every seed once in each of SVC_MP_EPOCHS
    epochs.  Every server and worker reports its launch counts: each must
    have launched B1 and B2, none the plain threefry;
-17. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-16, the spawned processes' included) and the ok line.
+17. the serving fleet: phase 4's serving width behind the wire.  Two
+   replica processes on ``cuda:0`` (``python3 chip_smoke.py
+   --service-worker replica WORK RANK``), each building
+   ``synthetic_products(scale=1.0)`` and serving it through
+   ``init_server(serving=ServingOptions(num_neighbors=(15, 10, 5),
+   seed_buckets=(8, 32, 128), max_batch_requests=32, max_wait_ms=2.0,
+   max_inflight=64))``; a third, ADMIT_SCALE of the graph at
+   ``max_inflight=8``, for the admission burst.  A
+   ``RemoteNeighborLoader`` trains GraphSAGE 100 -> 128 -> 47 against
+   replica 0 (batch 256, FLEET_TRAIN_BATCHES batches an epoch: its seeds
+   once, its losses finite) twice: in leg A, its producer sampling on
+   the card while the buckets are captured, and in leg B, while they
+   replay under load (the intervals must overlap).  Leg A sends
+   LEG_A_SIZES seeds one request at a time to replica 0: every message ``==`` a CPU ``SubgraphEngine``'s
+   with the same options fed the same single-request micro-batches in
+   the same order (node, row, col, edge, x, y); then, the trainer done,
+   LEG_A_TIMED requests a bucket, one at a time: the client's round trip
+   and the replica's ``glt.serving.*`` split over the same requests.  Leg
+   B: a ``FleetRouter`` (affinity, FLEET_SHARDS shards) over both
+   replicas, LEG_B_THREADS client threads of LEG_B_REQS requests of 1-100
+   seeds drawn from a seeded zipf over the node ids, each batch received
+   on the card: its seeds first and equal to the request's deduplicated
+   seeds, every edge a CSR edge of its node ids within 3 hops of them,
+   ``x`` and ``y`` the rows and labels of its nodes; GraphSAGE (hidden
+   256, 3 layers, 47 classes, weights from seed 0) on each, logits
+   finite; LEG_B_THREADS small requests sent at once to replica 0 must
+   share micro-batches (``dispatched_batches < completed``); the
+   replicas' ``glt.serving.*`` split over the leg.  Leg C: a burst of ADMIT_BURST requests at once on the
+   admission replica gets ``Overloaded`` with ``retry_after_ms > 0`` and
+   no transport error; an armed ``fail_serving_batch`` on replica 1
+   fails exactly that micro-batch (``ServingError``) and the next one
+   serves; a ``FleetController`` tick over a gauge SLO the fleet breaks
+   sheds both replicas (``shed_frac``) and a resolved alert through the
+   router reopens them;
+   ``kill_replica_after_serving_batches`` kills replica 1 under router
+   load: every request answered and checked, replica 1 marked dead once,
+   only its shards re-homed, a merged postmortem written.  Each replica
+   reports its launch counts: B1 3 a bucket in its warm-up and 3 in its
+   capture and none in a replay (replica 0 adds 3 a producer batch), B2
+   2 a bucket (+1 a producer batch), the hash kernel once a micro-batch
+   plus 2 a bucket on replica 1, the plain threefry never.  Client round
+   trips p50/p99 per bucket (leg A through one replica, leg B through the
+   router) and each replica's seed-cache hit rate are printed;
+18. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-17, the spawned processes' included) and the ok line.
 
 Details go to ``build/results/chip_smoke.json`` (phase 10's trace to
 ``build/results/phase10_trace.json``).  Imports torch, numpy and
@@ -308,10 +354,12 @@ import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -444,6 +492,27 @@ SVC_MP_WORKERS, SVC_MP_EPOCHS, SVC_MP_BATCHES = 2, 2, 8
 SVC_TIMEOUT_S = 400
 SVC_FIELDS = ("node", "edge_index", "edge_id", "node_mask", "edge_mask",
               "y")
+# The serving fleet: phase 4's serving width (fanout (15, 10, 5), buckets
+# (8, 32, 128)) on synthetic_products(scale=1.0) behind the wire, in
+# FLEET_REPLICAS replica processes on the card (the admission replica:
+# ADMIT_SCALE of the graph at max_inflight ADMIT_INFLIGHT).  A remote
+# trainer on replica 0 for FLEET_TRAIN_BATCHES batches of SVC_BS in each
+# of legs A and B; leg A
+# LEG_A_SIZES seeds a request, then LEG_A_TIMED requests a bucket; leg B
+# LEG_B_THREADS threads x LEG_B_REQS requests of 1-100 seeds from a zipf
+# of exponent LEG_B_ZIPF through a FleetRouter of FLEET_SHARDS shards;
+# leg C a burst of ADMIT_BURST, and the kill after KILL_AFTER_BATCHES
+# micro-batches under KILL_THREADS x KILL_REQS requests.
+FLEET_REPLICAS, FLEET_SCALE, FLEET_SHARDS = 2, 1.0, 48
+SERVE_OPTS = dict(num_neighbors=FANOUTS, seed_buckets=BUCKETS,
+                  max_batch_requests=32, max_wait_ms=2.0, max_inflight=64)
+ADMIT_SCALE, ADMIT_INFLIGHT, ADMIT_BURST = 0.05, 8, 32
+FLEET_TRAIN_BATCHES = 16
+LEG_A_SIZES = (1, 7, 30, 100, 1, 7, 30, 100, 100, 30)
+LEG_A_TIMED = 24
+LEG_B_THREADS, LEG_B_REQS, LEG_B_ZIPF = 16, 32, 1.2
+KILL_AFTER_BATCHES, KILL_THREADS, KILL_REQS = 5, 8, 16
+SERVE_STAGES = ("queue_wait", "batch", "scatter", "e2e")
 DEVICE = "cuda"
 
 
@@ -4504,6 +4573,7 @@ def run_twins(torch, ops, trandom) -> dict:
     from glt_tpu_torch.examples import (
         bipartite_sage_unsup,
         dist_train_sage,
+        table_dataset_train,
         train_sage_products,
     )
     from glt_tpu_torch.obs import compilewatch
@@ -4518,6 +4588,8 @@ def run_twins(torch, ops, trandom) -> dict:
             ["--device", DEVICE, "--epochs", str(TWIN_EPOCHS)]),
         "dist_train_sage": lambda: dist_train_sage.main(
             ["--device", DEVICE, "--epochs", str(TWIN_EPOCHS)]),
+        "table_dataset_train": lambda: table_dataset_train.main(
+            ["--device", DEVICE]),
     }
     # The kernels each path must launch.
     uses = {"train_sage_products": ("sample_neighbors_cuda",
@@ -4526,7 +4598,9 @@ def run_twins(torch, ops, trandom) -> dict:
                                            "gather_rows_cuda"),
             "bipartite_sage_unsup": ("sample_neighbors_cuda",
                                      "gather_rows_cuda"),
-            "dist_train_sage": ("sample_neighbors_cuda",)}
+            "dist_train_sage": ("sample_neighbors_cuda",),
+            "table_dataset_train": ("sample_neighbors_cuda",
+                                    "gather_rows_cuda")}
     rep = {"launches": {k: 0 for k in kernel_wrappers(ops)}}
     for name, run in runs.items():
         for fn in kernel_wrappers(ops).values():
@@ -4557,12 +4631,15 @@ def run_twins(torch, ops, trandom) -> dict:
          f"{rep['train_sage_products']['captures']} blocks, not 2")
     bip = rep["bipartite_sage_unsup"]["history"]
     need(bip[-1] < bip[0], f"the bipartite twin's loss did not fall: {bip}")
+    tab = [float(np.mean(h)) for h in rep["table_dataset_train"]["history"]]
+    need(tab[-1] < tab[0], f"the table twin's loss did not fall: {tab}")
     return rep
 
 
 def log_twins(rep: dict, card: str) -> None:
     for name in ("train_sage_products", "train_sage_products_loader",
-                 "bipartite_sage_unsup", "dist_train_sage"):
+                 "bipartite_sage_unsup", "dist_train_sage",
+                 "table_dataset_train"):
         r = rep[name]
         first, last = (np.mean(r["history"][0]), np.mean(r["history"][-1]))
         log(f"twin {name} [{card}]: {r['steps']} steps in "
@@ -5682,13 +5759,14 @@ def svc_attach(handle, work: str):
 
 
 def service_worker(role: str, work: str, rank: str) -> int:
-    """``--service-worker server|trainer WORK RANK``: one process of
-    phase 16's leg A on the card.  A server builds the twin's dataset,
-    writes its address and serves until a client's ``exit``; a trainer
-    waits for the addresses, trains through the twin's ``train`` on its
-    cut seeds and keeps every batch for the parent's checks.  Each
-    writes ``<role>_<rank>.json`` (the trainer its batches to ``.npz``)
-    into WORK."""
+    """``--service-worker server|trainer|replica WORK RANK``: one process
+    of phase 16's leg A or of phase 17 on the card.  A server builds the
+    twin's dataset, writes its address and serves until a client's
+    ``exit``; a trainer waits for the addresses, trains through the
+    twin's ``train`` on its cut seeds and keeps every batch for the
+    parent's checks; a replica serves phase 17 (:func:`serve_replica`).
+    Each writes ``<role>_<rank>.json`` (the trainer its batches to
+    ``.npz``) into WORK."""
     import torch
 
     from glt_tpu_torch import ops
@@ -5703,7 +5781,9 @@ def service_worker(role: str, work: str, rank: str) -> int:
     count_plain_hashes(trandom)
     cuda_lib.library()
     rep = {"role": role, "rank": rank, "pid": os.getpid()}
-    if role == "server":
+    if role == "replica":
+        serve_replica(torch, ops, trandom, work, rank, rep, t_start)
+    elif role == "server":
         from glt_tpu_torch.distributed import init_server
 
         ds = twin.build_dataset(SVC_SCALE, DEVICE)
@@ -5763,6 +5843,24 @@ def spawn_service(role: str, rank: int, work: str):
         cwd=os.path.dirname(script))
 
 
+def wait_addrs(procs: dict, work: str, names) -> list:
+    """Each spawned server's address, as it writes ``addr_<rank>.json``
+    (SVC_TIMEOUT_S in all); a server that dies first fails the phase."""
+    deadline = time.monotonic() + SVC_TIMEOUT_S
+    addrs = []
+    for r, name in enumerate(names):
+        path = os.path.join(work, f"addr_{r}.json")
+        while not os.path.exists(path):
+            p = procs[name]
+            if p.poll() is not None:
+                raise Failed(f"{name} died before serving: "
+                             f"{p.communicate()[1][-3000:]}")
+            need(time.monotonic() < deadline, f"{name} never came up")
+            time.sleep(0.05)
+        addrs.append(tuple(json.load(open(path))["addr"]))
+    return addrs
+
+
 def finish_service(procs: dict) -> None:
     """Wait for every spawned process (SVC_TIMEOUT_S each); a failed or
     late one fails the phase, its siblings killed."""
@@ -5783,12 +5881,10 @@ def finish_service(procs: dict) -> None:
                 p.wait()
 
 
-def prom_histogram(text: str, name: str) -> dict:
-    """Median (``quantile_from_counts`` over the per-bucket counts that
-    the cumulative ``_bucket`` lines give), mean and count of histogram
-    ``name`` from a text exposition."""
-    from glt_tpu_torch.obs.metrics import quantile_from_counts
-
+def prom_counts(text: str, name: str):
+    """Histogram ``name`` from a text exposition: its bucket bounds, the
+    per-bucket counts (from the cumulative ``_bucket`` lines), its sum
+    and its count."""
     les, cum, total, count = [], [], 0.0, 0.0
     for line in text.splitlines():
         if line.startswith(name + "_bucket{"):
@@ -5800,10 +5896,25 @@ def prom_histogram(text: str, name: str) -> dict:
             total = float(line.rsplit(" ", 1)[1])
         elif line.startswith(name + "_count"):
             count = float(line.rsplit(" ", 1)[1])
+    return (tuple(les), [c - b for b, c in zip([0.0] + cum[:-1], cum)],
+            total, count)
+
+
+def prom_histogram(text: str, name: str, since: str = "") -> dict:
+    """Median and p99 (``quantile_from_counts`` over the per-bucket
+    counts), mean and count of histogram ``name`` from a text exposition;
+    with ``since``, over what was observed after that exposition."""
+    from glt_tpu_torch.obs.metrics import quantile_from_counts
+
+    les, counts, total, count = prom_counts(text, name)
+    if since:
+        _, c0, t0, n0 = prom_counts(since, name)
+        counts = [a - b for a, b in zip(counts, c0 + [0.0] * len(counts))]
+        total, count = total - t0, count - n0
     if not count:
         return {"count": 0}
-    counts = [c - b for b, c in zip([0.0] + cum[:-1], cum)]
-    return {"median_ms": quantile_from_counts(tuple(les), counts, 0.5),
+    return {"median_ms": quantile_from_counts(les, counts, 0.5),
+            "p99_ms": quantile_from_counts(les, counts, 0.99),
             "mean_ms": total / count, "count": count}
 
 
@@ -5927,18 +6038,8 @@ def run_service(torch, dev) -> dict:
                  for r in range(SVC_SERVERS)]
         for r, sd in enumerate(seeds):
             np.save(os.path.join(work, f"seeds_{r}.npy"), sd)
-        deadline = time.monotonic() + SVC_TIMEOUT_S
-        addrs = []
-        for r in range(SVC_SERVERS):
-            path = os.path.join(work, f"addr_{r}.json")
-            while not os.path.exists(path):
-                srv = procs[f"server {r}"]
-                if srv.poll() is not None:
-                    raise Failed(f"server {r} died before serving: "
-                                 f"{srv.communicate()[1][-3000:]}")
-                need(time.monotonic() < deadline, "the servers never came up")
-                time.sleep(0.05)
-            addrs.append(json.load(open(path))["addr"])
+        addrs = wait_addrs(procs, work, [f"server {r}"
+                                         for r in range(SVC_SERVERS)])
         svc_report(work, "service", {"addrs": addrs})
         rep["servers_up_s"] = time.perf_counter() - t_start
 
@@ -6177,6 +6278,565 @@ def log_service(rep: dict, card: str) -> None:
     log(f"  launches {rep['launches']}; walls: servers up "
         f"{rep['servers_up_s']:.1f} s, leg A {rep['leg_a_s']:.1f} s, leg B "
         f"{rep['leg_b_s']:.1f} s")
+
+
+# -- phase 17: the serving fleet ---------------------------------------------
+def serve_replica(torch, ops, trandom, work: str, rank: int, rep: dict,
+                  t_start: float) -> None:
+    """Phase 17's replica ``rank``: builds its dataset on the card from
+    ``replica_cfg_<rank>.json``, serves it until a client's ``exit`` or
+    an armed kill, then reports its launch counts and front stats into
+    ``rep``.  The smoke's own ``smoke_fault`` op arms the replica's
+    ``FaultPlan`` at its next micro-batches (``fail_after`` fails the
+    k-th, ``kill_after`` kills the replica at the k-th)."""
+    from glt_tpu_torch.distributed import init_server
+    from glt_tpu_torch.examples.datasets import synthetic_products
+    from glt_tpu_torch.serving import ServingOptions
+    from glt_tpu_torch.testing import FaultPlan
+
+    cfg = json.load(open(os.path.join(work, f"replica_cfg_{rank}.json")))
+    ds = synthetic_products(scale=cfg["scale"], device=DEVICE)[0]
+    torch.cuda.synchronize()
+    rep["build_s"] = time.perf_counter() - t_start
+    plan = FaultPlan(max_faulty_conns=0)     # no socket faults
+    counts_zero(ops, trandom)
+    srv = init_server(ds, fault_plan=plan, enable_metrics=True,
+                      serving=ServingOptions(**dict(
+                          SERVE_OPTS, max_inflight=cfg["max_inflight"])))
+    handle = srv._handle
+
+    def smoke_handle(req, trace_ctx=None):
+        if req.get("op") != "smoke_fault":
+            return handle(req, trace_ctx=trace_ctx)
+        with plan._lock:
+            n = plan._serving_batches
+            if "fail_after" in req:
+                plan.fail_serving_batch = n + int(req["fail_after"])
+            if "kill_after" in req:
+                plan.replica_kill_hook = lambda: threading.Thread(
+                    target=srv.kill, daemon=True).start()
+                plan.kill_replica_after_serving_batches = n + int(
+                    req["kill_after"])
+        return {"ok": True}
+
+    srv._handle = smoke_handle
+    svc_report(work, f"addr_{rank}", {"addr": list(srv.addr)})
+    srv.wait_for_exit(timeout=SVC_TIMEOUT_S)
+    srv.shutdown()                    # joins the dispatcher
+    torch.cuda.synchronize()
+    rep.update(launches=counts_read(ops),
+               plain_hash_calls=trandom.threefry2x32.calls,
+               stats=srv.serving.stats(),
+               serving_failures=plan.injected_serving_failures,
+               killed=plan.injected_replica_kills,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def dedup_seeds(seeds) -> np.ndarray:
+    """A request's seeds as the server canonicalizes them: duplicates
+    dropped, first occurrences in order."""
+    a = np.asarray(seeds, np.int64)
+    _, first = np.unique(a, return_index=True)
+    return a[np.sort(first)]
+
+
+def own_bucket(n_seeds: int) -> int:
+    return next(b for b in BUCKETS if n_seeds <= b)
+
+
+def check_served(b: dict, seeds, indptr, indices, feat, labels) -> int:
+    """One served batch (host arrays) against the graph: its seeds lead
+    the node list and equal the request's deduplicated seeds, every edge
+    is a CSR edge of its node ids (``row`` the neighbor, ``col`` the
+    seed side) within len(FANOUTS) hops of the seeds, ``x`` and ``y``
+    the rows and labels of its nodes.  Returns its edges."""
+    want = dedup_seeds(seeds)
+    node, k = b["node"].astype(np.int64), want.size
+    need(np.array_equal(b["batch"], want) and b["batch_size"] == k
+         and np.array_equal(node[:k], want),
+         "a served batch's seeds differ from its request's")
+    row, col = b["edge_index"]
+    u, v, e = node[col], node[row], b["edge_id"].astype(np.int64)
+    need(bool(((e >= indptr[u]) & (e < indptr[u + 1])).all())
+         and np.array_equal(indices[e], v),
+         "a served edge is not a CSR edge of its node ids")
+    level = np.full(node.size, -1)
+    level[:k] = 0
+    for h in range(len(FANOUTS)):
+        reach = row[level[col] == h]
+        reach = reach[level[reach] < 0]
+        level[reach] = h + 1
+    need(bool((level >= 0).all()),
+         f"a served node lies past {len(FANOUTS)} hops of its seeds")
+    need(np.array_equal(b["x"], feat[node]), "served x differs from rows")
+    need(np.array_equal(b["y"], labels[node]), "served y differs")
+    return int(e.size)
+
+
+def message_batch(m: dict) -> dict:
+    """A served message's arrays under ``host_batch``'s names."""
+    return {"node": m["node"], "edge_index": np.stack([m["row"], m["col"]]),
+            "edge_id": m["edge"], "x": m["x"], "y": m["y"],
+            "batch": m["batch"],
+            "batch_size": int(np.asarray(m["#META.batch_size"]).ravel()[0])}
+
+
+def host_batch(b) -> dict:
+    return {"node": b.node.cpu().numpy(),
+            "edge_index": b.edge_index.cpu().numpy(),
+            "edge_id": b.edge_id.cpu().numpy(), "x": b.x.cpu().numpy(),
+            "y": b.y.cpu().numpy(), "batch": b.batch.cpu().numpy(),
+            "batch_size": b.batch_size}
+
+
+def percentiles(ms) -> dict:
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def zipf_requests(rng, n: int, count: int) -> list:
+    """``count`` requests of 1-100 seeds drawn from a zipf over the node
+    ids (exponent LEG_B_ZIPF; rank k is node ``perm[k]``)."""
+    perm = rng.permutation(n)
+    out = []
+    for _ in range(count):
+        z = rng.zipf(LEG_B_ZIPF, int(rng.integers(1, 101)))
+        out.append(perm[(z - 1) % n])
+    return out
+
+
+def run_fleet(torch, dev) -> dict:
+    """Phase 17 (see the module docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from glt_tpu_torch.channel import deserialize
+    from glt_tpu_torch.distributed import RemoteServerConnection
+    from glt_tpu_torch.distributed.dist_server import (_KIND_JSON, _KIND_SUB,
+                                                       recv_frame, send_frame)
+    from glt_tpu_torch.examples import dist_train_sage_with_server as svc
+    from glt_tpu_torch.examples.datasets import synthetic_products
+    from glt_tpu_torch.models import GraphSAGE, make_train_step
+    from glt_tpu_torch.obs import flight
+    from glt_tpu_torch.obs.slo import SloSpec
+    from glt_tpu_torch.serving import (FleetController, FleetRouter,
+                                       FleetSpec, InferenceClient,
+                                       ServingError, ServingOptions,
+                                       SubgraphEngine)
+
+    rep = {}
+    t_start = time.perf_counter()
+    work = os.path.abspath(os.path.join(WORK_DIR, "fleet"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfgs = [{"scale": FLEET_SCALE,
+             "max_inflight": SERVE_OPTS["max_inflight"]}] * FLEET_REPLICAS
+    cfgs.append({"scale": ADMIT_SCALE, "max_inflight": ADMIT_INFLIGHT})
+    names = [f"replica {r}" for r in range(len(cfgs))]
+    for r, c in enumerate(cfgs):
+        svc_report(work, f"replica_cfg_{r}", c)
+    procs = {name: spawn_service("replica", r, work)
+             for r, name in enumerate(names)}
+    pool = ThreadPoolExecutor(LEG_B_THREADS + 1)
+    router = ctrl = None
+    try:
+        t0 = time.perf_counter()
+        ds_cpu, train_idx = synthetic_products(scale=FLEET_SCALE,
+                                               device="cpu")
+        rep["parent_build_s"] = time.perf_counter() - t0
+        topo = ds_cpu.get_graph().topo
+        n = topo.num_nodes
+        indptr, indices = topo.indptr.astype(np.int64), topo.indices
+        feat = ds_cpu.get_node_feature()._host_full
+        labels = np.asarray(ds_cpu.get_node_label())
+        addrs = wait_addrs(procs, work, names)
+        rep["replicas_up_s"] = time.perf_counter() - t_start
+
+        # A remote trainer on replica 0, once for leg A (its producer
+        # samples on the card while the buckets are captured) and once
+        # for leg B (while the buckets replay under load).
+        def train_remote(part, started):
+            m0 = time.monotonic()
+            seeds = train_idx[part * FLEET_TRAIN_BATCHES * SVC_BS:
+                              (part + 1) * FLEET_TRAIN_BATCHES * SVC_BS]
+            ld = svc.make_loader(addrs[0], seeds, SVC_BS, device=DEVICE)
+            state, step = svc.make_state(DEVICE), make_train_step(SVC_BS)
+            losses, seen = [], []
+            try:
+                for b in ld:
+                    state, loss, _ = step(state, b)
+                    losses.append(loss)
+                    seen.append(b.batch[:b.batch_size].cpu().numpy())
+                    started.set()
+            finally:
+                ld.shutdown()
+            return {"losses": torch.stack(losses).cpu().tolist(),
+                    "seeds": np.concatenate(seen), "want": seeds,
+                    "mono": [m0, time.monotonic()]}
+
+        def start_trainer(part):
+            started = threading.Event()
+            fut = pool.submit(train_remote, part, started)
+            while not started.wait(0.1):
+                if fut.done():
+                    fut.result()
+                    raise Failed("the remote trainer ended before a batch")
+                need(time.perf_counter() - t_start < SVC_TIMEOUT_S,
+                     "the remote trainer never got a batch")
+            return fut
+
+        def end_trainer(fut, window):
+            tr = fut.result(timeout=SVC_TIMEOUT_S)
+            need(np.array_equal(np.sort(tr["seeds"]), np.sort(tr["want"])),
+                 "the remote trainer's seeds did not arrive exactly once")
+            need(bool(np.isfinite(tr["losses"]).all()),
+                 "the remote trainer's loss is not finite")
+            return {"batches": len(tr["losses"]),
+                    "losses": [tr["losses"][0], tr["losses"][-1]],
+                    "s": tr["mono"][1] - tr["mono"][0],
+                    "end_after_window_s": tr["mono"][1] - window[1],
+                    "overlap_s": min(tr["mono"][1], window[1])
+                    - max(tr["mono"][0], window[0])}
+
+        trainer = start_trainer(0)
+
+        # Leg A: one request a micro-batch to replica 0, == a CPU engine.
+        t_a = time.perf_counter()
+        rng = np.random.default_rng(17)
+        eng = SubgraphEngine(ds_cpu, ServingOptions(**SERVE_OPTS))
+        cli = InferenceClient(addrs[0], timeout=120.0, device=DEVICE)
+        cap_mono = [time.monotonic(), None]
+        buckets_seen = set()
+        for k in LEG_A_SIZES:
+            seeds = rng.choice(n, k, replace=False)
+            got = cli.subgraph_message(seeds)
+            want = eng.scatter(eng.sample([eng.validate_seeds(seeds)]))[0]
+            need(sorted(got) == sorted(want), "leg A: message keys differ")
+            for f in want:
+                # The wire writes a 0-d array as shape (1,).
+                a, w = np.asarray(got[f]), np.asarray(want[f])
+                need(a.dtype == w.dtype and np.array_equal(
+                    a.reshape(-1) if w.ndim == 0 else a, w.reshape(-1)
+                    if w.ndim == 0 else w),
+                     f"leg A: {f} of a {k}-seed request differs from the "
+                     f"CPU engine's")
+            buckets_seen.add(own_bucket(k))
+            if buckets_seen == set(BUCKETS) and cap_mono[1] is None:
+                cap_mono[1] = time.monotonic()
+        rep["leg_a_messages"] = len(LEG_A_SIZES)
+        st0 = cli.stats()
+        need(st0["compiled_buckets"] == list(BUCKETS),
+             f"replica 0 compiled {st0['compiled_buckets']}")
+        rep["trainer"] = [end_trainer(trainer, cap_mono)]
+        rep["captured_s"] = cap_mono[1] - cap_mono[0]
+        need(rep["trainer"][0]["end_after_window_s"] > 0,
+             "the remote trainer ended before the buckets were captured")
+        # The timed pass, the trainer done: per bucket the client's round
+        # trip and replica 0's server-side split over the same requests.
+        timed, split = {}, {}
+        ctl0 = RemoteServerConnection(addrs[0], timeout=120.0)
+        lo = 1
+        for bucket in BUCKETS:
+            ms, text0 = [], ctl0.request(op="get_metrics")["text"]
+            for _ in range(LEG_A_TIMED):
+                seeds = rng.choice(n, int(rng.integers(
+                    lo, min(bucket, 100) + 1)), replace=False)
+                t0 = time.perf_counter()
+                cli.subgraph(seeds)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            timed[str(bucket)] = percentiles(ms)
+            text1 = ctl0.request(op="get_metrics")["text"]
+            split[str(bucket)] = {stg: prom_histogram(
+                text1, f"glt_serving_{stg}_ms", since=text0)
+                for stg in SERVE_STAGES}
+            lo = bucket + 1
+        cli.close()
+        rep["leg_a_client"], rep["leg_a_server"] = timed, split
+        rep["leg_a_s"] = time.perf_counter() - t_a
+
+        # Leg B: the router over both replicas under concurrent load.
+        t_b = time.perf_counter()
+        router = FleetRouter(addrs[:FLEET_REPLICAS], num_shards=FLEET_SHARDS,
+                             request_timeout=120.0, health_deadline_s=30.0,
+                             probe_interval_s=0.5, device=DEVICE)
+        need(router.legacy_replicas() == [], "a replica answered as legacy")
+        model = random_model(torch, GraphSAGE, dev)
+        reqs = zipf_requests(rng, n, LEG_B_THREADS * LEG_B_REQS)
+        texts_b = [ctl0.request(op="get_metrics")["text"]]
+        conn = RemoteServerConnection(addrs[1], timeout=120.0)
+        texts_b.append(conn.request(op="get_metrics")["text"])
+        conn.close()
+        ctl0.close()
+
+        def client_thread(mine):
+            rows = []
+            for seeds in mine:
+                t0 = time.perf_counter()
+                b = router.subgraph(seeds)
+                ms = (time.perf_counter() - t0) * 1e3
+                need(b.x.device.type == dev.type, "a batch is not on the card")
+                with torch.no_grad():
+                    logits = model(b.x, b.edge_index, b.edge_mask)
+                need(bool(torch.isfinite(logits).all()), "logits not finite")
+                edges = check_served(host_batch(b), seeds, indptr, indices,
+                                     feat, labels)
+                rows.append((own_bucket(dedup_seeds(seeds).size), ms, edges))
+            return rows
+
+        trainer = start_trainer(1)
+        b_mono = [time.monotonic(), None]
+        futs = [pool.submit(client_thread, reqs[t::LEG_B_THREADS])
+                for t in range(LEG_B_THREADS)]
+        rows = [r for f in futs for r in f.result(timeout=SVC_TIMEOUT_S)]
+        b_mono[1] = time.monotonic()
+        rep["trainer"].append(end_trainer(trainer, b_mono))
+        need(rep["trainer"][1]["overlap_s"] > 0,
+             "the remote trainer and leg B's load did not run at once")
+        rep["leg_b_requests"] = len(rows)
+        rep["leg_b_edges"] = sum(r[2] for r in rows)
+        rep["leg_b_client"] = {
+            str(bk): percentiles([r[1] for r in rows if r[0] == bk])
+            for bk in BUCKETS if any(r[0] == bk for r in rows)}
+        # A burst of small requests at once on replica 0: they queue while
+        # its dispatcher is busy, so they must ride shared micro-batches.
+        before = router.replica_stats()[router.table.replicas[0]]
+        socks = [socket.create_connection(addrs[0], timeout=120)
+                 for _ in range(LEG_B_THREADS)]
+        small = [rng.choice(n, 4, replace=False) for _ in socks]
+        try:
+            for sk, seeds in zip(socks, small):
+                send_frame(sk, _KIND_JSON, json.dumps({
+                    "op": "subgraph_request", "seeds": seeds.tolist(),
+                    "deadline_ms": 60_000}).encode())
+            for sk, seeds in zip(socks, small):
+                kind, data = recv_frame(sk)
+                need(kind == _KIND_SUB, "a burst request was not served")
+                check_served(message_batch(deserialize(memoryview(data))),
+                             seeds, indptr, indices, feat, labels)
+        finally:
+            for sk in socks:
+                sk.close()
+        stats = router.replica_stats()
+        got0 = stats[router.table.replicas[0]]
+        rep["burst_coalesced"] = {
+            k: got0[k] - before[k] for k in ("completed",
+                                             "dispatched_batches")}
+        rep["leg_b_replicas"] = {k: {f: v[f] for f in (
+            "completed", "dispatched_batches", "seed_cache_hit_rate",
+            "ewma_batch_ms", "compiled_buckets")} for k, v in stats.items()}
+        need(all(v and v["enabled"] for v in stats.values()),
+             "a replica's serving_stats failed")
+        need(any(v["dispatched_batches"] < v["completed"]
+                 for v in stats.values()), "no replica coalesced requests")
+        rep["leg_b_server"] = {}
+        for r in range(FLEET_REPLICAS):
+            conn = RemoteServerConnection(addrs[r], timeout=120.0)
+            text = conn.request(op="get_metrics")["text"]
+            conn.close()
+            rep["leg_b_server"][r] = {stg: prom_histogram(
+                text, f"glt_serving_{stg}_ms", since=texts_b[r])
+                for stg in SERVE_STAGES}
+        rep["leg_b_s"] = time.perf_counter() - t_b
+
+        # Leg C: admission, a failed micro-batch, shed, and a death.
+        t_c = time.perf_counter()
+        n_admit = max(1000, int(2_449_029 * ADMIT_SCALE))
+        socks = [socket.create_connection(addrs[-1], timeout=120)
+                 for _ in range(ADMIT_BURST)]
+        try:
+            for s in socks:
+                send_frame(s, _KIND_JSON, json.dumps({
+                    "op": "subgraph_request",
+                    "seeds": rng.choice(n_admit, 100, replace=False).tolist(),
+                    "deadline_ms": 60_000}).encode())
+            served = hints = 0
+            for s in socks:
+                kind, data = recv_frame(s)
+                need(kind in (_KIND_SUB, _KIND_JSON),
+                     "a burst request got no answer frame")
+                if kind == _KIND_SUB:
+                    served += 1
+                    continue
+                resp = json.loads(data)
+                need(resp.get("code") == "overloaded"
+                     and float(resp.get("retry_after_ms") or 0) > 0,
+                     f"a burst request failed otherwise: {resp}")
+                hints += 1
+        finally:
+            for s in socks:
+                s.close()
+        need(hints > 0 and served > 0 and served + hints == ADMIT_BURST,
+             f"burst: {served} served, {hints} overloaded")
+        rep["burst"] = {"served": served, "overloaded": hints}
+
+        ctl1 = RemoteServerConnection(addrs[1], timeout=120.0)
+        c1 = InferenceClient(addrs[1], timeout=120.0, device=DEVICE)
+        failed0 = c1.stats()["failed"]
+        ctl1.request(op="smoke_fault", fail_after=1)
+        seeds = rng.choice(n, 30, replace=False)
+        try:
+            c1.subgraph(seeds)
+            raise Failed("the armed micro-batch served")
+        except ServingError as e:
+            need(e.code == "serving_failed", f"armed failure gave {e.code}")
+        check_served(host_batch(c1.subgraph(seeds)), seeds, indptr, indices,
+                     feat, labels)
+        need(c1.stats()["failed"] == failed0 + 1,
+             "the failed micro-batch failed more than its request")
+        c1.close()
+
+        spec = FleetSpec(
+            slos=[SloSpec(name="smoke_batch_ms",
+                          metric="glt.fleet.ewma_batch_ms", kind="gauge",
+                          objective=1e-3, comparison="<=",
+                          windows=((1.0, 1.0),), shed_frac=0.5)],
+            replica_deadline_s=600.0,
+            postmortem_dir=os.path.join(work, "postmortem"))
+        ctrl = FleetController(addrs[:FLEET_REPLICAS], spec=spec,
+                               router=router)
+        alerts = ctrl.tick(now=time.monotonic())
+        need([a["state"] for a in alerts] == ["firing"],
+             f"the controller's tick gave {alerts}")
+        shed = {k: v["shed_frac"] for k, v in router.replica_stats().items()}
+        need(set(shed.values()) == {0.5}, f"shed_frac after firing: {shed}")
+        router.broadcast_shed({"slo": "smoke_batch_ms", "state": "resolved"})
+        reopened = {k: v["shed_frac"]
+                    for k, v in router.replica_stats().items()}
+        need(set(reopened.values()) == {0.0}, f"not reopened: {reopened}")
+        rep["shed"] = {"firing": shed, "resolved": reopened}
+
+        key0, key1 = router.table.replicas
+        before = router.table.assignment()
+        ev0 = len(flight.recorder().snapshot()["events"])
+        ctl1.request(op="smoke_fault", kill_after=KILL_AFTER_BATCHES)
+        ctl1.close()
+        kreqs = zipf_requests(rng, n, KILL_THREADS * KILL_REQS)
+        kfuts = [pool.submit(client_thread, kreqs[t::KILL_THREADS])
+                 for t in range(KILL_THREADS)]
+        krows = [r for f in kfuts for r in f.result(timeout=SVC_TIMEOUT_S)]
+        need(len(krows) == len(kreqs), "a request of the kill leg was lost")
+        status = router.fleet_status()
+        need(not status[key1]["alive"] and status[key1]["shards"] == 0,
+             f"replica 1 not dead and re-homed: {status[key1]}")
+        after = router.table.assignment()
+        need(all(after[s] == key0 for s in before),
+             "a shard is not on the survivor")
+        need(sorted(router.table.shards_of(key0)) == sorted(before),
+             "re-homing moved a survivor's shard")
+        evs = flight.recorder().snapshot()["events"][ev0:]
+        rehomes = [e for e in evs if e["kind"] == "fleet.rehome"
+                   and e.get("replica") == key1]
+        failovers = [e for e in evs if e["kind"] == "fleet.failover"]
+        need(len(rehomes) == 1, f"replica 1 re-homed {len(rehomes)} times")
+        need(len(failovers) >= 1, "no request failed over")
+        pms = ctrl.status()["postmortems"]
+        need(len(pms) == 1, f"{len(pms)} postmortems written")
+        kinds = {e["kind"] for e in json.load(open(pms[0]))["events"]}
+        need({"fleet.replica_dead", "fleet.rehome"} <= kinds,
+             "the postmortem lacks the death or the re-home")
+        rep["kill"] = {"requests": len(krows), "failovers": len(failovers),
+                       "moved_shards": sum(1 for s in before
+                                           if before[s] == key1),
+                       "postmortem_events": len(kinds)}
+        rep["leg_c_s"] = time.perf_counter() - t_c
+
+        for a in (addrs[0], addrs[-1]):
+            conn = RemoteServerConnection(a, timeout=120.0)
+            conn.request(op="exit")
+            conn.close()
+        ctrl.stop()
+        router.close()
+        ctrl = router = None
+        finish_service(procs)
+    finally:
+        pool.shutdown(wait=False)
+        if ctrl is not None:
+            ctrl.stop()
+        if router is not None:
+            router.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reps = [json.load(open(os.path.join(work, f"replica_{r}.json")))
+            for r in range(len(cfgs))]
+    for r, x in enumerate(reps):
+        la, st = x["launches"], x["stats"]
+        cap = len(st["compiled_buckets"])
+        prod = sum(t["batches"] for t in rep["trainer"]) if r == 0 else 0
+        need(x["plain_hash_calls"] == 0,
+             f"replica {r}: the plain threefry ran on the card")
+        need(la["sample_neighbors_cuda"] == 6 * cap + 3 * prod,
+             f"replica {r}: B1 {la['sample_neighbors_cuda']} launches, not "
+             f"3 a bucket's warm-up + 3 its capture ({cap} buckets) + 3 a "
+             f"producer batch ({prod})")
+        need(la["gather_rows_cuda"] == 2 * cap + prod,
+             f"replica {r}: B2 {la['gather_rows_cuda']} launches")
+        hashes = st["dispatched_batches"] + 2 * cap
+        need(la["threefry_hash_cuda"] >= hashes if prod else
+             la["threefry_hash_cuda"] == hashes,
+             f"replica {r}: the hash kernel {la['threefry_hash_cuda']} "
+             f"launches, {st['dispatched_batches']} micro-batches")
+    need(reps[1]["killed"] == 1 and reps[1]["serving_failures"] == 1,
+         "replica 1's faults did not fire once each")
+    rep["replicas"] = reps
+    rep["launches"] = add_launches(*[x["launches"] for x in reps])
+    shutil.rmtree(work, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t_start
+    return rep
+
+
+def log_fleet(rep: dict, card: str) -> None:
+    """Phase 17's lines (each number measured on ``card``)."""
+    log(f"fleet: [{card}] {FLEET_REPLICAS} replicas of "
+        f"synthetic_products(scale={FLEET_SCALE}) + an admission replica "
+        f"(scale {ADMIT_SCALE}, max_inflight {ADMIT_INFLIGHT}) on one card; "
+        f"leg A {rep['leg_a_messages']} messages == the CPU engine's, the "
+        f"buckets captured in {rep['captured_s']:.2f} s while a remote "
+        f"trainer sampled on replica 0; its epochs (legs A, B): " + "; ".join(
+            f"{t['batches']} batches in {t['s']:.1f} s, losses "
+            f"{t['losses'][0]:.4f} -> {t['losses'][1]:.4f}, seeds once, "
+            f"{t['overlap_s']:.1f} s at once with the leg"
+            for t in rep["trainer"]))
+    for leg, what in (("leg_a_client", "one replica, serial"),
+                      ("leg_b_client", f"router, {LEG_B_THREADS} threads")):
+        log(f"  client round trip ({what}): " + "; ".join(
+            f"bucket {b} p50 {v['p50_ms']:.2f} ms p99 {v['p99_ms']:.2f} ms "
+            f"(n {v['n']})" for b, v in rep[leg].items()))
+    def split(what, h):
+        log(f"  server side, median (p99) ms of {what}: " + "; ".join(
+            f"{stg} {v['median_ms']:.2f} ({v['p99_ms']:.2f})"
+            if v.get("count") else f"{stg} -" for stg, v in h.items()))
+
+    for b, h in rep["leg_a_server"].items():
+        split(f"replica 0, bucket {b}", h)
+    for r, h in rep["leg_b_server"].items():
+        split(f"replica {r} under the router", h)
+    for k, v in rep["leg_b_replicas"].items():
+        log(f"  replica {k}: completed {v['completed']} in "
+            f"{v['dispatched_batches']} micro-batches, seed_cache_hit_rate "
+            f"{v['seed_cache_hit_rate']:.4f}, ewma {v['ewma_batch_ms']:.2f} "
+            f"ms")
+    bc = rep["burst_coalesced"]
+    log(f"  leg B: {rep['leg_b_requests']} requests checked "
+        f"({rep['leg_b_edges']} edges), logits finite; {LEG_B_THREADS} small "
+        f"requests at once on replica 0 rode {bc['dispatched_batches']} "
+        f"micro-batches; admission burst "
+        f"{rep['burst']['served']} served, {rep['burst']['overloaded']} "
+        f"overloaded with a hint; a failed micro-batch contained; shed "
+        f"{sorted(rep['shed']['firing'].values())} then "
+        f"{sorted(rep['shed']['resolved'].values())}; kill: "
+        f"{rep['kill']['requests']} requests answered, "
+        f"{rep['kill']['failovers']} failed over, "
+        f"{rep['kill']['moved_shards']} shards re-homed, a merged "
+        f"postmortem")
+    for r, x in enumerate(rep["replicas"]):
+        log(f"  replica {r}: build {x['build_s']:.1f} s, peak "
+            f"{x['max_memory_allocated'] / 2**30:.2f} GiB, "
+            f"{x['stats']['dispatched_batches']} micro-batches, buckets "
+            f"{x['stats']['compiled_buckets']}, launches {x['launches']}")
+    log(f"  walls: replicas up {rep['replicas_up_s']:.1f} s, leg A "
+        f"{rep['leg_a_s']:.1f} s, leg B {rep['leg_b_s']:.1f} s, leg C "
+        f"{rep['leg_c_s']:.1f} s")
 
 
 def main() -> int:
@@ -6577,13 +7237,18 @@ def main() -> int:
         report["service"] = sv = run_service(torch, dev)
         log_service(sv, smi[0])
         log(f"  phase 16: {sv['seconds']:.1f} s")
+
+        # 17. the serving fleet
+        report["fleet"] = fs = run_fleet(torch, dev)
+        log_fleet(fs, smi[0])
+        log(f"  phase 17: {fs['seconds']:.1f} s")
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
                        for p in (sl, tr, st, report["digits"], lk, het, co,
-                                 dd, tw, ti, dw, fl, sv))
+                                 dd, tw, ti, dw, fl, sv, fs))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
@@ -6642,7 +7307,7 @@ def main() -> int:
     report["seconds"] = time.perf_counter() - t_main
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
-    log(f"phases 1-16: {report['seconds']:.1f} s")
+    log(f"phases 1-17: {report['seconds']:.1f} s")
     log(report["device"]["nvidia_smi"])
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

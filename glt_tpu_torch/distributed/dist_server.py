@@ -10,6 +10,7 @@ sample frames (:mod:`glt_tpu_torch.channel.serialization`).
 Protocol (all frames ``u32 kind | u64 len | payload``):
   kind 0: JSON control request/response
   kind 1: ``u64 seq`` + serialized SampleMessage
+  kind 2: one serialized per-request serving SampleMessage
 
 Each producer samples on the server dataset's device: an in-server
 thread over a :class:`~glt_tpu_torch.loader.NeighborLoader`
@@ -34,11 +35,12 @@ Fault tolerance:
   ``{"error": ..., "code": ...}`` responses on a still-usable
   connection; only a desynced stream closes the session.
 
-The inference-serving front (``init_server(serving=...)``) is not
-ported: anything but ``None`` raises ``NotImplementedError``.  Without
-it, ``subgraph_request`` answers ``serving_disabled`` and
-``fleet_shed`` / ``serving_stats`` answer ``enabled: False``, as
-``glt_tpu``'s server does with serving off.
+``init_server(serving=ServingOptions(...))`` mounts the inference
+serving front (:mod:`glt_tpu_torch.serving`) on the same protocol: the
+``subgraph_request`` op answers with a kind-2 frame, ``serving_stats``
+and the fleet ops with JSON.  Without it, ``subgraph_request`` answers
+``serving_disabled`` and ``fleet_shed`` / ``serving_stats`` answer
+``enabled: False``.
 """
 from __future__ import annotations
 
@@ -96,6 +98,9 @@ _H_REPLAY = _metrics.histogram(
 
 _KIND_JSON = 0
 _KIND_MSG = 1
+# Serving responses: one serialized per-request SampleMessage, no
+# sequence number (subgraph requests are stateless).
+_KIND_SUB = 2
 
 # Reject frames above this many payload bytes unless configured otherwise:
 # a corrupt (or hostile) u64 length must fail the frame, not drive an
@@ -466,12 +471,6 @@ class DistServer:
         from .dist_context import _set_default, make_server_context
         from .supervisor import Supervisor
 
-        if serving is not None:
-            raise NotImplementedError(
-                "init_server(serving=...) mounts the inference-serving "
-                "front (serving/front.py, router, fleet, client), which is "
-                "not ported yet: the serving half of ROADMAP queue A "
-                "item 8")
         if enable_metrics:
             # Serving deployments opt in: flips the PROCESS-wide metrics
             # switch so the get_metrics exposition carries live counters.
@@ -499,6 +498,14 @@ class DistServer:
         # serves the structured table.  Monitoring starts lazily with
         # the first beat.
         self.supervisor = Supervisor(deadline_secs=heartbeat_deadline)
+        # The inference serving front, opt-in: its dispatcher thread
+        # drives the engine on the dataset's device.
+        self.serving = None
+        if serving is not None:
+            from ..serving.front import ServingFront
+
+            self.serving = ServingFront(dataset, serving,
+                                        fault_plan=fault_plan)
         self._producers: Dict[int, _Producer] = {}
         # Live accepted sockets, tracked so kill() can sever them
         # abruptly (chaos testing: clients must see a raw transport
@@ -641,26 +648,27 @@ class DistServer:
                     "live_producers": self.live_producers()}
         if op == "fleet_hello":
             # Router/controller handshake: the replica's protocol number
-            # and whether serving is mounted (never, in the port); the
-            # caller is beaten into the supervisor.
+            # and whether serving is mounted; the caller is beaten into
+            # the supervisor, so fleet_health shows it as a peer.
             peer = str(req.get("peer", "router"))
             self.supervisor.beat(peer)
-            return {"ok": True, "protocol": 1, "serving": False,
+            return {"ok": True, "protocol": 1,
+                    "serving": self.serving is not None,
                     "stale_after_s": self.supervisor.deadline_secs}
         if op == "fleet_shed":
-            # A fleet-wide shed broadcast; serving is off here.
-            return {"ok": False, "enabled": False}
+            # A fleet-wide shed/reopen broadcast: the alert dict a local
+            # SloMonitor would deliver.
+            if self.serving is None:
+                return {"ok": False, "enabled": False}
+            self.serving.slo_alert(dict(req.get("alert") or {}))
+            return {"ok": True, "enabled": True,
+                    "shed_frac": self.serving.stats()["shed_frac"]}
         if op == "serving_stats":
             # enabled=False when serving is off, so a probe never needs
             # to catch an error.
-            return {"enabled": False}
-        if op == "subgraph_request":
-            # The serving op, with the front not mounted: a structured
-            # error on a still-usable connection.
-            raise RequestError(
-                "serving not enabled on this server; start it with "
-                "init_server(..., serving=ServingOptions(...))",
-                code="serving_disabled")
+            if self.serving is None:
+                return {"enabled": False}
+            return {"enabled": True, **self.serving.stats()}
         if op == "get_metrics":
             # Prometheus-style text exposition of the whole glt.*
             # namespace (producer, lease and replay counters, the
@@ -716,6 +724,45 @@ class DistServer:
             self._stop.set()
             return {"ok": True}
         raise ValueError(f"unknown op {op!r}")
+
+    def _handle_subgraph(self, req: dict) -> bytes:
+        """Admit one serving request, wait for its coalesced result and
+        return the serialized per-request message.
+
+        Every failure is a :class:`RequestError` (the connection stays
+        usable): serving disabled, an admission rejection (``overloaded``
+        with ``retry_after_ms``), a deadline miss, an engine fault, or
+        the server-side wait budget running out."""
+        from ..serving.errors import ServingError
+
+        if self.serving is None:
+            raise RequestError(
+                "serving not enabled on this server; start it with "
+                "init_server(..., serving=ServingOptions(...))",
+                code="serving_disabled")
+        deadline_ms = req.get("deadline_ms")
+        try:
+            pending = self.serving.submit(req.get("seeds", ()),
+                                          deadline_ms=deadline_ms)
+        except ServingError as e:
+            raise RequestError(
+                str(e), code=e.code,
+                **({} if e.retry_after_ms is None
+                   else {"retry_after_ms": e.retry_after_ms})) from None
+        # Bounded wait: a dispatcher wedged past the request's deadline
+        # plus a full queue's service time is a structured timeout.
+        if not pending.done.wait(
+                timeout=self.serving.wait_budget_s(deadline_ms)):
+            raise RequestError(
+                "serving request timed out server-side (dispatcher "
+                "overwhelmed or wedged)", code="serving_timeout")
+        if pending.error is not None:
+            e = pending.error
+            raise RequestError(
+                str(e), code=getattr(e, "code", "serving_failed"),
+                **({} if e.retry_after_ms is None
+                   else {"retry_after_ms": e.retry_after_ms}))
+        return serialize(pending.message)
 
     def _accept_loop(self) -> None:
         while not self._stop.is_set():
@@ -775,6 +822,20 @@ class DistServer:
                             _H_REPLAY.observe(
                                 (time.perf_counter() - t_req0) * 1e3)
                         _M_MESSAGES.inc()
+                    elif req["op"] == "subgraph_request":
+                        # The latency path: this connection thread waits
+                        # on its own request only; the coalescer batches
+                        # across every waiting connection thread.
+                        with _span("server.subgraph") as sp:
+                            if ctx:
+                                sp.link(ctx.get("tid"), ctx.get("sid"))
+                            frame = self._handle_subgraph(req)
+                            sp.set(bytes=len(frame))
+                            if ctx and tracer is not None:
+                                frame = _prop.pack_trailer(
+                                    frame, _prop.server_echo(
+                                        tracer, t_recv_us))
+                            send_frame(conn, _KIND_SUB, frame)
                     else:
                         with _span("server." + str(req["op"])) as sp:
                             if ctx:
@@ -839,9 +900,15 @@ class DistServer:
                 c.close()
             except OSError:
                 pass
+        if self.serving is not None:
+            self.serving.stop()
 
     def shutdown(self) -> None:
         self._stop.set()
+        if self.serving is not None:
+            # Fail queued serving requests structurally before tearing
+            # down the producers: their connection threads are waiting.
+            self.serving.stop()
         # Stop every live producer: with the mp backend each one owns a
         # worker-process fleet and a shm ring that would otherwise outlive
         # the client that forgot to destroy it.
@@ -882,9 +949,11 @@ def init_server(dataset, host: str = "127.0.0.1", port: int = 0,
     FaultPlan` into every accepted connection and producer thread (chaos
     testing only).  ``enable_metrics=True`` flips the process-wide
     :mod:`glt_tpu_torch.obs.metrics` switch so the ``get_metrics`` op
-    carries live ``glt.server.*`` counters.  ``serving`` (the inference
-    front) is not ported: anything but ``None`` raises
-    ``NotImplementedError``.
+    carries live ``glt.server.*`` counters.  ``serving=ServingOptions(
+    ...)`` mounts the inference serving front
+    (:class:`~glt_tpu_torch.serving.ServingFront`): the
+    ``subgraph_request`` op with cross-request micro-batching, admission
+    control and deadline-aware drop, on the dataset's device.
     """
     return DistServer(dataset, host=host, port=port,
                       dataset_builder=dataset_builder,

@@ -43,8 +43,8 @@ exchanges through host memory)::
         glt_tpu_torch.examples.dist_train_papers100m --device cpu \\
         --devices 4 --scale 2e-5 --part-dir /tmp/parts & done; wait
 
-The real ogbn-papers100M files wait for a later slice (ROADMAP queue A
-item 6).
+The real ogbn-papers100M files are not read: they need a download,
+which no port slice makes.
 """
 from __future__ import annotations
 

@@ -23,6 +23,9 @@ CUDA tensors: on the CPU the callers run ``fn`` eagerly, as before.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import time
 from typing import Any, Callable, Sequence
 
@@ -35,6 +38,33 @@ from ..obs import compilewatch
 class GraphCaptureError(RuntimeError):
     """Capturing a program into a CUDA graph failed (an operation that a
     capture cannot record, such as a host sync, ran inside it)."""
+
+
+# Captures running at once (a serving dispatcher beside a training loop)
+# share one pause of the garbage collector: the last one to end resumes
+# it, if it ran before the first began.
+_NO_GC_LOCK = threading.Lock()
+_NO_GC = {"depth": 0, "resume": False}
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """Pause the cyclic garbage collector in every thread.  A collection
+    inside a capture runs the finalizers of whatever dead objects it
+    finds, and freeing a dead pinned host tensor records events on the
+    streams that used it, which can invalidate the capture."""
+    with _NO_GC_LOCK:
+        if _NO_GC["depth"] == 0:
+            _NO_GC["resume"] = gc.isenabled()
+            gc.disable()
+        _NO_GC["depth"] += 1
+    try:
+        yield
+    finally:
+        with _NO_GC_LOCK:
+            _NO_GC["depth"] -= 1
+            if _NO_GC["depth"] == 0 and _NO_GC["resume"]:
+                gc.enable()
 
 
 def _copy_into(buf: torch.Tensor, value) -> None:
@@ -86,7 +116,7 @@ class CapturedProgram:
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.device(dev), torch.cuda.graph(
+            with _no_gc(), torch.cuda.device(dev), torch.cuda.graph(
                     self.graph, capture_error_mode="thread_local"):
                 self.outputs = fn(*inputs)
         except Exception as exc:

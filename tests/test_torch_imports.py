@@ -66,6 +66,16 @@ from glt_tpu_torch.obs.propagate import (  # noqa: E402,F401
     pack_trailer, split_trailer)
 from glt_tpu_torch.serving.errors import (  # noqa: E402,F401
     SERVING_CODES, error_from_response)
+# The serving and table-ingestion slice's entry points.
+from glt_tpu_torch.serving import (  # noqa: E402,F401
+    FleetController, FleetRouter, FleetSpec, InferenceClient, ServingFront,
+    ShardTable, default_fleet_specs, retryable_transport)
+from glt_tpu_torch.serving.router import shard_of  # noqa: E402,F401
+from glt_tpu_torch.partition import (  # noqa: E402,F401
+    DistRandomPartitioner, DistTableRandomPartitioner, hash_partition)
+from glt_tpu_torch.data import (  # noqa: E402,F401
+    ArrowFragmentAdapter, MockFragment, TableDataset, connect_fragment,
+    fragment_to_dataset, load_edge_features, load_vertex_features, to_csr)
 from glt_tpu_torch.parallel.multihost import (  # noqa: E402,F401
     Fleet, agree_max, agree_sum, assemble_global, barrier, feed_seeds,
     global_mesh, initialize, labels_global, local_shard_range,
@@ -166,6 +176,18 @@ SERVICE_MODULES = (
     "glt_tpu_torch.examples.dist_train_sage_with_server",
     "glt_tpu_torch.examples.feature_mp")
 
+# The serving and table-ingestion slice's modules: the serving front,
+# client, router and fleet controller, the per-rank partitioners, table
+# ingestion, the vineyard connector and the table twin.
+SERVING_TABLE_MODULES = (
+    "glt_tpu_torch.serving", "glt_tpu_torch.serving.options",
+    "glt_tpu_torch.serving.front", "glt_tpu_torch.serving.client",
+    "glt_tpu_torch.serving.router", "glt_tpu_torch.serving.fleet",
+    "glt_tpu_torch.partition.dist_random_partitioner",
+    "glt_tpu_torch.partition.dist_table_partitioner",
+    "glt_tpu_torch.data.table_dataset", "glt_tpu_torch.data.vineyard",
+    "glt_tpu_torch.examples.table_dataset_train")
+
 # The scanned-steps slice's example twins.
 TWIN_MODULES = (
     "glt_tpu_torch.examples.train_sage_products",
@@ -197,5 +219,7 @@ def test_port_imports_no_jax():
                                                  - walked)
     assert set(SERVICE_MODULES) <= walked, sorted(set(SERVICE_MODULES)
                                                   - walked)
+    assert set(SERVING_TABLE_MODULES) <= walked, sorted(
+        set(SERVING_TABLE_MODULES) - walked)
     assert set(DIST_WHOLE_MODULES) <= walked, sorted(
         set(DIST_WHOLE_MODULES) - walked)

@@ -10,6 +10,8 @@ machine need not have; this file imports torch and the port only).  The
 CPU cases check the seam: CPU tensors take the plain versions and never
 reach a kernel wrapper, which refuses them.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -288,6 +290,61 @@ def test_replayed_micro_batch_equals_eager(cuda_device):
                coal.x)
         for w, g in zip(want, got):
             assert torch.equal(w.cpu(), torch.from_numpy(g))
+
+
+@pytest.mark.cuda
+def test_front_captures_beside_a_sampling_producer(cuda_device):
+    """A serving front on the card captures each bucket's graph in its
+    dispatcher thread while the same server's producer thread samples
+    for a remote loader on the card: every served message equals a CPU
+    engine's fed the same single-request micro-batches, and the loader's
+    seeds arrive once."""
+    import threading
+
+    from glt_tpu_torch.distributed import RemoteNeighborLoader, init_server
+    from glt_tpu_torch.serving import InferenceClient
+
+    opts = ServingOptions(num_neighbors=(15, 10, 5))
+    srv = init_server(_serving_dataset(cuda_device), serving=opts)
+    eng = SubgraphEngine(_serving_dataset("cpu"), opts)
+    ld = RemoteNeighborLoader(srv.addr, [15, 10, 5], np.arange(3000),
+                              batch_size=16, device=cuda_device)
+    seen, started, errors = [], threading.Event(), []
+
+    def train():
+        try:
+            for b in ld:
+                seen.append(b.batch[:b.batch_size].cpu().numpy())
+                started.set()
+                time.sleep(0.05)     # the producer samples as we consume
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+            started.set()
+
+    t = threading.Thread(target=train)
+    t.start()
+    cli = InferenceClient(srv.addr, timeout=120.0, device="cpu")
+    try:
+        assert started.wait(120.0)
+        rng = np.random.default_rng(3)
+        for k in (1, 7, 30, 100, 5, 60):
+            seeds = rng.choice(3000, k, replace=False)
+            got = cli.subgraph_message(seeds)
+            want = eng.scatter(eng.sample([eng.validate_seeds(seeds)]))[0]
+            assert sorted(got) == sorted(want)
+            for f in want:
+                np.testing.assert_array_equal(
+                    np.asarray(got[f]).reshape(np.shape(want[f])), want[f],
+                    err_msg=f)
+        assert t.is_alive(), "the loader ended before the captures"
+        assert cli.stats()["compiled_buckets"] == [8, 32, 128]
+        t.join(timeout=300)
+        assert not t.is_alive() and errors == []
+        assert np.array_equal(np.sort(np.concatenate(seen)), np.arange(3000))
+    finally:
+        cli.close()
+        ld.shutdown()
+        srv.shutdown()
 
 
 def _frontier_ids(case, n, b, rng):
@@ -693,6 +750,41 @@ def test_kernel_wrappers_refuse_bad_input(bad):
             threefry_cuda.threefry_hash_cuda(key[None], n=4)
         else:
             sample_cuda.sample_neighbors_cuda(t32, t32, t32[:, None], 3, key)
+
+
+def test_captures_pause_the_garbage_collector():
+    """A capture runs with the cyclic collector paused; overlapping
+    captures share the pause, and the collector's earlier state comes
+    back after the last one ends."""
+    import gc
+    import threading
+
+    from glt_tpu_torch.utils.graphs import _no_gc
+
+    inside, release = threading.Event(), threading.Event()
+
+    def other_capture():
+        with _no_gc():
+            inside.set()
+            assert release.wait(10.0)
+
+    assert gc.isenabled()
+    t = threading.Thread(target=other_capture)
+    t.start()
+    assert inside.wait(10.0)
+    with _no_gc():
+        assert not gc.isenabled()
+    assert not gc.isenabled()          # the other capture still runs
+    release.set()
+    t.join(timeout=10.0)
+    assert not t.is_alive() and gc.isenabled()
+    gc.disable()
+    try:
+        with _no_gc():
+            pass
+        assert not gc.isenabled()      # it was off before: stays off
+    finally:
+        gc.enable()
 
 
 def test_captured_program_refuses_cpu_buffers():

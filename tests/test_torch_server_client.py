@@ -198,7 +198,7 @@ def test_get_metrics_and_stage_histograms(server):
 
 def test_serving_is_not_mounted(server):
     """Serving off: the ops answer as glt_tpu's server does; asking for
-    serving raises, naming the slice that brings it."""
+    serving mounts the front, which serving_stats reports."""
     from glt_tpu_torch.serving import ServingDisabled, ServingOptions
 
     conn = RemoteServerConnection(server.addr)
@@ -218,8 +218,15 @@ def test_serving_is_not_mounted(server):
         assert conn.request(op="get_dataset_meta")["num_nodes"] == N
     finally:
         conn.close()
-    with pytest.raises(NotImplementedError, match="serving half"):
-        init_server(build_ring(), serving=ServingOptions())
+    srv = init_server(build_ring(), serving=ServingOptions())
+    conn = RemoteServerConnection(srv.addr)
+    try:
+        st = conn.request(op="serving_stats")
+        assert st["enabled"] is True and st["completed"] == 0
+        assert conn.request(op="fleet_hello")["serving"] is True
+    finally:
+        conn.close()
+        srv.shutdown()
 
 
 def test_serving_error_codes_round_trip_as_glt_tpus():
