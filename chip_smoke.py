@@ -332,8 +332,25 @@ Phases (the first failure exits non-zero and prints no result line):
    plus 2 a bucket on replica 1, the plain threefry never.  Client round
    trips p50/p99 per bucket (leg A through one replica, leg B through the
    router) and each replica's seed-cache hit rate are printed;
-18. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-17, the spawned processes' included) and the ok line.
+18. instruments, in a process of its own (``python3 chip_smoke.py
+   --instruments-worker WORK NODE_CAP`` over the graph, features and
+   labels saved in WORK; the long-lived process's profiler loses device
+   records): phase 5's node step (its calibrated capacity, B3, bf16)
+   built anew; after an eager and a captured block, one replayed
+   block of G steps timed by ``utils.profile.ThroughputMeter`` (steps/s,
+   sampled edges/s from the same samples drawn again) and one replayed
+   inside ``utils.profile.trace`` under ``annotate("scanned_node_step")``:
+   its Chrome trace must hold B1 3 times a step, B3 once a step and the
+   hash kernel, each launched from inside that range (a replay moves no
+   launch counter; the plain threefry never runs; a trace short of a
+   record the profiler lost is taken again, PROFILE_TRACES at most, and
+   a kernel outside the range or one too many fails at once);
+   ``ops.dedup_counts``
+   of each hop's frontier on the card ``torch.equal`` to the CPU's (the
+   dedup ratio printed); ``utils.tensor.ensure_device`` lands on the
+   card by default;
+19. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-18, the spawned processes' included) and the ok line.
 
 Details go to ``build/results/chip_smoke.json`` (phase 10's trace to
 ``build/results/phase10_trace.json``).  Imports torch, numpy and
@@ -376,6 +393,7 @@ REPS = 25
 B1_READ_ONLY_MS = 0.00489         # the earlier read-only B1 at [19200, 5] (PERF.md)
 PROFILED = 3                      # micro-batches per bucket under the profiler
 PROFILER_SETTLE_S = 0.1           # idle time after the profiler starts (see profiled)
+PROFILE_TRACES = 3                # phase 18's traced blocks at most (a short one is retaken)
 # Training phase: examples/train_sage_products.py's flagship settings.
 TRAIN_BS, FRONTIER_CAP, GROUP, LR = 1024, 8192, 8, 1e-3
 TRAIN_BLOCKS, CAL_BATCHES, EVAL_BATCHES = 5, 8, 2
@@ -5463,8 +5481,7 @@ def fleet_worker(mode: str, work: str) -> int:
     rep["seconds"] = time.perf_counter() - t_start
     if arrays:
         np.savez(os.path.join(work, f"fleet_{mode}_{rank}.npz"), **arrays)
-    with open(os.path.join(work, f"fleet_{mode}_{rank}.json"), "w") as fh:
-        json.dump(rep, fh)
+    svc_report(work, f"fleet_{mode}_{rank}", rep)
     multihost.barrier(f"fleet-{mode}-done")
     multihost.shutdown()
     return 0
@@ -5533,8 +5550,7 @@ def run_fleets(torch, ops, trandom, dev, keep: dict, part_dir: str) -> dict:
     cut = papers.train_idx[:FLEET_SEEDS]
     np.save(os.path.join(work, "labels.npy"), papers.labels)
     np.save(os.path.join(work, "cut.npy"), cut)
-    with open(os.path.join(work, "fleet.json"), "w") as fh:
-        json.dump({"part_dir": os.path.abspath(part_dir)}, fh)
+    svc_report(work, "fleet", {"part_dir": os.path.abspath(part_dir)})
 
     # The single-process 4-shard runs of the same seeds and keys (phase
     # 13 freed phase 11's load on the card; its tiered load is the whole
@@ -6671,6 +6687,9 @@ def run_fleet(torch, dev) -> dict:
         ctl1 = RemoteServerConnection(addrs[1], timeout=120.0)
         c1 = InferenceClient(addrs[1], timeout=120.0, device=DEVICE)
         failed0 = c1.stats()["failed"]
+        # `smoke_fault` is served by serve_replica's wrapper round the
+        # server's dispatch (one `!=` test the op table does not read).
+        # gltlint: disable-next=unmatched-wire-op
         ctl1.request(op="smoke_fault", fail_after=1)
         seeds = rng.choice(n, 30, replace=False)
         try:
@@ -6707,6 +6726,7 @@ def run_fleet(torch, dev) -> dict:
         key0, key1 = router.table.replicas
         before = router.table.assignment()
         ev0 = len(flight.recorder().snapshot()["events"])
+        # gltlint: disable-next=unmatched-wire-op -- see the arming above
         ctl1.request(op="smoke_fault", kill_after=KILL_AFTER_BATCHES)
         ctl1.close()
         kreqs = zipf_requests(rng, n, KILL_THREADS * KILL_REQS)
@@ -6837,6 +6857,240 @@ def log_fleet(rep: dict, card: str) -> None:
     log(f"  walls: replicas up {rep['replicas_up_s']:.1f} s, leg A "
         f"{rep['leg_a_s']:.1f} s, leg B {rep['leg_b_s']:.1f} s, leg C "
         f"{rep['leg_c_s']:.1f} s")
+
+
+# -- phase 18: the port's own instruments -------------------------------------
+def hop_frontiers(torch, out) -> list:
+    """Each hop's frontier of one sample: the neighbor ids its edges
+    reached (``node[row]`` where the edge is valid, -1 elsewhere),
+    duplicates kept, as the inducer saw them."""
+    from glt_tpu_torch.sampler import hop_widths
+
+    fronts, at = [], 0
+    for w, f in zip(hop_widths(TRAIN_BS, FANOUTS, FRONTIER_CAP), FANOUTS):
+        row = out.row[at: at + w * f]
+        ok = out.edge_mask[at: at + w * f]
+        fronts.append(torch.where(ok, out.node[row.clamp(min=0).long()], -1))
+        at += w * f
+    return fronts
+
+
+def run_instruments(torch, ops, trandom, dev, indptr, indices, feat, labels,
+                    node_cap) -> dict:
+    """Phase 5's node step (flagship widths, its calibrated capacity, B3,
+    bf16) seen through the port's instruments: one replayed block of G
+    steps inside ``utils.profile.trace`` under
+    ``annotate("scanned_node_step")``, whose Chrome trace must show B1 3
+    times a step, B3 once a step and the hash kernel, every one launched
+    from inside that range; a ``ThroughputMeter`` over a replayed block
+    (steps/s, sampled edges/s); ``ops.dedup_counts`` of each hop's
+    frontier on the card ``torch.equal`` to the CPU's; and
+    ``utils.tensor.ensure_device`` on the card by default."""
+    from glt_tpu_torch.data import CSRTopo, Dataset, Graph
+    from glt_tpu_torch.models import (
+        GraphSAGE,
+        adam,
+        create_train_state,
+        make_scanned_node_train_step,
+        node_seed_blocks,
+    )
+    from glt_tpu_torch.sampler import NeighborSampler, NodeSamplerInput
+    from glt_tpu_torch.utils import ensure_device, profile
+
+    t_start = time.perf_counter()
+    ds = Dataset(graph=Graph(CSRTopo.from_csr_arrays(indptr, indices),
+                             device=dev), device=dev)
+    ds.init_node_features(feat)
+    sampler = NeighborSampler(ds.get_graph(), FANOUTS, batch_size=TRAIN_BS,
+                              frontier_cap=FRONTIER_CAP, with_edge=False,
+                              node_capacity=node_cap)
+    need(sampler.capped, f"capacity {node_cap} does not cap the sampler")
+    state = create_train_state(random_model(
+        torch, GraphSAGE, dev, dtype=torch.bfloat16), adam(LR))
+    step = make_scanned_node_train_step(sampler, ds.get_node_feature(),
+                                        labels, TRAIN_BS, fused_frontier=True)
+    rng = np.random.default_rng(18)
+    blocks = list(node_seed_blocks(rng.permutation(PRODUCTS_N)[
+        : 4 * GROUP * TRAIN_BS], TRAIN_BS, GROUP, rng))
+    need(len(blocks) == 4 and all(bool((b >= 0).all()) for b in blocks),
+         "phase 18's blocks hold padding")
+    keys = [trandom.PRNGKey(180 + i, device=dev) for i in range(4)]
+
+    counts_zero(ops, trandom)
+    for blk, key in zip(blocks[:2], keys[:2]):    # eager, then captured
+        state, losses, _, _ = step(state, blk, key)
+    meter = profile.ThroughputMeter()
+    torch.cuda.synchronize()
+    with meter.measure():
+        state, losses, _, _ = step(state, blocks[2], keys[2])
+        torch.cuda.synchronize()
+    replay_launches = counts_read(ops)
+
+    def named(counts, name):
+        return sum(n for k, n in counts.items()
+                   if re.search(rf"(^|[^A-Za-z_]){name}", k))
+
+    want = {"sample_kernel": len(FANOUTS) * GROUP,
+            "fused_frontier_kernel": GROUP, "threefry_hash_kernel": None}
+    traces = []
+    while True:
+        with tempfile.TemporaryDirectory(dir=WORK_DIR) as tmp:
+            with profile.trace(tmp) as prof:
+                settle_profiler(torch)
+                with profile.annotate("scanned_node_step"):
+                    state, traced, _, _ = step(state, blocks[3], keys[3])
+            inside = profile.trace_kernels(prof.trace_file,
+                                           "scanned_node_step")
+            every = profile.trace_kernels(prof.trace_file)
+            trace_bytes = os.path.getsize(prof.trace_file)
+        kern = {name: {"inside": named(inside, name),
+                       "in_trace": named(every, name)} for name in want}
+        traces.append(kern)
+        for name, c in kern.items():
+            need(c["inside"] == c["in_trace"],
+                 f"{c['in_trace'] - c['inside']} of {c['in_trace']} {name} "
+                 f"ran outside the annotated range")
+            need(want[name] is None or c["inside"] <= want[name],
+                 f"{name} ran {c['inside']} times in the traced block "
+                 f"(want {want[name]})")
+        if all(c["inside"] == want[name] if want[name] is not None
+               else c["inside"] > 0 for name, c in kern.items()):
+            break
+        # The profiler loses a device record now and then (PERF.md):
+        # a short trace is taken again, never accepted.
+        need(len(traces) < PROFILE_TRACES,
+             f"every one of {len(traces)} traced blocks came out short: "
+             f"{traces}")
+    need(counts_read(ops) == replay_launches,
+         "a traced block launched a kernel wrapper: it did not replay")
+    need(bool(torch.isfinite(losses).all())
+         and bool(torch.isfinite(traced).all()),
+         "phase 18's losses are not finite")
+
+    # The timed block's sampled edges and each hop's frontier: the same
+    # samples again (batch g under split(key, G)[g]), eagerly.
+    bkeys = trandom.split(keys[2], GROUP)
+    edges, per_hop = 0, [[0, 0] for _ in FANOUTS]
+    for g in range(GROUP):
+        out = sampler.sample_from_nodes(NodeSamplerInput(blocks[2][g]),
+                                        key=bkeys[g])
+        edges += int(out.num_sampled_edges.sum())
+        for h, front in enumerate(hop_frontiers(torch, out)):
+            v, u = ops.dedup_counts(front)
+            cv, cu = ops.dedup_counts(front.cpu())
+            need(v.is_cuda and u.is_cuda, "dedup_counts left the card")
+            need(torch.equal(v.cpu(), cv) and torch.equal(u.cpu(), cu),
+                 f"batch {g} hop {h}: dedup_counts on the card "
+                 f"({int(v)}, {int(u)}) != CPU ({int(cv)}, {int(cu)})")
+            need(int(v) == int(out.num_sampled_edges[h]),
+                 f"batch {g} hop {h}: {int(v)} valid ids for "
+                 f"{int(out.num_sampled_edges[h])} edges")
+            per_hop[h][0] += int(v)
+            per_hop[h][1] += int(u)
+    meter.add(steps=GROUP, edges=edges)
+    rates = meter.summary()
+    on_card = ensure_device(np.arange(8, dtype=np.int32))
+    need(on_card.is_cuda and on_card.dtype == torch.int32,
+         f"ensure_device gave {on_card.device} {on_card.dtype}")
+    launches = counts_read(ops)
+    need(trandom.threefry2x32.calls == 0,
+         f"phase 18 ran the plain threefry on the card "
+         f"({trandom.threefry2x32.calls} calls)")
+    for k in ("sample_neighbors_cuda", "threefry_hash_cuda",
+              "fused_frontier_cuda"):
+        need(launches[k] > 0, f"phase 18 never launched {k}")
+    valid = sum(v for v, _ in per_hop)
+    unique = sum(u for _, u in per_hop)
+    return {
+        "kernels_in_range": kern,
+        "traces": traces,
+        "trace_bytes": trace_bytes,
+        "block_ms": meter.elapsed * 1e3,
+        "steps_per_s": rates["steps_per_sec"],
+        "edges_per_s": rates["edges_per_sec"],
+        "sampled_edges": edges,
+        "dedup": [{"hop": h, "valid": v, "unique": u, "ratio": v / max(u, 1)}
+                  for h, (v, u) in enumerate(per_hop)],
+        "dedup_ratio": valid / max(unique, 1),
+        "launches": launches,
+        "plain_hash_calls": trandom.threefry2x32.calls,
+        "seconds": time.perf_counter() - t_start,
+    }
+
+
+def log_instruments(rep: dict, card: str) -> None:
+    k = rep["kernels_in_range"]
+    short = [t["sample_kernel"]["inside"] for t in rep["traces"][:-1]]
+    log(f"instruments ({card}): one replayed block of {GROUP} steps in "
+        f"utils.profile.trace ({rep['trace_bytes']} B of Chrome trace; "
+        f"{len(rep['traces'])} trace(s), B1 of the short ones: {short}): "
+        f"inside annotate('scanned_node_step') B1 "
+        f"{k['sample_kernel']['inside']}, B3 "
+        f"{k['fused_frontier_kernel']['inside']}, hash "
+        f"{k['threefry_hash_kernel']['inside']} (all of the trace's); "
+        f"plain threefry on the card: {rep['plain_hash_calls']}")
+    log(f"  ThroughputMeter over a replayed block: {rep['block_ms']:.2f} "
+        f"ms, {rep['steps_per_s']:.2f} steps/s, {rep['edges_per_s']:.0f} "
+        f"sampled edges/s ({rep['sampled_edges']} edges)")
+    log("  dedup_counts, card == CPU: " + ", ".join(
+        f"hop {d['hop']} {d['valid']} valid / {d['unique']} unique "
+        f"({d['ratio']:.4f})" for d in rep["dedup"])
+        + f"; dedup ratio {rep['dedup_ratio']:.4f}; ensure_device on the "
+        f"card; launches {rep['launches']}")
+
+
+def instruments_worker(work: str, node_cap: str) -> int:
+    """``--instruments-worker``: phase 18 in a process of its own, over
+    the parent's graph, features and labels saved in ``work``; writes
+    its report to ``work/instruments.json``."""
+    import torch
+    from glt_tpu_torch import ops
+    from glt_tpu_torch import random as trandom
+    from glt_tpu_torch.ops import cuda_lib
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    count_plain_hashes(trandom)
+    cuda_lib.library()                      # the parent's cached build
+    arrays = [np.load(os.path.join(work, f"{n}.npy"))
+              for n in ("indptr", "indices", "feat", "labels")]
+    try:
+        rep = run_instruments(torch, ops, trandom, torch.device(DEVICE),
+                              *arrays, int(node_cap))
+    except Failed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    svc_report(work, "instruments", rep)
+    return 0
+
+
+def run_instruments_process(indptr, indices, feat, labels, node_cap) -> dict:
+    """Phase 18 in a fresh process: a long-lived process's profiler
+    loses device records (PERF.md, PR 17), so its trace could not be
+    held to exact kernel counts after phases 4-17."""
+    t0 = time.perf_counter()
+    work = os.path.join(WORK_DIR, "instruments")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        for name, a in (("indptr", indptr), ("indices", indices),
+                        ("feat", feat), ("labels", labels)):
+            np.save(os.path.join(work, f"{name}.npy"), a)
+        script = os.path.abspath(__file__)
+        proc = subprocess.run(
+            [sys.executable, script, "--instruments-worker", work,
+             str(node_cap)], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(script))
+        need(proc.returncode == 0, f"phase 18's worker failed "
+                                   f"({proc.returncode}): "
+                                   f"{proc.stderr[-3000:]}")
+        rep = json.load(open(os.path.join(work, "instruments.json")))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rep["worker_seconds"] = rep["seconds"]
+    rep["seconds"] = time.perf_counter() - t0
+    return rep
 
 
 def main() -> int:
@@ -7242,13 +7496,20 @@ def main() -> int:
         report["fleet"] = fs = run_fleet(torch, dev)
         log_fleet(fs, smi[0])
         log(f"  phase 17: {fs['seconds']:.1f} s")
+
+        # 18. the port's own instruments, in a fresh process
+        report["instruments"] = ins = run_instruments_process(
+            indptr, indices, feat, labels, tr["node_capacity"])
+        log_instruments(ins, smi[0])
+        log(f"  phase 18: {ins['seconds']:.1f} s (the worker's part "
+            f"{ins['worker_seconds']:.1f} s)")
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
                        for p in (sl, tr, st, report["digits"], lk, het, co,
-                                 dd, tw, ti, dw, fl, sv, fs))
+                                 dd, tw, ti, dw, fl, sv, fs, ins))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
@@ -7305,9 +7566,8 @@ def main() -> int:
                                "dist": dd["kernels"],
                                "tiered": {"B3": ti["b3"]}}
     report["seconds"] = time.perf_counter() - t_main
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
-        json.dump(report, fh, indent=1)
-    log(f"phases 1-17: {report['seconds']:.1f} s")
+    svc_report(OUT_DIR, "chip_smoke", report)
+    log(f"phases 1-18: {report['seconds']:.1f} s")
     log(report["device"]["nvidia_smi"])
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7383,6 +7643,8 @@ if __name__ == "__main__":
         sys.exit(fleet_worker(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--service-worker"]:
         sys.exit(service_worker(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--instruments-worker"]:
+        sys.exit(instruments_worker(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--profiler-settle-check"]:
         sys.exit(profiler_settle_check(int(sys.argv[2])))
     sys.exit(main())

@@ -12,40 +12,11 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
+from ..utils.topo import coo_to_csr, csr_to_coo
+
+__all__ = ["CSRTopo", "coo_to_csr", "csr_to_coo"]
+
 _LAYOUTS = ("COO", "CSR", "CSC")
-
-
-def coo_to_csr(row: np.ndarray, col: np.ndarray,
-               edge_ids: Optional[np.ndarray] = None,
-               num_nodes: Optional[int] = None, return_perm: bool = False):
-    """COO -> CSR ``(indptr, indices, edge_ids)`` (and with
-    ``return_perm`` the permutation from input edges to CSR order).
-    Rows are grouped with a stable sort, so ties keep input order;
-    ``edge_ids`` defaults to the input edge positions."""
-    row = np.asarray(row, dtype=np.int64)
-    col = np.asarray(col, dtype=np.int64)
-    if row.shape != col.shape or row.ndim != 1:
-        raise ValueError("row/col must be 1-D arrays of equal length")
-    if edge_ids is None:
-        edge_ids = np.arange(row.shape[0], dtype=np.int64)
-    else:
-        edge_ids = np.asarray(edge_ids, dtype=np.int64)
-    if num_nodes is None:
-        num_nodes = int(max(row.max(initial=-1), col.max(initial=-1)) + 1)
-    perm = np.argsort(row, kind="stable")
-    counts = np.bincount(row, minlength=num_nodes)
-    indptr = np.zeros(num_nodes + 1, dtype=np.int64)
-    np.cumsum(counts, out=indptr[1:])
-    if return_perm:
-        return indptr, col[perm], edge_ids[perm], perm
-    return indptr, col[perm], edge_ids[perm]
-
-
-def csr_to_coo(indptr: np.ndarray, indices: np.ndarray
-               ) -> Tuple[np.ndarray, np.ndarray]:
-    indptr = np.asarray(indptr)
-    row = np.repeat(np.arange(indptr.shape[0] - 1), np.diff(indptr))
-    return row, np.asarray(indices)
 
 
 class CSRTopo:

@@ -225,6 +225,7 @@ class RemoteServerConnection:
                     # out of band, the blocked I/O raises, and the
                     # stop-aware loop observes `stop` and releases the
                     # lock.
+                    # gltlint: disable-next=blocking-call-while-holding-lock
                     self._sleep_backoff(attempt - 1, stop)
                     if stop is not None and stop.is_set():
                         raise ConnectionAbortedError(

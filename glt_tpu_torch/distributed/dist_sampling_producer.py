@@ -130,7 +130,9 @@ def _sampling_worker_loop(worker_id, dataset_builder, builder_args,
 
     while True:
         # Idle worker awaiting commands: the parent owns its liveness, and
-        # shutdown() sends _CMD_STOP then terminates stragglers.
+        # shutdown() sends _CMD_STOP then terminates stragglers: the wait
+        # is bounded by the parent.
+        # gltlint: disable-next=unbounded-blocking-get
         task = task_queue.get()
         cmd, payload, meta = (task if len(task) == 3
                               else (task[0], task[1], None))

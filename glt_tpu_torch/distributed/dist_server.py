@@ -584,7 +584,9 @@ class DistServer:
     # -- request handlers ------------------------------------------------
     def _handle(self, req: dict, trace_ctx: Optional[dict] = None):
         op = req["op"]
-        # Sent by operator tooling and the tests, not by the client.
+        # Sent by operator tooling and the tests, not by any client of
+        # the package.
+        # gltlint: disable-next=unmatched-wire-op
         if op == "get_dataset_meta":
             g = self.dataset.get_graph()
             return {"num_nodes": g.num_nodes, "num_edges": g.num_edges,
@@ -669,6 +671,9 @@ class DistServer:
             if self.serving is None:
                 return {"enabled": False}
             return {"enabled": True, **self.serving.stats()}
+        # Read by a scrape sidecar over the framed protocol (and the
+        # smoke), never by a client of the package.
+        # gltlint: disable-next=unmatched-wire-op
         if op == "get_metrics":
             # Prometheus-style text exposition of the whole glt.*
             # namespace (producer, lease and replay counters, the

@@ -144,7 +144,7 @@ def main(argv: Optional[Sequence[str]] = None):
     step = make_step()
     history: List[float] = []
     for epoch in range(args.epochs):
-        t0 = time.time()
+        t0 = time.perf_counter()
         losses, accs = [], []
         for batch in loader:
             state, loss, acc = step(state, batch)
@@ -154,7 +154,7 @@ def main(argv: Optional[Sequence[str]] = None):
         nb = len(losses)
         history.append(float(host[:nb].mean()))
         print(f"epoch {epoch}: bce {history[-1]:.4f} link-acc "
-              f"{host[nb:].mean():.4f} ({time.time() - t0:.2f}s)")
+              f"{host[nb:].mean():.4f} ({time.perf_counter() - t0:.2f}s)")
     return state, history
 
 

@@ -164,6 +164,15 @@ def load(part_dir: str, labels: np.ndarray, hot_ratio: float,
                             hotness=hotness, device=device, mesh=mesh)
 
 
+def publish_done(done_file: str) -> None:
+    """Write the partition sentinel under a tmp name and publish it with
+    one rename, so a waiting rank never sees it half written."""
+    tmp = f"{done_file}.tmp-{os.getpid()}"
+    with open(tmp, "w") as fh:
+        fh.write("ok")
+    os.replace(tmp, done_file)
+
+
 def wait_for_partition(done_file: str, part_dir: str,
                        timeout_s: float = 600.0) -> None:
     """A process other than 0 waits for process 0's ``_DONE``."""
@@ -279,8 +288,7 @@ def main(argv: Optional[Sequence[str]] = None):
     # is adopted, not redone.
     if (main_proc and not os.path.exists(done_file)
             and os.path.exists(os.path.join(part_dir, "META.json"))):
-        with open(done_file, "w") as fh:
-            fh.write("ok")
+        publish_done(done_file)
     if not main_proc:
         wait_for_partition(done_file, part_dir)
     elif not os.path.exists(done_file):
@@ -289,8 +297,7 @@ def main(argv: Optional[Sequence[str]] = None):
                            args.batch_size)
         secs = partition(papers, part_dir, args.devices,
                          [p.cpu().numpy() for p in probs])
-        with open(done_file, "w") as fh:
-            fh.write("ok")
+        publish_done(done_file)
         print(f"partitioned {papers.n} nodes / {papers.edge_index.shape[1]} "
               f"edges into {args.devices} parts in {secs:.1f}s -> "
               f"{part_dir}")

@@ -112,7 +112,7 @@ def main(argv: Optional[Sequence[str]] = None):
     step = make_train_step(BATCH)
     history: List[List[float]] = []
     for epoch in range(args.epochs):
-        t0 = time.time()
+        t0 = time.perf_counter()
         losses, accs = [], []
         for batch in loader:
             state, loss, acc = step(state, batch)
@@ -122,7 +122,7 @@ def main(argv: Optional[Sequence[str]] = None):
         nb = len(losses)
         history.append(host[:nb].tolist())
         print(f"epoch {epoch}: loss {host[:nb].mean():.4f} acc "
-              f"{host[nb:].mean():.4f} ({time.time() - t0:.2f}s)")
+              f"{host[nb:].mean():.4f} ({time.perf_counter() - t0:.2f}s)")
     return state, history
 
 

@@ -1,4 +1,4 @@
-from .dedup_gather import dedup_gather_rows
+from .dedup_gather import dedup_counts, dedup_gather_rows
 from .fused_frontier import (
     FusedFrontier,
     frontier_plan,
@@ -47,8 +47,9 @@ from .unique import (
 __all__ = [
     "DenseInduceState", "FusedFrontier", "NegativeSampleOutput",
     "NeighborOutput", "SubGraphOutput", "UniqueResult",
-    "dedup_gather_rows", "dense_induce", "dense_induce_final",
-    "dense_induce_init", "dense_map_fits", "draw_positions",
+    "dedup_counts", "dedup_gather_rows", "dense_induce",
+    "dense_induce_final", "dense_induce_init", "dense_map_fits",
+    "draw_positions",
     "edge_in_csr", "edge_in_csr_plain", "frontier_plan",
     "fused_frontier",
     "fused_frontier_cuda", "fused_frontier_dequant_cuda",

@@ -120,6 +120,10 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
+            # The build (nvcc subprocesses) runs under the lock on purpose:
+            # a thread that needs the library has nothing to do until it
+            # is built, and a second build would only race the first.
+            # gltlint: disable-next=blocking-call-while-holding-lock
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

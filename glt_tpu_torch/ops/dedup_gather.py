@@ -31,3 +31,11 @@ def dedup_gather_rows(table: torch.Tensor, ids: torch.Tensor,
     urows = torch.where(uvalid[:, None], rows, 0)
     out = urows[inv.clamp(0, max(inv.shape[0] - 1, 0)).long()]
     return torch.where((inv >= 0)[:, None], out, 0)
+
+
+def dedup_counts(ids: torch.Tensor) -> tuple:
+    """``(valid, unique)`` id counts of ``ids`` as 0-d int32 tensors on
+    its device (the dedup ratio is ``valid / unique``); no host sync."""
+    ids = ids.to(torch.int32)
+    valid = (ids >= 0).sum(dtype=torch.int32)
+    return valid, unique_first_occurrence(ids).count

@@ -1,9 +1,11 @@
 from .base import (
+    BaseSampler,
     EdgeSamplerInput,
     HeteroSamplerOutput,
     NegativeSampling,
     NodeSamplerInput,
     SamplerOutput,
+    SamplingConfig,
 )
 from .hetero_neighbor_sampler import HeteroNeighborSampler, hetero_hop_widths
 from .neighbor_sampler import (
@@ -14,7 +16,8 @@ from .neighbor_sampler import (
     measure_occupancy,
 )
 
-__all__ = ["EdgeSamplerInput", "HeteroNeighborSampler", "HeteroSamplerOutput",
-           "NegativeSampling", "NeighborSampler", "NodeSamplerInput",
-           "SamplerOutput", "calibrate_node_capacity", "hetero_hop_widths",
-           "hop_widths", "max_sampled_nodes", "measure_occupancy"]
+__all__ = ["BaseSampler", "EdgeSamplerInput", "HeteroNeighborSampler",
+           "HeteroSamplerOutput", "NegativeSampling", "NeighborSampler",
+           "NodeSamplerInput", "SamplerOutput", "SamplingConfig",
+           "calibrate_node_capacity", "hetero_hop_widths", "hop_widths",
+           "max_sampled_nodes", "measure_occupancy"]

@@ -7,6 +7,7 @@ the sampler waits for the host.
 from __future__ import annotations
 
 import dataclasses
+from abc import ABC, abstractmethod
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -152,3 +153,34 @@ class HeteroSamplerOutput:
     num_sampled_edges: Optional[Dict[EdgeType, torch.Tensor]] = None
     input_type: Optional[Any] = None
     metadata: Optional[Dict[str, Any]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    """Static sampling plan (cf. ``glt_tpu``'s ``SamplingConfig``).
+
+    Every field fixes a shape: ``max_nodes``/``max_edges`` cap the padded
+    subgraph; ``None`` means the exact worst-case bound
+    ``batch * prod(fanouts)``, safe but lowerable for power-law graphs.
+    """
+    num_neighbors: Any = None          # List[int] or Dict[EdgeType, List[int]]
+    batch_size: int = 512
+    with_edge: bool = True
+    with_neg: bool = False
+    with_weight: bool = False
+    collect_features: bool = True
+    max_nodes: Optional[int] = None
+    max_edges: Optional[int] = None
+    seed: int = 0
+
+
+class BaseSampler(ABC):
+    """Abstract sampler interface (cf. ``glt_tpu``'s ``BaseSampler``)."""
+
+    @abstractmethod
+    def sample_from_nodes(self, inputs: NodeSamplerInput, **kwargs):
+        raise NotImplementedError
+
+    @abstractmethod
+    def sample_from_edges(self, inputs: EdgeSamplerInput, **kwargs):
+        raise NotImplementedError

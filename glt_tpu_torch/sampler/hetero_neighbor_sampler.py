@@ -38,7 +38,12 @@ from ..ops.unique import (
     unique_first_occurrence,
 )
 from ..typing import EdgeType, NodeType, PADDING_ID, reverse_edge_type
-from .base import EdgeSamplerInput, HeteroSamplerOutput, NodeSamplerInput
+from .base import (
+    BaseSampler,
+    EdgeSamplerInput,
+    HeteroSamplerOutput,
+    NodeSamplerInput,
+)
 from .neighbor_sampler import _pad, _pad_ids
 
 
@@ -105,7 +110,7 @@ def _cat_or_empty(parts: List[torch.Tensor], dtype, fill, device
     return torch.full((0,), fill, dtype=dtype, device=device)
 
 
-class HeteroNeighborSampler:
+class HeteroNeighborSampler(BaseSampler):
     """Fixed-fanout sampler over per-edge-type
     :class:`~glt_tpu_torch.data.graph.Graph` s (out-edge CSR each, all
     on one device; sampling runs there).

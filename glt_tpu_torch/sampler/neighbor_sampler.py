@@ -49,6 +49,7 @@ from ..ops.unique import (
 from ..typing import PADDING_ID
 from ..utils.graphs import CapturedProgram
 from .base import (
+    BaseSampler,
     EdgeSamplerInput,
     NegativeSampling,
     NodeSamplerInput,
@@ -136,7 +137,7 @@ def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
                                     device=x.device)])
 
 
-class NeighborSampler:
+class NeighborSampler(BaseSampler):
     """Fixed-fanout multi-hop sampler over a
     :class:`~glt_tpu_torch.data.graph.Graph`.
 

@@ -2,6 +2,7 @@
 ``glt_tpu/typing.py``)."""
 from __future__ import annotations
 
+import enum
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -64,3 +65,10 @@ class FeaturePartitionData(NamedTuple):
     ids: np.ndarray              # [n] global ids
     cache_feats: Optional[np.ndarray] = None
     cache_ids: Optional[np.ndarray] = None
+
+
+class SamplingType(enum.Enum):
+    NODE = 0
+    LINK = 1
+    SUBGRAPH = 2
+    RANDOM_WALK = 3

@@ -10,6 +10,7 @@ machine need not have; this file imports torch and the port only).  The
 CPU cases check the seam: CPU tensors take the plain versions and never
 reach a kernel wrapper, which refuses them.
 """
+import re
 import time
 
 import numpy as np
@@ -1577,3 +1578,73 @@ def test_hetero_dist_step_replays_and_matches_cpu(cuda_device):
             out.append(float(loss))
         losses[str(dev)] = out
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_trace_names_the_kernels_of_a_replayed_node_step(cuda_device,
+                                                         tmp_path):
+    """``utils.profile.trace`` around one replayed block of the node step
+    (feature gather through B3) names B1 once a hop a step and B3 once a
+    step, all launched from inside the annotated range, and the hash
+    kernel."""
+    from glt_tpu_torch.utils import profile
+
+    indptr, indices, _, _ = _graph(5, 2000)
+    rng = np.random.default_rng(0)
+    feat = rng.standard_normal((2000, 32)).astype(np.float32)
+    labels = rng.integers(0, 7, 2000)
+    g = Graph(CSRTopo.from_csr_arrays(indptr, indices), device=cuda_device)
+    s = NeighborSampler(g, [10, 5], batch_size=64, with_edge=False)
+    torch.manual_seed(0)
+    st = create_train_state(GraphSAGE(32, 16, 7, num_layers=2).to(
+        cuda_device), adam(1e-2))
+    step = make_scanned_node_train_step(s, feat, labels, 64,
+                                        fused_frontier=True)
+    blocks = list(node_seed_blocks(np.arange(2000), 64, 4,
+                                   np.random.default_rng(1)))[:3]
+    for i, blk in enumerate(blocks[:2]):            # eager, then captured
+        st, _, _, _ = step(st, blk, trandom.PRNGKey(i, device=cuda_device))
+    b1 = sample_cuda.sample_neighbors_cuda.launches
+    with profile.trace(str(tmp_path)) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.1)          # the profiler reaches the card first
+        with profile.annotate("scanned_node_step"):
+            st, losses, _, _ = step(st, blocks[2],
+                                    trandom.PRNGKey(2, device=cuda_device))
+    assert sample_cuda.sample_neighbors_cuda.launches == b1   # a replay
+    assert bool(torch.isfinite(losses).all())
+    inside = profile.trace_kernels(prof.trace_file, "scanned_node_step")
+
+    def count(counts, name):
+        return sum(n for k, n in counts.items()
+                   if re.search(rf"(^|[^A-Za-z_]){name}", k))
+
+    assert count(inside, "sample_kernel") == 2 * 4, inside
+    assert count(inside, "fused_frontier_kernel") == 4, inside
+    assert count(inside, "threefry_hash_kernel") >= 1, inside
+    every = profile.trace_kernels(prof.trace_file)
+    for name in ("sample_kernel", "fused_frontier_kernel"):
+        assert count(every, name) == count(inside, name), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_padding", "all_unique",
+                                  "heavy_duplicates", "mixed", "empty"])
+def test_dedup_counts_on_card_equals_cpu(cuda_device, case):
+    from glt_tpu_torch.ops import dedup_counts
+
+    rng = np.random.default_rng(4)
+    ids = {
+        "all_padding": np.full(4096, -1),
+        "all_unique": rng.permutation(100_000)[:4096],
+        "heavy_duplicates": rng.integers(0, 7, 50_000),
+        "mixed": np.where(rng.random(30_000) < 0.3, -1,
+                          rng.integers(0, 5_000, 30_000)),
+        "empty": np.zeros(0, np.int64),
+    }[case].astype(np.int32)
+    host = torch.from_numpy(ids)
+    got = dedup_counts(host.to(cuda_device))
+    want = dedup_counts(host)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dim() == 0 and g.dtype == torch.int32
+        assert torch.equal(g.cpu(), w)
