@@ -349,8 +349,29 @@ Phases (the first failure exits non-zero and prints no result line):
    of each hop's frontier on the card ``torch.equal`` to the CPU's (the
    dedup ratio printed); ``utils.tensor.ensure_device`` lands on the
    card by default;
-19. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-18, the spawned processes' included) and the ok line.
+19. the exact-shape autotune seam, on phase 4's products graph: every
+   launch point of B1 (threads x lanes per row, in the four draw modes
+   and three edge-id modes at bucket 128's three hops and the training
+   step's widest hop), B2 (threads x blocks per SM x vector width, f32
+   at the main shape and ``[52224, 100]``, int8, an unaligned base) and
+   B4 (int8 and bf16 codes at every DEQUANT_WIDTHS width and at the main
+   shape) ``torch.equal`` to its plain version, no point skipped; then
+   ``autotune_gather_rows`` (B2 and, with the codecs' specs, B4) and
+   ``autotune_sample`` at the main shapes, each table printed with every
+   point's ms, the winner, the default's ms and winner/default, and the
+   seams launching the memoized winners; a ``NeighborLoader`` at the
+   training batch built twice, its tables dropped once (every batch at
+   the default points, by the per-point launch counters) and kept once
+   (one gather entry at its node capacity and one entry a hop, every
+   batch at the winners), the two loaders' batches equal;
+   ``autotune_routing`` timed at phase 11's width over 4 shards and on
+   the 2 x 2 mesh, and ``DistNeighborSampler(route='auto')`` batches
+   equal to ``route='sort'``'s on both meshes.  Phases 3-18 run with
+   empty tables up to their own loaders' sweeps: phase 3 times the
+   default points;
+20. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-19, the spawned processes' included; phase 19's over its
+   winners' loader) and the ok line.
 
 Details go to ``build/results/chip_smoke.json`` (phase 10's trace to
 ``build/results/phase10_trace.json``).  Imports torch, numpy and
@@ -7093,6 +7114,404 @@ def run_instruments_process(indptr, indices, feat, labels, node_cap) -> dict:
     return rep
 
 
+# -- phase 19: the exact-shape autotune seam ---------------------------------
+TUNE_ITERS = 10                   # launches a round in the main shapes' sweeps
+TUNE_LOADER_BATCHES = 4           # batches each phase-19 loader delivers
+TUNE_GRAPH_N = 200_000            # the routing leg's sharded graph
+BATCH_FIELDS = ("x", "y", "edge_index", "edge_id", "node", "node_mask",
+                "edge_mask", "batch")
+
+
+def b1_tune_shapes():
+    """B1's phase-19 hop shapes: bucket 128's three hops and the training
+    step's widest hop."""
+    from glt_tpu_torch.sampler.neighbor_sampler import hop_widths
+
+    shapes = list(zip(hop_widths(BUCKETS[-1], FANOUTS), FANOUTS))
+    train = list(zip(hop_widths(TRAIN_BS, FANOUTS, FRONTIER_CAP), FANOUTS))
+    return shapes + [max(train, key=lambda s: s[0])]
+
+
+def gather_grid(gc):
+    """Every launch point B2 and B4 are built for (pruned or not)."""
+    return [(t, c, v) for t in gc.CANDIDATE_THREADS
+            for c in gc.CANDIDATE_BLOCKS_PER_SM
+            for v in gc.CANDIDATE_VEC_BYTES]
+
+
+def counts_zero_by_params(ops) -> None:
+    for fn in kernel_wrappers(ops).values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_params"):
+            fn.launches_by_params.clear()
+
+
+def check_b1_points(torch, ops, trandom, dev, pip, pix, peid, rng) -> tuple:
+    """Every (threads, lanes) point of B1 against the plain version in its
+    four draw modes and three edge-id modes at phase 19's hop shapes.
+    Returns (max_abs_err, cases)."""
+    from glt_tpu_torch.ops import sample_cuda as sc
+
+    worst, cases = 0, 0
+    for w, f in b1_tune_shapes():
+        fr = rng.integers(0, PRODUCTS_N, w)
+        fr[rng.random(w) < 0.03] = -1
+        frontier = torch.from_numpy(fr.astype(np.int32)).to(dev)
+        key = trandom.PRNGKey(w + f, device=dev)
+        points = sorted({sc.launch_params(f, p)
+                         for p in sc.candidate_sample_params()})
+        for replace in (False, True):
+            for key_by in ("slot", "id"):
+                for eid, with_edge in ((None, False), (None, True),
+                                       (peid, True)):
+                    kw = dict(edge_ids=eid, with_replacement=replace,
+                              with_edge=with_edge, key_by=key_by)
+                    want = ops.sample_neighbors_plain(pip, pix, frontier, f,
+                                                      key, **kw)
+                    for p in points:
+                        got = ops.sample_neighbors_cuda(
+                            pip, pix, frontier, f, key, params=p, **kw)
+                        torch.cuda.synchronize()
+                        for g, x in zip(got, want):
+                            need((g is None) == (x is None),
+                                 "B1 edge-id presence differs")
+                            if g is None:
+                                continue
+                            worst = max(worst, int((g.long() - x.long())
+                                                   .abs().max()))
+                            need(torch.equal(g, x),
+                                 f"B1 at t{p[0]}_g{p[1]} differs from its "
+                                 f"plain version at [{w}, {f}] ({kw})")
+                        cases += 1
+    return worst, cases
+
+
+def check_copy_points(torch, name, launch, plain, cases_in) -> tuple:
+    """Every B2 or B4 point of ``cases_in`` (``(what, args)`` pairs)
+    against the plain version, bit for bit.  Returns (max_abs_err,
+    cases)."""
+    from glt_tpu_torch.ops import gather_cuda as gc
+
+    worst, cases = 0.0, 0
+    for what, args in cases_in:
+        want = plain(*args)
+        for p in gather_grid(gc):
+            got = launch(*args, params=p)
+            torch.cuda.synchronize()
+            if got.numel():
+                worst = max(worst, float((got.float() - want.float()).abs()
+                                         .max()))
+            same = (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                    if got.dtype == torch.float32 else torch.equal(got, want))
+            need(same, f"{name} at t{p[0]}_c{p[1]}_v{p[2]} differs from its "
+                       f"plain version ({what})")
+            cases += 1
+    return worst, cases
+
+
+def sweep_row(table: dict, key: str, default: str) -> dict:
+    """One sweep's line: every point's ms, the winner, the default's ms
+    and winner/default."""
+    row = table[key]
+    ms = row["ms"]
+    need(row["winner"] in ms and default in ms,
+         f"the sweep of {key} did not time its winner and the default")
+    need(ms[row["winner"]] <= ms[default],
+         f"the sweep of {key} picked a point slower than the default")
+    return {"key": key, "winner": row["winner"], "winner_ms": ms[row["winner"]],
+            "default": default, "default_ms": ms[default],
+            "winner_over_default": ms[row["winner"]] / ms[default],
+            "points_ms": ms}
+
+
+def same_loader_batches(torch, got, want, what: str) -> None:
+    need(len(got) == len(want), f"{what}: {len(got)} vs {len(want)} batches")
+    for i, (a, b) in enumerate(zip(got, want)):
+        for f in BATCH_FIELDS:
+            x, y = getattr(a, f), getattr(b, f)
+            need((x is None) == (y is None), f"{what}: batch {i} {f}")
+            need(x is None or torch.equal(x, y),
+                 f"{what}: batch {i} differs in {f}")
+
+
+def run_loader_leg(torch, ops, ds, train_ids) -> dict:
+    """A NeighborLoader at the training phase's batch and frontier cap:
+    one built and its tables dropped (every batch at the default points),
+    then one built with its own sweeps (its batches at the winners); the
+    per-point launch counters show which points each ran, and the
+    batches must be equal."""
+    from glt_tpu_torch.loader import NeighborLoader
+    from glt_tpu_torch.ops import gather_cuda as gc
+    from glt_tpu_torch.ops import sample_cuda as sc
+
+    kw = dict(batch_size=TRAIN_BS, frontier_cap=FRONTIER_CAP, seed=0)
+    ids = train_ids[:TUNE_LOADER_BATCHES * TRAIN_BS]
+    b1, b2 = ops.sample_neighbors_cuda, ops.gather_rows_cuda
+    rep = {}
+    runs = {}
+    for leg in ("default", "winners"):
+        gc.reset_autotune()
+        sc.reset_autotune()
+        loader = NeighborLoader(ds, list(FANOUTS), ids, **kw)
+        sampler = loader.sampler
+        hops = list(zip(sampler._widths, FANOUTS))
+        cap = sampler.node_capacity
+        need(list(ops.autotune_table()) == [f"d{FEAT_DIM}_b{cap}_float32"],
+             f"the loader swept gathers {list(ops.autotune_table())}, not "
+             f"one at its node capacity {cap}")
+        need(sorted(ops.sample_autotune_table()) == sorted(
+            {f"b{w}_f{f}_int32" for w, f in hops}),
+            f"the loader swept hops {sorted(ops.sample_autotune_table())}, "
+            f"not {hops}")
+        if leg == "default":
+            gc.reset_autotune()
+            sc.reset_autotune()
+            want_b1 = {sc.launch_params(f) for _, f in hops}
+            want_b2 = {gc.default_gather_params()}
+        else:
+            rep["gather_table"] = ops.autotune_table()
+            rep["sample_table"] = ops.sample_autotune_table()
+            want_b1 = {sc.auto_params(w, f, torch.int32) for w, f in hops}
+            want_b2 = {gc.resolve_gather_params(FEAT_DIM, cap,
+                                                torch.float32)}
+        torch.cuda.synchronize()
+        counts_zero_by_params(ops)
+        batches = list(loader)
+        torch.cuda.synchronize()
+        by1, by2 = dict(b1.launches_by_params), dict(b2.launches_by_params)
+        need(set(by1) == want_b1 and set(by2) == want_b2,
+             f"the {leg} loader launched B1 at {by1} and B2 at {by2}, not "
+             f"{want_b1} and {want_b2}")
+        need(b1.launches == 3 * len(batches) and b2.launches == len(batches),
+             f"the {leg} loader launched B1 {b1.launches} and B2 "
+             f"{b2.launches} times over {len(batches)} batches")
+        runs[leg] = batches
+        rep[leg] = {"b1_by_point": {f"t{p[0]}_g{p[1]}": n
+                                    for p, n in sorted(by1.items())},
+                    "b2_by_point": {"t%d_c%d_v%d" % p: n
+                                    for p, n in sorted(by2.items())}}
+        if leg == "winners":
+            rep["launches"] = counts_read(ops)
+    same_loader_batches(torch, runs["winners"], runs["default"],
+                        "the winners' loader vs the default points'")
+    rep["batches"] = len(runs["winners"])
+    rep["hops"] = hops
+    rep["node_capacity"] = cap
+    return rep
+
+
+def run_route_leg(torch, trandom, dev) -> dict:
+    """autotune_routing timed at phase 11's four-shard width, flat and on
+    the 2 x 2 mesh; a DistNeighborSampler(route='auto') batch equals
+    route='sort''s on both meshes."""
+    from glt_tpu_torch.data import CSRTopo
+    from glt_tpu_torch.parallel import (DistNeighborSampler, Mesh,
+                                        autotune_routing, global_mesh_2d,
+                                        shard_graph)
+    from glt_tpu_torch.parallel import dist_sampler as dsm
+    from glt_tpu_torch.sampler.neighbor_sampler import hop_widths
+
+    for t in (dsm._ROUTE_AUTO, dsm._TOPO_AUTO, dsm._ROUTE_TIMES,
+              dsm._TOPO_TIMES):
+        t.clear()
+    w = max(hop_widths(DIST_BS, DIST_FANOUT))
+    rep = {"width": w, "shards": DIST_SHARDS}
+    rep["route"] = autotune_routing(w, DIST_SHARDS, device=dev)
+    rep["topology"] = dsm._autotune_topology(w, (2, 2), w, mesh=None,
+                                             dev=dev)
+    key = (w, DIST_SHARDS, w)
+    rep["route_ms"] = dict(dsm._ROUTE_TIMES[key])
+    rep["topology_ms"] = dict(dsm._TOPO_TIMES[(2, 2)])
+    need(set(rep["route_ms"]) == {"sort", "onepass"}
+         and set(rep["topology_ms"]) == {"flat", "dedup"},
+         "autotune_routing did not time both arms on the card")
+    ip, ix = build_graph(3, TUNE_GRAPH_N)
+    topo = CSRTopo.from_csr_arrays(ip, ix)
+    g = shard_graph(topo, DIST_SHARDS, device=dev)
+    seeds = np.random.default_rng(19).integers(
+        0, TUNE_GRAPH_N, (DIST_SHARDS, DIST_BS)).astype(np.int32)
+    seeds[0, -3:] = -1
+    meshes = {"1-D": Mesh([dev] * DIST_SHARDS),
+              "2 x 2": global_mesh_2d([dev] * DIST_SHARDS, num_hosts=2)}
+    rep["samplers"] = {}
+    for name, mesh in meshes.items():
+        out = {}
+        for route in ("auto", "sort"):
+            s = DistNeighborSampler(g, mesh, num_neighbors=list(DIST_FANOUT),
+                                    batch_size=DIST_BS, route=route)
+            out[route] = (s.route, s.sample_from_nodes(
+                seeds, key=trandom.PRNGKey(5, device=dev)))
+        for f in ("node", "row", "col", "edge", "node_mask", "edge_mask"):
+            a, b = getattr(out["auto"][1], f), getattr(out["sort"][1], f)
+            need((a is None) == (b is None) and (a is None
+                                                 or torch.equal(a, b)),
+                 f"route='auto' differs from route='sort' in {f} on the "
+                 f"{name} mesh")
+        rep["samplers"][name] = out["auto"][0]
+    rep["route_table"] = {str(k): v for k, v in dsm._ROUTE_AUTO.items()}
+    rep["topology_table"] = {str(k): v for k, v in dsm._TOPO_AUTO.items()}
+    for t in (dsm._ROUTE_AUTO, dsm._TOPO_AUTO, dsm._ROUTE_TIMES,
+              dsm._TOPO_TIMES):
+        t.clear()
+    return rep
+
+
+def run_autotune(torch, ops, trandom, dev, indptr, indices, feat,
+                 labels) -> dict:
+    """Phase 19 (see the module docstring)."""
+    from glt_tpu_torch.data import CSRTopo, Dataset, Graph
+    from glt_tpu_torch.ops import gather_cuda as gc
+    from glt_tpu_torch.ops import gather_dequant_cuda as dq
+    from glt_tpu_torch.ops import sample_cuda as sc
+    from glt_tpu_torch.store import quant
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(19)
+    rep = {}
+    gc.reset_autotune()
+    sc.reset_autotune()
+    # -- every point against the plain version ---------------------------
+    pip = torch.from_numpy(indptr.astype(np.int32)).to(dev)
+    pix = torch.from_numpy(indices.astype(np.int32)).to(dev)
+    e = pix.shape[0]
+    peid = torch.remainder(torch.arange(e, dtype=torch.int64, device=dev)
+                           * 7 + 3, e).to(torch.int32)
+    rep["b1_err"], rep["b1_cases"] = check_b1_points(
+        torch, ops, trandom, dev, pip, pix, peid, rng)
+    del peid
+    table = torch.from_numpy(feat).to(dev)
+    main_b = BUCKETS[-1] * (1 + 15 + 150 + 750)
+    main = rng.integers(0, PRODUCTS_N, main_b).astype(np.int32)
+    main[rng.random(main_b) < 0.3] = 0
+    main_idx = torch.from_numpy(main).to(dev)
+    link_idx = torch.from_numpy(rng.integers(
+        0, PRODUCTS_N, 52224).astype(np.int32)).to(dev)
+    table_i8 = (table * 20).clamp(-127, 127).to(torch.int8)
+    rep["b2_err"], rep["b2_cases"] = check_copy_points(
+        torch, "B2", ops.gather_rows_cuda, ops.gather_rows_plain,
+        [("f32 main", (table, main_idx)), ("f32 link", (table, link_idx)),
+         ("int8 main", (table_i8, main_idx)),
+         ("f32 unaligned", (table[1:], link_idx))])
+    del table_i8
+    codes = {}
+    for codec in STORE_CODECS:
+        enc, spec = quant.encode(feat, codec)
+        codes[codec] = (quant.host_to_torch(enc).to(dev), spec,
+                        quant.scale_zero_tensor(spec, FEAT_DIM, dev))
+        del enc
+    small = []
+    for codec in STORE_CODECS:
+        for d in DEQUANT_WIDTHS:
+            tab, sz = compressed_table(torch, quant, codec, 4100, d, rng)
+            tab, sz = tab.to(dev), sz.to(dev)
+            ids = torch.from_numpy(dequant_ids("clamped", 4099, 4097,
+                                               rng)).to(dev)
+            small += [(f"{codec} d={d}", (tab[:4099], ids, sz)),
+                      (f"{codec} d={d} unaligned", (tab[1:], ids, sz))]
+    rep["b4_err"], rep["b4_cases"] = check_copy_points(
+        torch, "B4", ops.gather_rows_dequant_cuda,
+        ops.gather_rows_dequant_plain,
+        small + [(f"{c} main", (codes[c][0], main_idx, codes[c][2]))
+                 for c in STORE_CODECS])
+    del small
+    # -- the sweeps at the main shapes -----------------------------------
+    t0 = time.perf_counter()
+    for idx in (main_idx, link_idx):
+        need(ops.autotune_gather_rows(table, idx, iters=TUNE_ITERS)
+             == "cuda", "autotune_gather_rows did not sweep on the card")
+    for codec in STORE_CODECS:
+        c, spec, _ = codes[codec]
+        need(ops.autotune_gather_rows(c, main_idx, iters=TUNE_ITERS,
+                                      dequant=spec) == "cuda",
+             "autotune_gather_rows did not sweep B4 on the card")
+    for w, f in b1_tune_shapes():
+        fr = torch.from_numpy(rng.integers(0, PRODUCTS_N, w).astype(
+            np.int32)).to(dev)
+        need(ops.autotune_sample(pip, pix, fr, f, iters=TUNE_ITERS)
+             == "cuda", "autotune_sample did not sweep on the card")
+    rep["sweep_s"] = time.perf_counter() - t0
+    dflt = "t256_c16_v16"
+    gt, st = ops.autotune_table(), ops.sample_autotune_table()
+    rep["b2_sweeps"] = [sweep_row(gt, f"d{FEAT_DIM}_b{b}_float32", dflt)
+                        for b in (main_b, 52224)]
+    rep["b4_sweeps"] = [sweep_row(gt, f"d{FEAT_DIM}_b{main_b}_{n}", dflt)
+                        for n in ("int8", "bfloat16")]
+    rep["b1_sweeps"] = [sweep_row(
+        st, f"b{w}_f{f}_int32", "t256_g%d" % sc.lanes_per_row(f))
+        for w, f in b1_tune_shapes()]
+    need(all(len(r["points_ms"]) == len(gc.candidate_gather_params(
+        FEAT_DIM, torch.float32)) for r in rep["b2_sweeps"]),
+        "a B2 sweep skipped a point")
+    # The seams launch the memoized winners for these exact keys.
+    win = gc.resolve_gather_params(FEAT_DIM, main_b, torch.float32)
+    counts_zero_by_params(ops)
+    got = ops.gather_rows(table, main_idx)
+    need(dict(ops.gather_rows_cuda.launches_by_params) == {win: 1}
+         and torch.equal(got, ops.gather_rows_plain(table, main_idx)),
+         "gather_rows did not launch the memoized B2 winner")
+    c, spec, _ = codes["int8"]
+    win4 = gc.resolve_gather_params(FEAT_DIM, main_b, torch.int8)
+    got = ops.gather_rows(c, main_idx, dequant=spec)
+    need(dict(ops.gather_rows_dequant_cuda.launches_by_params) == {win4: 1},
+         "gather_rows did not launch the memoized B4 winner")
+    del codes, got, c
+    gc.reset_autotune()
+    sc.reset_autotune()
+    # -- a NeighborLoader's own sweeps -----------------------------------
+    t0 = time.perf_counter()
+    ds = Dataset(graph=Graph(CSRTopo.from_csr_arrays(indptr, indices),
+                             device=dev), device=dev)
+    ds.init_node_features(feat)
+    ds.init_node_labels(labels)
+    train_ids = np.random.default_rng(190).permutation(PRODUCTS_N)
+    rep["loader"] = run_loader_leg(torch, ops, ds, train_ids)
+    rep["loader"]["seconds"] = time.perf_counter() - t0
+    rep["launches"] = rep["loader"].pop("launches")
+    del ds, table, pip, pix
+    gc.reset_autotune()
+    sc.reset_autotune()
+    # -- routing ---------------------------------------------------------
+    rep["routing"] = run_route_leg(torch, trandom, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rep["seconds"] = time.perf_counter() - t_phase
+    return rep
+
+
+def log_autotune(rep: dict, card: str) -> None:
+    """Phase 19's lines (each number measured on ``card``)."""
+    log(f"autotune ({card}): every point equal to the plain version: B1 "
+        f"{rep['b1_cases']} cases, B2 {rep['b2_cases']}, B4 "
+        f"{rep['b4_cases']}; sweeps {rep['sweep_s']:.1f} s")
+    for name in ("b1", "b2", "b4"):
+        for r in rep[f"{name}_sweeps"]:
+            log(f"  {name.upper()} {r['key']}: winner {r['winner']} "
+                f"{r['winner_ms']:.5f} ms, default {r['default']} "
+                f"{r['default_ms']:.5f} ms (winner/default "
+                f"{r['winner_over_default']:.3f}); points " + ", ".join(
+                    f"{k} {v:.5f}" for k, v in r["points_ms"].items()))
+    ld = rep["loader"]
+    log(f"  NeighborLoader (batch {TRAIN_BS}, hops {ld['hops']}, node "
+        f"capacity {ld['node_capacity']}): {ld['batches']} batches at the "
+        f"default points == at its winners; B1 by point default "
+        f"{ld['default']['b1_by_point']}, winners "
+        f"{ld['winners']['b1_by_point']}; B2 default "
+        f"{ld['default']['b2_by_point']}, winners "
+        f"{ld['winners']['b2_by_point']} ({ld['seconds']:.1f} s)")
+    for k, r in ld["gather_table"].items():
+        log(f"    loader gather {k}: winner {r['winner']}")
+    for k, r in ld["sample_table"].items():
+        log(f"    loader hop {k}: winner {r['winner']}")
+    rt = rep["routing"]
+    log(f"  autotune_routing at [{rt['width']}] over {rt['shards']} "
+        f"shards: {rt['route']} (sort {rt['route_ms']['sort']:.5f} ms, "
+        f"one-pass {rt['route_ms']['onepass']:.5f} ms); 2 x 2: "
+        f"{rt['topology']} (per-host dedup {rt['topology_ms']['dedup']:.5f}"
+        f" ms, flat bucketing {rt['topology_ms']['flat']:.5f} ms); "
+        f"route='auto' == route='sort' on the 1-D and 2 x 2 meshes "
+        f"(resolved {rt['samplers']})")
+
+
 def main() -> int:
     try:
         import torch
@@ -7503,13 +7922,19 @@ def main() -> int:
         log_instruments(ins, smi[0])
         log(f"  phase 18: {ins['seconds']:.1f} s (the worker's part "
             f"{ins['worker_seconds']:.1f} s)")
+
+        # 19. the exact-shape autotune seam
+        report["autotune"] = tu = run_autotune(torch, ops, trandom, dev,
+                                               indptr, indices, feat, labels)
+        log_autotune(tu, smi[0])
+        log(f"  phase 19: {tu['seconds']:.1f} s")
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
                        for p in (sl, tr, st, report["digits"], lk, het, co,
-                                 dd, tw, ti, dw, fl, sv, fs, ins))
+                                 dd, tw, ti, dw, fl, sv, fs, ins, tu))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
@@ -7564,10 +7989,12 @@ def main() -> int:
                                "hetero": {n: het[n]["kernels"]
                                           for n in ("rgat", "hgt")},
                                "dist": dd["kernels"],
-                               "tiered": {"B3": ti["b3"]}}
+                               "tiered": {"B3": ti["b3"]},
+                               "autotune": {k: tu[f"{k}_sweeps"]
+                                            for k in ("b1", "b2", "b4")}}
     report["seconds"] = time.perf_counter() - t_main
     svc_report(OUT_DIR, "chip_smoke", report)
-    log(f"phases 1-18: {report['seconds']:.1f} s")
+    log(f"phases 1-19: {report['seconds']:.1f} s")
     log(report["device"]["nvidia_smi"])
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ state other processes read, wall-clock durations, unjittered retries,
 client/server wire-op drift, unguarded shared fields, and synchronous
 disk reads in an epoch driver's loop.  These are the framework-free
 rules of ``glt_tpu``'s linter (``glt_tpu/analysis``), with the same
-codes, names, severities and messages.
+codes, names, severities and messages.  Beside them the launch model
+(``kernelmodel.py``, GLT017 and GLT019) checks every launch point a
+kernel module sweeps against the H100's limits.
 
 Usage::
 

@@ -640,11 +640,13 @@ def all_rules() -> List[Rule]:
     return [cls() for cls in RULES.values()]
 
 
-# The concurrency rules (GLT008/GLT009), the wire-protocol verification
-# (GLT024-026, protocol.py) and the thread-safety pass (GLT027,
-# threads.py) live in their own modules but register into the same RULES
-# table; importing here completes the registry for every entry point
-# (cli, tests, programmatic use).
+# The concurrency rules (GLT008/GLT009), the launch model (GLT017/GLT019,
+# kernelmodel.py), the wire-protocol verification (GLT024-026,
+# protocol.py) and the thread-safety pass (GLT027, threads.py) live in
+# their own modules but register into the same RULES table; importing
+# here completes the registry for every entry point (cli, tests,
+# programmatic use).
 from . import concurrency  # noqa: E402,F401  (registration side effect)
+from . import kernelmodel  # noqa: E402,F401  (registration side effect)
 from . import protocol  # noqa: E402,F401  (registration side effect)
 from . import threads  # noqa: E402,F401  (registration side effect)

@@ -112,6 +112,7 @@ inline bool quad_aligned(const void* table, int64_t item_bytes,
          reinterpret_cast<uintptr_t>(out) % 16 == 0;
 }
 
+// B5's launch, and B4's default point (B4 takes any point of launch.cuh).
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 16;  // 16 blocks per H100 SM
 

@@ -22,13 +22,22 @@
 // one 128-bit store) when d % 4 == 0 and the bases are aligned, else one
 // code.  The TPU kernel's sort, chunk plan and DMA ring existed for its
 // DMAs and have no counterpart here.
+//
+// Launch point (launch.cuh): threads per block, the grid cap in blocks
+// per SM and the largest vector width in bytes of the f32 output (16: the
+// 4-code group where d and the bases allow it; less: one code a thread).
+// The default, 256 threads, 16 blocks an SM and 16 bytes, is the launch
+// this kernel always had (B5 keeps it: dequant.cuh grid_for).  Every point
+// decodes the same codes with the same formula, so every point's output
+// is equal.
 
 #include "dequant.cuh"
+#include "launch.cuh"
 
 namespace {
 
-template <int kCodec, int V>
-__global__ void gather_dequant_kernel(
+template <int kCodec, int V, int kThreads>
+__global__ void __launch_bounds__(kThreads) gather_dequant_kernel(
     const typename glt::Storage<kCodec>::T* __restrict__ table,
     const int32_t* __restrict__ idx, const float* __restrict__ sz,
     float* __restrict__ out, int64_t n_rows, int64_t batch, int64_t d) {
@@ -47,38 +56,54 @@ __global__ void gather_dequant_kernel(
 
 template <int kCodec, int V>
 int launch(const void* table, const void* idx, const void* sz, void* out,
-           int64_t n_rows, int64_t batch, int64_t d, cudaStream_t stream) {
+           int64_t n_rows, int64_t batch, int64_t d, int threads,
+           int blocks_per_sm, cudaStream_t stream) {
   using T = typename glt::Storage<kCodec>::T;
-  gather_dequant_kernel<kCodec, V>
-      <<<glt::grid_for(batch * (d / V)), glt::kThreads, 0, stream>>>(
-          static_cast<const T*>(table), static_cast<const int32_t*>(idx),
-          static_cast<const float*>(sz), static_cast<float*>(out), n_rows,
-          batch, d);
-  return static_cast<int>(cudaGetLastError());
+  const unsigned blocks =
+      glt::grid_blocks(batch * (d / V), threads, blocks_per_sm);
+  return glt::with_threads(threads, [&](auto t) {
+    constexpr int kThreads = decltype(t)::value;
+    gather_dequant_kernel<kCodec, V, kThreads>
+        <<<blocks, kThreads, 0, stream>>>(
+            static_cast<const T*>(table), static_cast<const int32_t*>(idx),
+            static_cast<const float*>(sz), static_cast<float*>(out), n_rows,
+            batch, d);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <int kCodec>
+int launch_codec(const void* table, int64_t item_bytes, const void* idx,
+                 const void* sz, void* out, int64_t n_rows, int64_t batch,
+                 int64_t d, int threads, int blocks_per_sm,
+                 int max_vec_bytes, cudaStream_t stream) {
+  if (max_vec_bytes >= 16 && glt::quad_aligned(table, item_bytes, sz, out, d))
+    return launch<kCodec, 4>(table, idx, sz, out, n_rows, batch, d, threads,
+                             blocks_per_sm, stream);
+  return launch<kCodec, 1>(table, idx, sz, out, n_rows, batch, d, threads,
+                           blocks_per_sm, stream);
 }
 
 }  // namespace
 
-// codec: 0 = bf16 widen, 1 = int8 affine (glt::Codec).
+// codec: 0 = bf16 widen, 1 = int8 affine (glt::Codec); threads,
+// blocks_per_sm, max_vec_bytes: the launch point (launch.cuh).
 extern "C" int glt_gather_rows_dequant(const void* table, const void* idx,
                                        const void* sz, void* out,
                                        int64_t n_rows, int64_t batch,
-                                       int64_t d, int codec, void* stream) {
+                                       int64_t d, int codec, int threads,
+                                       int blocks_per_sm, int max_vec_bytes,
+                                       void* stream) {
+  if (!glt::valid_copy_point(threads, blocks_per_sm, max_vec_bytes) ||
+      (codec != glt::kWidenBf16 && codec != glt::kAffineInt8))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || d == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (codec == glt::kWidenBf16) {
-    if (glt::quad_aligned(table, 2, sz, out, d))
-      return launch<glt::kWidenBf16, 4>(table, idx, sz, out, n_rows, batch, d,
-                                        s);
-    return launch<glt::kWidenBf16, 1>(table, idx, sz, out, n_rows, batch, d,
-                                      s);
-  }
-  if (codec == glt::kAffineInt8) {
-    if (glt::quad_aligned(table, 1, sz, out, d))
-      return launch<glt::kAffineInt8, 4>(table, idx, sz, out, n_rows, batch,
-                                         d, s);
-    return launch<glt::kAffineInt8, 1>(table, idx, sz, out, n_rows, batch, d,
-                                       s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (codec == glt::kWidenBf16)
+    return launch_codec<glt::kWidenBf16>(table, 2, idx, sz, out, n_rows,
+                                         batch, d, threads, blocks_per_sm,
+                                         max_vec_bytes, s);
+  return launch_codec<glt::kAffineInt8>(table, 1, idx, sz, out, n_rows,
+                                        batch, d, threads, blocks_per_sm,
+                                        max_vec_bytes, s);
 }

@@ -37,15 +37,23 @@
 // answers "already chosen?".  Rows keyed by slot share the 3F per-step
 // keys, computed once per block into shared memory.  Masked and padding
 // slots touch no memory but their outputs.
+//
+// Launch point (launch.cuh): threads per block and lanes per row G, the
+// counterpart of the TPU kernel's swept (tile_rows, ring_depth,
+// bin_edges).  The default, 256 threads and G = min(32, next_pow2(F)), is
+// the launch this kernel always had; a whole warp a row is the other lane
+// rule swept.  Every draw is keyed by slot or by seed id, never by thread
+// or lane, and Floyd's steps run in slot order whatever G, so every point's
+// output is equal.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
 #include "threefry.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -86,7 +94,7 @@ __device__ __forceinline__ void write_slot(const Args& a, int64_t o,
 }
 
 // kS: the most slots a lane owns without replacement (F <= group * kS).
-template <int kS>
+template <int kS, int kThreads>
 __global__ void __launch_bounds__(kThreads) sample_kernel(Args a) {
   // Keyed by slot, every row shares the step keys (kh_i, kl_i) =
   // split(split(key, F)[i], 2), or (kh, kl) = split(key, 2) with
@@ -220,34 +228,41 @@ __global__ void __launch_bounds__(kThreads) sample_kernel(Args a) {
 }
 
 template <int kS>
-int launch(const Args& a, cudaStream_t stream) {
-  const int64_t rows_per_block = kThreads / a.group;
+int launch(const Args& a, int threads, cudaStream_t stream) {
+  const int64_t rows_per_block = threads / a.group;
   const int64_t blocks = (a.rows + rows_per_block - 1) / rows_per_block;
   const size_t smem = a.by_id ? 0
                               : sizeof(glt::Key) *
                                     (a.replace ? 2 : 2 * size_t(a.fanout));
-  sample_kernel<kS><<<static_cast<unsigned>(blocks), kThreads, smem,
-                      stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return glt::with_threads(threads, [&](auto t) {
+    constexpr int kThreads = decltype(t)::value;
+    sample_kernel<kS, kThreads>
+        <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
 
-// Largest fanout without replacement: a lane holds at most 64 picks
-// (ops/sample_cuda.py MAX_FANOUT).
-constexpr int kMaxFanout = 32 * 64;
+// Most slots a lane owns without replacement: a row of G lanes draws up to
+// 64 * G (ops/sample_cuda.py MAX_FANOUT at G = 32).
+constexpr int kMaxSlotsPerLane = 64;
 
+// threads, group: the launch point (launch.cuh); group is the lanes per
+// row, a power of two up to 32 (a divisor of every built thread count).
 extern "C" int glt_sample_neighbors(const void* indptr, int64_t n_ptr,
                                     const void* indices, const void* edge_ids,
                                     const void* seeds, const void* key,
                                     int64_t rows, int fanout, int replace,
                                     int by_id, int eid_mode, void* nbrs,
-                                    void* eids, void* mask, void* stream) {
-  if (rows == 0 || fanout <= 0) return 0;
-  if (!replace && fanout > kMaxFanout)
+                                    void* eids, void* mask, int threads,
+                                    int group, void* stream) {
+  if (!glt::built_threads(threads) || group < 1 || group > 32 ||
+      (group & (group - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int group = 1;
-  while (group < fanout && group < 32) group *= 2;
+  if (rows == 0 || fanout <= 0) return 0;
+  if (!replace && fanout > kMaxSlotsPerLane * group)
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const int32_t*>(indptr),
          n_ptr,
          static_cast<const int32_t*>(indices),
@@ -264,7 +279,7 @@ extern "C" int glt_sample_neighbors(const void* indptr, int64_t n_ptr,
          static_cast<int32_t*>(eids),
          static_cast<uint8_t*>(mask)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (replace || fanout <= 32) return launch<1>(a, s);
-  if (fanout <= 32 * 8) return launch<8>(a, s);
-  return launch<64>(a, s);
+  if (replace || fanout <= group) return launch<1>(a, threads, s);
+  if (fanout <= 8 * group) return launch<8>(a, threads, s);
+  return launch<kMaxSlotsPerLane>(a, threads, s);
 }

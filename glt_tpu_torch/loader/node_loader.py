@@ -7,7 +7,16 @@ and labels gathered on the graph's device, and assembled into a
 samples are dispatched ahead of the batch being consumed, in
 ``glt_tpu``'s order (so the sampler's key counter advances the same
 way at every depth): the card queues them without the host waiting.
-``glt_tpu``'s construction-time autotune sweeps are not ported yet.
+
+At construction the loader sweeps, as ``glt_tpu``'s does, the row
+gather at its sampler's ``node_capacity`` and, on the card, each hop's
+neighbor sample at that hop's exact (width, fanout)
+(:func:`~glt_tpu_torch.ops.autotune_gather_rows`,
+:func:`~glt_tpu_torch.ops.autotune_sample`); its batches then launch the
+winners.  A CUDA graph records the launch point it was captured with
+(``utils/graphs.py`` ``CapturedProgram``, ``models/train.py``
+``_ScannedBlocks``), so a sweep after a capture does not reach that
+graph: build loaders before capturing.
 
 Occupancy-capped samplers flag the rare batch whose unique nodes exceed
 the static buffer; with ``overflow_fallback`` (the default) such a batch
@@ -85,6 +94,57 @@ class NodeLoader:
         self._labels_dev: Optional[torch.Tensor] = None
         self.overflow_fallback = bool(overflow_fallback)
         self.overflow_batches = 0
+        self._autotune_row_gather()
+        self._autotune_sample()
+
+    def _autotune_row_gather(self) -> None:
+        """Sweep the row gather's launch points for this loader's gather
+        shape (row width, ``node_capacity``, dtype), so that every
+        ``_collate_fn`` gathers with the measured winner; a compressed
+        store sweeps B4, the kernel its gathers run.  The probe is built
+        at THIS sampler's ``node_capacity``, so a capped loader sweeps its
+        own shape.  A CPU feature pins the plain version without timing;
+        tiered and absent features are skipped (their gathers are host
+        stages)."""
+        feat = self.data.get_node_feature() if self.data is not None else None
+        cap = getattr(self.sampler, "node_capacity", None)
+        if (feat is None or cap is None
+                or getattr(feat, "hot_count", 0) != getattr(feat, "size", -1)):
+            return
+        from ..ops.gather_cuda import autotune_gather_rows
+
+        hot = feat.hot_rows
+        # Spread the probe ids over the table: a constant index would hit
+        # one cached row and flatter the point with the least latency.
+        probe = (torch.arange(int(cap), dtype=torch.int32, device=hot.device)
+                 % max(feat.size, 1))
+        autotune_gather_rows(hot, probe, dequant=feat.quant_spec)
+
+    def _autotune_sample(self) -> None:
+        """Sweep B1's launch points once per hop at that hop's exact
+        frontier (width, fanout), so that ``ops.sample_neighbors`` serves
+        each hop with its measured winner.  Only on the card (``glt_tpu``
+        sweeps only on the TPU), and only for samplers with the hop-width
+        protocol."""
+        sampler = self.sampler
+        graph = getattr(sampler, "graph", None)
+        widths = getattr(sampler, "_widths", None)
+        fanouts = getattr(sampler, "num_neighbors", None)
+        if graph is None or widths is None or not fanouts:
+            return
+        if graph.indices.device.type != "cuda":
+            return
+        from ..ops.sample_cuda import autotune_sample
+
+        nn = max(int(graph.num_nodes), 1)
+        for w, f in zip(widths, fanouts):
+            # Probe seeds spread over the graph, so the degrees the probe
+            # reads follow the graph's, not one hot row.
+            probe = (torch.arange(int(w), dtype=torch.int32,
+                                  device=graph.indices.device) % nn)
+            autotune_sample(graph.indptr, graph.indices, probe, int(f),
+                            edge_ids=graph.gather_edge_ids,
+                            with_edge=getattr(sampler, "with_edge", True))
 
     def __len__(self) -> int:
         n = self.input_nodes.shape[0]

@@ -10,7 +10,13 @@ from .fused_frontier_dequant_cuda import (
     fused_frontier_dequant_cuda,
     fused_frontier_dequant_plain,
 )
-from .gather_cuda import gather_rows, gather_rows_cuda, gather_rows_plain
+from .gather_cuda import (
+    autotune_gather_rows,
+    autotune_table,
+    gather_rows,
+    gather_rows_cuda,
+    gather_rows_plain,
+)
 from .gather_dequant_cuda import (
     gather_rows_dequant_cuda,
     gather_rows_dequant_plain,
@@ -29,7 +35,12 @@ from .neighbor_sample import (
     lookup_degrees,
     sample_neighbors,
 )
-from .sample_cuda import sample_neighbors_cuda, sample_neighbors_plain
+from .sample_cuda import (
+    autotune_sample,
+    sample_autotune_table,
+    sample_neighbors_cuda,
+    sample_neighbors_plain,
+)
 from .stitch import stitch_sample_results
 from .subgraph import SubGraphOutput, node_subgraph
 from .threefry_cuda import threefry_hash_cuda, threefry_hash_plain
@@ -47,6 +58,7 @@ from .unique import (
 __all__ = [
     "DenseInduceState", "FusedFrontier", "NegativeSampleOutput",
     "NeighborOutput", "SubGraphOutput", "UniqueResult",
+    "autotune_gather_rows", "autotune_sample", "autotune_table",
     "dedup_counts", "dedup_gather_rows", "dense_induce",
     "dense_induce_final", "dense_induce_init", "dense_map_fits",
     "draw_positions",
@@ -57,7 +69,8 @@ __all__ = [
     "fused_frontier_supported", "gather_rows", "gather_rows_cuda",
     "gather_rows_dequant_cuda", "gather_rows_dequant_plain",
     "gather_rows_plain", "lookup_degrees", "node_subgraph",
-    "relabel_by_reference", "sample_neighbors", "sample_neighbors_cuda",
+    "relabel_by_reference", "sample_autotune_table", "sample_neighbors",
+    "sample_neighbors_cuda",
     "sample_negative_edges", "sample_neighbors_plain",
     "stitch_sample_results", "threefry_hash_cuda", "threefry_hash_plain",
     "unique_first_occurrence", "weight_to_cdf", "weighted_draw",

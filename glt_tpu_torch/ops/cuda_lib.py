@@ -29,7 +29,7 @@ BUILD_ROOT = _PKG.parent / "build" / "glt_tpu_torch"
 SOURCES = ("sample.cu", "threefry.cu", "gather.cu", "fused_frontier.cu",
            "gather_dequant.cu", "fused_frontier_dequant.cu")
 # Headers the sources include; they count in the build hash.
-HEADERS = ("dequant.cuh", "threefry.cuh")
+HEADERS = ("dequant.cuh", "launch.cuh", "threefry.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -40,17 +40,20 @@ _I32 = ctypes.c_int
 # c_void_p (a bare Python int would be passed as a 32-bit int).
 _SIGNATURES = {
     # indptr, n_ptr, indices, edge_ids, seeds, key, rows, fanout,
-    # replace, by_id, eid_mode, nbrs, eids, mask, stream
+    # replace, by_id, eid_mode, nbrs, eids, mask, threads, group, stream
     "glt_sample_neighbors": [_P, _I64, _P, _P, _P, _P, _I64, _I32, _I32,
-                             _I32, _I32, _P, _P, _P, _P],
+                             _I32, _I32, _P, _P, _P, _I32, _I32, _P],
     # keys, data, value, counter_mode, n_keys, n_counters, out, stream
     "glt_threefry_hash": [_P, _P, _I64, _I32, _I64, _I64, _P, _P],
-    # table, idx, out, n_rows, batch, row_bytes, stream
-    "glt_gather_rows": [_P, _P, _P, _I64, _I64, _I64, _P],
+    # table, idx, out, n_rows, batch, row_bytes, threads, blocks_per_sm,
+    # max_vec_bytes, stream
+    "glt_gather_rows": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P],
     # table, uidx, inv, out, n_rows, batch, row_bytes, stream
     "glt_fused_frontier": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
-    # table, idx, sz, out, n_rows, batch, d, codec, stream
-    "glt_gather_rows_dequant": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _P],
+    # table, idx, sz, out, n_rows, batch, d, codec, threads,
+    # blocks_per_sm, max_vec_bytes, stream
+    "glt_gather_rows_dequant": [_P, _P, _P, _P, _I64, _I64, _I64, _I32,
+                                _I32, _I32, _I32, _P],
     # table, uidx, inv, sz, out, n_rows, batch, d, codec, stream
     "glt_fused_frontier_dequant": [_P, _P, _P, _P, _P, _I64, _I64, _I64,
                                    _I32, _P],

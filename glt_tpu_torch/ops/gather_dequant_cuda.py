@@ -13,6 +13,8 @@ table's dtype (bf16 widens, int8 decodes affinely).
 :func:`gather_rows_dequant_cuda` launches the kernel and takes CUDA
 tensors only; :func:`gather_rows_dequant_plain` is the plain PyTorch
 version (``glt_tpu``'s XLA arm, ``dequantize(_xla_gather(...))``).
+B4 takes B2's launch points (:mod:`.gather_cuda`), swept by
+``autotune_gather_rows(..., dequant=spec)``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from ..store.quant import SCALE_ZERO_ROWS, dequantize_rows
 from . import cuda_lib
-from .gather_cuda import gather_rows_plain
+from .gather_cuda import default_gather_params, gather_rows_plain
 
 # Storage dtype -> the kernels' codec number (csrc/dequant.cuh glt::Codec).
 DEQUANT_CODECS = {torch.bfloat16: 0, torch.int8: 1}
@@ -53,9 +55,9 @@ def check_dequant_inputs(name: str, table: torch.Tensor, sz: torch.Tensor
                          f"{tuple(sz.shape)}")
 
 
-def gather_rows_dequant_cuda(table: torch.Tensor, idx: torch.Tensor,
-                             sz: torch.Tensor) -> torch.Tensor:
-    """Launch kernel B4 on the current stream (no synchronisation)."""
+def check_gather_inputs(table: torch.Tensor, idx: torch.Tensor,
+                        sz: torch.Tensor) -> None:
+    """B4's checks on its inputs."""
     check_dequant_inputs("gather_rows_dequant_cuda", table, sz)
     dev = table.device
     if idx.device != dev:
@@ -65,20 +67,44 @@ def gather_rows_dequant_cuda(table: torch.Tensor, idx: torch.Tensor,
     if idx.dim() != 1 or not idx.is_contiguous():
         raise ValueError(f"idx must be 1-D and contiguous, got shape "
                          f"{tuple(idx.shape)}")
+    if table.shape[0] == 0 and idx.shape[0]:
+        raise ValueError("cannot gather from an empty table")
+
+
+def _launch(table: torch.Tensor, idx: torch.Tensor, sz: torch.Tensor,
+            params) -> torch.Tensor:
+    """One launch of B4 at ``params`` on checked inputs (uncounted: the
+    sweep's timing launches come here directly)."""
     n, d = table.shape
     b = idx.shape[0]
-    if n == 0 and b:
-        raise ValueError("cannot gather from an empty table")
+    dev = table.device
     out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    threads, per_sm, vec = params
     lib = cuda_lib.library()
     with torch.cuda.device(dev):
         status = lib.glt_gather_rows_dequant(
             table.data_ptr(), idx.data_ptr(), sz.data_ptr(), out.data_ptr(),
-            n, b, d, DEQUANT_CODECS[table.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(status, "gather_rows_dequant_cuda")
+            n, b, d, DEQUANT_CODECS[table.dtype], int(threads), int(per_sm),
+            int(vec), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(status, f"gather_rows_dequant_cuda at "
+                           f"t{threads}_c{per_sm}_v{vec}")
+    return out
+
+
+def gather_rows_dequant_cuda(table: torch.Tensor, idx: torch.Tensor,
+                             sz: torch.Tensor, params=None) -> torch.Tensor:
+    """Launch kernel B4 on the current stream (no synchronisation) at the
+    launch point ``params`` (threads, blocks per SM, largest vector
+    bytes; default :func:`~.gather_cuda.default_gather_params`); a point
+    the kernel is not built for raises."""
+    check_gather_inputs(table, idx, sz)
+    params = tuple(params) if params is not None else default_gather_params()
+    out = _launch(table, idx, sz, params)
     gather_rows_dequant_cuda.launches += 1
+    by = gather_rows_dequant_cuda.launches_by_params
+    by[params] = by.get(params, 0) + 1
     return out
 
 
 gather_rows_dequant_cuda.launches = 0
+gather_rows_dequant_cuda.launches_by_params = {}

@@ -9,9 +9,11 @@ neighbor list in CSR order.  The draw runs on the port's threefry
 same key the port and ``glt_tpu`` pick the same neighbors.
 
 On a CUDA tensor the whole hop — the draw and the neighbor read — is
-one launch of kernel B1 (:mod:`.sample_cuda`); on a CPU tensor it is
-B1's plain version: :func:`draw_positions` (this module, plain threefry
-arithmetic) followed by the read.
+one launch of kernel B1 (:mod:`.sample_cuda`), at the launch point
+``autotune_sample`` memoized for its exact (batch, fanout, dtype), else
+the default point; on a CPU tensor it is B1's plain version:
+:func:`draw_positions` (this module, plain threefry arithmetic) followed
+by the read.
 
 Floyd's steps all draw from keys known up front (``split(key,
 fanout)``) against bounds known up front (``deg - fanout + i``), so the
@@ -147,13 +149,18 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
     if fanout <= 0:
         raise ValueError(f"fanout must be positive, got {fanout}")
     # sample_cuda builds its plain version from this module's draw.
-    from .sample_cuda import sample_neighbors_cuda, sample_neighbors_plain
+    from . import sample_cuda
 
-    fn = (sample_neighbors_cuda if indices.device.type == "cuda"
-          else sample_neighbors_plain)
-    return fn(indptr, indices, seeds.to(torch.int32).contiguous(), fanout,
-              key, edge_ids=edge_ids, with_replacement=with_replacement,
+    seeds = seeds.to(torch.int32).contiguous()
+    kw = dict(edge_ids=edge_ids, with_replacement=with_replacement,
               with_edge=with_edge, key_by=key_by)
+    if indices.device.type == "cuda":
+        return sample_cuda.sample_neighbors_cuda(
+            indptr, indices, seeds, fanout, key, **kw,
+            params=sample_cuda.auto_params(seeds.shape[0], fanout,
+                                           indices.dtype))
+    return sample_cuda.sample_neighbors_plain(indptr, indices, seeds,
+                                              fanout, key, **kw)
 
 
 def lookup_degrees(indptr: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:

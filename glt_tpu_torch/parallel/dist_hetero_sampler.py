@@ -32,8 +32,9 @@ from ..sampler.hetero_neighbor_sampler import (HeteroNeighborSampler,
                                                hetero_hop_widths)
 from ..typing import EdgeType, NodeType
 from ..utils.device import DeviceLike
-from .dist_sampler import (_route_choice, _shards, bounded_remote_cap,
-                           exchange_one_hop, seeds_on_mesh)
+from .dist_sampler import (_route_choice, _shards, autotune_routing,
+                           bounded_remote_cap, exchange_one_hop,
+                           seeds_on_mesh)
 from .multihost import Mesh, mesh_axis_sizes, resolve_mesh_axes
 from .sharding import ShardedGraph, check_on_mesh, shard_graph
 
@@ -173,11 +174,16 @@ class DistHeteroNeighborSampler:
             p.edge_types, p.num_neighbors, {input_type: self.batch_size},
             p.num_hops, frontier_cap=frontier_cap)
         p._widths, p._capacity = self._widths, self._capacity
-        # 'auto' resolves once, at the widest per-type frontier, to the
-        # shard-count heuristic (glt_tpu's autotuner off the TPU).
+        # 'auto' resolves once, through the autotuner at the widest
+        # per-type frontier (timed on the card, the heuristic on the CPU).
         widest = max(max(w.values()) for w in self._widths)
-        resolved = _route_choice(widest, self.num_shards, widest, route)
-        self.route = resolved if route == "auto" else route
+        if route == "auto":
+            self.route = autotune_routing(widest, self.num_shards,
+                                          mesh_shape=self.mesh_shape,
+                                          mesh=mesh)
+        else:
+            _route_choice(widest, self.num_shards, widest, route)
+            self.route = route
         self._base_key = trandom.PRNGKey(seed, device=mesh.device)
         self._call_count = 0
 

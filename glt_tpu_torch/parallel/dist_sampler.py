@@ -44,8 +44,15 @@ unique ids cross hosts (a transposition along ``host``), and the answers
 retrace both legs into the flat bucket order.  ``collective="ring"``
 (:func:`exchange_one_hop_ring`) passes the request matrices around the
 shards in S - 1 rotations of a list, each shard serving its row of the
-matrix it holds, as ``glt_tpu``'s ``ppermute`` ring does.  The routing
-autotuner is ROADMAP queue A item 4.
+matrix it holds, as ``glt_tpu``'s ``ppermute`` ring does.
+
+``route='auto'`` resolves through :func:`autotune_routing`, as in
+``glt_tpu``: on the card it times the sort and the one-pass bucketing at
+the sampler's widest frontier (and, on a 2-D mesh, the per-host dedup
+against the flat bucketing) and memoizes the winners in ``_ROUTE_AUTO``
+and ``_TOPO_AUTO``; on a CPU mesh it pins the shard-count and shape
+heuristics without timing.  Across processes rank 0's decisions are
+broadcast, so every process runs the same collectives.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ import torch
 from .. import random as trandom
 from ..obs import metrics as _metrics
 from ..obs.trace import span as _span
+from ..ops.autotune import check_eager, sweep_ms
 from ..ops.neighbor_sample import _row_offsets_and_degrees, sample_neighbors
 from ..ops.unique import (
     dense_induce,
@@ -69,13 +77,15 @@ from ..ops.unique import (
 from ..sampler.base import NegativeSampling, SamplerOutput
 from ..sampler.neighbor_sampler import hop_widths, max_sampled_nodes
 from ..typing import PADDING_ID
-from .multihost import (Mesh, fleet_for, local_ids, local_rows,
+from ..utils.device import resolve_device
+from .multihost import (Mesh, agree_first, fleet_for, local_ids, local_rows,
                         mesh_axis_sizes, resolve_mesh_axes)
 from .sharding import check_on_mesh
 
 __all__ = [
     "DistNeighborSampler", "HierGeom", "HierarchicalRouting", "Routing",
-    "bounded_remote_cap", "build_hier_routing", "build_routing",
+    "autotune_routing", "bounded_remote_cap", "build_hier_routing",
+    "build_routing",
     "build_sorted_edge_view", "dist_edge_exists", "dist_node_subgraph",
     "dist_sample_multi_hop", "exchange_byte_model", "exchange_one_hop",
     "exchange_one_hop_ring", "hier_request_cap", "hier_requests",
@@ -88,6 +98,8 @@ _M_DIST_BATCHES = _metrics.counter(
 _M_DIST_SAMPLE_MS = _metrics.histogram(
     "glt.dist.sample_dispatch_ms",
     "dist sampler dispatch wall per batch")
+_M_ROUTE_AUTOTUNE = _metrics.counter(
+    "glt.dist.route_autotune_runs", "routing autotune warmups")
 
 
 def bounded_remote_cap(width: int, load_factor: float,
@@ -109,10 +121,19 @@ class Routing(NamedTuple):
     dropped: torch.Tensor   # [] int32: ids beyond an owner's cap
 
 
-# route='auto' takes the one-pass rank up to this many shards: its
-# [B, S] rank matrix is O(B*S) elementwise work against the sort's
+# Decision table for route='auto': (b, num_shards, cap) -> 'onepass' |
+# 'sort', filled by autotune_routing at warmup.  Without an entry the
+# heuristic takes the one-pass rank up to _ONEPASS_MAX_SHARDS shards: its
+# [S, B] rank matrix is O(B*S) elementwise work against the sort's
 # O(B log B).
+_ROUTE_AUTO: dict = {}
 _ONEPASS_MAX_SHARDS = 16
+# Decision table for the 2-D topology: (H, C) -> 'flat' | 'hier'.
+_TOPO_AUTO: dict = {}
+# The sweeps' device ms: _ROUTE_AUTO's keys -> {"sort": ms, "onepass":
+# ms}; _TOPO_AUTO's -> {"flat": ms, "dedup": ms} (empty: not timed).
+_ROUTE_TIMES: dict = {}
+_TOPO_TIMES: dict = {}
 
 
 _ROUTES = ("auto", "sort", "onepass", "flat", "hier")
@@ -120,24 +141,27 @@ _ROUTES = ("auto", "sort", "onepass", "flat", "hier")
 
 def _route_choice(b: int, num_shards: int, cap: int, route: str) -> str:
     """The bucketing implementation: an explicit ``route`` ('sort' |
-    'onepass'), else the shard-count heuristic (the autotuner is ROADMAP
-    queue A item 4).  The topology tokens 'flat' and 'hier' pick no
-    bucketing (:func:`_topology_choice` reads them)."""
-    del b, cap
+    'onepass'), else the autotuned table, else the shard-count heuristic
+    (``glt_tpu``'s order without its env override).  The topology tokens
+    'flat' and 'hier' pick no bucketing (:func:`_topology_choice` reads
+    them)."""
     if route not in _ROUTES:
         raise ValueError(f"route must be one of {'|'.join(_ROUTES)}, got "
                          f"{route!r}")
     if route in ("sort", "onepass"):
         return route
+    hit = _ROUTE_AUTO.get((int(b), int(num_shards), int(cap)))
+    if hit is not None:
+        return hit
     return "onepass" if num_shards <= _ONEPASS_MAX_SHARDS else "sort"
 
 
 def _topology_choice(route: str, axis_name, mesh_shape=None) -> str:
     """The routing topology, 'flat' or 'hier': a 1-D mesh (a str axis)
     is always flat; else an explicit 'flat' | 'hier' ``route``; else,
-    with the ``(H, C)`` shape known, 'hier' when both axes exceed 1
-    (``glt_tpu``'s rules without its env override and autotuned
-    table)."""
+    with the ``(H, C)`` shape known, flat on a degenerate grid, then the
+    autotuned table, then 'hier' (``glt_tpu``'s rules without its env
+    override)."""
     if isinstance(axis_name, str) or len(tuple(axis_name)) < 2:
         return "flat"
     if route in ("flat", "hier"):
@@ -145,7 +169,105 @@ def _topology_choice(route: str, axis_name, mesh_shape=None) -> str:
     if mesh_shape is None:
         return "flat"
     h, c = int(mesh_shape[0]), int(mesh_shape[1])
-    return "hier" if h > 1 and c > 1 else "flat"
+    if h < 2 or c < 2:
+        return "flat"
+    hit = _TOPO_AUTO.get((h, c))
+    return hit if hit is not None else "hier"
+
+
+def _agree(mesh: Optional[Mesh], choice: str) -> str:
+    """Rank 0's choice on every process of a spanning mesh (processes
+    that took different routes would run different collectives)."""
+    if mesh is None or not mesh.spans:
+        return choice
+    return agree_first(choice)
+
+
+def _timing_inputs(b: int, num_shards: int, seed: int, dev):
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(
+        0, num_shards * max(b, 1), size=b).astype(np.int32)).to(dev)
+    owner = torch.from_numpy(rng.integers(
+        0, num_shards, size=b).astype(np.int32)).to(dev)
+    return rng, ids, owner
+
+
+def autotune_routing(b: int, num_shards: int, cap: Optional[int] = None,
+                     iters: int = 3, seed: int = 0,
+                     mesh_shape: Optional[tuple] = None,
+                     mesh: Optional[Mesh] = None, device=None) -> str:
+    """Time sort vs one-pass bucketing for this (B, S, cap) and memoize
+    the winner for ``route='auto'``; returns it.
+
+    Call eagerly at warmup (sampler construction); inside a CUDA graph
+    capture it raises.  On the card (``mesh``'s device, else ``device``,
+    default "cuda") the two are timed with CUDA events; on the CPU the
+    shard-count heuristic is pinned without timing.  With
+    ``mesh_shape=(H, C)`` the flat-vs-hier topology is decided first
+    (:func:`_autotune_topology`).  On a ``mesh`` that spans processes
+    rank 0's decisions are broadcast before the tables are written.
+    """
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    cap = b if cap is None else int(cap)
+    if mesh_shape is not None:
+        _autotune_topology(b, mesh_shape, cap, iters=iters, seed=seed,
+                           mesh=mesh, dev=dev)
+    key = (int(b), int(num_shards), cap)
+    if key in _ROUTE_AUTO:
+        return _ROUTE_AUTO[key]
+    choice = "onepass" if num_shards <= _ONEPASS_MAX_SHARDS else "sort"
+    times = {}
+    if dev.type == "cuda":
+        check_eager("autotune_routing")
+        _, ids, owner = _timing_inputs(b, num_shards, seed, dev)
+        times["sort"] = sweep_ms(lambda: _bucket_by_owner_sort(
+            ids, owner, num_shards, cap), iters)
+        times["onepass"] = sweep_ms(lambda: _bucket_by_owner_onepass(
+            ids, owner, num_shards, cap), iters)
+        choice = _agree(mesh, "onepass" if times["onepass"] < times["sort"]
+                        else "sort")
+    _ROUTE_AUTO[key] = choice
+    _ROUTE_TIMES[key] = times
+    _M_ROUTE_AUTOTUNE.inc()
+    _metrics.gauge("glt.dist.route_onepass_selected",
+                   "1 if the last routing autotune picked one-pass",
+                   ).set(1.0 if choice == "onepass" else 0.0)
+    return choice
+
+
+def _autotune_topology(b: int, mesh_shape, cap: int, iters: int = 3,
+                       seed: int = 0, mesh: Optional[Mesh] = None,
+                       dev=None) -> str:
+    """Fill the flat-vs-hier table for one (H, C) grid.  Hier's extra
+    cost is the per-host dedup (its legs move fewer bytes), so on the
+    card the dedup of the ``[H, C*cap]`` slab is timed against the flat
+    bucketing, and hier kept unless the dedup takes 8x the bucketing
+    (``glt_tpu``'s rule); elsewhere hier iff both axes exceed 1."""
+    h, c = int(mesh_shape[0]), int(mesh_shape[1])
+    tkey = (h, c)
+    if tkey in _TOPO_AUTO:
+        return _TOPO_AUTO[tkey]
+    choice = "hier" if (h > 1 and c > 1) else "flat"
+    times = {}
+    if choice == "hier" and dev is not None and dev.type == "cuda":
+        check_eager("autotune_routing")
+        num_shards = h * c
+        rng, ids, owner = _timing_inputs(b, num_shards, seed, dev)
+        slab = torch.from_numpy(rng.integers(
+            -1, max(b, 2), size=(h, c * cap)).astype(np.int32)).to(dev)
+        times["flat"] = sweep_ms(lambda: _bucket_by_owner_sort(
+            ids, owner, num_shards, cap), iters)
+        times["dedup"] = sweep_ms(lambda: [unique_first_occurrence(r)
+                                           for r in slab], iters)
+        choice = _agree(mesh, "hier" if times["dedup"]
+                        < 8.0 * max(times["flat"], 1e-9) else "flat")
+    _TOPO_AUTO[tkey] = choice
+    _TOPO_TIMES[tkey] = times
+    _M_ROUTE_AUTOTUNE.inc()
+    _metrics.gauge("glt.dist.route_hier_selected",
+                   "1 if the last topology autotune picked hierarchical",
+                   ).set(1.0 if choice == "hier" else 0.0)
+    return choice
 
 
 def _axes(axis_name, mesh_shape):
@@ -1222,14 +1344,18 @@ class DistNeighborSampler:
         self._call_count = 0
         self._widths = hop_widths(self.batch_size, self.num_neighbors,
                                   frontier_cap)
-        # 'auto' resolves once, at the widest frontier, to the
-        # shard-count heuristic (glt_tpu's autotuner pins the same
-        # choice off the TPU); on a 2-D mesh the topology resolves per
-        # call from the mesh's shape (_topology_choice), so a resolved
-        # bucketing keeps 'hier' there.
-        resolved = _route_choice(max(self._widths), g.num_shards,
-                                 max(self._widths), route)
-        self.route = resolved if route == "auto" else route
+        # 'auto' resolves once, through the autotuner at the widest
+        # frontier (timed on the card, the heuristic on the CPU); on a
+        # 2-D mesh the same sweep fills the topology table, read per call
+        # (_topology_choice), so a resolved bucketing keeps 'hier' there.
+        w = max(self._widths)
+        if route == "auto":
+            self.route = autotune_routing(w, g.num_shards,
+                                          mesh_shape=self.mesh_shape,
+                                          mesh=mesh)
+        else:
+            _route_choice(w, g.num_shards, w, route)
+            self.route = route
         self.node_capacity = max_sampled_nodes(self.batch_size,
                                                self.num_neighbors,
                                                frontier_cap)

@@ -211,6 +211,18 @@ def agree_max(value: int) -> int:
     return int(t)
 
 
+def agree_first(value):
+    """Process 0's value (a picklable host object) on every process (one
+    process: the value).  Makes a decision that each process measured on
+    its own, such as an autotuned route, one decision."""
+    if process_count() == 1:
+        return value
+    box = [value]
+    _bounded(lambda: _dist().broadcast_object_list(box, src=0),
+             what="agree_first broadcast")
+    return box[0]
+
+
 def agree_sum(arr: np.ndarray) -> np.ndarray:
     """Elementwise sum of a host array across processes (one process:
     the array).  Assembles global statistics from per-partition data,

@@ -3,7 +3,10 @@
 Each of the 13 ported rules has fixtures that fire and fixtures that
 stay clean, their sources taken from the matching ``tests/test_analysis``
 classes; both linters must give equal findings (path, line, column,
-rule, code, severity and message) over the ported codes.  Over the
+rule, code, severity and message) over the ported codes.  The launch
+model's two rules (GLT017, GLT019: torch forms of ``glt_tpu``'s VMEM and
+tile rules, with the port's own names) fire on their fixtures and stay
+silent on the port's swept kernels.  Over the
 whole port both give equal findings (also with the suppressions off,
 where the justified ones show), and the port's gate
 ``python -m glt_tpu_torch.analysis glt_tpu_torch chip_smoke.py`` exits
@@ -43,6 +46,9 @@ torch.set_num_threads(1)
 PORTED = ("GLT005", "GLT007", "GLT008", "GLT009", "GLT011", "GLT012",
           "GLT014", "GLT015", "GLT023", "GLT024", "GLT025", "GLT026",
           "GLT027")
+# The launch model's rules: the codes of glt_tpu's kernel-model rules,
+# checked against the H100's launch limits instead of VMEM and tiles.
+LAUNCH = ("GLT017", "GLT019")
 
 
 def _key(f):
@@ -929,7 +935,10 @@ def test_every_ported_rule_fires_and_stays_clean():
 def test_rule_registry_is_the_ported_subset():
     jrules = {r.code: r for r in jlint.all_rules()}
     trules = {r.code: r for r in tlint.all_rules()}
-    assert sorted(trules) == sorted(PORTED)
+    assert sorted(trules) == sorted(PORTED + LAUNCH)
+    assert (trules["GLT017"].name, trules["GLT019"].name) == (
+        "launch-budget-exceeded", "unaligned-launch-shape")
+    trules = {c: r for c, r in trules.items() if c in PORTED}
     for code, r in trules.items():
         j = jrules[code]
         assert (r.name, str(r.severity), r.description) == \
@@ -1133,7 +1142,9 @@ def test_cli_list_rules_and_single_rule_mode(tmp_path):
     assert proc.returncode == 0
     for code in PORTED:
         assert code in proc.stdout
-    for code in ("GLT001", "GLT017", "GLT022"):
+    for code in LAUNCH:
+        assert code in proc.stdout
+    for code in ("GLT001", "GLT018", "GLT022"):
         assert code not in proc.stdout
     bad = tmp_path / "bad.py"
     bad.write_text(textwrap.dedent(GET_BARE + WALL_STOPWATCH))
@@ -1214,3 +1225,96 @@ def test_cli_optable_lists_the_port_wire_ops(port_projects):
     for op in ("fetch_one_sampled_message", "subgraph_request",
                "fleet_shed", "heartbeat"):
         assert f"`{op}`" in got.stdout, op
+
+
+# -- the launch model (GLT017, GLT019) ------------------------------------------
+LAUNCH_CLEAN = """
+CANDIDATE_THREADS = (128, 256, 512)
+LAUNCH_MODEL_DOMAIN = {
+    "threads": CANDIDATE_THREADS,
+    "blocks_per_sm": (8, 16),
+    "vec_bytes": (4, 8, 16),
+}
+"""
+LAUNCH_B1 = """
+KEY_BYTES = 8
+MAX_FANOUT = {fanout}
+LAUNCH_MODEL_DOMAIN = {{
+    "threads": (256,),
+    "lanes": (1, 2, 4, 8, 16, 32),
+    "fanout": MAX_FANOUT,
+    "replace": (False, True),
+    "by_id": (False, True),
+}}
+
+
+def dynamic_smem_bytes(fanout, replace, by_id):
+    \"\"\"Step keys in shared memory.\"\"\"
+    return 0 if by_id else KEY_BYTES * (2 if replace else 2 * fanout)
+"""
+LAUNCH_CASES = [
+    # (id, source, GLT017 hits, GLT019 hits, a word of the message)
+    ("clean", LAUNCH_CLEAN, 0, 0, None),
+    ("threads_2048", LAUNCH_CLEAN.replace("512)", "2048)"), 1, 0, "2048"),
+    ("vector_32_bytes", LAUNCH_CLEAN.replace("16),\n}", "32),\n}"), 0, 1,
+     "[32]"),
+    ("threads_off_warp", LAUNCH_CLEAN.replace("128,", "100,"), 0, 1,
+     "[100]"),
+    ("b1_fanout_2048", LAUNCH_B1.format(fanout=2048), 0, 0, None),
+    ("b1_fanout_8192", LAUNCH_B1.format(fanout=8192), 1, 0, "131072"),
+    ("lanes_48", LAUNCH_B1.format(fanout=64).replace("32)", "48)"), 0, 1,
+     "[48]"),
+    ("unbounded_entry", LAUNCH_CLEAN.replace("(8, 16)", "per_sm()"), 1, 0,
+     "cannot bound"),
+    ("unbounded_helper_param", LAUNCH_B1.format(fanout=64).replace(
+        '    "by_id": (False, True),\n', ""), 1, 0, "by_id"),
+    ("no_domain", "THREADS = 4096\n", 0, 0, None),
+]
+
+
+@pytest.mark.parametrize("src,n17,n19,word",
+                         [c[1:] for c in LAUNCH_CASES],
+                         ids=[c[0] for c in LAUNCH_CASES])
+def test_launch_model_fixtures(src, n17, n19, word):
+    got = tlint.analyze_source(textwrap.dedent(src), "kern.py")
+    codes = [f.code for f in got]
+    assert codes.count("GLT017") == n17 and codes.count("GLT019") == n19, \
+        got
+    assert len(got) == n17 + n19, got
+    if word is not None:
+        assert any(word in f.message for f in got), got
+
+
+def test_launch_model_reads_the_limits_module():
+    """A limit edited in ops/cuda_limits.py re-checks every point."""
+    lim = "MAX_THREADS_PER_BLOCK = 256\nWARP = 32\n"
+    project = TProject([
+        TModuleInfo("pkg/ops/cuda_limits.py", lim,
+                    module_name="pkg.ops.cuda_limits"),
+        TModuleInfo("pkg/ops/kern.py", textwrap.dedent(LAUNCH_CLEAN),
+                    module_name="pkg.ops.kern")])
+    got = tlint.analyze_project(project)
+    assert [f.code for f in got] == ["GLT017"], got
+    assert "[512]" in got[0].message
+
+
+def test_launch_model_resolves_the_port_domains(port_projects):
+    """The port's swept modules resolve whole: every axis bounded, B1's
+    shared memory evaluated at every mode, and no finding."""
+    from glt_tpu_torch.analysis import kernelmodel
+    from glt_tpu_torch.ops import gather_cuda, sample_cuda
+
+    _, tp = port_projects
+    for mod in (gather_cuda, sample_cuda):
+        m = kernelmodel._model(tp.modules[mod.__name__], tp)
+        assert m.unbounded == []
+        assert {k: tuple(v) for k, v in m.axes.items()} == {
+            k: v if isinstance(v, tuple) else (v,)
+            for k, v in mod.LAUNCH_MODEL_DOMAIN.items()}
+    m = kernelmodel._model(tp.modules[sample_cuda.__name__], tp)
+    assert sorted(m.smem) == sorted({sample_cuda.dynamic_smem_bytes(
+        sample_cuda.MODEL_MAX_FANOUT, r, i) for r in (False, True)
+        for i in (False, True)}) == [0, 16, 32768]
+    got = [f for f in tlint.analyze_project(tp, suppress=False)
+           if f.code in LAUNCH]
+    assert got == []

@@ -10,6 +10,7 @@ machine need not have; this file imports torch and the port only).  The
 CPU cases check the seam: CPU tensors take the plain versions and never
 reach a kernel wrapper, which refuses them.
 """
+import itertools
 import re
 import time
 
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from glt_tpu_torch import ops
 from glt_tpu_torch import random as trandom
 from glt_tpu_torch.data import CSRTopo, Dataset, Graph
 from glt_tpu_torch.data.topology import csr_to_coo
@@ -500,6 +502,167 @@ def test_gather_dequant_kernel_matches_plain(cuda_device, case, codec, d):
             assert torch.equal(got, want), (case, b)
             # -0.0 and subnormals: equal bits, not just equal values
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# -- launch points (the autotune seam) -----------------------------------------
+GATHER_GRID = list(itertools.product(gather_cuda.CANDIDATE_THREADS,
+                                     gather_cuda.CANDIDATE_BLOCKS_PER_SM,
+                                     gather_cuda.CANDIDATE_VEC_BYTES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fanout", [1, 5, 15, 33])
+@pytest.mark.parametrize("eid_mode", ["none", "positional", "explicit"])
+@pytest.mark.parametrize("key_by", ["slot", "id"])
+@pytest.mark.parametrize("with_replacement", [False, True])
+def test_sample_kernel_every_point_matches_plain(cuda_device, fanout,
+                                                 eid_mode, key_by,
+                                                 with_replacement):
+    """Every (threads, lanes) point B1 sweeps is ``torch.equal`` to the
+    plain version, and each launch counts under its own point."""
+    indptr, indices, edge_ids, seeds = _degree_edge_graph(fanout)
+    ip, ix = _t(indptr, cuda_device), _t(indices, cuda_device)
+    eid = _t(edge_ids, cuda_device) if eid_mode == "explicit" else None
+    sd = _t(seeds, cuda_device)
+    key = trandom.PRNGKey(fanout + 7, device=cuda_device)
+    kw = dict(edge_ids=eid, with_replacement=with_replacement,
+              with_edge=eid_mode != "none", key_by=key_by)
+    want = sample_cuda.sample_neighbors_plain(ip, ix, sd, fanout, key, **kw)
+    points = {sample_cuda.launch_params(fanout, p)
+              for p in sample_cuda.candidate_sample_params()}
+    assert len(points) == (6 if fanout <= 16 else 3)
+    by = sample_cuda.sample_neighbors_cuda.launches_by_params
+    for p in sorted(points):
+        before = by.get(p, 0)
+        got = sample_cuda.sample_neighbors_cuda(ip, ix, sd, fanout, key,
+                                                params=p, **kw)
+        torch.cuda.synchronize()
+        assert by[p] == before + 1
+        for g, w in zip(got, want):
+            assert g is None or torch.equal(g, w), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("d", [1, 3, 100, 128])
+def test_gather_kernel_every_point_matches_plain(cuda_device, d, dtype):
+    """All 18 points of B2's grid (pruned or not), aligned and not."""
+    rng = np.random.default_rng(d)
+    table = torch.from_numpy(rng.standard_normal((300, d)).astype(
+        np.float32) * 40).to(cuda_device).to(dtype)
+    idx = _t(rng.integers(-2, 310, 1000), cuda_device)
+    for tab in (table, table[1:]):
+        want = gather_cuda.gather_rows_plain(tab, idx)
+        for p in GATHER_GRID:
+            got = gather_cuda.gather_rows_cuda(tab, idx, params=p)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+@pytest.mark.parametrize("d", [1, 3, 64, 100])
+def test_gather_dequant_kernel_every_point_matches_plain(cuda_device, codec,
+                                                         d):
+    rng = np.random.default_rng(d + 1)
+    table, sz = compressed_table(codec, 301, d, rng)
+    table, sz = table.to(cuda_device), sz.to(cuda_device)
+    idx = _t(_dequant_ids("clamped", 300, 1000, rng), cuda_device)
+    for tab in (table[:300], table[1:]):
+        want = gather_rows_dequant_plain(tab, idx, sz)
+        for p in GATHER_GRID:
+            got = gather_rows_dequant_cuda(tab, idx, sz, params=p)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), p
+
+
+@pytest.mark.cuda
+def test_points_outside_the_build_raise(cuda_device):
+    rng = np.random.default_rng(0)
+    tab = torch.from_numpy(rng.standard_normal((50, 8)).astype(
+        np.float32)).to(cuda_device)
+    idx = _t(rng.integers(0, 50, 20), cuda_device)
+    for p in ((1024, 16, 16), (64, 16, 16), (256, 0, 16), (256, 33, 16),
+              (256, 16, 32), (256, 16, 3)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            gather_cuda.gather_rows_cuda(tab, idx, params=p)
+    codes, sz = compressed_table("int8", 50, 8, rng)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        gather_rows_dequant_cuda(codes.to(cuda_device), idx,
+                                 sz.to(cuda_device), params=(96, 16, 16))
+    indptr, indices, _, seeds = _degree_edge_graph(40)
+    ip, ix = _t(indptr, cuda_device), _t(indices, cuda_device)
+    sd, key = _t(seeds, cuda_device), trandom.PRNGKey(0, device=cuda_device)
+    for f, p in ((5, (64, 8)), (5, (256, 3)), (5, (256, 64)),
+                 (100, (256, 1))):          # 100 picks on 1 lane: > 64
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            sample_cuda.sample_neighbors_cuda(ip, ix, sd, f, key, params=p)
+
+
+@pytest.mark.cuda
+def test_sweeps_on_the_card_pick_a_point_and_the_seams_launch_it(
+        cuda_device):
+    """A sweep times every point (the default among them), memoizes the
+    fastest, and the seams launch it for that exact key only."""
+    gather_cuda.reset_autotune()
+    sample_cuda.reset_autotune()
+    try:
+        rng = np.random.default_rng(5)
+        tab = torch.from_numpy(rng.standard_normal((4000, 100)).astype(
+            np.float32)).to(cuda_device)
+        idx = _t(rng.integers(0, 4000, 2048), cuda_device)
+        assert ops.autotune_gather_rows(tab, idx) == "cuda"
+        row = ops.autotune_table()["d100_b2048_float32"]
+        grid = gather_cuda.candidate_gather_params(100, torch.float32)
+        assert len(row["ms"]) == len(grid) == 18
+        assert row["ms"][row["winner"]] <= row["ms"]["t256_c16_v16"]
+        win = gather_cuda._AUTO[(100, 2048, "float32")]
+        by = gather_cuda.gather_rows_cuda.launches_by_params
+        before = by.get(win, 0)
+        assert torch.equal(ops.gather_rows(tab, idx),
+                           gather_cuda.gather_rows_plain(tab, idx))
+        assert by[win] == before + 1
+        indptr, indices, _, seeds = _degree_edge_graph(5)
+        ip, ix = _t(indptr, cuda_device), _t(indices, cuda_device)
+        sd = _t(seeds, cuda_device)
+        assert ops.autotune_sample(ip, ix, sd, 5) == "cuda"
+        srow = ops.sample_autotune_table()[f"b{sd.shape[0]}_f5_int32"]
+        assert len(srow["ms"]) == 6
+        swin = sample_cuda.auto_params(sd.shape[0], 5, torch.int32)
+        sby = sample_cuda.sample_neighbors_cuda.launches_by_params
+        before = sby.get(swin, 0)
+        key = trandom.PRNGKey(3, device=cuda_device)
+        got = ops.sample_neighbors(ip, ix, sd, 5, key)
+        assert sby[swin] == before + 1
+        want = sample_cuda.sample_neighbors_plain(ip, ix, sd, 5, key)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    finally:
+        gather_cuda.reset_autotune()
+        sample_cuda.reset_autotune()
+
+
+@pytest.mark.cuda
+def test_sweep_inside_a_capture_raises(cuda_device):
+    from glt_tpu_torch.parallel import autotune_routing
+
+    gather_cuda.reset_autotune()
+    sample_cuda.reset_autotune()
+    tab = torch.zeros((16, 4), device=cuda_device)
+    idx = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    ip = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda_device)
+    ix = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        with pytest.raises(RuntimeError, match="CUDA graph capture"):
+            ops.autotune_gather_rows(tab, idx)
+        with pytest.raises(RuntimeError, match="CUDA graph capture"):
+            ops.autotune_sample(ip, ix, idx[:2], 1)
+        with pytest.raises(RuntimeError, match="CUDA graph capture"):
+            autotune_routing(8, 4, device=cuda_device)
+    assert ops.autotune_table() == {} and ops.sample_autotune_table() == {}
 
 
 @pytest.mark.cuda
