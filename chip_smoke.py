@@ -369,8 +369,19 @@ Phases (the first failure exits non-zero and prints no result line):
    equal to ``route='sort'``'s on both meshes.  Phases 3-18 run with
    empty tables up to their own loaders' sweeps: phase 3 times the
    default points;
-20. the kernel line ``{"kernels": [...]}`` (launches summed over phases
-   4-19, the spawned processes' included; phase 19's over its
+20. the rules' hazards on the card: the lint gate ``python3 -m
+   glt_tpu_torch.analysis glt_tpu_torch chip_smoke.py`` in a subprocess
+   (exit 0, 0 errors and 0 warnings), then the four programs of
+   ``glt_tpu_torch/analysis/hazards.py``, each linted first (its code
+   at its marked line) and run on B2 over phase 4's features through a
+   ``CapturedProgram``: a closed-over scale changed before a replay
+   leaves the output equal to the old one (GLT003), an output held
+   across a second call equals the second call's result (GLT006), an
+   obs counter in the body moves once, at the capture, and not over 5
+   replays (GLT010), and ``.item()`` in the body makes the capture fail
+   with ``GraphCaptureError`` (GLT001);
+21. the kernel line ``{"kernels": [...]}`` (launches summed over phases
+   4-20, the spawned processes' included; phase 19's over its
    winners' loader) and the ok line.
 
 Details go to ``build/results/chip_smoke.json`` (phase 10's trace to
@@ -879,6 +890,7 @@ def check_fused_kernel(torch, ops, dev, table, rng):
                 for ids in (rng.integers(-1, 40, b),       # duplicates
                             rng.permutation(n)[:b],        # all unique
                             np.full(b, -1)):               # all padding
+                    # gltlint: disable-next=int64-id-truncation -- test ids below the table's rows
                     ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
                     compare(tab[:n], ids)
                     compare(tab[1:], ids)     # base not 16-byte aligned
@@ -890,6 +902,7 @@ def check_fused_kernel(torch, ops, dev, table, rng):
     ids = np.full(full, -1, np.int64)
     live = int(full * 0.7)
     ids[:live] = rng.choice(PRODUCTS_N, live, replace=False)
+    # gltlint: disable-next=int64-id-truncation -- test ids below PRODUCTS_N
     compare(table, torch.from_numpy(ids.astype(np.int32)).to(dev))
     return worst, cases
 
@@ -939,6 +952,7 @@ def compressed_table(torch, quant, codec, n, d, rng):
             sz[0, 1] = 1e-41                # a subnormal scale
             sz[0, 2] = -0.5                 # a negative scale: zero
         return torch.from_numpy(enc), torch.from_numpy(sz)
+    # gltlint: disable-next=lossy-dtype-narrowing -- random bf16 bit patterns, drawn in uint16 range
     bits = rng.integers(0, 2**16, (n - half, d)).astype(np.uint16)
     bits[(bits & 0x7F80) == 0x7F80] &= 0xBFFF   # no inf or NaN
     enc[half:] = bits
@@ -1562,6 +1576,7 @@ def run_train(torch, dev, indptr, indices, feat, labels, rng):
     fresh = eager_step()
     with profile_window(torch) as prof:
         t1 = time.perf_counter()
+        # gltlint: disable-next=prng-key-reuse -- the eager twin draws what the replay drew
         twin, ls_eager, _, _ = fresh(twin, blk, key7)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3 / GROUP
@@ -2764,6 +2779,7 @@ def run_hetero_model(torch, ops, trandom, dev, name, sm_mhz):
                                            HET_BS)
     with profile_window(torch) as prof:
         t1 = time.perf_counter()
+        # gltlint: disable-next=prng-key-reuse -- the eager twin draws what the replay drew
         twin_state, ls_eager, _ = fresh(twin_state, blk, key)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3 / GROUP
@@ -5062,6 +5078,7 @@ def run_hetero_tiered(torch, ops, trandom, dev, setup, state0) -> dict:
             return staged
 
         split["host_stage_ms"] = host_ms(torch, host_stage)
+        # gltlint: disable-next=prng-key-reuse -- the split stage's timed draw, repeated on purpose
         out, fut = pipe._sample_and_stage(seeds, k1)
         staged, copied, _ = fut.result()
         if copied is not None:
@@ -5181,6 +5198,7 @@ def run_mesh2d(torch, ops, trandom, dev, keep, hsetup) -> dict:
         step = make_hetero_dist_train_step(
             samp, side["card"]["feats"], side["card"]["labels"], hm, DW_BS,
             route=route)
+        # gltlint: disable-next=prng-key-reuse -- the step re-draws the sample it is held to
         _, loss, _ = step(st, hb[0], key)
         losses[route] = float(loss)
     rep["launches"] = add_launches(rep["launches"], counts_read(ops))
@@ -7374,6 +7392,7 @@ def run_autotune(torch, ops, trandom, dev, indptr, indices, feat,
     pip = torch.from_numpy(indptr.astype(np.int32)).to(dev)
     pix = torch.from_numpy(indices.astype(np.int32)).to(dev)
     e = pix.shape[0]
+    # gltlint: disable-next=int64-id-truncation -- edge positions below e
     peid = torch.remainder(torch.arange(e, dtype=torch.int64, device=dev)
                            * 7 + 3, e).to(torch.int32)
     rep["b1_err"], rep["b1_cases"] = check_b1_points(
@@ -7386,6 +7405,7 @@ def run_autotune(torch, ops, trandom, dev, indptr, indices, feat,
     main_idx = torch.from_numpy(main).to(dev)
     link_idx = torch.from_numpy(rng.integers(
         0, PRODUCTS_N, 52224).astype(np.int32)).to(dev)
+    # gltlint: disable-next=lossy-dtype-narrowing -- int8 test rows for B2's int8 arm
     table_i8 = (table * 20).clamp(-127, 127).to(torch.int8)
     rep["b2_err"], rep["b2_cases"] = check_copy_points(
         torch, "B2", ops.gather_rows_cuda, ops.gather_rows_plain,
@@ -7510,6 +7530,70 @@ def log_autotune(rep: dict, card: str) -> None:
         f" ms, flat bucketing {rt['topology_ms']['flat']:.5f} ms); "
         f"route='auto' == route='sort' on the 1-D and 2 x 2 meshes "
         f"(resolved {rt['samplers']})")
+
+
+# -- phase 20: the rules' hazards on the card -------------------------------
+HAZARD_ROWS, HAZARD_IDS = 4096, 64
+
+
+def run_hazards(torch, ops, trandom, dev, feat) -> dict:
+    """Phase 20 (see the module docstring)."""
+    from glt_tpu_torch.analysis import analyze_source, hazards
+
+    t_phase = time.perf_counter()
+    rep = {}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "glt_tpu_torch.analysis", "glt_tpu_torch",
+         "chip_smoke.py"], capture_output=True, text=True, timeout=300)
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    need(proc.returncode == 0
+         and last == "gltlint: 0 error(s), 0 warning(s)",
+         f"the lint gate failed (rc {proc.returncode}): "
+         f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    rep["gate"] = {"rc": proc.returncode, "last": last,
+                   "seconds": time.perf_counter() - t0}
+    rng = np.random.default_rng(20)
+    table = torch.from_numpy(feat[:HAZARD_ROWS]).to(dev)
+    idx = torch.from_numpy(rng.integers(
+        0, HAZARD_ROWS, HAZARD_IDS).astype(np.int32)).to(dev)
+    other = torch.from_numpy(rng.integers(
+        0, HAZARD_ROWS, HAZARD_IDS).astype(np.int32)).to(dev)
+    counts_zero(ops, trandom)
+    rep["cases"] = []
+    for hz in hazards.HAZARDS:
+        got = sorted((f.code, f.line) for f in analyze_source(
+            hz.source, f"hazard_{hz.code}.py"))
+        need(got == [(hz.code, hz.line)],
+             f"{hz.code}: the linter gave {got}, not {hz.code} at line "
+             f"{hz.line}")
+        ns = {"__name__": f"hazard_{hz.code}"}
+        exec(compile(hz.source, f"<hazard {hz.code}>", "exec"), ns)
+        out = ns["run"](table, idx, other)
+        torch.cuda.synchronize()
+        need(out["ok"], f"{hz.code}: the card did not show the hazard "
+                        f"({hz.behaviour}): {out}")
+        rep["cases"].append({"code": hz.code, "rule": hz.rule,
+                             "line": hz.line, "behaviour": hz.behaviour,
+                             **out})
+    rep["launches"] = counts_read(ops)
+    need(rep["launches"]["gather_rows_cuda"] > 0,
+         "phase 20 launched no B2")
+    rep["seconds"] = time.perf_counter() - t_phase
+    return rep
+
+
+def log_hazards(rep: dict, card: str) -> None:
+    """Phase 20's lines (each outcome observed on ``card``)."""
+    g = rep["gate"]
+    log(f"hazards ({card}): the lint gate in a subprocess: rc {g['rc']}, "
+        f"{g['last']!r} ({g['seconds']:.1f} s)")
+    for c in rep["cases"]:
+        seen = {k: v for k, v in c.items()
+                if k not in ("code", "rule", "line", "behaviour", "ok")}
+        log(f"  {c['code']} {c['rule']} (flagged at line {c['line']}): "
+            f"{c['behaviour']}: {seen}")
+    log(f"  launches: {rep['launches']}")
 
 
 def main() -> int:
@@ -7928,13 +8012,19 @@ def main() -> int:
                                                indptr, indices, feat, labels)
         log_autotune(tu, smi[0])
         log(f"  phase 19: {tu['seconds']:.1f} s")
+
+        # 20. the rules' hazards on the card
+        report["hazards"] = hz = run_hazards(torch, ops, trandom, dev, feat)
+        log_hazards(hz, smi[0])
+        log(f"  phase 20: {hz['seconds']:.1f} s")
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     launches = {k: sum(p["launches"].get(k, 0)
                        for p in (sl, tr, st, report["digits"], lk, het, co,
-                                 dd, tw, ti, dw, fl, sv, fs, ins, tu))
+                                 dd, tw, ti, dw, fl, sv, fs, ins, tu,
+                                 hz))
                 for k in kernel_wrappers(ops)}
     kernels = [
         {"name": "sample_neighbors_cuda", "route": "cuda",
@@ -7994,7 +8084,7 @@ def main() -> int:
                                             for k in ("b1", "b2", "b4")}}
     report["seconds"] = time.perf_counter() - t_main
     svc_report(OUT_DIR, "chip_smoke", report)
-    log(f"phases 1-19: {report['seconds']:.1f} s")
+    log(f"phases 1-20: {report['seconds']:.1f} s")
     log(report["device"]["nvidia_smi"])
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

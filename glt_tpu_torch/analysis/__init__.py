@@ -1,15 +1,22 @@
 """gltlint for the port: static analysis of ``glt_tpu_torch``.
 
-An AST pass over the whole package that catches the hazards of its
-threaded and distributed layers: lock-order inversions and blocking
-calls under a lock, unbounded waits and queues, non-atomic publishes of
-state other processes read, wall-clock durations, unjittered retries,
-client/server wire-op drift, unguarded shared fields, and synchronous
-disk reads in an epoch driver's loop.  These are the framework-free
-rules of ``glt_tpu``'s linter (``glt_tpu/analysis``), with the same
-codes, names, severities and messages.  Beside them the launch model
-(``kernelmodel.py``, GLT017 and GLT019) checks every launch point a
-kernel module sweeps against the H100's limits.
+An AST pass over the whole package with every rule of ``glt_tpu``'s
+linter (``glt_tpu/analysis``), GLT001-GLT027, under the same codes,
+names and severities.  The framework-free rules keep its descriptions
+and messages: lock-order inversions and blocking calls under a lock,
+unbounded waits and queues, non-atomic publishes, wall-clock
+durations, unjittered retries, client/server wire-op drift, unguarded
+shared fields, synchronous disk reads in an epoch driver's loop.  The
+rules that name JAX there check the torch form of the same hazard: a
+host sync, a closed-over Python scalar, an obs call or a rewritten
+output around a CUDA graph capture (``CapturedProgram``,
+``torch.cuda.graph``), threefry key reuse, int64 ids narrowed to int32,
+a device fetch in an epoch loop, an unbalanced ``torch.profiler``
+capture, a narrowing cast outside ``store/quant.py``, a collective
+under a rank-dependent branch or on an axis the mesh lacks.  The kernel
+model (``kernelmodel.py``) checks every launch point a kernel module
+sweeps against the H100's limits (GLT017, GLT019) and the asynchronous-
+copy rings of the CUDA sources it builds (GLT018).
 
 Usage::
 
@@ -19,7 +26,7 @@ Usage::
 Programmatic::
 
     from glt_tpu_torch.analysis import analyze_source, analyze_paths
-    findings = analyze_source(src, "module.py")
+    findings = analyze_source(src, "module.py")   # or "kernel.cu"
 
 Suppression (justify every one)::
 

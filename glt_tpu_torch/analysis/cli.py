@@ -38,6 +38,7 @@ from .report import (
     write_baseline,
 )
 from .rules import RULES, Rule, all_rules
+from .kernelmodel import CUDA_SUFFIXES, cuda_findings  # noqa: I100  (after rules: it registers them)
 from .symbols import Project
 from .visitor import ModuleInfo, module_name_for_path
 
@@ -146,6 +147,8 @@ def analyze_source(source: str, path: str = "<string>",
     :func:`analyze_paths` / :func:`analyze_project`).
     """
     rules = list(rules) if rules is not None else all_rules()
+    if path.endswith(CUDA_SUFFIXES):
+        return cuda_findings(source, path, rules)
     try:
         module = ModuleInfo(path, source)
     except SyntaxError as exc:

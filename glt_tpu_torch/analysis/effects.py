@@ -16,9 +16,15 @@ For every function in the project the engine derives one
   transitively.
 * **disk** — which synchronous storage reads (``np.load``, memmap
   slices, file ``.read()``) it reaches — GLT014's one-call-deep seed.
-
-The JAX linter's summaries of host syncs, PRNG-key consumption and
-collectives feed only its JAX rules and are not carried over.
+* **host-sync params** — which of its parameters, if device tensors,
+  reach a host sync (``.item()``, ``.cpu()``, ``int()``, ...) — the
+  GLT001-transitive and GLT013 one-call-deep seed.
+* **consumes-key params** — which parameters are consumed as threefry
+  keys (passed to a drawing ``glt_tpu_torch.random`` call, directly or
+  transitively) — the GLT002-transitive seed.
+* **launches-collective** — whether a collective of the processes
+  (``Fleet.exchange``, ``multihost.barrier``, a ``torch.distributed``
+  collective) runs inside — GLT020 follows calls by it.
 
 Summaries compose along the SCC condensation of the call graph
 (callees first); recursive components iterate to a bounded fixpoint.
@@ -39,10 +45,63 @@ from .visitor import (
     ModuleInfo,
     assign_targets,
     dotted_expr,
+    host_guarded,
+    host_names,
+    is_port_api,
+    traced_names,
     walk_own,
 )
 
 # -- the effect vocabulary (shared with rules.py) ---------------------------
+
+HOST_SYNC_CALLS = {"torch.cuda.synchronize", "torch.unique", "torch.nonzero"}
+# Syncs that wait for the device whatever their arguments.
+ALWAYS_SYNC = {"torch.cuda.synchronize"}
+COERCIONS = {"int", "float", "bool", "complex"}
+SYNC_METHODS = {"item", "tolist", "cpu", "numpy", "nonzero"}
+
+# The port's threefry keys (``glt_tpu_torch/random.py``).
+KEY_SOURCES = {
+    "glt_tpu_torch.random.PRNGKey", "glt_tpu_torch.random.split",
+    "glt_tpu_torch.random.fold_in",
+}
+# Deriving fresh keys from a base key is the sanctioned way to reuse it.
+NON_CONSUMING = {"glt_tpu_torch.random.split",
+                 "glt_tpu_torch.random.fold_in"}
+_RANDOM = "glt_tpu_torch.random"
+
+# Rendezvous of every process: a process that skips one hangs the rest.
+COLLECTIVES = {
+    "glt_tpu_torch.parallel.multihost.barrier",
+    "glt_tpu_torch.parallel.multihost.agree_max",
+    "glt_tpu_torch.parallel.multihost.agree_first",
+    "glt_tpu_torch.parallel.multihost.agree_sum",
+}
+# Method spellings: ``Fleet``'s collectives and ``torch.distributed``'s,
+# whatever the receiver (``fleet``, ``dist``, ``_dist()``).
+COLLECTIVE_METHODS = {
+    "exchange", "rotate", "all_reduce", "any_host",
+    "all_gather", "all_gather_object", "all_to_all", "all_to_all_single",
+    "broadcast", "broadcast_object_list", "reduce_scatter", "barrier",
+    "monitored_barrier", "gather_object", "scatter_object_list",
+}
+
+
+def is_key_call(name: Optional[str]) -> bool:
+    """A call into the port's ``random`` module."""
+    return bool(name) and name.startswith(_RANDOM + ".")
+
+
+def is_collective(module: ModuleInfo, call: ast.Call) -> bool:
+    name = module.call_name(call)
+    if is_port_api(name, COLLECTIVES):
+        return True
+    if name and name.startswith("torch.distributed.") \
+            and name.rsplit(".", 1)[-1] in COLLECTIVE_METHODS:
+        return True
+    return (isinstance(call.func, ast.Attribute)
+            and call.func.attr in COLLECTIVE_METHODS)
+
 
 # Dotted call names that park the calling thread.
 BLOCKING_CALLS = {
@@ -95,6 +154,13 @@ class BlockSite:
 
 
 @dataclass(frozen=True)
+class SyncSite:
+    line: int
+    detail: str
+    depth: int
+
+
+@dataclass(frozen=True)
 class PairSite:
     path: str
     line: int
@@ -108,7 +174,13 @@ class Summary:
     blocking: Tuple[BlockSite, ...] = ()
     disk: Tuple[BlockSite, ...] = ()
     acquires: FrozenSet[str] = frozenset()
+    sync_params: Tuple[Tuple[str, SyncSite], ...] = ()
+    key_params: FrozenSet[str] = frozenset()
     liveness: bool = False
+    collective: bool = False
+
+    def sync_param_map(self) -> Dict[str, SyncSite]:
+        return dict(self.sync_params)
 
 
 EMPTY_SUMMARY = Summary()
@@ -135,7 +207,22 @@ class ScopeFacts:
     acquisitions: List[Tuple[str, int]] = field(default_factory=list)
     pairs: List[Tuple[str, str, int]] = field(default_factory=list)
     liveness: bool = False
+    collective: bool = False
+    influences: Dict[str, FrozenSet[str]] = field(default_factory=dict)
+    sync_sites: Dict[str, SyncSite] = field(default_factory=dict)
+    key_params: Set[str] = field(default_factory=set)
     type_env: Dict[str, ClassSymbol] = field(default_factory=dict)
+
+
+def _callee_positional_params(sym: FunctionSymbol,
+                              call: ast.Call) -> List[str]:
+    """The callee's positional parameter names as seen from this call
+    site (bound-method calls skip ``self``/``cls``)."""
+    params = sym.scope.params
+    if (params[:1] in (["self"], ["cls"])
+            and isinstance(call.func, ast.Attribute)):
+        return params[1:]
+    return params
 
 
 class EffectEngine:
@@ -195,6 +282,7 @@ class EffectEngine:
         facts = ScopeFacts(fid, module, scope)
         facts.type_env = self._build_type_env(module, scope)
         self._walk_body(facts, scope.node.body, (), frozenset(), 0)
+        self._sync_and_key_facts(facts)
         self._disk_facts(facts)
         if facts.liveness:
             # GLT007 exemption: a liveness-rechecking scope's poll waits
@@ -331,6 +419,8 @@ class EffectEngine:
         if (attr in LIVENESS_NAMES or bare in LIVENESS_NAMES
                 or any(kw.arg == "alive" for kw in call.keywords)):
             facts.liveness = True
+        if is_collective(module, call):
+            facts.collective = True
         if name in DISK_CALLS:
             facts.disk.append(
                 BlockSite("disk", call.lineno, f"{DISK_CALLS[name]}()", 0))
@@ -388,16 +478,82 @@ class EffectEngine:
                     "disk", node.lineno,
                     f"{node.value.id}[...] (mmap page fault)", 0))
 
+    # -- intraprocedural dataflow: host-sync params + key params ------------
+    def _sync_and_key_facts(self, facts: ScopeFacts) -> None:
+        module, scope = facts.module, facts.scope
+        params = [p for p in scope.params if p not in ("self", "cls")]
+        # A name annotated with a host type never holds a device value:
+        # it carries no influence (``fanout: int`` reassigned from a
+        # check of the seeds stays a host int).
+        host = host_names(scope.node)
+        infl: Dict[str, FrozenSet[str]] = {
+            p: frozenset([p]) for p in params if p not in host}
+
+        def influence_of(expr: ast.AST) -> FrozenSet[str]:
+            out: FrozenSet[str] = frozenset()
+            for n in traced_names(expr):
+                out |= infl.get(n, frozenset())
+            return out
+
+        for _ in range(2):                   # two passes settle chains
+            for node in walk_own(scope.node):
+                if isinstance(node, (ast.Assign, ast.AnnAssign,
+                                     ast.AugAssign)):
+                    value = getattr(node, "value", None)
+                    if value is None:
+                        continue
+                    src = influence_of(value)
+                    if src:
+                        for t in assign_targets(node):
+                            if t not in host:
+                                infl[t] = infl.get(t, frozenset()) | src
+                elif isinstance(node, (ast.For, ast.AsyncFor)):
+                    src = influence_of(node.iter)
+                    if src and isinstance(node.target, ast.Name):
+                        infl[node.target.id] = (
+                            infl.get(node.target.id, frozenset()) | src)
+        facts.influences = infl
+        for node in walk_own(scope.node):
+            if not isinstance(node, ast.Call):
+                continue
+            name = module.call_name(node)
+            args = list(node.args) + [kw.value for kw in node.keywords]
+            consumed: FrozenSet[str] = frozenset()
+            detail = None
+            if name in HOST_SYNC_CALLS or (
+                    name in COERCIONS
+                    and not host_guarded(module, node, scope.node)):
+                for a in args:
+                    consumed |= influence_of(a)
+                detail = f"{name}()"
+            elif (isinstance(node.func, ast.Attribute)
+                  and node.func.attr in SYNC_METHODS):
+                consumed = influence_of(node.func.value)
+                detail = f".{node.func.attr}()"
+            if detail is not None:
+                for p in consumed:
+                    facts.sync_sites.setdefault(
+                        p, SyncSite(node.lineno, detail, 0))
+            # direct key consumption: a drawing call of the port's random
+            if is_key_call(name) and name not in KEY_SOURCES:
+                for a in args:
+                    if isinstance(a, ast.Name) and a.id in params:
+                        facts.key_params.add(a.id)
+
     # -- summary composition -------------------------------------------------
     def _compute(self, fid: str) -> bool:
         facts = self.facts[fid]
         blocking: List[BlockSite] = [b for b, _held in facts.blocks]
         disk: List[BlockSite] = list(facts.disk)
         acquires: Set[str] = {lid for lid, _line in facts.acquisitions}
+        sync_params: Dict[str, SyncSite] = dict(facts.sync_sites)
+        key_params: Set[str] = set(facts.key_params)
         for outer, inner, line in facts.pairs:
             self._record_pair(outer, inner, facts, line,
                               f"'{outer}' held, then '{inner}' acquired "
                               f"in {fid}")
+        params = [p for p in facts.scope.params
+                  if p not in ("self", "cls")]
         for cf in facts.calls:
             csum = self.summary_for(cf.callee)
             if csum is EMPTY_SUMMARY:
@@ -425,18 +581,66 @@ class EffectEngine:
                             f"'{outer}' held in {fid} while calling "
                             f"{short}() which acquires '{inner}'")
             acquires |= csum.acquires
+            if isinstance(cf.callee, (FunctionSymbol, ClassSymbol)):
+                self._bind_call_effects(
+                    facts, cf, csum, short, params, sync_params,
+                    key_params)
         blocking.sort(key=lambda b: (b.depth, b.line))
         disk.sort(key=lambda b: (b.depth, b.line))
         summary = Summary(
             blocking=tuple(blocking[:_MAX_BLOCK_SITES]),
             disk=tuple(disk[:_MAX_BLOCK_SITES]),
             acquires=frozenset(acquires),
+            sync_params=tuple(sorted(sync_params.items())),
+            key_params=frozenset(key_params),
             liveness=facts.liveness,
+            collective=facts.collective or any(
+                self.summary_for(cf.callee).collective
+                for cf in facts.calls),
         )
         if self.summaries.get(fid) == summary:
             return False
         self.summaries[fid] = summary
         return True
+
+    def _bind_call_effects(self, facts: ScopeFacts, cf: CallFact,
+                           csum: Summary, short: str,
+                           params: List[str],
+                           sync_params: Dict[str, SyncSite],
+                           key_params: Set[str]) -> None:
+        """Map a callee's parameter-keyed effects back through the call
+        site's argument binding onto this function's parameters."""
+        callee = cf.callee
+        if isinstance(callee, ClassSymbol):
+            init = callee.methods.get("__init__")
+            if init is None:
+                return
+            pos = init.scope.params[1:]      # skip self
+        else:
+            pos = _callee_positional_params(callee, cf.node)
+        callee_sync = csum.sync_param_map()
+
+        def bind(arg: ast.expr, pname: str) -> None:
+            if pname in callee_sync:
+                site = callee_sync[pname]
+                if site.depth + 1 <= MAX_CHAIN_DEPTH:
+                    for q in traced_names(arg):
+                        for p in facts.influences.get(q, ()):  # params
+                            sync_params.setdefault(p, SyncSite(
+                                cf.line,
+                                f"{short}(param '{pname}') -> "
+                                f"{site.detail}",
+                                site.depth + 1))
+            if (pname in csum.key_params and isinstance(arg, ast.Name)
+                    and arg.id in params):
+                key_params.add(arg.id)
+
+        for i, arg in enumerate(cf.node.args):
+            if i < len(pos):
+                bind(arg, pos[i])
+        for kw in cf.node.keywords:
+            if kw.arg is not None:
+                bind(kw.value, kw.arg)
 
     def _record_pair(self, outer: str, inner: str, facts: ScopeFacts,
                      line: int, detail: str) -> None:

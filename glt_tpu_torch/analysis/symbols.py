@@ -32,7 +32,13 @@ import ast
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Set, Union
 
-from .visitor import FunctionScope, ModuleInfo, dotted_expr
+from .visitor import (
+    FunctionScope,
+    ModuleInfo,
+    dotted_expr,
+    is_capture_name,
+    unwrap_capture_target,
+)
 
 # Constructors whose result is a mutual-exclusion object; assignments from
 # these define the project's lock universe (GLT008/GLT009).
@@ -113,6 +119,7 @@ class Project:
         for name in sorted(self.modules):
             self._index_module(self.modules[name])
         self._effects = None
+        self._mark_cross_module_jit()
 
     # -- construction ------------------------------------------------------
     def _index_module(self, m: ModuleInfo) -> None:
@@ -186,6 +193,99 @@ class Project:
                 if isinstance(t, ast.Name):
                     self._module_locks.setdefault(
                         m.name, set()).add(t.id)
+
+    def _mark_cross_module_jit(self) -> None:
+        """Capture roots the target's home module cannot see: a capture
+        of a function imported from another project module, and the
+        argument of every construction of a *forwarder* class, one whose
+        ``__init__`` keeps a parameter as ``self.<attr>`` that a method
+        captures (``CapturedProgram(self.fn, ...)``, or a captured lambda
+        calling ``self.fn(...)``: the argument's parameters then take the
+        lambda's taint through that call).  The marked modules re-run
+        their transitive marking."""
+        remark: Set[ModuleInfo] = set()
+        # cid -> {init param: (lambda scope, call) or None}
+        forwarders: Dict[str, Dict[str, Optional[
+            Tuple[FunctionScope, ast.Call]]]] = {}
+        for name in sorted(self.modules):
+            m = self.modules[name]
+            for node in m._calls:
+                if not is_capture_name(m.call_name(node)):
+                    continue
+                target = unwrap_capture_target(node, m.imports)
+                if target is None:
+                    continue
+                scope = m._enclosing_scope(node)
+                via = None
+                if isinstance(target, ast.Lambda) and isinstance(
+                        target.body, ast.Call):
+                    via = (m.scope_of(target), target.body)
+                    target = target.body.func
+                if (isinstance(target, ast.Attribute)
+                        and isinstance(target.value, ast.Name)
+                        and target.value.id == "self"):
+                    cls = self.own_class(m, scope)
+                    param = self._init_param_of(cls, target.attr)
+                    if cls is not None and param is not None:
+                        forwarders.setdefault(cls.cid, {})[param] = via
+                    continue
+                if via is not None or not isinstance(
+                        target, (ast.Name, ast.Attribute)):
+                    continue
+                sym = self.resolve_dotted(m.imports.resolve(target) or "")
+                if (isinstance(sym, FunctionSymbol) and sym.module is not m
+                        and not sym.scope.jit_root):
+                    sym.module.mark_root(
+                        sym.scope,
+                        f"captured at {m.path}:{node.lineno}")
+                    remark.add(sym.module)
+        if forwarders:
+            for name in sorted(self.modules):
+                m = self.modules[name]
+                for node in m._calls:
+                    scope = m._enclosing_scope(node)
+                    cls = self.resolve_call(m, scope, node)
+                    if not (isinstance(cls, ClassSymbol)
+                            and cls.cid in forwarders):
+                        continue
+                    init = cls.methods.get("__init__")
+                    pos = init.scope.params[1:] if init is not None else []
+                    bound = {pos[i]: a for i, a in enumerate(node.args)
+                             if i < len(pos)}
+                    bound.update({kw.arg: kw.value for kw in node.keywords
+                                  if kw.arg})
+                    for param, via in forwarders[cls.cid].items():
+                        arg = bound.get(param)
+                        if arg is None:
+                            continue
+                        for target in m.scopes_for_target(arg):
+                            if target.jit_root:
+                                continue
+                            m.mark_root(target, f"captured through "
+                                        f"{cls.name} at line {node.lineno}")
+                            if via is not None and via[0] is not None:
+                                target.transitive_call = via
+                            remark.add(m)
+        for m in remark:
+            m._mark_called_from_jit()
+
+    def _init_param_of(self, cls: Optional[ClassSymbol],
+                       attr: str) -> Optional[str]:
+        """The ``__init__`` parameter a class keeps as ``self.<attr>``."""
+        init = cls.methods.get("__init__") if cls is not None else None
+        if init is None:
+            return None
+        params = set(init.scope.params[1:])
+        for node in ast.walk(init.scope.node):
+            if (isinstance(node, ast.Assign)
+                    and isinstance(node.value, ast.Name)
+                    and node.value.id in params
+                    and any(isinstance(t, ast.Attribute)
+                            and isinstance(t.value, ast.Name)
+                            and t.value.id == "self" and t.attr == attr
+                            for t in node.targets)):
+                return node.value.id
+        return None
 
     # -- lazily-built analyses ---------------------------------------------
     @property

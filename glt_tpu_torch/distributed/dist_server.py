@@ -110,6 +110,19 @@ DEFAULT_MAX_FRAME_BYTES = 1 << 30
 DEFAULT_LEASE_SECS = 300.0
 DEFAULT_REPLAY_WINDOW = 8
 
+# Ops that only a current-protocol server understands: an older server
+# answers each of them with its unknown-op fatal error, so every client
+# call site must degrade (return None, or pin the peer to legacy
+# routing) instead of surfacing a new failure mode.  ``fleet_hello`` is
+# the negotiation itself; the observability pulls shipped after the
+# protocol froze ride the same contract.  gltlint reads this set to
+# assign per-op minimum protocol versions (GLT026, ``--format=optable``).
+POST_HELLO_OPS = frozenset({
+    "fleet_hello",
+    "fleet_shed",
+    "flight_dump",
+    "profile_capture",
+})
 
 
 class ProtocolError(RuntimeError):

@@ -34,6 +34,7 @@ def synthetic_products(scale: float = 0.01, dim: int = 100,
             @ rng.normal(0, 1, (num_classes, dim)).astype(np.float32))
     feat += rng.normal(0, 0.5, (n, dim)).astype(np.float32)
     ds = (Dataset(device=device)
+          # gltlint: disable-next=int64-id-truncation -- a synthetic graph far below 2**31 ids
           .init_graph((indptr.astype(np.int32), indices.astype(np.int32)),
                       layout="CSR")
           .init_node_features(feat)
@@ -55,6 +56,7 @@ def synthetic_ppi(scale: float = 1.0, dim: int = 50, seed: int = 0,
     indices = rng.integers(0, n, n * deg, dtype=np.int64)
     feat = rng.normal(size=(n, dim)).astype(np.float32)
     ds = (Dataset(device=device)
+          # gltlint: disable-next=int64-id-truncation -- a synthetic graph far below 2**31 ids
           .init_graph((indptr.astype(np.int32), indices.astype(np.int32)),
                       layout="CSR", with_sorted_columns=True)
           .init_node_features(feat))

@@ -60,6 +60,7 @@ def frontier_plan(ids: torch.Tensor,
     uidx = torch.where(uniq >= 0, uniq, 0)
     if id2index is not None:
         uidx = id2index[uidx.clamp(max=id2index.shape[0] - 1).long()]
+    # gltlint: disable-next=int64-id-truncation -- id2index holds table rows; .long() only indexes
     return uniq, inv.contiguous(), uidx.to(torch.int32).contiguous()
 
 

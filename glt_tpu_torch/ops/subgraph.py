@@ -56,6 +56,7 @@ def node_subgraph(indptr: torch.Tensor, indices: torch.Tensor,
     rows = torch.where(keep, local_src, PADDING_ID).reshape(-1)
     cols = torch.where(keep, local_dst, PADDING_ID).reshape(-1)
     if edge_ids is None:
+        # gltlint: disable-next=int64-id-truncation -- CSR positions of an int32 graph
         eids = torch.where(keep, flat.to(torch.int32), PADDING_ID)
     else:
         eid = edge_ids[flat.clamp(0, max(n_idx - 1, 0))].to(torch.int32)

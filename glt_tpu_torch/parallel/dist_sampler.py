@@ -56,7 +56,7 @@ broadcast, so every process runs the same collectives.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -523,7 +523,8 @@ def hier_request_cap(cap: int, chips_per_host: int, nodes_per_shard: int,
     return min(lossless, bounded)
 
 
-def _grid_all_to_all(blocks: Sequence[torch.Tensor], grid, axis: str
+def _grid_all_to_all(blocks: Sequence[torch.Tensor],
+                     grid: Tuple[int, int], axis: str
                      ) -> List[torch.Tensor]:
     """An all-to-all along one axis of the ``(H, C)`` grid, every shard's
     block at once.  ``axis="chip"`` (``lax.all_to_all(x, chip, 1, 1)``

@@ -575,6 +575,7 @@ def run_scanned_dist_epoch(step, state: TrainState, train_idx,
             # The hook may checkpoint: the block's device work finishes
             # first, so the state it captures is post-block.
             if ls.is_cuda:
+                # gltlint: disable-next=dispatch-in-epoch-loop -- the checkpoint hook needs the post-block state
                 torch.cuda.synchronize(ls.device)
             on_block(state, i)
     if not losses:

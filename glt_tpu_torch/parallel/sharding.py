@@ -90,6 +90,7 @@ def shard_graph_blocks(topo: CSRTopo, num_shards: int,
     ei = np.full((k, max_e), -1, np.int32)
     for j, s in enumerate(shard_range):
         lo, hi, e0, e1 = bounds[s]
+        # gltlint: disable-next=int64-id-truncation -- offsets within one shard, below max_e
         local = (indptr[lo: hi + 1] - indptr[lo]).astype(np.int32)
         ip[j, : hi - lo + 1] = local
         ip[j, hi - lo + 1:] = local[-1] if local.size else 0

@@ -29,6 +29,7 @@ def hash_partition(ids: np.ndarray, num_parts: int, seed: int) -> np.ndarray:
         x ^= x >> np.uint64(27)
         x *= np.uint64(0x94D049BB133111EB)
         x ^= x >> np.uint64(31)
+        # gltlint: disable-next=int64-id-truncation -- a partition number below num_parts
         return (x % np.uint64(num_parts)).astype(np.int32)
 
 

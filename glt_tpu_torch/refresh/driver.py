@@ -134,6 +134,11 @@ class RefreshDriver:
                 f"refresh out_codec must be raw|bf16, got {out_codec!r}")
         self.device = resolve_device(device)
         self._indptr_np = np.asarray(indptr, np.int64)
+        if self._indptr_np.size and \
+                int(self._indptr_np[-1]) > np.iinfo(np.int32).max:
+            raise ValueError(
+                f"{int(self._indptr_np[-1])} edges exceed the int32 edge "
+                f"positions the device CSR holds")
         # int32 node ids (the engine's id width): the host frontier
         # build sorts them, and 32-bit keys sort faster.
         self._indices_np = np.asarray(indices).astype(np.int32)

@@ -141,6 +141,7 @@ class SubgraphEngine:
             raise BadRequest(
                 f"{arr.size} distinct seeds exceeds the per-request bound "
                 f"{self.options.max_seeds_per_request}; split the request")
+        # gltlint: disable-next=int64-id-truncation -- the ids were checked against num_nodes above
         return arr.astype(np.int32)
 
     def bucket_for(self, total_seeds: int) -> int:

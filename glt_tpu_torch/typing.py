@@ -10,6 +10,10 @@ import numpy as np
 NodeType = str
 EdgeType = Tuple[str, str, str]
 
+# Dense id -> partition-number map (int8/int32 vector of length num_nodes or
+# num_edges), a host array, as in ``glt_tpu``.
+PartitionBook = np.ndarray
+
 # Per-hop fanout specification: [15, 10, 5] or {edge_type: [15, 10]}.
 NumNeighbors = Union[List[int], Dict[EdgeType, List[int]]]
 

@@ -1,17 +1,21 @@
 """The port's gltlint (``glt_tpu_torch.analysis``) against ``glt_tpu``'s.
 
-Each of the 13 ported rules has fixtures that fire and fixtures that
-stay clean, their sources taken from the matching ``tests/test_analysis``
-classes; both linters must give equal findings (path, line, column,
-rule, code, severity and message) over the ported codes.  The launch
-model's two rules (GLT017, GLT019: torch forms of ``glt_tpu``'s VMEM and
-tile rules, with the port's own names) fire on their fixtures and stay
-silent on the port's swept kernels.  Over the
-whole port both give equal findings (also with the suppressions off,
-where the justified ones show), and the port's gate
-``python -m glt_tpu_torch.analysis glt_tpu_torch chip_smoke.py`` exits
-0.  Suppression parsing, the baseline round trip, the symbol table and
-effect engine, the op table and the CLI's flags match too.
+Each of the 13 framework-free rules has fixtures that fire and fixtures
+that stay clean, their sources taken from the matching
+``tests/test_analysis`` classes; both linters must give equal findings
+(path, line, column, rule, code, severity and message) over those codes.
+The registry holds every code ``glt_tpu`` lists, GLT001-GLT027, with its
+name and severity; the 12 rules that name JAX there check their torch
+forms (``tests/test_torch_lint_jaxrules.py``).  The launch model's two
+rules (GLT017, GLT019: torch forms of ``glt_tpu``'s VMEM and tile rules)
+fire on their fixtures and stay silent on the port's swept kernels.
+Over the whole port both give equal findings on the 13 codes (also with
+the suppressions off, where the justified ones show), the torch-form
+rules' justified sites are the ones ROADMAP's C4 records, and the port's
+gate ``python -m glt_tpu_torch.analysis glt_tpu_torch chip_smoke.py``
+exits 0.  Suppression parsing, the baseline round trip, the symbol table
+and effect engine, the op table (with the server's ``POST_HELLO_OPS``)
+and the CLI's flags match too.
 """
 import json
 import os
@@ -933,16 +937,21 @@ def test_every_ported_rule_fires_and_stays_clean():
 
 
 def test_rule_registry_is_the_ported_subset():
+    """The registry has every ``glt_tpu`` code, GLT001-GLT027, with its
+    name and severity; the 13 framework-free rules keep its description,
+    and the others describe their torch forms."""
     jrules = {r.code: r for r in jlint.all_rules()}
     trules = {r.code: r for r in tlint.all_rules()}
-    assert sorted(trules) == sorted(PORTED + LAUNCH)
-    assert (trules["GLT017"].name, trules["GLT019"].name) == (
-        "launch-budget-exceeded", "unaligned-launch-shape")
-    trules = {c: r for c, r in trules.items() if c in PORTED}
-    for code, r in trules.items():
-        j = jrules[code]
-        assert (r.name, str(r.severity), r.description) == \
-            (j.name, str(j.severity), j.description), code
+    assert sorted(trules) == sorted(jrules) == [
+        f"GLT{i:03d}" for i in range(1, 28)]
+    for code, j in jrules.items():
+        r = trules[code]
+        assert (r.name, str(r.severity)) == (j.name, str(j.severity)), code
+        if code in PORTED:
+            assert r.description == j.description, code
+        else:
+            assert not any(w in r.description for w in (
+                "jax", "jit", "Pallas", "VMEM", "shard_map")), code
 
 
 SUPPRESSION_SOURCES = [
@@ -1105,6 +1114,49 @@ def test_whole_port_cli_matches_jax():
     assert got.returncode == want.returncode
 
 
+# ROADMAP queue C, C4: the torch-form rules' first findings over the port
+# and the smoke that carry a justified suppression (the repaired ones are
+# gone), as (path, line, code).
+C4_JUSTIFIED = sorted([
+    ("chip_smoke.py", 894, "GLT004"),
+    ("chip_smoke.py", 906, "GLT004"),
+    ("chip_smoke.py", 956, "GLT022"),
+    ("chip_smoke.py", 1580, "GLT002"),
+    ("chip_smoke.py", 2783, "GLT002"),
+    ("chip_smoke.py", 5082, "GLT002"),
+    ("chip_smoke.py", 5202, "GLT002"),
+    ("chip_smoke.py", 7396, "GLT004"),
+    ("chip_smoke.py", 7409, "GLT022"),
+    ("glt_tpu_torch/examples/datasets.py", 38, "GLT004"),
+    ("glt_tpu_torch/examples/datasets.py", 38, "GLT004"),
+    ("glt_tpu_torch/examples/datasets.py", 60, "GLT004"),
+    ("glt_tpu_torch/examples/datasets.py", 60, "GLT004"),
+    ("glt_tpu_torch/models/train.py", 205, "GLT004"),
+    ("glt_tpu_torch/models/train.py", 810, "GLT013"),
+    ("glt_tpu_torch/ops/fused_frontier.py", 64, "GLT004"),
+    ("glt_tpu_torch/ops/subgraph.py", 60, "GLT004"),
+    ("glt_tpu_torch/parallel/dist_train.py", 579, "GLT013"),
+    ("glt_tpu_torch/parallel/sharding.py", 94, "GLT004"),
+    ("glt_tpu_torch/partition/dist_random_partitioner.py", 33, "GLT004"),
+    ("glt_tpu_torch/serving/engine.py", 145, "GLT004"),
+])
+TORCH_FORMS = ("GLT001", "GLT002", "GLT003", "GLT004", "GLT006", "GLT010",
+               "GLT013", "GLT016", "GLT018", "GLT020", "GLT021", "GLT022",
+               "GLT026")
+
+
+def test_c4_findings_are_the_recorded_ones(port_projects):
+    """With the suppressions off, the torch-form rules (and GLT026, now
+    that the server declares ``POST_HELLO_OPS``) find over the port and
+    the smoke exactly the sites C4 records as justified."""
+    _, tp = port_projects
+    got = sorted((os.path.relpath(f.path, REPO).replace(os.sep, "/"),
+                  f.line, f.code)
+                 for f in tlint.analyze_project(tp, suppress=False)
+                 if f.code in TORCH_FORMS)
+    assert got == C4_JUSTIFIED
+
+
 def test_port_gate_is_clean():
     """The gate: the port and the smoke lint clean."""
     proc = _cli("glt_tpu_torch.analysis", "glt_tpu_torch", "chip_smoke.py")
@@ -1145,7 +1197,7 @@ def test_cli_list_rules_and_single_rule_mode(tmp_path):
     for code in LAUNCH:
         assert code in proc.stdout
     for code in ("GLT001", "GLT018", "GLT022"):
-        assert code not in proc.stdout
+        assert code in proc.stdout
     bad = tmp_path / "bad.py"
     bad.write_text(textwrap.dedent(GET_BARE + WALL_STOPWATCH))
     proc = _cli("glt_tpu_torch.analysis", str(bad), "--rule=GLT015",
@@ -1158,6 +1210,10 @@ def test_cli_list_rules_and_single_rule_mode(tmp_path):
                 "--select=GLT015")
     assert proc.returncode == 2 and "mutually exclusive" in proc.stderr
     proc = _cli("glt_tpu_torch.analysis", str(bad), "--select=GLT001")
+    assert proc.returncode == 0 and "0 error(s)" in proc.stdout
+    proc = _cli("glt_tpu_torch.analysis", str(bad), "--select=GLT099")
+    assert proc.returncode != 0 and "unknown rule" in proc.stderr
+    proc = _cli("glt_tpu.analysis", str(bad), "--select=GLT099")
     assert proc.returncode != 0 and "unknown rule" in proc.stderr
 
 
@@ -1225,6 +1281,51 @@ def test_cli_optable_lists_the_port_wire_ops(port_projects):
     for op in ("fetch_one_sampled_message", "subgraph_request",
                "fleet_shed", "heartbeat"):
         assert f"`{op}`" in got.stdout, op
+
+
+def test_optable_gates_the_post_hello_ops_like_jax(port_projects):
+    """The server declares ``POST_HELLO_OPS``: the port's op table gives
+    the four gated ops the minimum protocol ``glt_tpu``'s gives them over
+    ``glt_tpu``."""
+    from glt_tpu_torch.distributed import dist_server
+
+    _, tp = port_projects
+    jp, jerr = jbuild([os.path.join(REPO, "glt_tpu")])
+    assert jerr == []
+    jt, tt = jop_table(jp), top_table(tp)
+    gated = sorted(dist_server.POST_HELLO_OPS)
+    assert gated == ["fleet_hello", "fleet_shed", "flight_dump",
+                     "profile_capture"]
+    for op in gated:
+        assert tt.ops[op].min_protocol == jt.ops[op].min_protocol == 1, op
+    assert {op for op, e in tt.ops.items() if e.min_protocol > 0} == \
+        set(gated)
+
+
+def test_bare_fleet_shed_fires_against_the_real_server():
+    """A client that sends ``fleet_shed`` outside the unknown-op ``try``
+    fires GLT026 against the port's own server module."""
+    server = os.path.join(REPO, "glt_tpu_torch", "distributed",
+                          "dist_server.py")
+    client = textwrap.dedent("""
+        def shed(conn, alert):
+            conn.request(op="heartbeat", peer="me")
+            return conn.request(op="fleet_shed", alert=alert)  # no fallback
+
+
+        def guarded(conn, alert):
+            try:
+                return conn.request(op="fleet_shed", alert=alert)
+            except RuntimeError:
+                return None
+    """)
+    project = TProject([
+        TModuleInfo(server, open(server, encoding="utf-8").read(),
+                    module_name="glt_tpu_torch.distributed.dist_server"),
+        TModuleInfo("pkg/client.py", client, module_name="pkg.client")])
+    got = [(f.path, f.line) for f in tlint.analyze_project(project)
+           if f.code == "GLT026"]
+    assert got == [("pkg/client.py", 4)]
 
 
 # -- the launch model (GLT017, GLT019) ------------------------------------------

@@ -1,10 +1,15 @@
 """The port's import rule: ``glt_tpu_torch`` and ``chip_smoke.py`` import
-torch, numpy and the standard library only.
+torch, numpy and the standard library only, and the port's linter
+(``glt_tpu_torch/analysis``) the standard library only.
 
 In a subprocess a meta-path finder refuses ``jax``, ``jaxlib``,
 ``glt_tpu`` and ``ml_dtypes`` (and their submodules) with ImportError;
 then every module of ``glt_tpu_torch`` and ``chip_smoke`` must import.
+In another it also refuses ``torch``, and the linter must import and
+lint.
 """
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -223,3 +228,67 @@ def test_port_imports_no_jax():
         set(SERVING_TABLE_MODULES) - walked)
     assert set(DIST_WHOLE_MODULES) <= walked, sorted(
         set(DIST_WHOLE_MODULES) - walked)
+
+
+_LINT_PROBE = r"""
+import importlib.abc, sys
+
+BLOCKED = ("jax", "jaxlib", "glt_tpu", "ml_dtypes", "torch")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"import of {name} refused")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+from glt_tpu_torch.analysis import analyze_source, hazards
+for hz in hazards.HAZARDS:
+    (f,) = analyze_source(hz.source, "h.py")
+    assert (f.code, f.line) == (hz.code, hz.line), f
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not bad, bad
+print("ok")
+"""
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_analysis_imports_only_the_stdlib():
+    """Every import of ``glt_tpu_torch/analysis`` is relative or of the
+    standard library, and the linter runs with torch, jax and glt_tpu
+    refused."""
+    files = sorted(glob.glob(os.path.join(REPO, "glt_tpu_torch", "analysis",
+                                          "*.py")))
+    assert len(files) >= 14
+    for path in files:
+        roots = set(_imported_roots(path))
+        assert roots <= set(sys.stdlib_module_names) | {"__future__"}, (
+            path, sorted(roots - set(sys.stdlib_module_names)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _LINT_PROBE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", (
+        proc.stdout + proc.stderr)
+
+
+def test_smoke_and_linter_name_no_jax():
+    """``chip_smoke.py`` and the linter import neither ``jax`` nor
+    ``glt_tpu`` (the linter only names them in its docs and messages)."""
+    paths = [os.path.join(REPO, "chip_smoke.py")] + sorted(glob.glob(
+        os.path.join(REPO, "glt_tpu_torch", "analysis", "*.py")))
+    for path in paths:
+        roots = set(_imported_roots(path))
+        assert not roots & {"jax", "jaxlib", "glt_tpu"}, path
