@@ -1186,6 +1186,11 @@ class SpanInTracedCode(Rule):
 
     Other receivers never match: the receiver must trace back to an obs
     import or an obs-built name.
+
+    Exempt: the graph-safe instruments of ``glt_tpu_torch.obs.stages``,
+    whose device half a replay repeats — ``stage(...)`` (and its
+    ``.next(...)``), ``device_counter(...)`` with its ``.add_(...)``, and
+    the ``tracing()`` switch that guards a counter's increment.
     """
     name = "span-in-traced-code"
     code = "GLT010"
@@ -1196,6 +1201,7 @@ class SpanInTracedCode(Rule):
 
     _OBS_PREFIX = "glt_tpu_torch.obs"
     _METHODS = {"inc", "observe", "set", "time", "fence"}
+    _GRAPH_SAFE = {"stage", "device_counter", "tracing"}
 
     def check(self, module: ModuleInfo, project=None) -> List[Finding]:
         findings: List[Finding] = []
@@ -1219,6 +1225,13 @@ class SpanInTracedCode(Rule):
         return bool(dotted) and (
             dotted == self._OBS_PREFIX
             or dotted.startswith(self._OBS_PREFIX + "."))
+
+    def _graph_safe(self, dotted: str) -> bool:
+        """``obs.stage`` / ``obs.stages.device_counter`` and the like:
+        a graph-safe name, reached from the package or its module."""
+        parent, _, leaf = dotted.rpartition(".")
+        return leaf in self._GRAPH_SAFE and parent in (
+            self._OBS_PREFIX, self._OBS_PREFIX + ".stages")
 
     def _instrument_names(self, module: ModuleInfo) -> Set[str]:
         """Names (plain or ``self.x`` dotted) assigned from an obs
@@ -1244,6 +1257,8 @@ class SpanInTracedCode(Rule):
                   instruments: Set[str]) -> Optional[str]:
         resolved = module.call_name(call)
         if self._is_obs_path(resolved):
+            if self._graph_safe(resolved):
+                return None
             return (f"{resolved}() inside a captured function: the host "
                     f"call runs once, at the capture, and no replay runs "
                     f"it — instrument around the replay() call instead "

@@ -40,8 +40,14 @@ driver counts ``glt.train.steps``/``glt.train.epochs``, times
 detector, publishes the device gauges and records a ``train.epoch``
 flight event per epoch; captures count under ``scanned_node_step``,
 ``scanned_hetero_step``, ``scanned_link_step`` and
-``scanned_subgraph_step``.  Nothing inside a captured block opens a span
-or touches a metric: a replay runs no Python.
+``scanned_subgraph_step``.  Under ``train.scanned_block_dispatch`` the
+node step's call opens ``graph.stage`` and ``graph.replay`` (its
+captured block) and ``train.block.outputs`` (the output clones).
+Nothing inside a captured block opens a span or touches a metric, a
+replay runs no Python, but for the graph-safe stages of
+:mod:`glt_tpu_torch.obs.stages`: ``train.bwd`` (``loss.backward()``) and
+``train.optim`` (``opt.step()``) in every step, in the node block also
+``train.fwd`` (model and loss), beside the sampler's and the gather's.
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ from ..obs import device as _device
 from ..obs import flight as _flight
 from ..obs import metrics as _metrics
 from ..obs import profiler as _profiler
+from ..obs.stages import stage as _stage
 from ..obs.trace import span as _span
 from ..ops.dedup_gather import dedup_gather_rows
 from ..ops.fused_frontier import fused_frontier
@@ -132,9 +139,13 @@ def _model_device(model: nn.Module) -> torch.device:
 
 def _backward_and_step(opt: torch.optim.Optimizer,
                        loss: torch.Tensor) -> None:
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    opt.step()
+    """The backward pass and the optimizer step: the graph-safe stages
+    ``train.bwd`` and ``train.optim``, split at their shared boundary."""
+    with _stage("train.bwd", device=loss.device) as st:
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        st.next("train.optim")
+        opt.step()
 
 
 def _update(state: TrainState, loss: torch.Tensor) -> TrainState:
@@ -179,16 +190,22 @@ def make_gather_xy(id2index: Optional[torch.Tensor] = None,
     does the dedup and the gather in one launch of kernel B3
     (:func:`~glt_tpu_torch.ops.fused_frontier.fused_frontier`) and
     subsumes ``dedup``.  All three give the same ``x`` bit for bit.
+    Each call is the graph-safe stage ``gather.<route>`` (``fused``,
+    ``dedup`` or ``plain``): a host span and a device span eagerly, the
+    device span alone inside a captured block.
     """
+    name = "gather." + ("fused" if fused else "dedup" if dedup else "plain")
+
     def gather_xy(rows: torch.Tensor, labels: torch.Tensor, out):
         ids = out.node
-        if fused:
-            x = fused_frontier(rows, ids, id2index=id2index).features
-        elif dedup:
-            x = dedup_gather_rows(rows, ids, id2index=id2index)
-        else:
-            x = gather_ids(rows, ids, id2index)
-        return x, None if labels is None else gather_labels(labels, ids)
+        with _stage(name, device=ids.device):
+            if fused:
+                x = fused_frontier(rows, ids, id2index=id2index).features
+            elif dedup:
+                x = dedup_gather_rows(rows, ids, id2index=id2index)
+            else:
+                x = gather_ids(rows, ids, id2index)
+            return x, None if labels is None else gather_labels(labels, ids)
 
     return gather_xy
 
@@ -393,7 +410,8 @@ class _ScannedBlocks:
             with _compilewatch.label(self.program):
                 outs = self._replayed(state, blks, key, pattern, real)
             if outs is not None:
-                outs = tuple(t.clone() for t in outs)
+                with _span("train.block.outputs"):
+                    outs = tuple(t.clone() for t in outs)
         if outs is None:
             outs = self.block(state.model, state.optimizer,
                               tuple(torch.from_numpy(b).to(dev)
@@ -474,12 +492,13 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
                 x, y = gather_xy(hot_rows, labels_dev, out)
             else:
                 cache, x, y = cached_xy(cache, hot_rows, labels_dev, out)
-            logits = model(x, torch.stack([out.row, out.col]),
-                           out.edge_mask,
-                           dropout_key=trandom.fold_in(dropout_base,
-                                                       step_count))
-            loss, acc = seed_cross_entropy(logits, y, batch_size,
-                                           out.node_mask)
+            with _stage("train.fwd", device=dev):
+                logits = model(x, torch.stack([out.row, out.col]),
+                               out.edge_mask,
+                               dropout_key=trandom.fold_in(dropout_base,
+                                                           step_count))
+                loss, acc = seed_cross_entropy(logits, y, batch_size,
+                                               out.node_mask)
             _backward_and_step(opt, loss)
             step_count.add_(1)
             losses.append(loss.detach())

@@ -15,11 +15,27 @@
   * **Roofline** (:mod:`.roofline`): a measured device-memcpy bandwidth
     ceiling so ``gather_gb_s`` becomes an achieved-vs-peak fraction.
 
+  * **Stages** (:mod:`.stages`): graph-safe stage spans and device
+    counters, the one instrument legal inside a captured function.  A
+    stage stamps its boundaries on the card (a one-thread kernel
+    appending the global timer to a device ring), so every replay of a
+    graph that captured it records again; eager, it is also a host span.
+
 Traces, flight dumps and metric pages are ``glt_tpu``'s formats: either
 package reads the other's.  Tracing and metrics are OFF by default and
 cost roughly a global read + branch per call site when off.  Everything
-here is **host-side**: never open a span or touch a metric inside a
-function a CUDA graph captures (a replay runs no Python).
+but :func:`stage` and :func:`device_counter` is **host-side**: never
+open a span or touch a metric inside a function a CUDA graph captures (a
+replay runs no Python).  Stages and device counters are on or off at
+the moment their code runs: eagerly, or at the capture of a graph.
+
+  * **A graph captured with tracing off holds no stamp node** (and no
+    counter update): it launches exactly the kernels of the code without
+    them, whatever is installed later.
+  * **A graph captured with tracing on keeps its stamps for its
+    lifetime**: each replay appends to the ring even after the tracer is
+    uninstalled (the ring and the counters are never freed).  Capture
+    again with tracing off to drop them.
 
 >>> from glt_tpu_torch import obs
 >>> obs.metrics.enable()
@@ -37,6 +53,7 @@ from . import flight  # noqa: F401
 from . import metrics  # noqa: F401
 from . import profiler  # noqa: F401
 from . import slo  # noqa: F401
+from . import stages  # noqa: F401
 from .flight import (  # noqa: F401
     FlightRecorder,
     merge_flight_dumps,
@@ -45,6 +62,7 @@ from .flight import (  # noqa: F401
 from .merge import merge_traces, span_tree_check  # noqa: F401
 from .metrics import prune_unmeasured  # noqa: F401
 from .slo import SloMonitor, SloSpec, default_specs  # noqa: F401
+from .stages import device_counter, stage, tracing  # noqa: F401
 from .roofline import measure_memcpy_roofline, roofline_fraction  # noqa: F401
 from .summarize import (  # noqa: F401
     format_flight_summary,
@@ -75,6 +93,7 @@ __all__ = [
     "auto_trace",
     "compilewatch",
     "device",
+    "device_counter",
     "profiler",
     "auto_trace_export",
     "current",
@@ -93,9 +112,12 @@ __all__ = [
     "roofline_fraction",
     "span",
     "span_tree_check",
+    "stage",
+    "stages",
     "start_trace",
     "stop_trace",
     "summarize_flight",
     "summarize_trace",
+    "tracing",
     "validate_chrome_trace",
 ]

@@ -12,8 +12,8 @@ reconnect/lease/replay-window counters — under dotted ``glt.*`` names
      CUDA graph captures: the Python call runs once at capture time and
      no replay repeats it.
      Device-side quantities ride as device scalars (the feature cache's
-     hit/miss counters) and are *published* here from host code after a
-     sync point.
+     hit/miss counters, the graph-safe counters of :mod:`.stages`) and
+     are *published* here from host code after a sync point.
   3. **Stdlib only.**  No torch/numpy imports — usable from the analysis
      CI image and from pure-host tooling.
 
@@ -28,7 +28,7 @@ from __future__ import annotations
 import re
 import threading
 import time
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 _enabled = False
 
@@ -391,8 +391,24 @@ def histogram(name: str, help: str = "",
                               buckets=buckets)
 
 
+#: Instruments kept elsewhere: ``(values, reset)`` pairs, where
+#: ``values()`` gives ``{name: value}`` and ``reset()`` zeroes them (the
+#: device counters of :mod:`.stages`, read with one device-to-host copy).
+_SOURCES: List[Tuple[Callable[[], Dict[str, float]], Callable[[], None]]] = []
+
+
+def add_source(values: Callable[[], Dict[str, float]],
+               reset_fn: Callable[[], None]) -> None:
+    """Register instruments kept outside the registry with
+    :func:`snapshot` and :func:`reset`."""
+    _SOURCES.append((values, reset_fn))
+
+
 def snapshot() -> Dict[str, float]:
-    return REGISTRY.snapshot()
+    out = REGISTRY.snapshot()
+    for values, _ in _SOURCES:
+        out.update(values())
+    return out
 
 
 def render_prometheus() -> str:
@@ -401,6 +417,8 @@ def render_prometheus() -> str:
 
 def reset() -> None:
     REGISTRY.reset()
+    for _, reset_fn in _SOURCES:
+        reset_fn()
 
 
 def prune_unmeasured(d: Mapping[str, object]) -> Dict[str, object]:

@@ -23,12 +23,20 @@ Two rules make spans safe around CUDA work:
 
 When no tracer is installed, ``span()`` returns a shared no-op object —
 one module-global read per call, cheap enough to leave in hot loops.
+
+While a tracer is installed and ``torch.profiler`` records, every span
+also opens a ``torch.profiler.record_function`` range of its name, so
+the program's spans sit in the profiler's Chrome trace, on its clock,
+around the kernels they launch.  The export adds a device track: the
+graph-safe stage spans of :mod:`.stages`, read from the card's stamp
+ring and aligned to this tracer's clock at the export.
 """
 from __future__ import annotations
 
 import json
 import os
 import struct
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -62,6 +70,18 @@ def _device_fence(token_groups: List[Any]) -> None:
         ev.synchronize()
 
 
+def _profiler_range(name: str):
+    """An open ``record_function`` range of ``name`` while
+    ``torch.profiler`` records, else None (torch is never imported
+    here: a process that has not imported it records nothing)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    rf = prof.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 def _gen_trace_id() -> str:
     """A fresh 64-bit trace id (hex) — unique across processes."""
     return os.urandom(8).hex()
@@ -71,7 +91,7 @@ class Span:
     """One timed region; use as a context manager (see :func:`span`)."""
 
     __slots__ = ("_tracer", "name", "_attrs", "_t0_ns", "_tokens", "_depth",
-                 "span_id", "trace_id", "_parent_id")
+                 "span_id", "trace_id", "_parent_id", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
         self._tracer = tracer
@@ -92,6 +112,7 @@ class Span:
             if self.trace_id is None:
                 self.trace_id = parent.trace_id
         stack.append(self)
+        self._range = _profiler_range(self.name)
         self._t0_ns = time.perf_counter_ns()
         return self
 
@@ -140,6 +161,8 @@ class Span:
         if self._tokens is not None and exc_type is None:
             _device_fence(self._tokens)
         end_ns = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         stack = self._tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -285,17 +308,32 @@ class Tracer:
         }]
 
     def chrome_trace(self) -> dict:
-        """The trace as a Chrome-trace-format object (JSON-serializable)."""
-        events = sorted(self.events, key=lambda e: e.get("ts", 0.0))
-        out = {"traceEvents": self.metadata_events() + events,
+        """The trace as a Chrome-trace-format object (JSON-serializable):
+        the host spans, then the device track of the stage spans."""
+        meta, device, sidecar = self._device_track()
+        events = sorted(self.events + device, key=lambda e: e.get("ts", 0.0))
+        out = {"traceEvents": self.metadata_events() + meta + events,
                "displayTimeUnit": "ms"}
         # Sidecar identity for `obs merge`: which process wrote this
         # file, and that all ts are tracer-relative (arbitrary origin
         # per process — exactly what the clock alignment estimates).
-        out["glt"] = {"pid": self.pid,
-                      "process_name": self.process_name,
-                      "clock": "tracer_relative_us"}
+        out["glt"] = dict({"pid": self.pid,
+                           "process_name": self.process_name,
+                           "clock": "tracer_relative_us"}, **sidecar)
         return out
+
+    def _device_track(self):
+        """``(metadata, events, sidecar entries)`` of the stage spans;
+        nothing when no stage ever ran, and only the error when the
+        device cannot be read (an export at a crash must still write the
+        host spans)."""
+        stages = sys.modules.get(__package__ + ".stages")
+        if stages is None:
+            return [], [], {}
+        try:
+            return stages.device_events(self)
+        except Exception as exc:  # noqa: BLE001 — the host spans still export
+            return [], [], {"device_error": repr(exc)}
 
     def export(self, path: str) -> str:
         """Write the Chrome-trace JSON to ``path``; returns ``path``.

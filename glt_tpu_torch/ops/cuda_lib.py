@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "glt_tpu_torch"
 SOURCES = ("sample.cu", "threefry.cu", "gather.cu", "fused_frontier.cu",
-           "gather_dequant.cu", "fused_frontier_dequant.cu")
+           "gather_dequant.cu", "fused_frontier_dequant.cu", "stamp.cu")
 # Headers the sources include; they count in the build hash.
 HEADERS = ("dequant.cuh", "launch.cuh", "threefry.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,6 +57,8 @@ _SIGNATURES = {
     # table, uidx, inv, sz, out, n_rows, batch, d, codec, stream
     "glt_fused_frontier_dequant": [_P, _P, _P, _P, _P, _I64, _I64, _I64,
                                    _I32, _P],
+    # ring, cursor, capacity, tag, stream (obs/stages.py)
+    "glt_stamp": [_P, _P, _I64, _I64, _P],
 }
 
 _lock = threading.Lock()

@@ -35,6 +35,10 @@ import torch
 from .. import random as trandom
 from ..data.graph import Graph
 from ..obs import compilewatch
+from ..obs.stages import device_counter as _device_counter
+from ..obs.stages import stage as _stage
+from ..obs.stages import tracing as _tracing
+from ..obs.trace import span as _span
 from ..ops.negative_sample import sample_negative_edges, weighted_draw
 from ..ops.neighbor_sample import sample_neighbors
 from ..ops.subgraph import node_subgraph
@@ -239,7 +243,21 @@ class NeighborSampler(BaseSampler):
     def _sample_impl(self, indptr, indices, edge_ids, seeds, key
                      ) -> SamplerOutput:
         """One multi-hop sample.  ``seeds``: ``[batch_size]`` int32, -1
-        padded, on the graph's device."""
+        padded, on the graph's device.
+
+        Its graph-safe stages (:mod:`glt_tpu_torch.obs.stages`, on while
+        a tracer is installed): ``sampler.init`` (the dense map and the
+        seeds' insert), per hop ``sampler.draw`` (kernel B1) and
+        ``sampler.induce``, then ``sampler.finish``; its device counters
+        ``glt.sample.batches`` (batches with a seed),
+        ``glt.sample.unique_nodes`` (the clamped count) and
+        ``glt.sample.edges`` (valid sampled edges)."""
+        with _stage("sampler.init", device=seeds.device) as st:
+            return self._sample_staged(st, indptr, indices, edge_ids, seeds,
+                                       key)
+
+    def _sample_staged(self, st, indptr, indices, edge_ids, seeds, key
+                       ) -> SamplerOutput:
         fanouts = self.num_neighbors
         widths = self._widths
         cap = self.node_capacity
@@ -271,6 +289,7 @@ class NeighborSampler(BaseSampler):
         for i, f in enumerate(fanouts):
             w = widths[i]
             last = i + 1 == len(fanouts)
+            st.next("sampler.draw", hop=i)
             out = sample_neighbors(indptr, indices, frontier, f, keys[i],
                                    edge_ids=edge_ids,
                                    with_edge=self.with_edge)
@@ -285,6 +304,7 @@ class NeighborSampler(BaseSampler):
                                         PADDING_ID)
                 emask = emask & (src_local >= 0)[:, None]
 
+            st.next("sampler.induce", hop=i)
             cand = out.nbrs.reshape(-1)                       # [w*f]
             if last and not self.last_hop_dedup:
                 # Leaf block: no inducer at the widest frontier; local
@@ -339,6 +359,7 @@ class NeighborSampler(BaseSampler):
             count = new_count
             counts_per_hop.append(count)
 
+        st.next("sampler.finish")
         if node_buf.shape[0] < cap:
             node_buf = _pad(node_buf, cap - node_buf.shape[0])
         node_buf = node_buf[:cap]
@@ -368,6 +389,13 @@ class NeighborSampler(BaseSampler):
             else:
                 overflow = counts_per_hop[len(fanouts) - 1] > leaf_off
             metadata = {"overflow": overflow}
+        num_sampled_edges = torch.stack(edges_per_hop)
+        if _tracing():
+            _device_counter("glt.sample.batches", dev).add_(
+                (seeds >= 0).any())
+            _device_counter("glt.sample.unique_nodes", dev).add_(count)
+            _device_counter("glt.sample.edges", dev).add_(
+                num_sampled_edges.sum())
         return SamplerOutput(
             node=node_buf,
             row=torch.cat(rows),
@@ -377,7 +405,7 @@ class NeighborSampler(BaseSampler):
             node_mask=node_mask,
             edge_mask=torch.cat(emasks),
             num_sampled_nodes=num_sampled_nodes,
-            num_sampled_edges=torch.stack(edges_per_hop),
+            num_sampled_edges=num_sampled_edges,
             metadata=metadata,
         )
 
@@ -453,23 +481,26 @@ class NeighborSampler(BaseSampler):
                              f"{tuple(blk.shape)}")
         if key is None:
             key = self._next_key()
-        if self.device.type != "cuda":
-            return self._sample_many(torch.as_tensor(blk), key)
         g = int(blk.shape[0])
-        prog = self._batched_programs.get(g)
-        if prog is None:
-            buf = torch.empty(tuple(blk.shape), dtype=torch.int32,
-                              device=self.device)
-            buf.copy_(torch.as_tensor(blk))
-            with compilewatch.label(f"sample_from_nodes_batched_{g}"):
-                prog = CapturedProgram(self._sample_many, [buf, key.clone()])
-            self._batched_programs[g] = prog
-            out = prog.replay()
-        else:
-            out = prog(blk, key)
-        return SamplerOutput(**{
-            f.name: _clone(getattr(out, f.name))
-            for f in dataclasses.fields(SamplerOutput)})
+        with _span("sampler.batched", batches=g):
+            if self.device.type != "cuda":
+                return self._sample_many(torch.as_tensor(blk), key)
+            prog = self._batched_programs.get(g)
+            if prog is None:
+                buf = torch.empty(tuple(blk.shape), dtype=torch.int32,
+                                  device=self.device)
+                buf.copy_(torch.as_tensor(blk))
+                with compilewatch.label(f"sample_from_nodes_batched_{g}"):
+                    prog = CapturedProgram(self._sample_many,
+                                           [buf, key.clone()])
+                self._batched_programs[g] = prog
+                out = prog.replay()
+            else:
+                out = prog(blk, key)
+            with _span("sampler.outputs"):
+                return SamplerOutput(**{
+                    f.name: _clone(getattr(out, f.name))
+                    for f in dataclasses.fields(SamplerOutput)})
 
     def sample_one_hop(self, srcs, fanout: int,
                        key: Optional[torch.Tensor] = None):

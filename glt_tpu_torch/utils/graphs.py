@@ -18,7 +18,10 @@ A failed capture raises :class:`GraphCaptureError`; nothing runs
 eagerly in its place.  Each capture reports itself to
 :mod:`glt_tpu_torch.obs.compilewatch` (``glt.compile.count`` and
 ``glt.compile.ms`` under the caller's ``compilewatch.label``), the
-port's counterpart of an XLA compilation.  The object is built only for
+port's counterpart of an XLA compilation.  A call opens the host spans
+``graph.stage`` (the copies into the input buffers) and
+``graph.replay`` (the launch), each with the attribute ``program``, that
+label: which of the two a caller's host waits in.  The object is built only for
 CUDA tensors: on the CPU the callers run ``fn`` eagerly, as before.
 """
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ..obs import compilewatch
+from ..obs.trace import span
 
 
 class GraphCaptureError(RuntimeError):
@@ -105,6 +109,7 @@ class CapturedProgram:
                              "the CPU run the program eagerly")
         dev = inputs[0].device
         self.inputs = inputs
+        self.program = compilewatch.current_label()
         cur = torch.cuda.current_stream(dev)
         if warmup:
             side = torch.cuda.Stream(dev)
@@ -130,7 +135,8 @@ class CapturedProgram:
     def replay(self) -> Any:
         """Replay the graph on the current stream; return the static
         outputs (valid once the stream reaches them)."""
-        self.graph.replay()
+        with span("graph.replay", program=self.program):
+            self.graph.replay()
         return self.outputs
 
     def __call__(self, *values) -> Any:
@@ -138,6 +144,7 @@ class CapturedProgram:
         if len(values) != len(self.inputs):
             raise ValueError(f"expected {len(self.inputs)} inputs, got "
                              f"{len(values)}")
-        for buf, v in zip(self.inputs, values):
-            _copy_into(buf, v)
+        with span("graph.stage", program=self.program):
+            for buf, v in zip(self.inputs, values):
+                _copy_into(buf, v)
         return self.replay()

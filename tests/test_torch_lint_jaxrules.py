@@ -1191,6 +1191,40 @@ TORCH_ONLY = [
                 g.replay()
             return y
         """, [9, 9]),
+    ("glt010_graph_safe_stage_and_counter", "GLT010", """
+        import torch
+        from glt_tpu_torch import obs
+        from glt_tpu_torch.obs.stages import device_counter, stage, tracing
+        from glt_tpu_torch.utils.graphs import CapturedProgram
+
+
+        def step(x):
+            with obs.stage("x.a", device=x.device) as st:
+                y = x + 1
+                st.next("x.b")
+                y = y * 2
+            with stage("x.c", device=x.device):
+                y = y - 1
+            if tracing():
+                device_counter("glt.x.rows", x.device).add_(y.numel())
+            return y
+        PROG = CapturedProgram(step, [BUF])
+        """, []),
+    ("glt010_host_span_beside_a_stage", "GLT010", """
+        import torch
+        from glt_tpu_torch import obs
+        from glt_tpu_torch.utils.graphs import CapturedProgram
+
+
+        def step(x):
+            with obs.stage("x.a", device=x.device):
+                y = x + 1
+            with obs.span("x.host"):      # runs once, at the capture
+                y = y * 2
+            obs.metrics.counter("glt.x").inc()
+            return y
+        PROG = CapturedProgram(step, [BUF])
+        """, [10, 12, 12]),
     ("glt013_helper_one_call_deep", "GLT013", """
         import torch
 
