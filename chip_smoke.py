@@ -1710,11 +1710,12 @@ def run_cached_block(torch, dev, sampler, ds, labels, train_idx, rows,
             self.x = torch.zeros((GROUP, sampler.node_capacity, FEAT_DIM),
                                  device=dev)
 
-        def forward(self, x, edge_index, edge_mask, dropout_key=None):
+        def forward(self, x, edge_index, edge_mask, dropout_key=None,
+                    bounds=None):
             self.x[self.calls % GROUP].copy_(x)
             self.calls += 1
             return self.inner(x, edge_index, edge_mask,
-                              dropout_key=dropout_key)
+                              dropout_key=dropout_key, bounds=bounds)
 
     rec = Recorder()
     state = create_train_state(rec, adam(LR))

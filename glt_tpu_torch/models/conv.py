@@ -9,10 +9,23 @@ segment max is ``scatter_reduce_("amax")`` over a ``-inf`` buffer.
 Mixed precision: ``dtype`` (e.g. ``torch.bfloat16``) is the compute
 type of the linear maps only; parameters, aggregation, the attention
 math and outputs stay float32, as in ``glt_tpu``.
+
+Trimming: :class:`SAGEConv` and :class:`GATConv` also run on a bipartite
+pair, the rows ``x`` as sources and their prefix ``x[:num_out]`` as
+destinations.  A stack given the hop prefixes of a sampled block
+(:func:`~glt_tpu_torch.sampler.neighbor_sampler.hop_prefixes`) computes
+each layer only where the last layer's first rows depend on it
+(:func:`layer_spans`): PyG's ``trim_to_layer``.  It relies on the
+sampler's layout: nodes in first-occurrence order, hop by hop; hop
+``k``'s edge slots after hop ``k - 1``'s; and each node expanded at most
+once, so a row's in-edges lie in one hop.  The scanned node train step
+passes the prefixes for a batch of ``batch_size`` distinct seeds, since
+its loss reads only the seed rows; every other caller, and that step's
+ragged batches, run the whole block.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +60,57 @@ def scatter_mean(msgs: torch.Tensor, dst: torch.Tensor, num_nodes: int,
     seg = _segments(dst, num_nodes, mask)
     cnt = msgs.new_zeros(num_nodes + 1).index_add_(0, seg, mask.to(msgs.dtype))
     return s / cnt[:num_nodes].clamp(min=1)[:, None]
+
+
+Span = Optional[Tuple[int, int, int]]
+# A block's hop prefixes ``(nodes, edges)``: the sampler's ``HopPrefixes``.
+Bounds = Optional[Tuple[Sequence[int], Sequence[int]]]
+
+
+def layer_spans(num_layers: int, num_rows: int, num_edges: int,
+                bounds: Bounds = None) -> List[Span]:
+    """``(input rows, output rows, edge slots)`` of each layer of a
+    ``num_layers`` stack over a block of ``num_rows`` rows and
+    ``num_edges`` edge slots.
+
+    Without ``bounds`` every layer spans the whole block (``None``).
+    With the block's hop prefixes ``bounds = (nodes, edges)`` (``nodes``
+    ending at ``num_rows``, ``edges`` at ``num_edges``), layer ``l`` of
+    ``L`` reads rows ``[0, nodes[L - l])`` and edges ``[0, edges[L - 1 -
+    l])`` and writes rows ``[0, nodes[L - 1 - l])``.  Those rows hold
+    the nodes within ``L - 1 - l`` hops, whose in-edges and sources the
+    spans hold, and they are all the next layer reads: so the last
+    layer's seed rows are those of the whole block.  A prefix past the
+    listed hops is the whole block."""
+    if bounds is None:
+        return [None] * num_layers
+    nodes, edges = bounds
+    if nodes[-1] != num_rows or edges[-1] != num_edges:
+        raise ValueError(
+            f"hop prefixes end at {nodes[-1]} rows and {edges[-1]} edge "
+            f"slots; the block has {num_rows} and {num_edges}")
+
+    def rows(k):
+        return nodes[k] if k < len(nodes) else num_rows
+
+    def slots(k):
+        return edges[k] if k < len(edges) else num_edges
+
+    last = num_layers - 1
+    return [(rows(last + 1 - l), rows(last - l), slots(last - l))
+            for l in range(num_layers)]
+
+
+def on_span(conv: nn.Module, x: torch.Tensor, edge_index: torch.Tensor,
+            edge_mask: torch.Tensor, span: Span) -> torch.Tensor:
+    """``conv`` over one layer's span of :func:`layer_spans`, reading
+    views of the rows and edge slots it spans; the whole block for
+    ``None``."""
+    if span is None:
+        return conv(x, edge_index, edge_mask)
+    rows_in, rows_out, slots = span
+    return conv(x[:rows_in], edge_index[:, :slots], edge_mask[:slots],
+                num_out=rows_out)
 
 
 def linear(lin: nn.Linear, x: torch.Tensor,
@@ -107,7 +171,9 @@ def segment_softmax(scores: torch.Tensor, seg: torch.Tensor,
 
 class SAGEConv(nn.Module):
     """GraphSAGE convolution (mean aggregator):
-    ``h_i = W_self x_i + b + W_nbr mean_{j->i} x_j``."""
+    ``h_i = W_self x_i + b + W_nbr mean_{j->i} x_j``, over all rows of
+    ``x`` or, given ``num_out``, over the bipartite pair of the rows
+    ``x`` (sources) and ``x[:num_out]`` (destinations)."""
 
     def __init__(self, in_features: int, out_features: int,
                  use_bias: bool = True, dtype: Optional[torch.dtype] = None):
@@ -117,14 +183,20 @@ class SAGEConv(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
-                edge_mask: torch.Tensor) -> torch.Tensor:
-        num_nodes = x.shape[0]
+                edge_mask: torch.Tensor,
+                num_out: Optional[int] = None) -> torch.Tensor:
+        """Rows ``[0, num_out)`` (all rows by default) from source rows
+        ``x``: edges whose destination lies past ``num_out`` go to the
+        spill row, as masked ones do."""
+        num_in = x.shape[0]
+        num_out = num_in if num_out is None else num_out
         src, dst = edge_index[0], edge_index[1]
         # index_select, not x[idx]: the same rows, but its backward is an
         # atomic index_add_, where x[idx]'s sorts the ids and sums each
         # run of equal ids serially, and every padded edge reads row 0.
-        msgs = x.index_select(0, src.clamp(0, max(num_nodes - 1, 0)).long())
-        agg = scatter_mean(msgs, dst, num_nodes, edge_mask)
+        msgs = x.index_select(0, src.clamp(0, max(num_in - 1, 0)).long())
+        agg = scatter_mean(msgs, dst, num_out, edge_mask)
+        x = x[:num_out]
         if self.dtype is None:
             return self.lin_self(x) + self.lin_nbr(agg)
         dt = self.dtype
@@ -159,21 +231,25 @@ class GATConv(nn.Module):
         nn.init.xavier_uniform_(self.att_dst)
 
     def forward(self, x: torch.Tensor, edge_index: torch.Tensor,
-                edge_mask: torch.Tensor) -> torch.Tensor:
+                edge_mask: torch.Tensor,
+                num_out: Optional[int] = None) -> torch.Tensor:
+        """Rows ``[0, num_out)`` (all rows by default), as
+        :meth:`SAGEConv.forward`."""
         n = x.shape[0]
+        m = n if num_out is None else num_out
         h, f = self.heads, self.out_features
         src, dst = edge_index[0], edge_index[1]
         src_c = src.clamp(0, max(n - 1, 0)).long()
-        dst_c = dst.clamp(0, max(n - 1, 0)).long()
+        dst_c = dst.clamp(0, max(m - 1, 0)).long()
         z = linear(self.lin, x, self.dtype).reshape(n, h, f)
         alpha_src = (z * self.att_src).sum(-1)                # [N, h]
-        alpha_dst = (z * self.att_dst).sum(-1)
+        alpha_dst = (z[:m] * self.att_dst).sum(-1)
         e = F.leaky_relu(alpha_src.index_select(0, src_c)
                          + alpha_dst.index_select(0, dst_c),
                          self.negative_slope)                 # [E, h]
-        alpha = segment_softmax(e, dst, n, edge_mask)
+        alpha = segment_softmax(e, dst, m, edge_mask)
         msgs = z.index_select(0, src_c) * alpha[:, :, None]  # [E, h, f]
-        out = scatter_sum(msgs.reshape(-1, h * f), dst, n,
-                          edge_mask).reshape(n, h, f)
-        out = out.reshape(n, h * f) if self.concat else out.mean(dim=1)
+        out = scatter_sum(msgs.reshape(-1, h * f), dst, m,
+                          edge_mask).reshape(m, h, f)
+        out = out.reshape(m, h * f) if self.concat else out.mean(dim=1)
         return out + self.bias

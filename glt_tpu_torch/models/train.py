@@ -52,7 +52,7 @@ replay runs no Python, but for the graph-safe stages of
 from __future__ import annotations
 
 import time
-from typing import Callable, Iterable, NamedTuple, Optional
+from typing import Callable, Hashable, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -74,6 +74,7 @@ from ..ops.fused_frontier import fused_frontier
 from ..ops.gather_cuda import gather_rows
 from ..ops.unique import relabel_by_reference, unique_first_occurrence
 from ..sampler.base import NodeSamplerInput
+from ..sampler.neighbor_sampler import HopPrefixes, hop_prefixes
 from ..typing import PADDING_ID, reverse_edge_type
 from ..utils.device import same_device
 from ..utils.graphs import CapturedProgram
@@ -88,6 +89,10 @@ _M_EPOCHS = _metrics.counter(
 _M_BLOCK_MS = _metrics.histogram(
     "glt.train.block_ms",
     "wall per [G, B] block: dispatch + (when a hook syncs) device wait")
+_M_TRIMMED = _metrics.counter(
+    "glt.train.trimmed_steps",
+    "real batches the scanned node step dispatched with its layers "
+    "trimmed to the hops the seeds' loss reads")
 
 
 class TrainState(NamedTuple):
@@ -334,14 +339,18 @@ class _ScannedBlocks:
 
     ``block(model, opt, blocks, key, real)`` trains the block's batches
     (``blocks``: the host blocks as device tensors; ``real``: a ``[G]``
-    bool tuple) and advances ``step_count`` (when given) in place per
-    real batch; ``step_count`` is set from ``state.step`` before each
-    call, and the returned state's counter moves by ``sum(real)``.  With
+    tuple, falsy for a batch that is not real) and advances
+    ``step_count`` (when given) in place per real batch; ``step_count``
+    is set from ``state.step`` before each call, and the returned
+    state's counter moves by the number of real batches.  With
     ``skip_padded`` a batch whose first block holds no id ``>= 0`` in
     any position (all axes but the first) is not real: the block skips
     it, so a fully padded batch is a no-op without a sync.  Without it
     every batch is real (steps where a padded batch still trains), and
-    the pattern is the blocks' shapes alone.
+    the pattern is the blocks' shapes alone.  ``kind``, when given, maps
+    a real batch's first block (a host array) to a truthy hashable that
+    stands in ``real`` for its ``True``, so the block can run batches of
+    another kind another way; the pattern holds the kinds.
 
     On the card the block is one CUDA graph per pattern (the blocks'
     shapes and ``real``) over static block and key buffers, filled
@@ -356,13 +365,15 @@ class _ScannedBlocks:
     def __init__(self, dev: torch.device, block: Callable,
                  step_count: Optional[torch.Tensor], program: str,
                  held: Callable[[], tuple] = tuple,
-                 skip_padded: bool = True):
+                 skip_padded: bool = True,
+                 kind: Optional[Callable[[np.ndarray], Hashable]] = None):
         self.dev = dev
         self.program = program
         self.block = block
         self.step_count = step_count
         self.held = held
         self.skip_padded = skip_padded
+        self.kind = kind
         self._programs = {}  # pattern -> (CapturedProgram, storage)
         self._warm = {}      # pattern -> storage of its eager call
 
@@ -402,6 +413,10 @@ class _ScannedBlocks:
                          (blks[0].reshape(g, -1) >= 0).any(axis=1))
         else:
             real = (True,) * g
+        if self.kind is not None:
+            real = tuple(self.kind(b) if r else False
+                         for r, b in zip(real, blks[0]))
+        n_real = sum(map(bool, real))
         pattern = (tuple(b.shape for b in blks), real)
         if self.step_count is not None:
             self.step_count.fill_(state.step)
@@ -419,7 +434,7 @@ class _ScannedBlocks:
             if dev.type == "cuda":
                 self._warm[pattern] = self._bound(state)
         state = TrainState(state.model, state.optimizer,
-                           state.step + sum(real))
+                           state.step + n_real)
         return (state,) + tuple(outs)
 
 
@@ -452,13 +467,36 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
     on every route.  The model and optimizer must live on the sampler's
     graph device.
 
-    On the card the block is one CUDA graph per real-batch pattern of
-    the block (a ``[G]`` bool tuple), over static seed and key buffers:
+    The loss reads the seed rows alone, so for a batch of ``B`` distinct
+    seeds (no -1, no repeat; told from the host block) the step passes
+    the model the block's hop prefixes (``bounds=``,
+    :func:`~glt_tpu_torch.sampler.neighbor_sampler.hop_prefixes` of the
+    sampler's static layout) and each layer computes only the rows and
+    edges the seeds' logits depend on.  The seeds' logits, the loss, the
+    gradients and the updates are those of the whole block.  Any other
+    real batch (an epoch's ragged last) runs the whole block: its rows
+    after the seeds hold nodes of later hops, whose logits the loss
+    reads too, as in ``glt_tpu``.  A model the step drives must take the
+    ``bounds`` keyword (:class:`GraphSAGE` and :class:`GAT` do), and
+    ``batch_size`` must be the sampler's.  ``glt.train.trimmed_steps``
+    counts the batches dispatched with bounds, and the gauges
+    ``glt.train.trim_rows_share`` and ``glt.train.trim_edges_share``
+    (label ``hops``: the layer whose outputs are the nodes within that
+    many hops, layer ``L - 1 - hops`` of ``L``) hold the share of the
+    block each layer computes, set once here while metrics are on.
+
+    On the card the block is one CUDA graph per pattern of its batches
+    (padded, trimmed or whole), over static seed and key buffers:
     the first call at a pattern, or after the model's, the optimizer's
     or the cache's tensors were replaced, runs eagerly (it creates
     Adam's state); the next captures the block and every later call
     replays it.  On the CPU every call runs eagerly.
     """
+    if batch_size != sampler.batch_size:
+        raise ValueError(
+            f"batch_size {batch_size} is not the sampler's "
+            f"{sampler.batch_size}: the step trims its layers to the "
+            f"sampler's layout")
     g = sampler.graph
     dev = sampler.device
     hot_rows, id2index = _device_rows(rows, dev)
@@ -474,14 +512,26 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
     step_count = torch.zeros((), dtype=torch.int32, device=dev)
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    bounds = hop_prefixes(sampler.batch_size, sampler.num_neighbors,
+                          sampler.frontier_cap, sampler.node_capacity)
+    _record_trim(bounds)
+
+    def kind(seeds: np.ndarray) -> str:
+        # A real batch of B distinct seeds trims; it counts as dispatched
+        # with bounds here, on the host, since a replayed graph runs no
+        # host code.
+        if (seeds >= 0).all() and np.unique(seeds).size == seeds.size:
+            _M_TRIMMED.inc()
+            return "trimmed"
+        return "whole"
 
     def block(model, opt, blocks, key, real):
         seeds, = blocks
         keys = trandom.split(key, len(real))
         cache = holder["cache"]
         losses, accs, ovfs = [], [], []
-        for i, is_real in enumerate(real):
-            if not is_real:
+        for i, kind_i in enumerate(real):
+            if not kind_i:
                 losses.append(zero_f)
                 accs.append(zero_f)
                 ovfs.append(zero_i)
@@ -496,7 +546,9 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
                 logits = model(x, torch.stack([out.row, out.col]),
                                out.edge_mask,
                                dropout_key=trandom.fold_in(dropout_base,
-                                                           step_count))
+                                                           step_count),
+                               bounds=(bounds if kind_i == "trimmed"
+                                       else None))
                 loss, acc = seed_cross_entropy(logits, y, batch_size,
                                                out.node_mask)
             _backward_and_step(opt, loss)
@@ -515,7 +567,8 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
 
     step = _ScannedBlocks(dev, block, step_count, "scanned_node_step",
                           lambda: (() if holder["cache"] is None
-                                   else tuple(holder["cache"])))
+                                   else tuple(holder["cache"])),
+                          kind=kind)
 
     def set_feature_cache(new_cache: FeatureCacheState) -> None:
         # Checkpoint-restore seam: a resumed run pushes its restored
@@ -527,6 +580,20 @@ def make_scanned_node_train_step(sampler, rows, labels, batch_size: int,
     step.feature_cache = lambda: holder["cache"]
     step.set_feature_cache = set_feature_cache
     return step
+
+
+def _record_trim(bounds: HopPrefixes) -> None:
+    """The share of the block's rows and edge slots that the layer
+    whose outputs are the nodes within ``hops`` hops computes."""
+    nodes, edges = bounds
+    for k in range(len(edges)):
+        labels = {"hops": str(k)}
+        _metrics.gauge("glt.train.trim_rows_share",
+                       "share of the block's rows a trimmed layer computes",
+                       labels=labels).set(nodes[k] / nodes[-1])
+        _metrics.gauge("glt.train.trim_edges_share",
+                       "share of the block's edge slots a trimmed layer "
+                       "reads", labels=labels).set(edges[k] / edges[-1])
 
 
 def hetero_init_shapes(sampler, feats, rows_of):

@@ -27,7 +27,8 @@ the hotness estimate of the frequency partitioner
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+import itertools
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -88,6 +89,41 @@ def max_sampled_nodes(batch_size: int, fanouts: Sequence[int],
     """Padded node capacity: the zero-dedup worst case."""
     widths = hop_widths(batch_size, fanouts, frontier_cap)
     return widths[0] + sum(w * f for w, f in zip(widths, fanouts))
+
+
+class HopPrefixes(NamedTuple):
+    """Static bounds of a sampled block's hop-ordered layout.
+
+    ``nodes[k]`` (``k = 0..H``) bounds the rows of the nodes reached
+    within ``k`` hops; ``edges[k]`` (``k = 0..H-1``) is the end of hop
+    ``k``'s edge slots, so hops ``0..k`` are the slots ``[0, edges[k])``.
+    """
+    nodes: List[int]
+    edges: List[int]
+
+
+def hop_prefixes(batch_size: int, fanouts: Sequence[int],
+                 frontier_cap: Optional[int] = None,
+                 node_capacity: Optional[int] = None) -> HopPrefixes:
+    """The hop prefixes of the blocks a sampler with these settings
+    lays out: ``nodes[k] = min(B + sum_{j<k} w_j f_j, capacity)`` and
+    ``edges[k] = sum_{j<=k} w_j f_j`` over the hop widths ``w_j``
+    (:func:`hop_widths`).
+
+    They hold because nodes keep first-occurrence order (the seeds,
+    then the nodes new at each hop), hop ``k`` expands only the nodes
+    new at hop ``k - 1`` (each node once, so all of a row's in-edges lie
+    in one hop's slots), and a leaf block (``last_hop_dedup=False``)
+    holds only the last hop's nodes, sources of the last hop's slots
+    alone.  With a frontier cap or an occupancy cap the bounds stay upper
+    bounds: fewer nodes are reached within ``k`` hops, none later."""
+    widths = hop_widths(batch_size, fanouts, frontier_cap)
+    slots = [w * f for w, f in zip(widths, fanouts)]
+    cap = (batch_size + sum(slots) if node_capacity is None
+           else int(node_capacity))
+    nodes = [min(batch_size + sum(slots[:k]), cap)
+             for k in range(len(slots) + 1)]
+    return HopPrefixes(nodes, list(itertools.accumulate(slots)))
 
 
 def measure_occupancy(sampler: "NeighborSampler", seed_batches) -> np.ndarray:

@@ -1122,17 +1122,17 @@ C4_JUSTIFIED = sorted([
     ("chip_smoke.py", 906, "GLT004"),
     ("chip_smoke.py", 956, "GLT022"),
     ("chip_smoke.py", 1580, "GLT002"),
-    ("chip_smoke.py", 2783, "GLT002"),
-    ("chip_smoke.py", 5082, "GLT002"),
-    ("chip_smoke.py", 5202, "GLT002"),
-    ("chip_smoke.py", 7396, "GLT004"),
-    ("chip_smoke.py", 7409, "GLT022"),
+    ("chip_smoke.py", 2784, "GLT002"),
+    ("chip_smoke.py", 5083, "GLT002"),
+    ("chip_smoke.py", 5203, "GLT002"),
+    ("chip_smoke.py", 7397, "GLT004"),
+    ("chip_smoke.py", 7410, "GLT022"),
     ("glt_tpu_torch/examples/datasets.py", 38, "GLT004"),
     ("glt_tpu_torch/examples/datasets.py", 38, "GLT004"),
     ("glt_tpu_torch/examples/datasets.py", 60, "GLT004"),
     ("glt_tpu_torch/examples/datasets.py", 60, "GLT004"),
-    ("glt_tpu_torch/models/train.py", 222, "GLT004"),
-    ("glt_tpu_torch/models/train.py", 829, "GLT013"),
+    ("glt_tpu_torch/models/train.py", 227, "GLT004"),
+    ("glt_tpu_torch/models/train.py", 896, "GLT013"),
     ("glt_tpu_torch/ops/fused_frontier.py", 64, "GLT004"),
     ("glt_tpu_torch/ops/subgraph.py", 60, "GLT004"),
     ("glt_tpu_torch/parallel/dist_train.py", 579, "GLT013"),

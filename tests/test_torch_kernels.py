@@ -446,6 +446,55 @@ def test_scanned_step_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(losses[0], losses[1], rtol=1e-4, atol=1e-5)
 
 
+class _WholeBlock(torch.nn.Module):
+    """A model that runs the whole block whatever the step passes."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x, edge_index, edge_mask, dropout_key=None,
+                bounds=None):
+        return self.inner(x, edge_index, edge_mask, dropout_key=dropout_key)
+
+
+@pytest.mark.cuda
+def test_trimmed_node_step_replayed_matches_whole_block(cuda_device):
+    """The node step's layers trimmed to the seeds' hops, eager, captured
+    and replayed on the card, against the same step over a model that
+    runs the whole block: losses and parameters within the card's
+    summation order (rtol 1e-4)."""
+    indptr, indices, _, _ = _graph(5, 2000)
+    rng = np.random.default_rng(0)
+    feat = torch.from_numpy(
+        rng.standard_normal((2000, 100)).astype(np.float32)).to(cuda_device)
+    labels = rng.integers(0, 47, 2000)
+    g = Graph(CSRTopo.from_csr_arrays(indptr, indices), device=cuda_device)
+    s = NeighborSampler(g, [10, 5], batch_size=64, with_edge=False)
+    torch.manual_seed(0)
+    trimmed = GraphSAGE(100, 32, 47, num_layers=2).to(cuda_device)
+    whole = _WholeBlock(GraphSAGE(100, 32, 47, num_layers=2).to(cuda_device))
+    whole.inner.load_state_dict(trimmed.state_dict())
+    blocks = list(node_seed_blocks(np.arange(2000)[:3 * 3 * 64], 64, 3,
+                                   np.random.default_rng(1)))
+    blocks[2][2, 10:] = -1                   # a ragged batch
+    runs = []
+    for model in (trimmed, whole):
+        step = make_scanned_node_train_step(s, feat, labels, 64,
+                                            fused_frontier=True)
+        state = create_train_state(model, adam(1e-3))
+        losses = []
+        for i, blk in enumerate(blocks):
+            state, ls, _, _ = step(state, blk,
+                                   trandom.PRNGKey(30 + i, device=cuda_device))
+            losses.append(ls)
+        runs.append(torch.cat(losses).cpu())
+    torch.testing.assert_close(runs[0], runs[1], rtol=1e-4, atol=1e-5)
+    for (k, a), b in zip(trimmed.state_dict().items(),
+                         whole.inner.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=k)
+
+
 def compressed_table(codec, n, d, rng):
     """``(codes [n, d], sz [8, d])`` covering the decode's edge cases:
     an encoded matrix with a constant column (scale 0), signed zeros and
