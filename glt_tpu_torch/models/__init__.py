@@ -3,6 +3,7 @@ from .convert import params_from_flax
 from .gat import GAT
 from .hgt import HGT, HGTConv
 from .rgat import RGAT, HeteroConv
+from .rgnn import RGNN
 from .sage import GraphSAGE
 from .train import (
     TrainState,
@@ -25,7 +26,8 @@ from .train import (
 )
 
 __all__ = ["GAT", "GATConv", "GraphSAGE", "HGT", "HGTConv", "HeteroConv",
-           "RGAT", "SAGEConv", "TrainState", "adam", "create_train_state",
+           "RGAT", "RGNN", "SAGEConv", "TrainState", "adam",
+           "create_train_state",
            "hetero_init_shapes", "init_hetero_state", "link_seed_blocks",
            "make_cached_gather_xy", "make_eval_step", "make_gather_xy",
            "make_scanned_hetero_train_step", "make_scanned_link_train_step",

@@ -124,6 +124,43 @@ def linear(lin: nn.Linear, x: torch.Tensor,
                     None if bias is None else bias.to(dtype)).float()
 
 
+class _HeadScores(torch.autograd.Function):
+    """``(z * att).sum(-1)`` of a 16-bit ``z`` ``[n, heads, f]``, in
+    float32, keeping ``z`` itself for the backward instead of its
+    float32 copy (whose values are the same)."""
+
+    @staticmethod
+    def forward(ctx, z, att):
+        ctx.save_for_backward(z, att)
+        return (z.float() * att).sum(-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, att = ctx.saved_tensors
+        g = g[:, :, None]
+        return (g * att).to(z.dtype), (g * z.float()).sum(0)
+
+
+class _WeightedRows(torch.autograd.Function):
+    """``z[src] * alpha[..., None]`` in float32 from a 16-bit ``z``,
+    reading the rows again in the backward instead of keeping the
+    ``[E, heads, f]`` float32 gather."""
+
+    @staticmethod
+    def forward(ctx, z, src, alpha):
+        ctx.save_for_backward(z, src, alpha)
+        return z.index_select(0, src).float() * alpha[:, :, None]
+
+    @staticmethod
+    def backward(ctx, g):
+        z, src, alpha = ctx.saved_tensors
+        g_alpha = (g * z.index_select(0, src).float()).sum(-1)
+        g_z = torch.zeros(z.shape, dtype=torch.float32,
+                          device=z.device).index_add_(
+                              0, src, g * alpha[:, :, None])
+        return g_z.to(z.dtype), None, g_alpha
+
+
 def segment_max(scores: torch.Tensor, seg: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Per-segment max of ``scores`` ``[E, ...]`` over ``num_segments``
@@ -235,20 +272,48 @@ class GATConv(nn.Module):
                 num_out: Optional[int] = None) -> torch.Tensor:
         """Rows ``[0, num_out)`` (all rows by default), as
         :meth:`SAGEConv.forward`."""
-        n = x.shape[0]
-        m = n if num_out is None else num_out
+        m = x.shape[0] if num_out is None else num_out
+        z = self.project(x)
+        return self.attend(z, z[:m], edge_index, edge_mask)
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """``z = W x`` as ``[n, heads, out_features]``, float32 or, with a
+        ``dtype``, in that dtype (:meth:`attend` keeps those 16-bit rows
+        for its backward, not a float32 copy)."""
+        if self.dtype is None:
+            z = self.lin(x)
+        else:
+            z = F.linear(x.to(self.dtype), self.lin.weight.to(self.dtype))
+        return z.reshape(x.shape[0], self.heads, self.out_features)
+
+    def attend(self, z_src: torch.Tensor, z_dst: torch.Tensor,
+               edge_index: torch.Tensor,
+               edge_mask: torch.Tensor) -> torch.Tensor:
+        """The attention over projected rows: ``edge_index[0]`` indexes
+        ``z_src``, ``edge_index[1]`` the output rows, which are those of
+        ``z_dst``; heads combined, plus the bias.  The scores, softmax,
+        messages and sums run in float32 whatever ``z``'s dtype; of 16-bit
+        rows the backward keeps the rows themselves."""
+        n, m = z_src.shape[0], z_dst.shape[0]
         h, f = self.heads, self.out_features
         src, dst = edge_index[0], edge_index[1]
         src_c = src.clamp(0, max(n - 1, 0)).long()
         dst_c = dst.clamp(0, max(m - 1, 0)).long()
-        z = linear(self.lin, x, self.dtype).reshape(n, h, f)
-        alpha_src = (z * self.att_src).sum(-1)                # [N, h]
-        alpha_dst = (z[:m] * self.att_dst).sum(-1)
+        lean = z_src.dtype != torch.float32
+        if lean:
+            alpha_src = _HeadScores.apply(z_src, self.att_src)
+            alpha_dst = _HeadScores.apply(z_dst, self.att_dst)
+        else:
+            alpha_src = (z_src * self.att_src).sum(-1)        # [N, h]
+            alpha_dst = (z_dst * self.att_dst).sum(-1)
         e = F.leaky_relu(alpha_src.index_select(0, src_c)
                          + alpha_dst.index_select(0, dst_c),
                          self.negative_slope)                 # [E, h]
         alpha = segment_softmax(e, dst, m, edge_mask)
-        msgs = z.index_select(0, src_c) * alpha[:, :, None]  # [E, h, f]
+        if lean:
+            msgs = _WeightedRows.apply(z_src, src_c, alpha)
+        else:
+            msgs = z_src.index_select(0, src_c) * alpha[:, :, None]
         out = scatter_sum(msgs.reshape(-1, h * f), dst, m,
                           edge_mask).reshape(m, h, f)
         out = out.reshape(m, h * f) if self.concat else out.mean(dim=1)

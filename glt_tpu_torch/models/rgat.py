@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from .. import random as trandom
+from ..obs.stages import stage as _stage
 from ..typing import EdgeType, as_str
 from .conv import GATConv, SAGEConv, linear
 from .gat import dropout
@@ -57,15 +58,33 @@ class HeteroConv(nn.Module):
     destination rows so a homogeneous conv runs on one node array; they
     are projected to the destination width (``{et}_align``) only where
     the two widths differ.  An edge type whose ends lack features, or
-    whose batch holds no edges, is skipped."""
+    whose batch holds no edges, is skipped.
+
+    ``concat=True`` (GAT convs only) is PyG's ``HeteroConv`` over
+    ``GATConv(d, out_features // heads, heads)``: the heads concatenated
+    to ``out_features``, and each edge type's conv run on the bipartite
+    pair, its source rows and its destination rows each projected by the
+    one ``W`` (once when both ends are one type), with no stacking and
+    no alignment (both ends must have one width).  Each edge type is
+    then two graph-safe stages (:mod:`glt_tpu_torch.obs.stages`):
+    ``rgat.proj`` (the projections) and ``rgat.attn`` (scores,
+    :func:`~glt_tpu_torch.models.conv.segment_softmax` and the weighted
+    sum), attrs ``layer`` (the constructor's) and ``relation``."""
 
     def __init__(self, edge_types: Sequence[EdgeType],
                  in_features: Dict[str, int], out_features: int,
                  conv: str = "sage", heads: int = 2,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, concat: bool = False,
+                 layer: Optional[int] = None):
         super().__init__()
         self.edge_types = [tuple(et) for et in edge_types]
         self.dtype = dtype
+        self.concat = bool(concat)
+        self.layer = layer
+        if self.concat and (conv != "gat" or out_features % heads):
+            raise ValueError("concat takes GAT convs whose heads divide "
+                             f"out_features (got {conv!r}, {out_features} "
+                             f"over {heads})")
         self.convs = nn.ModuleDict()
         self.align = nn.ModuleDict()
         for et in self.edge_types:
@@ -73,6 +92,14 @@ class HeteroConv(nn.Module):
             if src_t not in in_features or dst_t not in in_features:
                 continue
             d_dst = in_features[dst_t]
+            if self.concat:
+                if in_features[src_t] != d_dst:
+                    raise ValueError(f"concat: {et} joins widths "
+                                     f"{in_features[src_t]} and {d_dst}")
+                self.convs[as_str(et)] = GATConv(
+                    d_dst, out_features // heads, heads=heads, concat=True,
+                    dtype=dtype)
+                continue
             if in_features[src_t] != d_dst:
                 self.align[as_str(et)] = nn.Linear(in_features[src_t], d_dst)
             if conv == "gat":
@@ -85,6 +112,8 @@ class HeteroConv(nn.Module):
 
     def forward(self, x: Dict[str, torch.Tensor], edge_index, edge_mask
                 ) -> Dict[str, torch.Tensor]:
+        if self.concat:
+            return self._pairs(x, edge_index, edge_mask)
         outs: Dict[str, list] = {}
         for et in self.edge_types:
             src_t, _, dst_t = et
@@ -104,6 +133,29 @@ class HeteroConv(nn.Module):
                                     ei[1]])
             h = self.convs[name](joint, ei_shift, edge_mask[et])
             outs.setdefault(dst_t, []).append(h[:n_dst])
+        return {t: sum(hs) for t, hs in outs.items()}
+
+    def _pairs(self, x, edge_index, edge_mask) -> Dict[str, torch.Tensor]:
+        """The ``concat`` forward: each edge type on its bipartite pair."""
+        outs: Dict[str, list] = {}
+        for et in self.edge_types:
+            src_t, _, dst_t = et
+            name = as_str(et)
+            if (name not in self.convs or et not in edge_index
+                    or src_t not in x or dst_t not in x):
+                continue
+            ei = edge_index[et]
+            if ei.shape[-1] == 0:
+                continue
+            conv = self.convs[name]
+            with _stage("rgat.proj", device=ei.device, layer=self.layer,
+                        relation=name) as st:
+                z_src = conv.project(x[src_t])
+                z_dst = (z_src if src_t == dst_t
+                         else conv.project(x[dst_t]))
+                st.next("rgat.attn", layer=self.layer, relation=name)
+                h = conv.attend(z_src, z_dst, ei, edge_mask[et])
+            outs.setdefault(dst_t, []).append(h)
         return {t: sum(hs) for t, hs in outs.items()}
 
 

@@ -46,8 +46,8 @@ captured block) and ``train.block.outputs`` (the output clones).
 Nothing inside a captured block opens a span or touches a metric, a
 replay runs no Python, but for the graph-safe stages of
 :mod:`glt_tpu_torch.obs.stages`: ``train.bwd`` (``loss.backward()``) and
-``train.optim`` (``opt.step()``) in every step, in the node block also
-``train.fwd`` (model and loss), beside the sampler's and the gather's.
+``train.optim`` (``opt.step()``) in every step, in the node and hetero
+blocks ``train.fwd`` too (model and loss), beside the sampler's and gather's.
 """
 from __future__ import annotations
 
@@ -663,8 +663,17 @@ def make_scanned_hetero_train_step(sampler, feats, labels, batch_size: int,
     [G])`` over a HOST ``[G, B]`` block (-1 padded); batch ``g`` samples
     with ``split(key, G)[g]`` and drops out with ``fold_in(PRNGKey(
     dropout_seed), step)``.  A fully padded batch is a no-op with loss
-    and accuracy 0.  On the card the block is one CUDA graph per
-    real-batch pattern, as the node step's; on the CPU it runs eagerly.
+    and accuracy 0.  A sampler with calibrated widths
+    (``frontier_widths``) adds ``overflows [G]``, each batch's
+    ``metadata["overflow"]`` flag, as the node step's, which
+    :func:`run_scanned_epoch` counts.  The tables may be float32 or
+    bfloat16 (kernel B2 gathers either; the model takes the rows as they
+    are).  On the card the block is one CUDA graph per real-batch
+    pattern, as the node step's; on the CPU it runs eagerly.
+
+    Its graph-safe stages, beside the sampler's: ``gather.plain`` (attr
+    ``node_type``) around each type's gather, and ``train.fwd`` around
+    the model and the loss.
     """
     dev = sampler.device
     tgt = sampler.input_type
@@ -682,32 +691,43 @@ def make_scanned_hetero_train_step(sampler, feats, labels, batch_size: int,
     dropout_base = trandom.PRNGKey(dropout_seed, device=dev)
     step_count = torch.zeros((), dtype=torch.int32, device=dev)
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    flags = sampler.capped
 
     def block(model, opt, blocks, key, real):
         seeds, = blocks
         keys = trandom.split(key, len(real))
-        losses, accs = [], []
+        losses, accs, ovfs = [], [], []
         for i, is_real in enumerate(real):
             if not is_real:
                 losses.append(zero_f)
                 accs.append(zero_f)
+                ovfs.append(zero_i)
                 continue
             out = sampler._sample_impl(widths, cap, graph_arrays,
                                        {tgt: seeds[i]}, keys[i])
-            x = {t: gather_ids(rows[t][0], node, rows[t][1])
-                 for t, node in out.node.items() if t in rows}
+            x = {}
+            for t, node in out.node.items():
+                if t in rows:
+                    with _stage("gather.plain", device=dev, node_type=t):
+                        x[t] = gather_ids(rows[t][0], node, rows[t][1])
             y = gather_labels(labels_tgt, out.node[tgt])
             edge_index = {et: torch.stack([out.row[et], out.col[et]])
                           for et in out.row}
-            logits = model(x, edge_index, out.edge_mask,
-                           dropout_key=trandom.fold_in(dropout_base,
-                                                       step_count))
-            loss, acc = seed_cross_entropy(logits, y, batch_size,
-                                           out.node_mask[tgt])
+            with _stage("train.fwd", device=dev):
+                logits = model(x, edge_index, out.edge_mask,
+                               dropout_key=trandom.fold_in(dropout_base,
+                                                           step_count))
+                loss, acc = seed_cross_entropy(logits, y, batch_size,
+                                               out.node_mask[tgt])
             _backward_and_step(opt, loss)
             step_count.add_(1)
             losses.append(loss.detach())
             accs.append(acc.to(torch.float32))
+            if flags:
+                ovfs.append(out.metadata["overflow"].to(torch.int32))
+        if flags:
+            return torch.stack(losses), torch.stack(accs), torch.stack(ovfs)
         return torch.stack(losses), torch.stack(accs)
 
     return _ScannedBlocks(dev, block, step_count, "scanned_hetero_step")
@@ -859,7 +879,8 @@ def run_scanned_epoch(step, state: TrainState, train_idx, batch_size: int,
     block under ``fold_in(base_key, i)``; the metrics come back in ONE
     device->host copy at the end.  Returns ``(state, losses [n_real],
     accs [n_real], overflow_count)`` as host numpy; ``overflow_count``
-    is 0 for a step without overflow flags (the hetero step).
+    is 0 for a step without overflow flags (the hetero step over a
+    sampler without calibrated widths).
 
     ``start_block``/``on_block`` are the resume seam
     (:class:`~glt_tpu_torch.ckpt.driver.TrainLoop`): the first

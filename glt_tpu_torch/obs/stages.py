@@ -311,14 +311,19 @@ class _NullCounter:
 _NULL_COUNTER = _NullCounter()
 
 
-def device_counter(name: str, device=None):
+def device_counter(name: str, device=None, labels=None):
     """The persistent int64 scalar counter ``name`` on ``device`` (the
     no-op counter when no tracer is installed); increment it in place
-    with ``add_``, captured or not."""
+    with ``add_``, captured or not.  ``labels`` (a mapping) make it its
+    own counter, read as ``name{k=v,...}`` as the metrics registry
+    names a labelled instrument."""
     if _trace._current is None:
         return _NULL_COUNTER
     import torch
 
+    if labels:
+        name += "{" + ",".join(f"{k}={v}" for k, v in
+                               sorted(labels.items())) + "}"
     dev = _device(torch, device)
     key = (name, str(dev))
     c = _counters.get(key)

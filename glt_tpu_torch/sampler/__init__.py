@@ -7,7 +7,12 @@ from .base import (
     SamplerOutput,
     SamplingConfig,
 )
-from .hetero_neighbor_sampler import HeteroNeighborSampler, hetero_hop_widths
+from .hetero_neighbor_sampler import (
+    HeteroNeighborSampler,
+    calibrate_frontier_widths,
+    hetero_hop_widths,
+    measure_levels,
+)
 from .neighbor_sampler import (
     NeighborSampler,
     HopPrefixes,
@@ -21,6 +26,7 @@ from .neighbor_sampler import (
 __all__ = ["BaseSampler", "EdgeSamplerInput", "HeteroNeighborSampler",
            "HeteroSamplerOutput", "HopPrefixes", "NegativeSampling",
            "NeighborSampler", "NodeSamplerInput", "SamplerOutput",
-           "SamplingConfig", "calibrate_node_capacity", "hetero_hop_widths",
-           "hop_prefixes", "hop_widths", "max_sampled_nodes",
+           "SamplingConfig", "calibrate_frontier_widths",
+           "calibrate_node_capacity", "hetero_hop_widths", "hop_prefixes",
+           "hop_widths", "max_sampled_nodes", "measure_levels",
            "measure_occupancy"]

@@ -17,6 +17,34 @@ final hop may skip dedup (``last_hop_dedup=False``) and write a leaf
 block.  The key of hop ``h`` and edge type ``i`` (the **sorted** edge
 types) is ``split(key, hops * types)[h * types + i]``, so a skipped
 edge type still owns its key, as in ``glt_tpu``.
+
+**Calibrated widths** (``frontier_widths``, from
+:func:`calibrate_frontier_widths`: the hetero counterpart of the node
+sampler's ``node_capacity``).  Level ``h`` of type ``t`` is the nodes of
+``t`` first reached at hop ``h - 1`` (level 0: the seeds), in first-
+occurrence order: per hop, the destination type's candidates in sorted
+edge-type order, each edge type's ``[w, f]`` slots row by row.  A given
+width ``W[h][t]`` sets both the hop-``h`` frontier of ``t`` (the first
+``W[h][t]`` nodes of level ``h``: a node past it is kept, with its
+edges, but expands no further hop) and, summed over the levels, the
+type's node buffer ``C[t]``: a node whose place in the type's
+cumulative first-occurrence list is ``C[t]`` or later is dropped, and
+its edges masked.  Edge slots of hop ``h`` and edge type ``(s, r, t)``
+number ``W[h][s] * f``.  ``metadata["overflow"]`` is set when a level's
+count exceeds its width, which happens exactly when the uncut sample
+has such a level: without one nothing is cut and the sample is the
+uncut one.  The default (no widths) is the worst case the fanouts give,
+as in ``glt_tpu``.
+
+**Observability** (:mod:`glt_tpu_torch.obs`, on while a tracer is
+installed): the graph-safe stages ``sampler.init`` (the dense maps and
+the seeds' insert), per hop and edge type ``sampler.draw`` (attrs
+``hop``, ``edge_type``: kernel B1), per hop and destination type
+``sampler.induce`` (attrs ``hop``, ``node_type``) and
+``sampler.finish``, the node sampler's names; the device counters
+``glt.sample.batches``, ``glt.sample.edges`` (valid sampled edges), and
+per node type ``glt.sample.unique_nodes`` (the clamped count) and, with
+calibrated widths, ``glt.sample.overflow`` (label ``node_type``).
 """
 from __future__ import annotations
 
@@ -27,6 +55,10 @@ import torch
 
 from .. import random as trandom
 from ..data.graph import Graph
+from ..obs.stages import NULL_STAGE as _NULL_STAGE
+from ..obs.stages import device_counter as _device_counter
+from ..obs.stages import stage as _stage
+from ..obs.stages import tracing as _tracing
 from ..ops.negative_sample import sample_negative_edges, weighted_draw
 from ..ops.neighbor_sample import sample_neighbors
 from ..ops.unique import (
@@ -37,7 +69,7 @@ from ..ops.unique import (
     relabel_by_reference,
     unique_first_occurrence,
 )
-from ..typing import EdgeType, NodeType, PADDING_ID, reverse_edge_type
+from ..typing import EdgeType, NodeType, PADDING_ID, as_str, reverse_edge_type
 from .base import (
     BaseSampler,
     EdgeSamplerInput,
@@ -53,6 +85,7 @@ def hetero_hop_widths(
     seed_widths: Dict[NodeType, int],
     num_hops: int,
     frontier_cap: Optional[int] = None,
+    frontier_widths: Optional[Sequence[Dict[NodeType, int]]] = None,
 ) -> Tuple[List[Dict[NodeType, int]], Dict[NodeType, int]]:
     """Static frontier width per (hop, node type) and the total capacity
     per type.
@@ -61,8 +94,14 @@ def hetero_hop_widths(
     first discovered at hop ``i - 1`` across all edge types ending in
     ``t``; ``seed_widths`` gives the hop-0 frontiers.  ``frontier_cap``
     bounds each (hop, type) frontier; nodes discovered beyond it stay
-    in the node set but expand no further hop.
+    in the node set but expand no further hop.  ``frontier_widths``
+    (levels ``1..H``, ``frontier_widths[i - 1][t]``; a type left out is
+    0) gives each (hop, type) width instead, held to what the fanouts
+    can reach from the widths before it.
     """
+    if frontier_widths is not None and len(frontier_widths) != num_hops:
+        raise ValueError(f"{len(frontier_widths)} levels of widths for "
+                         f"{num_hops} hops")
     ntypes = sorted({et[0] for et in edge_types} | {et[2] for et in edge_types}
                     | set(seed_widths))
     widths: List[Dict[NodeType, int]] = [
@@ -75,9 +114,52 @@ def hetero_hop_widths(
                 nxt[et[2]] += widths[hop][et[0]] * fanouts[hop]
         if frontier_cap is not None:
             nxt = {t: min(w, frontier_cap) for t, w in nxt.items()}
+        if frontier_widths is not None:
+            nxt = {t: min(max(int(frontier_widths[hop].get(t, 0)), 0), w)
+                   for t, w in nxt.items()}
         widths.append(nxt)
     capacity = {t: sum(w[t] for w in widths) for t in ntypes}
     return widths, capacity
+
+
+def measure_levels(sampler: "HeteroNeighborSampler", seed_batches
+                   ) -> Dict[NodeType, np.ndarray]:
+    """``node_type -> [batches, H + 1]`` level counts (the nodes of the
+    type first reached at each hop, level 0 the seeds) of each seed
+    batch sampled through ``sampler``, fetched in ONE host copy."""
+    types = sampler.node_types
+    counts = []
+    for seeds in seed_batches:
+        out = sampler.sample_from_nodes(NodeSamplerInput(seeds))
+        counts.append(torch.stack([out.num_sampled_nodes[t] for t in types]))
+    if not counts:
+        return {t: np.zeros((0, sampler.num_hops + 1), np.int32)
+                for t in types}
+    host = torch.stack(counts).cpu().numpy()
+    return {t: host[:, i] for i, t in enumerate(types)}
+
+
+def calibrate_frontier_widths(sampler: "HeteroNeighborSampler",
+                              seed_batches=None, pct: float = 99.0,
+                              margin: float = 1.05, multiple: int = 64,
+                              counts: Optional[Dict[NodeType, np.ndarray]]
+                              = None) -> List[Dict[NodeType, int]]:
+    """Per-(hop, node type) widths sized from the graph: the ``pct``
+    percentile of each level's count over ``seed_batches`` (sampled
+    through ``sampler``, typically uncapped) times ``margin``, rounded up
+    to ``multiple`` nodes; a level no batch reached stays 0.  Levels
+    ``1..H``; feed them to ``HeteroNeighborSampler(frontier_widths=...)``
+    (which holds each to what the fanouts can reach)."""
+    if counts is None:
+        counts = measure_levels(sampler, seed_batches)
+    out: List[Dict[NodeType, int]] = []
+    for h in range(1, sampler.num_hops + 1):
+        level = {}
+        for t, c in counts.items():
+            w = float(np.percentile(c[:, h], pct)) * margin
+            level[t] = int(np.ceil(w / multiple) * multiple)
+        out.append(level)
+    return out
 
 
 def _node_mask(buf: torch.Tensor, count: torch.Tensor, fast) -> torch.Tensor:
@@ -122,6 +204,10 @@ class HeteroNeighborSampler(BaseSampler):
       input_type: node type of the seeds.
       batch_size: static seed width (callers pad).
       frontier_cap: optional cap on each (hop, node type) frontier.
+      frontier_widths: optional calibrated widths of levels ``1..H``
+        (``[{node_type: width}]``, :func:`calibrate_frontier_widths`):
+        they bound the frontiers, the node buffers and the edge slots,
+        and flag ``metadata["overflow"]`` (module docstring).
       seed: base key seed; each sample without an explicit key folds in
         a call counter.
       last_hop_dedup: when False, a type's final-hop candidates skip the
@@ -129,10 +215,16 @@ class HeteroNeighborSampler(BaseSampler):
         width allows.
     """
 
+    #: Whether calibrated widths bound the sample (set in ``__init__``;
+    #: a planner built without it samples the worst case).
+    capped = False
+
     def __init__(self, graphs: Dict[EdgeType, Graph], num_neighbors,
                  input_type: NodeType, batch_size: int = 512,
                  frontier_cap: Optional[int] = None, seed: int = 0,
-                 last_hop_dedup: bool = True):
+                 last_hop_dedup: bool = True,
+                 frontier_widths: Optional[Sequence[Dict[NodeType, int]]]
+                 = None):
         self.graphs = graphs
         self.edge_types = sorted(graphs.keys())
         self.device = graphs[self.edge_types[0]].device
@@ -149,10 +241,14 @@ class HeteroNeighborSampler(BaseSampler):
         self.frontier_cap = frontier_cap
         self._base_key = trandom.PRNGKey(seed, device=self.device)
         self._call_count = 0
+        self.capped = frontier_widths is not None
+        if self.capped and frontier_cap is not None:
+            raise ValueError("frontier_widths and frontier_cap exclude each "
+                             "other")
         self._widths, self._capacity = hetero_hop_widths(
             self.edge_types, self.num_neighbors,
             {input_type: self.batch_size}, self.num_hops,
-            frontier_cap=frontier_cap)
+            frontier_cap=frontier_cap, frontier_widths=frontier_widths)
         self.node_types = sorted(self._capacity.keys())
         # A type's id space covers both of its roles: its CSR row count
         # where it is a source, and the largest destination id arriving
@@ -203,10 +299,12 @@ class HeteroNeighborSampler(BaseSampler):
             return sample_neighbors(indptr, indices, frontier, fanout,
                                     hop_key, edge_ids=edge_ids)
 
-        return drive_steps(
-            self._sample_steps(widths, cap, seeds_dict, key), one_hop)
+        with _stage("sampler.init", device=self.device) as st:
+            return drive_steps(
+                self._sample_steps(widths, cap, seeds_dict, key, st),
+                one_hop)
 
-    def _sample_steps(self, widths, cap, seeds_dict, key):
+    def _sample_steps(self, widths, cap, seeds_dict, key, st=_NULL_STAGE):
         """The multi-hop body as a generator: it yields each one-hop
         request ``(edge type, frontier [w], fanout, key)`` and takes its
         :class:`~glt_tpu_torch.ops.neighbor_sample.NeighborOutput` back
@@ -216,7 +314,8 @@ class HeteroNeighborSampler(BaseSampler):
         batch, so the distributed sampler runs one generator a shard in
         lockstep and answers each round with one exchange over all
         shards (``glt_tpu``'s ``one_hop=`` override under
-        ``shard_map``)."""
+        ``shard_map``).  ``st``: the open ``sampler.init`` stage that
+        the body moves on at its boundaries (no-op by default)."""
         node_types = sorted(cap.keys())
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
@@ -275,6 +374,8 @@ class HeteroNeighborSampler(BaseSampler):
 
         n_et = len(self.edge_types)
         keys = trandom.split(key, self.num_hops * n_et)
+        over = {t: torch.zeros((), dtype=torch.bool, device=dev)
+                for t in node_types}
 
         for hop in range(self.num_hops):
             last = hop + 1 == self.num_hops
@@ -286,6 +387,7 @@ class HeteroNeighborSampler(BaseSampler):
                 w = widths[hop][et[0]]
                 if f <= 0 or w <= 0 or frontier[et[0]] is None:
                     continue
+                st.next("sampler.draw", hop=hop, edge_type=as_str(et))
                 out = yield (et, frontier[et[0]], f,
                              keys[hop * n_et + ei_idx])
                 src_local = frontier_start[et[0]] + torch.arange(w, **i32)
@@ -299,6 +401,7 @@ class HeteroNeighborSampler(BaseSampler):
                 ets = [et for et in hop_out if et[2] == t]
                 if not ets:
                     continue
+                st.next("sampler.induce", hop=hop, node_type=t)
                 cands = torch.cat([hop_out[et][0].nbrs.reshape(-1)
                                    for et in ets])
                 buflen = node_buf[t].shape[0]
@@ -354,6 +457,10 @@ class HeteroNeighborSampler(BaseSampler):
 
                 old_count = count[t]
                 nw = widths[hop + 1][t]
+                if self.capped:
+                    # More new nodes than the level's width: some were
+                    # not expanded, or dropped.
+                    over[t] = over[t] | (merged_count - old_count > nw)
                 if nw > 0 and not last:
                     # The nodes new at this hop, strictly inside the
                     # list (overflow and the dump slot never expand).
@@ -368,10 +475,31 @@ class HeteroNeighborSampler(BaseSampler):
                 counts_hist[t].append(count[t])
                 frontier[t] = new_frontier.get(t)
 
+        st.next("sampler.finish")
         rev = {et: reverse_edge_type(et) for et in self.edge_types}
 
         def cat(parts, dtype=torch.int32, fill=PADDING_ID):
             return _cat_or_empty(parts, dtype, fill, dev)
+
+        metadata = None
+        if self.capped:
+            metadata = {"overflow": torch.stack(
+                [over[t] for t in node_types]).any()}
+        if _tracing():
+            seeds_any = torch.stack([(s >= 0).any()
+                                     for s in seeds_dict.values()]).any()
+            _device_counter("glt.sample.batches", dev).add_(seeds_any)
+            for t in node_types:
+                labels = {"node_type": t}
+                _device_counter("glt.sample.unique_nodes", dev,
+                                labels=labels).add_(count[t])
+                if self.capped:
+                    _device_counter("glt.sample.overflow", dev,
+                                    labels=labels).add_(over[t])
+            masks = [m for parts in emasks.values() for m in parts]
+            if masks:
+                _device_counter("glt.sample.edges", dev).add_(
+                    torch.stack([m.sum() for m in masks]).sum())
 
         return HeteroSamplerOutput(
             node={t: node_buf[t] for t in node_types},
@@ -390,6 +518,7 @@ class HeteroNeighborSampler(BaseSampler):
                        for i in range(len(counts_hist[t]) - 1)])
                 for t in node_types},
             input_type=self.input_type,
+            metadata=metadata,
         )
 
     def _seed_tensor(self, ids) -> torch.Tensor:

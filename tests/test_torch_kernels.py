@@ -1867,3 +1867,98 @@ def test_dedup_counts_on_card_equals_cpu(cuda_device, case):
     for g, w in zip(got, want):
         assert g.is_cuda and g.dim() == 0 and g.dtype == torch.int32
         assert torch.equal(g.cpu(), w)
+
+
+def _rgnn_pair(dev, f32=True):
+    """The small IGBH-shaped graph of ``test_torch_rgnn`` on the CPU and
+    on ``dev``, each with a sampler of the same calibrated widths."""
+    import test_torch_rgnn as tr
+
+    from glt_tpu_torch.sampler import HeteroNeighborSampler
+
+    gd, graphs = tr.igbh_small()
+    s_cpu = tr.calibrated(gd, graphs)
+    on_dev = {et: Graph(CSRTopo.from_csr_arrays(ip, ix), device=dev)
+              for et, (ip, ix) in gd.csr.items()}
+    s_dev = HeteroNeighborSampler(on_dev, tr.FANOUT, "paper",
+                                  batch_size=tr.BS,
+                                  frontier_widths=s_cpu.hop_widths[1:])
+    return tr, gd, s_cpu, s_dev
+
+
+@pytest.mark.cuda
+def test_calibrated_hetero_sample_on_the_card_is_the_cpus(cuda_device):
+    """The calibrated hetero sample (B1, the per-type dense inducers,
+    the width cut and its flag) and B2's bf16 gathers on the card are
+    the CPU's, bit for bit."""
+    from glt_tpu_torch.models.train import gather_ids
+    from glt_tpu_torch.sampler import NodeSamplerInput
+
+    tr, gd, s_cpu, s_dev = _rgnn_pair(cuda_device)
+    narrow = type(s_dev)(
+        s_dev.graphs, tr.FANOUT, "paper", batch_size=tr.BS,
+        frontier_widths=[{t: w // 2 for t, w in lv.items()}
+                         for lv in s_cpu.hop_widths[1:]])
+    narrow_cpu = type(s_cpu)(
+        s_cpu.graphs, tr.FANOUT, "paper", batch_size=tr.BS,
+        frontier_widths=[{t: w // 2 for t, w in lv.items()}
+                         for lv in s_cpu.hop_widths[1:]])
+    flags = []
+    for i in range(3):
+        seeds = gd.train_idx[tr.BS * i: tr.BS * i + tr.BS].copy()
+        for dev_s, cpu_s in ((s_dev, s_cpu), (narrow, narrow_cpu)):
+            a = dev_s.sample_from_nodes(
+                NodeSamplerInput(seeds),
+                key=trandom.PRNGKey(i, device=cuda_device))
+            b = cpu_s.sample_from_nodes(
+                NodeSamplerInput(seeds), key=trandom.PRNGKey(i, device="cpu"))
+            for name in ("node", "node_mask", "num_sampled_nodes", "row",
+                         "col", "edge_mask"):
+                got, want = getattr(a, name), getattr(b, name)
+                assert set(got) == set(want)
+                for k in want:
+                    assert torch.equal(got[k].cpu(), want[k]), (name, k)
+            assert bool(a.metadata["overflow"]) == bool(
+                b.metadata["overflow"])
+            flags.append(bool(b.metadata["overflow"]))
+            for t, node in a.node.items():
+                table = gd.tables[t].to(torch.bfloat16)
+                x = gather_ids(table.to(cuda_device), node)
+                assert x.dtype == torch.bfloat16
+                assert torch.equal(x.cpu(), gather_ids(table, b.node[t]))
+    assert any(flags)
+
+
+@pytest.mark.cuda
+def test_replayed_rgnn_block_is_the_eager_one(cuda_device):
+    """The scanned hetero step over the calibrated sampler and the
+    published R-GAT: a block captured and replayed trains as the same
+    block run eagerly, and its overflow flags come out."""
+    from glt_tpu_torch.models import (adam, create_train_state,
+                                      make_scanned_hetero_train_step)
+
+    tr, gd, _, s = _rgnn_pair(cuda_device)
+    tables = {t: v.to(cuda_device) for t, v in gd.tables.items()}
+    labels = {"paper": gd.labels.to(cuda_device)}
+
+    def state():
+        return create_train_state(tr.model_of(gd).to(cuda_device),
+                                  adam(1e-3))
+
+    def step():
+        return make_scanned_hetero_train_step(s, tables, labels, tr.BS,
+                                              dropout_seed=3)
+
+    rng = np.random.default_rng(1)
+    blocks = [rng.choice(gd.train_idx, (4, tr.BS)) for _ in range(3)]
+    graph_step, a, b = step(), state(), state()
+    for i, blk in enumerate(blocks):
+        key = trandom.PRNGKey(i, device=cuda_device)
+        a, la, aa, fa = graph_step(a, blk, key)
+        b, lb, ab, fb = step()(b, blk, key)
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(aa, ab, rtol=1e-5, atol=1e-6)
+        assert torch.equal(fa, fb) and fa.dtype == torch.int32
+    assert a.step == b.step == 12
+    for pa, pb in zip(a.model.parameters(), b.model.parameters()):
+        torch.testing.assert_close(pa, pb, rtol=1e-5, atol=1e-5)

@@ -23,6 +23,7 @@ from glt_tpu_torch import random as trandom
 from glt_tpu_torch.data import CSRTopo, Graph
 from glt_tpu_torch.models import (GraphSAGE, adam, create_train_state,
                                   make_gather_xy,
+                                  make_scanned_hetero_train_step,
                                   make_scanned_node_train_step)
 from glt_tpu_torch.obs import metrics, stages
 from glt_tpu_torch.sampler import NeighborSampler
@@ -356,3 +357,82 @@ def test_graph_captured_off_launches_the_kernels_without_stages(
     monkeypatch.setattr(ns, "_tracing", lambda: False)
     bare = kernels()
     assert off == bare and not any("stamp" in k for k in off)
+
+
+def _hetero_block(dev):
+    """The scanned hetero step over the published R-GAT on the small
+    IGBH-shaped graph of ``test_torch_rgnn``, on ``dev``."""
+    import test_torch_rgnn as tr
+
+    from glt_tpu_torch.sampler import HeteroNeighborSampler
+
+    gd, graphs = tr.igbh_small()
+    widths = tr.calibrated(gd, graphs).hop_widths[1:]
+    if dev.type != "cpu":
+        graphs = {et: Graph(CSRTopo.from_csr_arrays(ip, ix), device=dev)
+                  for et, (ip, ix) in gd.csr.items()}
+    s = HeteroNeighborSampler(graphs, tr.FANOUT, "paper", batch_size=tr.BS,
+                              frontier_widths=widths)
+    step = make_scanned_hetero_train_step(
+        s, {t: v.to(dev) for t, v in gd.tables.items()},
+        {"paper": gd.labels.to(dev)}, tr.BS)
+    state = create_train_state(tr.model_of(gd).to(dev), adam(1e-3))
+    blk = np.full((3, tr.BS), -1)
+    blk[:2] = gd.train_idx[: 2 * tr.BS].reshape(2, tr.BS)
+    return s, step, state, blk
+
+
+def _hetero_counts(s, batches):
+    """Stage spans a hetero block of ``batches`` real batches opens."""
+    sampled = sum(1 for et in s.edge_types
+                  for h, f in enumerate(s.num_neighbors[et])
+                  if f > 0 and s.hop_widths[h][et[0]] > 0)
+    induced = len({(h, et[2]) for et in s.edge_types
+                   for h, f in enumerate(s.num_neighbors[et])
+                   if f > 0 and s.hop_widths[h][et[0]] > 0})
+    rels = 3 * len(s.edge_types)
+    per = {"sampler.init": 1, "sampler.draw": sampled,
+           "sampler.induce": induced, "sampler.finish": 1,
+           "gather.plain": len(s.node_types), "train.fwd": 1,
+           "rgat.proj": rels, "rgat.attn": rels, "train.bwd": 1,
+           "train.optim": 1}
+    return {k: v * batches for k, v in per.items()}
+
+
+def test_hetero_train_block_stages():
+    s, step, state, blk = _hetero_block(torch.device("cpu"))
+    tracer = obs.start_trace()
+    state, losses, _, ovf = step(state, blk, trandom.PRNGKey(0, device="cpu"))
+    assert state.step == 2 and ovf.shape == (3,)
+    r = stages.read()
+    assert r.counts() == _hetero_counts(s, 2)
+    assert r.unmatched == r.open == 0
+    attrs = {k: {tuple(sorted(sp["attrs"].items())) for sp in r.spans
+                 if sp["name"] == k} for k in ("gather.plain", "rgat.proj")}
+    assert {dict(a)["node_type"] for a in attrs["gather.plain"]} == set(
+        s.node_types)
+    assert {dict(a)["layer"] for a in attrs["rgat.proj"]} == {0, 1, 2}
+    assert {e["name"] for e in tracer.events} >= {"train.fwd", "rgat.attn"}
+    snap = metrics.snapshot()
+    assert snap["glt.sample.batches"] == 2.0
+    assert all(f"glt.sample.unique_nodes{{node_type={t}}}" in snap
+               for t in s.node_types)
+    assert torch.isfinite(losses).all()
+
+
+@pytest.mark.cuda
+def test_hetero_block_stages_pair_up_inside_its_graph(cuda_device):
+    s, step, state, blk = _hetero_block(cuda_device)
+    obs.start_trace()
+    for i in range(2):          # eager, then the capture and its replay
+        state, *_ = step(state, blk, trandom.PRNGKey(i, device=cuda_device))
+    stages.reset()
+    n = 3
+    for i in range(n):
+        state, *_ = step(state, blk, trandom.PRNGKey(5, device=cuda_device))
+    torch.cuda.synchronize()
+    r = stages.read()
+    assert r.counts() == _hetero_counts(s, 2 * n)
+    assert r.lost == r.unmatched == r.open == 0
+    assert all(sp["t0_ns"] <= sp["t1_ns"] for sp in r.spans)
+    assert metrics.snapshot()["glt.sample.batches"] == float(2 * n)
